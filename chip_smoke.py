@@ -6,30 +6,61 @@
 Phases (each raises on failure, so the run exits non-zero):
 
 1. Setup: require CUDA, print the card (nvidia-smi name and power limit),
-   torch and CUDA versions, build the correlation kernel from
-   ``unopticalflow_tpu_torch/csrc/correlation.cu`` and print the build time.
-   TF32 is switched off for cuDNN and matmul, so float32 comparisons are
-   float32.
-2. Kernel vs plain: the CUDA correlation against ``cost_volume_reference``
-   at the five decoder-level shapes of the KITTI serving recipe (batch 8,
-   256x832) and one ragged shape, in float32 (rtol 1e-5 / atol 1e-6) and
-   bfloat16 (2e-2), the JAX package's tolerances
-   (benchmarks/PALLAS_VALIDATE.json); times by CUDA events (median).
-3. The slice: a full-width FlowModel (random "pwc" weights from a seed,
-   bfloat16 as serve's default) behind the port's FlowServer at 256x832,
-   max_batch 8; 24 requests from 8 client threads.  Every flow must be
-   finite (256, 832, 2) float32, the kernel must launch 5 times per served
-   batch, and one batch must agree with the same model using the plain
-   correlation (bf16 within 2e-2 of max|flow|; f32 within 1e-4*(1+max|flow|)).
+   torch and CUDA versions, build every kernel source of
+   ``unopticalflow_tpu_torch/csrc/`` (one nvcc each, all at once) and print
+   the build time.  TF32 is switched off for cuDNN and matmul, so float32
+   comparisons are float32.
+2. Correlation forward vs plain: ``cost_volume_reference`` at the five
+   decoder-level shapes of the KITTI serving recipe (batch 8, 256x832) and
+   one ragged shape, float32 (rtol 1e-5 / atol 1e-6) and bfloat16 (2e-2),
+   the JAX package's tolerances (benchmarks/PALLAS_VALIDATE.json); then the
+   five training-level shapes (batch 2B = 16), timed.  Times by CUDA events.
+3. The serving slice: a full-width FlowModel (random "pwc" weights from a
+   seed, bfloat16 as serve's default) behind the port's FlowServer at
+   256x832, max_batch 8; 24 requests from 8 client threads.  Every flow must
+   be finite (256, 832, 2) float32, the kernel must launch 5 times per served
+   batch, and one batch must agree with the plain correlation.
+4. Correlation backward (df1, df2) vs ``corr_df1_reference`` /
+   ``corr_df2_reference`` at the five training-level shapes (2B = 16) and a
+   ragged one, float32 (1e-5 / 1e-6) and bfloat16 (2e-2), timed.
+5. Photometric forward and backward vs ``photometric_pack_reference`` at
+   the three loss scales of batch 8 at 256x832 and a ragged shape: float32
+   sums rtol 1e-4, weights 1e-5, d(flow) within 1e-4 of its largest value;
+   bfloat16 sums and weights within 2e-2 of the plain version on the same
+   inputs, and everything at the float32 tolerances against the plain
+   version on the widened images (the kernel computes in float32 and never
+   rounds).  Timed (the plain backward alone, by autograd on a kept graph).
+6. The training slice: ``train()`` at the KITTI recipe (batch 8, 256x832,
+   3 scales, float32), 10 steps, on in-memory snippets made from a seed,
+   through the port's BatchLoader and device_prefetch.  Every loss must be
+   finite, the parameters must change, and each step must launch exactly
+   5 correlation forwards, 5 df1, 5 df2, 3 photometric forwards and 3
+   photometric backwards.  ms/step: median interval between CUDA events
+   recorded after each step.
+7. Step parity at the same size, float32: the losses with the kernels vs the
+   plain versions (rtol 1e-4); the gradients of the photometric losses and of
+   the weighted total, over all parameters by relative L2 norm, no farther
+   from the plain step's than the plain step is from itself on snippets
+   moved by one ulp, or within 1e-4.  The gradient is that ill-conditioned
+   by nature: an L1 term's gradient is the sign of rounding noise where its
+   argument vanishes (the smoothness term between the upsampled flow's
+   samples), and a bilinear warp's jumps where a sampling position crosses
+   a pixel (at 256x832 a rounding-sized change of the flow moves some of the
+   3.4 million positions across one).  Then 3 steps of
+   ``train()`` at --precision bfloat16 --loss_precision bfloat16: finite
+   losses and every bf16 kernel launched.
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Only the CUDA path is driven: with no
-GPU the script exits non-zero before printing any result.
+The second-to-last line is the kernels' JSON record (``launches`` from the
+training run of phase 6, ``ms``/``plain_ms`` per float32 training step: the
+sum over the five decoder levels or the three loss scales); the last line is
+``{"ok": true, "device": {...}}``.  Only the CUDA path is driven: with no GPU
+the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -38,23 +69,41 @@ import time
 import types
 
 SEED = 0
-# config/kitti.yaml: img_hw [256, 832]; serve.py: --max_batch 8,
-# --precision bfloat16 (defaults)
+# config/kitti.yaml: img_hw [256, 832], num_scales 3; serve.py: --max_batch 8,
+# --precision bfloat16; train.py: --batch_size 8 (defaults)
 IMG_HW = (256, 832)
-MAX_BATCH = 8
+BATCH = 8
 N_REQUESTS = 24
 N_CLIENTS = 8
-# (B, C, H, W) of the decoder's five cost volumes at 256x832, batch 8, + a ragged one
-LEVEL_SHAPES = {
-    "L6": (8, 196, 4, 13),
-    "L5": (8, 128, 8, 26),
-    "L4": (8, 96, 16, 52),
-    "L3": (8, 64, 32, 104),
-    "L2": (8, 32, 64, 208),
-    "ragged": (2, 5, 7, 33),
+TRAIN_STEPS = 10
+BF16_STEPS = 3
+# (B, C, H, W) of the decoder's five cost volumes at 256x832, batch 8
+SERVE_LEVELS = {
+    "L6": (8, 196, 4, 13), "L5": (8, 128, 8, 26), "L4": (8, 96, 16, 52),
+    "L3": (8, 64, 32, 104), "L2": (8, 32, 64, 208),
 }
-KERNEL_SOURCE = "unopticalflow_tpu_torch/csrc/correlation.cu"
-KERNEL_REPLACES = "unopticalflow_tpu/ops/pallas_kernels.py:59"
+# training: the decoder runs at 2B = 16 ([bwd; fwd])
+TRAIN_LEVELS = {k: (2 * BATCH,) + v[1:] for k, v in SERVE_LEVELS.items()}
+RAGGED_CORR = (2, 5, 7, 33)
+# (B, H, W) of the three loss scales, + a ragged one
+PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208),
+                "ragged": (1, 13, 45)}
+PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
+            "photometric_fwd": 3, "photometric_bwd": 3}
+KERNELS = {
+    "corr_fwd": ("unopticalflow_tpu_torch/csrc/correlation.cu",
+                 "unopticalflow_tpu/ops/pallas_kernels.py:59"),
+    "corr_bwd_df1": ("unopticalflow_tpu_torch/csrc/correlation.cu",
+                     "unopticalflow_tpu/ops/pallas_kernels.py:72"),
+    "corr_bwd_df2": ("unopticalflow_tpu_torch/csrc/correlation.cu",
+                     "unopticalflow_tpu/ops/pallas_kernels.py:85"),
+    "photometric_fwd": ("unopticalflow_tpu_torch/csrc/photometric.cu",
+                        "unopticalflow_tpu/ops/pallas_photometric.py:198"),
+    "photometric_bwd": ("unopticalflow_tpu_torch/csrc/photometric.cu",
+                        "unopticalflow_tpu/ops/pallas_photometric.py:261"),
+}
+PHOTO_W = {"loss_pixel": 0.15, "loss_ssim": 0.85, "loss_flow_smooth": 0.0,
+           "loss_flow_consis": 0.0}
 
 
 def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
@@ -75,6 +124,11 @@ def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
 def main() -> int:
     import torch
 
@@ -85,11 +139,27 @@ def main() -> int:
 
     import numpy as np
 
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
     from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-    from unopticalflow_tpu_torch.ops import correlation_cuda
-    from unopticalflow_tpu_torch.ops.cost_volume import cost_volume_reference
+    from unopticalflow_tpu_torch.ops import _build, correlation_cuda, photometric_cuda
+    from unopticalflow_tpu_torch.ops.cost_volume import (
+        corr_df1_reference,
+        corr_df2_reference,
+        cost_volume_reference,
+    )
+    from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
     from unopticalflow_tpu_torch.serve import FlowServer
+    from unopticalflow_tpu_torch.train import recipe_config, train
+    from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
     from unopticalflow_tpu_torch.utils.device import resolve_device
+
+    def counts():
+        return {**correlation_cuda.launches, **photometric_cuda.launches}
+
+    def reset_counts():
+        for d in (correlation_cuda.launches, photometric_cuda.launches):
+            for k in d:
+                d[k] = 0
 
     # ---- 1. setup -------------------------------------------------------
     device = resolve_device("cuda")
@@ -104,38 +174,51 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("tf32: cudnn.allow_tf32=False cuda.matmul.allow_tf32=False")
     t0 = time.perf_counter()
-    lib_path = correlation_cuda.build()
-    print(f"build: {lib_path} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build_all()
+    print(f"build: {sorted(libs.values())} in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 2. kernel vs plain on the card ---------------------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
-    max_err = 0.0
-    kernel_ms = plain_ms = 0.0
-    for name, shape in LEVEL_SHAPES.items():
-        for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-6), (torch.bfloat16, 2e-2, 2e-2)):
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    ms = dict.fromkeys(KERNELS, 0.0)
+    plain_ms = dict.fromkeys(KERNELS, 0.0)
+
+    def note(name, got, want):
+        max_err[name] = max(max_err[name], float((got.float() - want.float()).abs().max()))
+
+    # ---- 2. correlation forward vs plain --------------------------------
+    corr_tols = ((torch.float32, 1e-5, 1e-6), (torch.bfloat16, 2e-2, 2e-2))
+    serve_k = serve_p = 0.0
+    for name, shape in [*SERVE_LEVELS.items(), ("ragged", RAGGED_CORR),
+                        *(("train_" + k, v) for k, v in TRAIN_LEVELS.items())]:
+        for dtype, rtol, atol in corr_tols:
             f1 = torch.randn(shape, generator=gen, device=device).to(dtype)
             f2 = torch.randn(shape, generator=gen, device=device).to(dtype)
             got = correlation_cuda.correlation(f1, f2, 4)
             torch.cuda.synchronize()
             want = cost_volume_reference(f1, f2, 4)
-            torch.cuda.synchronize()
             if got.dtype != dtype or got.shape != (shape[0], 81) + shape[2:]:
-                raise AssertionError(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}")
+                raise AssertionError(f"corr {name}: kernel gave {got.dtype} {tuple(got.shape)}")
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-            err = float((got.float() - want.float()).abs().max())
-            max_err = max(max_err, err)
+            note("corr_fwd", got, want)
+            if name == "ragged":
+                continue
             k_ms = _time_ms(torch, lambda: correlation_cuda.correlation(f1, f2, 4))
             p_ms = _time_ms(torch, lambda: cost_volume_reference(f1, f2, 4), inner=2)
-            if dtype == torch.bfloat16 and name != "ragged":
-                kernel_ms += k_ms
-                plain_ms += p_ms
-            print(f"corr {name} {shape} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                  f"(rtol {rtol}, atol {atol}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                  f"speedup={p_ms / k_ms:.1f}x")
-    print(f"corr per batch (5 levels, bfloat16): kernel_ms={kernel_ms:.4f} "
-          f"plain_ms={plain_ms:.4f}")
+            if name.startswith("train_") and dtype == torch.float32:
+                ms["corr_fwd"] += k_ms
+                plain_ms["corr_fwd"] += p_ms
+            elif not name.startswith("train_") and dtype == torch.bfloat16:
+                serve_k += k_ms
+                serve_p += p_ms
+            print(f"corr_fwd {name} {shape} {str(dtype)[6:]}: max_abs_err="
+                  f"{float((got.float() - want.float()).abs().max()):.3e} kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f}")
+    print(f"corr_fwd per serving batch (5 levels, bfloat16): kernel_ms={serve_k:.4f} "
+          f"plain_ms={serve_p:.4f}")
+    print(f"corr_fwd per training step (5 levels at 2B=16, float32): kernel_ms="
+          f"{ms['corr_fwd']:.4f} plain_ms={plain_ms['corr_fwd']:.4f}")
 
-    # ---- 3. the slice: FlowServer at the KITTI serving shape ------------
+    # ---- 3. the serving slice: FlowServer at the KITTI serving shape ----
     h, w = IMG_HW
     cfg = FlowModelConfig(compute_dtype="bfloat16")
     model = FlowModel(cfg, device=device, scheme="pwc",
@@ -143,7 +226,7 @@ def main() -> int:
     rng = np.random.RandomState(SEED)
     pairs = [rng.rand(2 * h, w, 3).astype(np.float32) for _ in range(N_REQUESTS)]
     server = FlowServer(types.SimpleNamespace(img_hw=IMG_HW), model,
-                        max_batch=MAX_BATCH, max_wait_ms=5.0)
+                        max_batch=BATCH, max_wait_ms=5.0)
     try:
         flows = [None] * N_REQUESTS
 
@@ -152,14 +235,14 @@ def main() -> int:
                 flows[i] = server.infer(pairs[i], timeout=300.0)
 
         threads = [threading.Thread(target=client, args=(k,)) for k in range(N_CLIENTS)]
-        correlation_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = correlation_cuda.launches
+        serve_counts = counts()
         if any(t.is_alive() for t in threads):
             raise AssertionError("client threads did not finish")
         stats = json.loads(json.dumps(server.stats))
@@ -170,51 +253,262 @@ def main() -> int:
             raise AssertionError(f"request {i}: bad flow {None if f is None else (f.shape, f.dtype)}")
     if stats["served"] != N_REQUESTS or stats["errors"] or stats["shed"]:
         raise AssertionError(f"server stats {stats}")
-    if launches != 5 * stats["batches"]:
-        raise AssertionError(f"{launches} kernel launches for {stats['batches']} batches")
+    if serve_counts != {**dict.fromkeys(KERNELS, 0), "corr_fwd": 5 * stats["batches"]}:
+        raise AssertionError(f"serving launches {serve_counts} for {stats['batches']} batches")
     print(f"served {stats['served']} requests in {stats['batches']} batches, "
-          f"occupancy {stats['occupancy']}, kernel launches {launches} "
-          f"(5 per batch), wall {wall:.3f} s, served pairs/s {N_REQUESTS / wall:.2f}")
-
-    # one full batch through inference_flow directly: timing and parity
-    i1 = torch.from_numpy(np.stack([p[:h] for p in pairs[:MAX_BATCH]])).to(device)
-    i2 = torch.from_numpy(np.stack([p[h:] for p in pairs[:MAX_BATCH]])).to(device)
+          f"occupancy {stats['occupancy']}, corr_fwd launches {serve_counts['corr_fwd']} "
+          f"(5 per batch), wall {wall:.3f} s")
+    i1 = torch.from_numpy(np.stack([p[:h] for p in pairs[:BATCH]])).to(device)
+    i2 = torch.from_numpy(np.stack([p[h:] for p in pairs[:BATCH]])).to(device)
     with torch.inference_mode():
         ms_batch = _time_ms(torch, lambda: inference_flow(model, i1, i2), reps=10, inner=1)
-        print(f"slice bfloat16 {MAX_BATCH}x{h}x{w}: {ms_batch:.3f} ms/batch, "
-              f"{MAX_BATCH / ms_batch * 1e3:.2f} pairs/s (device path, CUDA events)")
+        print(f"serving slice bfloat16 {BATCH}x{h}x{w}: {ms_batch:.3f} ms/batch "
+              "(device path, CUDA events)")
         flow_k = inference_flow(model, i1, i2)
         flow_p = inference_flow(model, i1, i2, corr_fn=cost_volume_reference)
-        served = torch.from_numpy(np.stack(flows[:MAX_BATCH])).to(device)
+        served = torch.from_numpy(np.stack(flows[:BATCH])).to(device)
         peak = float(flow_p.abs().max())
         err = float((flow_k - flow_p).abs().max())
         err_served = float((served - flow_k).abs().max())
-        print(f"slice parity bfloat16 kernel vs plain corr: max_abs_err={err:.4e} "
-              f"max|flow|={peak:.4f} tol={2e-2 * peak:.4e}; served vs direct {err_served:.4e}")
+        print(f"serving parity bfloat16 kernel vs plain corr: max_abs_err={err:.4e} "
+              f"max|flow|={peak:.4f}; served vs direct {err_served:.4e}")
         if not (err <= 2e-2 * peak and err_served <= 2e-2 * peak):
-            raise AssertionError("bfloat16 slice parity failed")
+            raise AssertionError("bfloat16 serving parity failed")
         model32 = FlowModel(cfg._replace(compute_dtype="float32"), device=device)
         model32.load_state_dict(model.state_dict())
         flow_k = inference_flow(model32, i1, i2)
         flow_p = inference_flow(model32, i1, i2, corr_fn=cost_volume_reference)
         peak = float(flow_p.abs().max())
         err = float((flow_k - flow_p).abs().max())
-        print(f"slice parity float32 (TF32 off) kernel vs plain corr: max_abs_err={err:.4e} "
-              f"max|flow|={peak:.4f} tol={1e-4 * (1 + peak):.4e}")
+        print(f"serving parity float32 kernel vs plain corr: max_abs_err={err:.4e} "
+              f"max|flow|={peak:.4f}")
         if not err <= 1e-4 * (1 + peak):
-            raise AssertionError("float32 slice parity failed")
+            raise AssertionError("float32 serving parity failed")
+    del model, model32, server
+    torch.cuda.empty_cache()
+
+    # ---- 4. correlation backward vs plain --------------------------------
+    for name, shape in [*TRAIN_LEVELS.items(), ("ragged", RAGGED_CORR)]:
+        for dtype, rtol, atol in corr_tols:
+            f1 = torch.randn(shape, generator=gen, device=device).to(dtype)
+            f2 = torch.randn(shape, generator=gen, device=device).to(dtype)
+            g = torch.randn((shape[0], 81) + shape[2:], generator=gen, device=device).to(dtype)
+            for kname, kern, ref, src in (
+                ("corr_bwd_df1", correlation_cuda.corr_df1, corr_df1_reference, f2),
+                ("corr_bwd_df2", correlation_cuda.corr_df2, corr_df2_reference, f1),
+            ):
+                got = kern(g, src, 4)
+                torch.cuda.synchronize()
+                want = ref(g, src, 4)
+                if got.dtype != dtype or got.shape != shape:
+                    raise AssertionError(f"{kname} {name}: kernel gave {got.dtype} {tuple(got.shape)}")
+                torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+                note(kname, got, want)
+                if name == "ragged":
+                    continue
+                k_ms = _time_ms(torch, lambda: kern(g, src, 4))
+                p_ms = _time_ms(torch, lambda: ref(g, src, 4), inner=2)
+                if dtype == torch.float32:
+                    ms[kname] += k_ms
+                    plain_ms[kname] += p_ms
+                print(f"{kname} {name} {shape} {str(dtype)[6:]}: max_abs_err="
+                      f"{float((got.float() - want.float()).abs().max()):.3e} "
+                      f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+    for kname in ("corr_bwd_df1", "corr_bwd_df2"):
+        print(f"{kname} per training step (5 levels at 2B=16, float32): "
+              f"kernel_ms={ms[kname]:.4f} plain_ms={plain_ms[kname]:.4f}")
+
+    # ---- 5. photometric forward and backward vs plain --------------------
+    def photo_case(b, hh, ww, dtype):
+        r = np.random.RandomState(hh * ww + b)
+        imgs = [torch.from_numpy(r.rand(b, 3, hh, ww).astype(np.float32)).to(device, dtype)
+                for _ in range(3)]
+        fl = [torch.from_numpy(r.uniform(-5, 5, (b, 2, hh, ww)).astype(np.float32)).to(device)
+              for _ in range(2)]
+        return imgs[0], imgs[1], fl[0], fl[1], imgs[2]
+
+    def photo_loss(out):
+        return ((out["s_dw"] / (out["s_w"] + 1.0)).sum()
+                + (out["s_cl"] / (out["s_w"] + 1.0)).sum())
+
+    def photo_run(fn, case):
+        il, ir, fb, ff, im = case
+        fb = fb.clone().requires_grad_(True)
+        ff = ff.clone().requires_grad_(True)
+        out = fn(il, ir, fb, ff, im)
+        gb, gf = torch.autograd.grad(photo_loss(out), [fb, ff])
+        return out, gb, gf
+
+    for name, (b, hh, ww) in PHOTO_SCALES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            case = photo_case(b, hh, ww, dtype)
+            want, wb, wf = photo_run(photometric_pack_reference, case)
+            got, gb, gf = photo_run(photometric_cuda.photometric, case)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                ref32, rb32, rf32 = want, wb, wf
+            else:
+                for k in ("s_dw", "s_w", "s_cl"):
+                    torch.testing.assert_close(got[k], want[k], rtol=2e-2, atol=2e-2)
+                wdiff = float((got["weights"].float() - want["weights"].float()).abs().mean())
+                if wdiff > 2e-2:
+                    raise AssertionError(f"photometric {name} bf16 weights: mean |diff| {wdiff}")
+                ref32, rb32, rf32 = photo_run(photometric_pack_reference,
+                                              [t.float() for t in case])
+            for k in ("s_dw", "s_w", "s_cl"):
+                torch.testing.assert_close(got[k], ref32[k], rtol=1e-4, atol=1e-4)
+            wtol = 1e-5 if dtype == torch.float32 else 2**-8
+            torch.testing.assert_close(got["weights"].float(), ref32["weights"].float(),
+                                       rtol=wtol, atol=1e-5)
+            gerr = max(float((gb - rb32).abs().max()), float((gf - rf32).abs().max()))
+            gmax = max(float(rb32.abs().max()), float(rf32.abs().max()))
+            if gerr > 1e-4 * gmax:
+                raise AssertionError(f"photometric {name} {dtype}: d(flow) err {gerr} vs max {gmax}")
+            ferr = max(float((got[k] - ref32[k]).detach().abs().max())
+                       for k in ("s_dw", "s_w", "s_cl"))
+            max_err["photometric_fwd"] = max(max_err["photometric_fwd"], ferr)
+            max_err["photometric_bwd"] = max(max_err["photometric_bwd"], gerr)
+            if name == "ragged":
+                continue
+            il, ir, fb, ff, im = case
+            fbg = fb.clone().requires_grad_(True)
+            ffg = ff.clone().requires_grad_(True)
+            with torch.no_grad():
+                k_fwd = _time_ms(torch, lambda: photometric_cuda.photo_fwd(il, ir, fb, ff, im))
+                p_fwd = _time_ms(torch, lambda: photometric_pack_reference(il, ir, fb, ff, im),
+                                 inner=2)
+            gdw = torch.rand(2 * b, device=device)
+            gcl = torch.rand(2 * b, device=device)
+            k_bwd = _time_ms(torch, lambda: photometric_cuda.photo_bwd(il, ir, fb, ff, im, gdw, gcl))
+            loss = photo_loss(photometric_pack_reference(il, ir, fbg, ffg, im))
+            p_bwd = _time_ms(torch, lambda: torch.autograd.grad(loss, [fbg, ffg],
+                                                                 retain_graph=True), inner=2)
+            if dtype == torch.float32:
+                ms["photometric_fwd"] += k_fwd
+                plain_ms["photometric_fwd"] += p_fwd
+                ms["photometric_bwd"] += k_bwd
+                plain_ms["photometric_bwd"] += p_bwd
+            print(f"photometric {name} {(b, 3, hh, ww)} {str(dtype)[6:]}: sums max_abs_err="
+                  f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}) "
+                  f"fwd kernel_ms={k_fwd:.4f} plain_ms={p_fwd:.4f} "
+                  f"bwd kernel_ms={k_bwd:.4f} plain_ms={p_bwd:.4f}")
+    for kname in ("photometric_fwd", "photometric_bwd"):
+        print(f"{kname} per training step (3 scales, float32): kernel_ms={ms[kname]:.4f} "
+              f"plain_ms={plain_ms[kname]:.4f}")
+    torch.cuda.empty_cache()
+
+    # ---- 6. the training slice: train() at the KITTI recipe --------------
+    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(model_dir, exist_ok=True)
+    tcfg = recipe_config(num_iterations=TRAIN_STEPS, init_scheme="pwc", seed=SEED,
+                         log_interval=5, save_interval=1000, model_dir=model_dir,
+                         num_workers=4)
+    data = SyntheticSnippets(IMG_HW, TRAIN_STEPS * BATCH, seed=SEED)
+    events, metrics = [], []
+
+    def on_step(it, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics.append(m)
+
+    init = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
+                     generator=torch.Generator().manual_seed(SEED))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train(tcfg, dataset=data, device="cuda", on_step=on_step)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = counts()
+    if train_counts != {k: TRAIN_STEPS * v for k, v in PER_STEP.items()}:
+        raise AssertionError(f"training launches {train_counts} for {TRAIN_STEPS} steps")
+    if res.step != TRAIN_STEPS or len(metrics) != TRAIN_STEPS:
+        raise AssertionError(f"trained {res.step} steps, {len(metrics)} reported")
+    for i, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"step {i}: non-finite {bad}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(init.parameters(), res.model.parameters()))
+    if moved != len(list(init.parameters())):
+        raise AssertionError(f"only {moved} parameter tensors changed")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(2, TRAIN_STEPS - 1)]
+    ms_step = statistics.median(step_ms)
+    print(f"training slice float32 {BATCH}x{h}x{w}, 3 scales: {TRAIN_STEPS} steps in "
+          f"{wall:.2f} s; ms/step median {ms_step:.3f} (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}, CUDA events); {BATCH / ms_step * 1e3:.2f} snippets/s; "
+          f"launches per step {PER_STEP}")
+    print("losses: " + json.dumps([{k: float(v) for k, v in m.items()} for m in metrics[::3]]))
+    del res, init
+    torch.cuda.empty_cache()
+
+    # ---- 7. step parity with the plain versions, and bf16 training ---------
+    cfg32 = FlowModelConfig()
+    model = FlowModel(cfg32, device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(SEED))
+    batch = torch.from_numpy(data.snippets[:BATCH].astype(np.float32) / 255.0).to(device)
+    nudged = torch.nextafter(batch, torch.full_like(batch, 2.0))
+    weights = loss_weights_from_config(tcfg)
+    plain = dict(corr_fn=cost_volume_reference, photo_fn=photometric_pack_reference)
+
+    def grads(x, wts, **fns):
+        model.zero_grad(set_to_none=True)
+        total, means = loss_fn(model, cfg32, x, wts, **fns)
+        total.backward()
+        return means, {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    def flat(g):
+        return torch.cat([g[k].ravel() for k in sorted(g)])
+
+    want, _ = grads(batch, weights, **plain)
+    got, _ = grads(batch, weights)
+    for k in want:
+        if not (torch.isfinite(got[k]) and torch.isfinite(want[k])):
+            raise AssertionError(f"step parity: non-finite {k}")
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
+    print("step parity float32 kernels vs plain, losses: "
+          + json.dumps({k: [float(got[k]), float(want[k])] for k in want}))
+    for part, wts in (("photometric", PHOTO_W), ("total", weights)):
+        _, want_g = grads(batch, wts, **plain)
+        _, noise_g = grads(nudged, wts, **plain)
+        _, got_g = grads(batch, wts)
+        err = _rel_l2(flat(got_g), flat(want_g))
+        noise = _rel_l2(flat(noise_g), flat(want_g))
+        worst = sorted(((_rel_l2(got_g[k], want_g[k]), _rel_l2(noise_g[k], want_g[k]), k)
+                        for k in want_g), reverse=True)[:3]
+        print(f"step parity float32 {part} gradient: kernels vs plain rel L2 {err:.3e}, plain "
+              f"vs plain on snippets one ulp away {noise:.3e}; worst tensors (kernels, "
+              f"nudged): " + ", ".join(f"{k} {a:.2e} {n:.2e}" for a, n, k in worst))
+        if err > max(1e-4, noise):
+            raise AssertionError(f"step parity failed: {part} gradient")
+        del want_g, noise_g, got_g
+    del model
+    torch.cuda.empty_cache()
+
+    bcfg = recipe_config(num_iterations=BF16_STEPS, init_scheme="pwc", seed=SEED,
+                         precision="bfloat16", loss_precision="bfloat16", log_interval=1,
+                         save_interval=1000, model_dir=model_dir, num_workers=4)
+    bmetrics = []
+    reset_counts()
+    train(bcfg, dataset=SyntheticSnippets(IMG_HW, BF16_STEPS * BATCH, seed=SEED + 1),
+          device="cuda", on_step=lambda it, m: bmetrics.append(m))
+    torch.cuda.synchronize()
+    bf16_counts = counts()
+    if bf16_counts != {k: BF16_STEPS * v for k, v in PER_STEP.items()}:
+        raise AssertionError(f"bf16 training launches {bf16_counts}")
+    if not all(bool(torch.isfinite(v)) for m in bmetrics for v in m.values()):
+        raise AssertionError("bf16 training: non-finite loss")
+    print(f"bf16 training: {BF16_STEPS} steps, finite losses, launches {bf16_counts}")
 
     print(json.dumps({"kernels": [{
-        "name": "corr_fwd",
+        "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": src,
+        "replaces": replaces,
+        "launches": train_counts[name],
+        "max_abs_err": max_err[name],
+        "ms": ms[name],
+        "plain_ms": plain_ms[name],
+    } for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -77,14 +77,20 @@ def test_reference_channel_order(md):
 def test_cpu_dispatch_never_launches_the_kernel():
     """The kernel module imports without nvcc; CPU calls take the plain path."""
     f1, f2 = _pair((2, 8, 8, 4), 7)
-    before = correlation_cuda.launches
-    got = cost_volume(_nchw(f1), _nchw(f2), 4)
+    a, b = _nchw(f1).requires_grad_(True), _nchw(f2).requires_grad_(True)
+    got = cost_volume(a, b, 4)
+    got.sum().backward()
     torch.testing.assert_close(got, cost_volume_reference(_nchw(f1), _nchw(f2), 4))
-    assert correlation_cuda.launches == before == 0
+    assert set(correlation_cuda.launches.values()) == {0}
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
     f1, f2 = _pair((1, 8, 8, 4), 8)
     with pytest.raises(ValueError, match="CUDA"):
         correlation_cuda.correlation(_nchw(f1), _nchw(f2), 4)
-    assert correlation_cuda.launches == 0
+    g = torch.zeros((1, 81, 8, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        correlation_cuda.corr_df1(g, _nchw(f2), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        correlation_cuda.corr_df2(g, _nchw(f1), 4)
+    assert set(correlation_cuda.launches.values()) == {0}

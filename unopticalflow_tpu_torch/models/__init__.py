@@ -3,7 +3,8 @@
 from unopticalflow_tpu_torch.models.flow_model import (
     FlowModel,
     FlowModelConfig,
+    forward,
     inference_flow,
 )
 
-__all__ = ["FlowModel", "FlowModelConfig", "inference_flow"]
+__all__ = ["FlowModel", "FlowModelConfig", "forward", "inference_flow"]

@@ -1,11 +1,12 @@
-"""Measure the port's serving slice on one CUDA device.
+"""Measure the port's serving and training slices on one CUDA device.
 
     python -m unopticalflow_tpu_torch.probe [--out build/probe] \
-        [--requests 512] [--seed 0]
+        [--requests 512] [--seed 0] [--phases profile,serve,train]
 
-Everything runs at the KITTI serving shape (``config/kitti.yaml``: img_hw
-256x832), ``max_batch`` 8, bfloat16 (serve's default), with random "pwc"
-weights from ``--seed``.  Two phases, each printing one JSON line:
+Everything runs at the KITTI shape (``config/kitti.yaml``: img_hw 256x832)
+with random "pwc" weights from ``--seed``; serving at ``max_batch`` 8 in
+bfloat16 (serve's default), training at batch 8 with 3 loss scales.  Each
+phase prints JSON lines:
 
 1. ``profile``: ``inference_flow`` on one full batch.
    * ``ms_batch``: CUDA events around one batch, median of 30, with
@@ -25,6 +26,15 @@ weights from ``--seed``.  Two phases, each printing one JSON line:
    Each run reports its first request's latency (the fresh server's first
    batch), then served pairs/s and request-latency percentiles over
    ``--requests`` requests.
+3. ``train``: ``train_step`` at the KITTI recipe, once in float32 (TF32
+   off) and once in bfloat16 (``--precision``/``--loss_precision``), on one
+   device-resident uint8 batch of synthetic snippets.
+   * ``ms_step``: CUDA events around each step, median of 20, with no
+     profiler running;
+   * ``busy_ms_step`` and ``idle_share`` as in ``profile``, over 5 profiled
+     steps; device time per step by kind of kernel and the top device ops
+     (the full table goes to ``<out>/train_<dtype>.txt``);
+   * ``launches_per_step``: the hand-written kernels' launch counts.
 """
 
 from __future__ import annotations
@@ -42,8 +52,11 @@ import types
 import numpy as np
 import torch
 
+from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
+from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda
 from unopticalflow_tpu_torch.serve import FlowServer
+from unopticalflow_tpu_torch.training import loss_weights_from_config, make_optimizer, train_step
 from unopticalflow_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,7 +65,9 @@ MAX_BATCH = 8  # serve.py --max_batch default
 WARM_UPS = ("serving", "constructor")
 CLIENTS = 8  # closed-loop client threads: one full batch in flight
 REPS = 30  # timed batches per measurement of the profile phase
-PROFILED = 5  # batches under torch.profiler
+PROFILED = 5  # batches (or steps) under torch.profiler
+TRAIN_REPS = 20  # timed steps per dtype of the train phase
+TOP_OPS = 12
 
 
 class ConstructorWarmServer(FlowServer):
@@ -122,10 +137,18 @@ def serve_run(model: FlowModel, img_hw, warm_up: str, n_requests: int,
     }
 
 
+# a marker of the host waiting on a full launch queue, not device work
+_NOT_DEVICE_WORK = ("Command Buffer Full",)
+
+
+def _device_work(e) -> bool:
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in _NOT_DEVICE_WORK)
+
+
 def _busy_us(events) -> float:
     """Length of the union of the device intervals (kernels, copies, sets)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events if _device_work(e))
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
@@ -188,20 +211,109 @@ def profile_run(model: FlowModel, reps: int, profiled: int, out_dir: str, seed: 
     }
 
 
+def top_device_ops(averages, steps: int, n: int = TOP_OPS) -> list[dict]:
+    """The ``n`` device kernels, copies and sets of ``prof.key_averages()``
+    with the most device time, in ms per step."""
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in _NOT_DEVICE_WORK]
+    rows.sort(key=lambda r: -r[1])
+    return [{"op": k, "ms_per_step": t, "calls_per_step": c} for k, t, c in rows[:n]]
+
+
+# kinds of device work in a training step, by kernel name (first match wins)
+KINDS = (
+    ("port kernels", ("corr_fwd_kernel", "corr_df1_kernel", "corr_df2_kernel",
+                      "photo_fwd_kernel", "photo_bwd_kernel")),
+    ("convolution (cuDNN/cuBLAS)", ("cudnn", "xmma", "fft", "winograd", "dgrad", "wgrad",
+                                    "gemm", "DSE::", "region_transform", "nchwToNhwc",
+                                    "nhwcToNchw", "scalePackedTensor",
+                                    "pointwise_mult_and_sum_complex")),
+    ("gather/scatter (warps)", ("gather", "scatter")),
+    ("optimizer", ("adam", "Adam", "multi_tensor")),
+    ("elementwise/reduction", ("elementwise", "reduce", "Reduce", "CatArray", "pool", "upsample",
+                               "softmax", "copy", "fill")),
+)
+
+
+def device_time_by_kind(averages, steps: int) -> dict:
+    """Device kernel time per step (ms), summed by ``KINDS``; the rest is "other"."""
+    out = {name: 0.0 for name, _ in KINDS}
+    out["other"] = 0.0
+    for e in averages:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in _NOT_DEVICE_WORK:
+            continue
+        kind = next((name for name, pats in KINDS if any(p in e.key for p in pats)), "other")
+        out[kind] += e.self_device_time_total / 1e3 / steps
+    return out
+
+
+def _launch_counts() -> dict:
+    return {**correlation_cuda.launches, **photometric_cuda.launches}
+
+
+def train_run(device, precision: str, out_dir: str, seed: int, reps: int = TRAIN_REPS,
+              profiled: int = PROFILED) -> dict:
+    """The train phase for one dtype (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = FlowModelConfig(compute_dtype=precision, loss_dtype=precision)
+    model = FlowModel(cfg, device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(seed))
+    opt = make_optimizer(model, 1e-4)
+    weights = loss_weights_from_config(types.SimpleNamespace())  # config/kitti.yaml's
+    batch = torch.from_numpy(SyntheticSnippets(IMG_HW, MAX_BATCH, seed=seed).snippets).to(device)
+    for _ in range(3):
+        train_step(model, opt, batch, weights, cfg)
+    torch.cuda.synchronize()
+    before = _launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for i in range(reps):
+        train_step(model, opt, batch, weights, cfg)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    launches = {k: (v - before[k]) / reps for k, v in _launch_counts().items()}
+    times = [events[i].elapsed_time(events[i + 1]) for i in range(reps)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            train_step(model, opt, batch, weights, cfg)
+        torch.cuda.synchronize()
+    ms_step = statistics.median(times)
+    busy = _busy_us(prof.events()) / 1e3 / profiled
+    h, w = IMG_HW
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=50)
+    with open(os.path.join(out_dir, f"train_{precision}.txt"), "w") as f:
+        f.write(f"{profiled} train steps, {precision}, {MAX_BATCH}x{h}x{w}, 3 scales\n{table}\n")
+    return {
+        "phase": "train", "precision": precision, "ms_step": ms_step,
+        "ms_step_min": min(times), "ms_step_max": max(times), "reps": reps,
+        "snippets_per_s": MAX_BATCH / ms_step * 1e3, "busy_ms_step": busy,
+        "idle_share": 1.0 - busy / ms_step, "profiled_steps": profiled,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 2**30,
+        "launches_per_step": launches,
+        "device_ms_by_kind": device_time_by_kind(prof.key_averages(), profiled),
+        "top_ops": top_device_ops(prof.key_averages(), profiled),
+    }
+
+
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="measure the port's serving slice")
+    p = argparse.ArgumentParser(description="measure the port's serving and training slices")
     p.add_argument("--out", default="build/probe")
     p.add_argument("--requests", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--serve_one", choices=WARM_UPS, default=None,
                    help="run one serve measurement in this process and exit")
+    p.add_argument("--phases", default="profile,serve,train",
+                   help="comma-separated subset of profile,serve,train")
     args = p.parse_args(argv)
+    phases = set(args.phases.split(","))
 
     device = resolve_device("cuda")
-    model = _model(device, args.seed)
     if args.serve_one:
-        print(json.dumps(serve_run(model, IMG_HW, args.serve_one, args.requests,
-                                   CLIENTS, seed=args.seed)))
+        print(json.dumps(serve_run(_model(device, args.seed), IMG_HW, args.serve_one,
+                                   args.requests, CLIENTS, seed=args.seed)))
         return 0
 
     os.makedirs(args.out, exist_ok=True)
@@ -210,10 +322,19 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi)
-    print(json.dumps(profile_run(model, REPS, PROFILED, args.out, args.seed)))
-    del model
-    torch.cuda.empty_cache()
-    for warm_up in ("serving", "constructor", "constructor", "serving"):
+    if "profile" in phases:
+        model = _model(device, args.seed)
+        print(json.dumps(profile_run(model, REPS, PROFILED, args.out, args.seed)))
+        del model
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        # float32 is true float32, as the trainer sets it (bfloat16 never uses TF32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for precision in ("float32", "bfloat16"):
+            print(json.dumps(train_run(device, precision, args.out, args.seed)), flush=True)
+            torch.cuda.empty_cache()
+    for warm_up in ("serving", "constructor", "constructor", "serving") if "serve" in phases else ():
         proc = subprocess.run(
             [sys.executable, "-m", "unopticalflow_tpu_torch.probe", "--serve_one", warm_up,
              "--requests", str(args.requests), "--seed", str(args.seed)],

@@ -1,0 +1,220 @@
+"""Training entry point of the port: unsupervised flow training (``--mode flow``).
+
+    python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --mode flow \
+        --no_test --device cuda
+
+Port of the root ``train.py`` for the flags below (same names and
+defaults).  One step is ``training.train_step``: the training forward (5
+correlation kernels in the decoder, 3 photometric kernels over the loss
+scales), autograd (5 + 5 correlation-backward kernels, 3 photometric
+backward kernels) and Adam.  Batches come from the JAX package's
+``KITTI_Prepared`` (uint8, cast on the device) through ``BatchLoader`` and
+``device_prefetch``.
+
+Checkpoints: ``iter_<n>.pth`` and ``last.pth`` every ``--save_interval``
+iterations, and ``last.pth`` at loop exit when ``num_iterations`` is off that
+grid; ``--resume`` restores model, optimizer and iteration from
+``iter_<iter_start>.pth`` (or ``last.pth``) and restarts at the stored
+iteration.  Log lines are the JAX trainer's ``iter: N, loss_pixel: ...``,
+with ``snippets_per_sec`` between log points.
+
+Not here yet: interleaved KITTI evaluation (it waits for the port of
+``test.py``, so the trainer refuses to start without ``--no_test``), modes
+other than ``flow``, several devices, K steps per dispatch, asynchronous
+checkpoints and preemption handling.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import shutil
+import sys
+import time
+import types
+from typing import NamedTuple
+
+import torch
+
+from unopticalflow_tpu_torch.data import BatchLoader, KITTI_Prepared, device_prefetch
+from unopticalflow_tpu_torch.models.flow_model import FlowModel, FlowModelConfig
+from unopticalflow_tpu_torch.training import (
+    loss_weights_from_config,
+    make_optimizer,
+    train_step,
+)
+from unopticalflow_tpu_torch.utils import checkpoint as ckpt
+from unopticalflow_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="unsupervised flow training (PyTorch/CUDA port)")
+    p.add_argument("-c", "--config_file", default=None, help="config file.")
+    p.add_argument("--mode", type=str, default="flow")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--iter_start", type=int, default=0)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--log_interval", type=int, default=100)
+    p.add_argument("--save_interval", type=int, default=2000)
+    p.add_argument("--model_dir", type=str, default=None)
+    p.add_argument("--prepared_save_dir", type=str, default="data_s1")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--no_test", action="store_true")
+    p.add_argument("--precision", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the convolutions and the cost volume, and "
+                        "the loss stack's unless --loss_precision says otherwise.")
+    p.add_argument("--loss_precision", type=str, default=None,
+                   choices=["float32", "bfloat16"],
+                   help="dtype of the image-space loss stack.")
+    p.add_argument("--init_scheme", type=str, default="torch", choices=["torch", "pwc"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (raises without a GPU) or cpu.")
+    return p
+
+
+def recipe_config(**over) -> types.SimpleNamespace:
+    """The KITTI recipe as ``main`` would merge it, for callers without yaml.
+
+    ``config/kitti.yaml``: img_hw [256, 832], num_scales 3, w_ssim 0.85,
+    w_flow_smooth 10.0, w_flow_consis 0.01; the flags at their defaults
+    (batch 8, lr 1e-4, float32), with ``--no_test``.  ``over`` replaces any
+    of them.
+    """
+    cfg = vars(build_arg_parser().parse_args(["--no_test"]))
+    cfg.update(dataset="kitti_depth", num_scales=3, img_hw=(256, 832), num_iterations=200000,
+               w_ssim=0.85, w_flow_smooth=10.0, w_flow_consis=0.01, log_dump_dir=None)
+    cfg.update(over)
+    return types.SimpleNamespace(**cfg)
+
+
+class TrainResult(NamedTuple):
+    model: FlowModel
+    optimizer: torch.optim.Optimizer
+    step: int  # iterations done, counting those before a resume
+
+
+def _get(cfg, key, default=None):
+    return getattr(cfg, key, default)
+
+
+def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
+    """Train by ``cfg`` (the merged YAML + flags; any attribute object).
+
+    ``dataset`` replaces the prepared KITTI directory (anything with
+    ``__len__`` and ``__getitem__`` giving (3H, W, 3) uint8 or [0, 1] float
+    snippets); ``device`` overrides ``cfg.device``.  ``on_step(iteration,
+    metrics)`` is called after each step with its device-tensor metrics.
+    """
+    device = resolve_device(device or _get(cfg, "device", "cuda"))
+    if cfg.mode != "flow":
+        raise ValueError(
+            f"--mode {cfg.mode}: the port trains --mode flow only; flowposenet "
+            "and the 2-frame modes are a later slice of the port"
+        )
+    if not cfg.no_test:
+        raise ValueError(
+            "interleaved KITTI evaluation waits for the port of test.py (a later "
+            "slice); pass --no_test"
+        )
+    precision = _get(cfg, "precision", "float32")
+    if device.type == "cuda" and precision == "float32":
+        # the JAX package's float32 convolutions run at Precision.HIGHEST
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print("float32: TF32 off (cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False)")
+    model_cfg = FlowModelConfig(
+        num_scales=int(cfg.num_scales),
+        compute_dtype=precision,
+        loss_dtype=_get(cfg, "loss_precision") or precision,
+    )
+    model = FlowModel(model_cfg, device=device, scheme=_get(cfg, "init_scheme", "torch"),
+                      generator=torch.Generator().manual_seed(int(_get(cfg, "seed", 0))))
+    opt = make_optimizer(model, cfg.lr)
+
+    if cfg.resume:
+        name = f"iter_{cfg.iter_start}.pth" if cfg.iter_start > 0 else "last.pth"
+        cfg.iter_start = ckpt.restore_checkpoint(os.path.join(cfg.model_dir, name), model, opt)
+
+    weights = loss_weights_from_config(cfg)
+    # the JAX package's numpy-only logger (unopticalflow_tpu/utils/ imports no jax)
+    from unopticalflow_tpu.utils.visualizer import Visualizer
+
+    visualizer = Visualizer(weights, _get(cfg, "log_dump_dir"))
+
+    n_samples = (cfg.num_iterations - cfg.iter_start) * cfg.batch_size
+    if dataset is None:
+        if cfg.dataset not in ("kitti_depth", "kitti_odo"):
+            raise NotImplementedError(f"dataset {cfg.dataset!r}: the port reads KITTI only")
+        data_dir = os.path.join(cfg.prepared_base_dir, cfg.prepared_save_dir)
+        if not os.path.exists(os.path.join(data_dir, "train.txt")):
+            raise FileNotFoundError(
+                f"{data_dir}/train.txt: prepare the raw data first (the raw-data "
+                "preparers are unopticalflow_tpu.data.preparers)"
+            )
+        dataset = KITTI_Prepared(data_dir, num_scales=cfg.num_scales, img_hw=cfg.img_hw,
+                                 num_iterations=n_samples, emit_uint8=True)
+    loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
+    stream = device_prefetch(iter(loader), device)
+
+    def save(iteration):
+        ckpt.save_checkpoint([os.path.join(cfg.model_dir, f"iter_{iteration}.pth"),
+                              os.path.join(cfg.model_dir, "last.pth")], iteration, model, opt)
+
+    print(f"starting iteration: {cfg.iter_start}.")
+    model.train()
+    log_t, log_it = None, 0
+    it = cfg.iter_start - 1
+    for i, batch in enumerate(stream):
+        it = cfg.iter_start + i
+        metrics = train_step(model, opt, batch, weights, model_cfg)
+        if on_step is not None:
+            on_step(it, metrics)
+        if it % cfg.log_interval == 0:
+            # reading the losses waits for the device, so the interval's
+            # rate covers everything between two log points
+            pack = {k: float(v) for k, v in metrics.items() if k != "loss_total"}
+            now = time.perf_counter()
+            if log_t is not None and now > log_t:
+                pack["snippets_per_sec"] = cfg.batch_size * (it - log_it) / (now - log_t)
+            log_t, log_it = now, it
+            visualizer.print_loss(pack, iter_=it)
+        if (it + 1) % cfg.save_interval == 0:
+            save(it)
+    # the reference saves only on the grid; keep the last iteration's weights too
+    if cfg.num_iterations > cfg.iter_start and cfg.num_iterations % cfg.save_interval != 0:
+        save(cfg.num_iterations - 1)
+    return TrainResult(model, opt, it + 1)
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    if args.config_file is None:
+        raise ValueError("config file needed. -c --config_file.")
+    if not os.path.exists(args.config_file):
+        raise ValueError("config file not found.")
+    # the JAX package's config module (yaml + an attribute bag, no jax)
+    from unopticalflow_tpu.utils.config import load_yaml_config, merge_cli_args
+
+    if args.model_dir is None:
+        args.model_dir = os.path.join(
+            "models", os.path.splitext(os.path.basename(args.config_file))[0])
+    args.model_dir = os.path.join(REPO, args.model_dir, args.mode)
+    os.makedirs(args.model_dir, exist_ok=True)
+    cfg_dict = load_yaml_config(args.config_file)
+    cfg_dict["log_dump_dir"] = os.path.join(args.model_dir, "log.pkl")
+    shutil.copy(args.config_file, args.model_dir)
+    cfg = merge_cli_args(cfg_dict, args)
+    with open(os.path.join(args.model_dir, "config.pkl"), "wb") as f:
+        pickle.dump(cfg.to_dict(), f)
+    train(cfg)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

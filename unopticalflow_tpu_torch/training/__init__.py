@@ -1,0 +1,10 @@
+"""The training step, the optimizer and the loss weights."""
+
+from unopticalflow_tpu_torch.training.train_step import (
+    loss_fn,
+    loss_weights_from_config,
+    make_optimizer,
+    train_step,
+)
+
+__all__ = ["loss_fn", "loss_weights_from_config", "make_optimizer", "train_step"]

@@ -1,17 +1,49 @@
-"""Load pretrained weights into the port's ``FlowModel``.
+"""Save, restore and load the port's checkpoints.
 
-Reference-format ``.pth`` files (``{"iteration", "model_state_dict"}``, as
-the reference's train loop and the JAX package's ``export_torch_checkpoint``
-write them) load directly.  The JAX package's own ``.ckpt`` (flax msgpack)
-is not read here yet.
+The files are reference-format ``.pth``: ``{"iteration", "model_state_dict",
+"optimizer_state_dict"}``, as the reference's train loop and the JAX
+package's ``export_torch_checkpoint`` write them, so the trainer's files
+load into the serving slice and vice versa.  A write goes to a temporary
+file that ``os.replace`` then renames, so a reader never sees half a file.
+The JAX package's own ``.ckpt`` (flax msgpack) is not read here yet.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
 
 from unopticalflow_tpu.utils.torch_convert import strip_prefixes
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(paths: list[str], iteration: int, model: nn.Module,
+                    opt: torch.optim.Optimizer) -> None:
+    """Write the model, the optimizer and the iteration to each of ``paths``."""
+    state = {
+        "iteration": int(iteration),
+        "model_state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "optimizer_state_dict": opt.state_dict(),
+    }
+    for path in paths:
+        _atomic_save(state, path)
+
+
+def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) -> int:
+    """Load the model (strict) and the optimizer; return the iteration."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    if "optimizer_state_dict" not in data:
+        raise ValueError(f"{path} holds no optimizer state to resume from")
+    model.load_state_dict(strip_prefixes(data["model_state_dict"]), strict=True)
+    opt.load_state_dict(data["optimizer_state_dict"])
+    return int(data["iteration"])
 
 
 def load_pretrained(model: nn.Module, path: str) -> int:
