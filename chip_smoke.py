@@ -49,18 +49,46 @@ Phases (each raises on failure, so the run exits non-zero):
    3.4 million positions across one).  Then 3 steps of
    ``train()`` at --precision bfloat16 --loss_precision bfloat16: finite
    losses and every bf16 kernel launched.
+8. Regularizer forward and backward vs ``regularizer_pack_reference`` at the
+   three loss scales of batch 8 at 256x832 and a ragged shape, on flows
+   upsampled from a coarse field (their second differences vanish over
+   large areas, as the decoder's upsampled flows' do): float32 sums rtol
+   1e-4, d(flow) within 1e-4 of its largest value and zero where the plain
+   gradient is zero; bfloat16 images within 2e-2 of the bf16 plain version
+   and at the float32 tolerances against the plain version on the widened
+   images.  Timed per float32 training step.
+9. Training with ``use_pallas_reg``: ``train()`` at the KITTI recipe, float32,
+   5 steps, with ``test_interval`` 5 so that one interleaved evaluation runs
+   on in-memory KITTI 2012/2015-shaped sets (8 pairs each, ground truth at
+   375x1242 from a seed): exactly 5+5+5+3+3 launches of the other kernels and
+   3+3 regularizer launches per step, plus 5 correlation launches per
+   evaluation batch; the evaluation logged.  Step parity with the regularizer
+   kernels against ``reg_fn=regularizer_pack_reference`` (the other kernels
+   on): losses rtol 1e-4, the weighted total's gradient under phase 7's
+   one-ulp rule.  Then 2 bfloat16 steps: finite, every kernel launched.
+10. Evaluation: ``test._batched_flows`` over 37 synthetic pairs at 256x832
+   (5 batches of 8, the last padded, exactly 5 correlation launches each),
+   then ``eval_flow_avg`` against seeded ground truth at KITTI 2015's
+   375x1242 with valid, noc and moving masks: the 8-column string, all
+   finite, and the same metrics (within 1e-4) from the same flows on the CPU.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
-training run of phase 6, ``ms``/``plain_ms`` per float32 training step: the
-sum over the five decoder levels or the three loss scales); the last line is
-``{"ok": true, "device": {...}}``.  Only the CUDA path is driven: with no GPU
-the script exits non-zero before printing any result.
+training run of phase 6, of phase 9 for the regularizer; ``ms``/``plain_ms``
+per float32 training step: the sum over the five decoder levels or the three
+loss scales; ``bound_ms``: the larger of the bytes the function must move
+over 3.35 TB/s and its operations over 67 TFLOP/s (float32), from this run's
+shapes; ``library_ms`` null: no single PyTorch call computes any of these
+functions); the last line is ``{"ok": true, "device": {...}}``.  Only the
+CUDA path is driven: with no GPU the script exits non-zero before printing
+any result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -77,6 +105,21 @@ N_REQUESTS = 24
 N_CLIENTS = 8
 TRAIN_STEPS = 10
 BF16_STEPS = 3
+REG_STEPS = 5  # phase 9, with one interleaved evaluation at the top of the last step
+REG_BF16_STEPS = 2
+EVAL_PAIRS = 37  # phase 10: 4 full batches and one padded
+EVAL_SET_PAIRS = 8  # phase 9's in-memory KITTI 2012/2015 sets
+KITTI_GT_HW = (375, 1242)  # KITTI 2015's ground-truth resolution
+# the H100 SXM's published peaks: HBM and float32 outside
+# the tensor cores; every kernel here computes in float32
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# operations per pixel position of the loss kernels' algorithms (rounded up;
+# both kernels are far below the card's float32 rate per byte moved): warps,
+# weights and the 3x3 SSIM pools of both directions; the regularizer's
+# second differences, edge weights and normalised flows
+OPS_PER_POSITION = {"photometric_fwd": 600, "photometric_bwd": 1000,
+                    "regularizer_fwd": 120, "regularizer_bwd": 200}
 # (B, C, H, W) of the decoder's five cost volumes at 256x832, batch 8
 SERVE_LEVELS = {
     "L6": (8, 196, 4, 13), "L5": (8, 128, 8, 26), "L4": (8, 96, 16, 52),
@@ -89,7 +132,9 @@ RAGGED_CORR = (2, 5, 7, 33)
 PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208),
                 "ragged": (1, 13, 45)}
 PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-            "photometric_fwd": 3, "photometric_bwd": 3}
+            "photometric_fwd": 3, "photometric_bwd": 3,
+            "regularizer_fwd": 0, "regularizer_bwd": 0}
+PER_STEP_REG = {**PER_STEP, "regularizer_fwd": 3, "regularizer_bwd": 3}
 KERNELS = {
     "corr_fwd": ("unopticalflow_tpu_torch/csrc/correlation.cu",
                  "unopticalflow_tpu/ops/pallas_kernels.py:59"),
@@ -101,6 +146,10 @@ KERNELS = {
                         "unopticalflow_tpu/ops/pallas_photometric.py:198"),
     "photometric_bwd": ("unopticalflow_tpu_torch/csrc/photometric.cu",
                         "unopticalflow_tpu/ops/pallas_photometric.py:261"),
+    "regularizer_fwd": ("unopticalflow_tpu_torch/csrc/regularizer.cu",
+                        "unopticalflow_tpu/ops/pallas_regularizer.py:151"),
+    "regularizer_bwd": ("unopticalflow_tpu_torch/csrc/regularizer.cu",
+                        "unopticalflow_tpu/ops/pallas_regularizer.py:179"),
 }
 PHOTO_W = {"loss_pixel": 0.15, "loss_ssim": 0.85, "loss_flow_smooth": 0.0,
            "loss_flow_consis": 0.0}
@@ -124,6 +173,17 @@ def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _values(res: str) -> list[float]:
+    return [float(v) for v in res.split("\n")[1].split(",")]
+
+
 def _rel_l2(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -140,24 +200,34 @@ def main() -> int:
     import numpy as np
 
     from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch import test as evaluation
+    from unopticalflow_tpu_torch.evaluation import eval_flow_avg
     from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-    from unopticalflow_tpu_torch.ops import _build, correlation_cuda, photometric_cuda
+    from unopticalflow_tpu_torch.ops import (
+        _build,
+        correlation_cuda,
+        photometric_cuda,
+        regularizer_cuda,
+    )
     from unopticalflow_tpu_torch.ops.cost_volume import (
         corr_df1_reference,
         corr_df2_reference,
         cost_volume_reference,
     )
     from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
+    from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack_reference
     from unopticalflow_tpu_torch.serve import FlowServer
     from unopticalflow_tpu_torch.train import recipe_config, train
     from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
     from unopticalflow_tpu_torch.utils.device import resolve_device
 
     def counts():
-        return {**correlation_cuda.launches, **photometric_cuda.launches}
+        return {**correlation_cuda.launches, **photometric_cuda.launches,
+                **regularizer_cuda.launches}
 
     def reset_counts():
-        for d in (correlation_cuda.launches, photometric_cuda.launches):
+        for d in (correlation_cuda.launches, photometric_cuda.launches,
+                  regularizer_cuda.launches):
             for k in d:
                 d[k] = 0
 
@@ -181,6 +251,19 @@ def main() -> int:
     max_err = dict.fromkeys(KERNELS, 0.0)
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
+    # bytes and operations of the float32 training step's calls, for bound_ms
+    work = {k: [0.0, 0.0] for k in KERNELS}
+    # the loss kernels with bfloat16 images, per bf16 training step:
+    # [kernel ms, plain ms, bytes, operations]
+    bf16_step = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNELS if not k.startswith("corr")}
+
+    def add_work(name, nbytes, ops):
+        work[name][0] += nbytes
+        work[name][1] += ops
+
+    def add_bf16(name, k_ms, p_ms, nbytes, ops):
+        for i, v in enumerate((k_ms, p_ms, nbytes, ops)):
+            bf16_step[name][i] += v
 
     def note(name, got, want):
         max_err[name] = max(max_err[name], float((got.float() - want.float()).abs().max()))
@@ -207,6 +290,8 @@ def main() -> int:
             if name.startswith("train_") and dtype == torch.float32:
                 ms["corr_fwd"] += k_ms
                 plain_ms["corr_fwd"] += p_ms
+                b_, c_, h_, w_ = shape
+                add_work("corr_fwd", (2 * c_ + 81) * b_ * h_ * w_ * 4, 2 * 81 * c_ * b_ * h_ * w_)
             elif not name.startswith("train_") and dtype == torch.bfloat16:
                 serve_k += k_ms
                 serve_p += p_ms
@@ -311,6 +396,9 @@ def main() -> int:
                 if dtype == torch.float32:
                     ms[kname] += k_ms
                     plain_ms[kname] += p_ms
+                    b_, c_, h_, w_ = shape
+                    add_work(kname, (81 + 2 * c_) * b_ * h_ * w_ * 4,
+                             2 * 81 * c_ * b_ * h_ * w_)
                 print(f"{kname} {name} {shape} {str(dtype)[6:]}: max_abs_err="
                       f"{float((got.float() - want.float()).abs().max()):.3e} "
                       f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
@@ -388,6 +476,19 @@ def main() -> int:
                 plain_ms["photometric_fwd"] += p_fwd
                 ms["photometric_bwd"] += k_bwd
                 plain_ms["photometric_bwd"] += p_bwd
+                n = b * hh * ww
+                # fwd: 3 images and 2 flows read, 2B weights written; bwd: the
+                # same inputs read, 2 flow gradients written
+                add_work("photometric_fwd", (9 + 4 + 2) * 4 * n,
+                         OPS_PER_POSITION["photometric_fwd"] * n)
+                add_work("photometric_bwd", (9 + 4 + 4) * 4 * n,
+                         OPS_PER_POSITION["photometric_bwd"] * n)
+            else:  # bf16 images and weights, float32 flows
+                n = b * hh * ww
+                add_bf16("photometric_fwd", k_fwd, p_fwd, (9 * 2 + 4 * 4 + 2 * 2) * n,
+                         OPS_PER_POSITION["photometric_fwd"] * n)
+                add_bf16("photometric_bwd", k_bwd, p_bwd, (9 * 2 + 4 * 4 + 4 * 4) * n,
+                         OPS_PER_POSITION["photometric_bwd"] * n)
             print(f"photometric {name} {(b, 3, hh, ww)} {str(dtype)[6:]}: sums max_abs_err="
                   f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}) "
                   f"fwd kernel_ms={k_fwd:.4f} plain_ms={p_fwd:.4f} "
@@ -454,7 +555,8 @@ def main() -> int:
         model.zero_grad(set_to_none=True)
         total, means = loss_fn(model, cfg32, x, wts, **fns)
         total.backward()
-        return means, {k: p.grad.clone() for k, p in model.named_parameters()}
+        return ({k: v.detach() for k, v in means.items()},
+                {k: p.grad.clone() for k, p in model.named_parameters()})
 
     def flat(g):
         return torch.cat([g[k].ravel() for k in sorted(g)])
@@ -498,17 +600,259 @@ def main() -> int:
     if not all(bool(torch.isfinite(v)) for m in bmetrics for v in m.values()):
         raise AssertionError("bf16 training: non-finite loss")
     print(f"bf16 training: {BF16_STEPS} steps, finite losses, launches {bf16_counts}")
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": src,
-        "replaces": replaces,
-        "launches": train_counts[name],
-        "max_abs_err": max_err[name],
-        "ms": ms[name],
-        "plain_ms": plain_ms[name],
-    } for name, (src, replaces) in KERNELS.items()]}))
+    # ---- 8. regularizer forward and backward vs plain -----------------------
+    def reg_case(b, hh, ww, dtype):
+        r = np.random.RandomState(hh * ww + b + 1)
+        coarse = torch.from_numpy(
+            r.uniform(-5, 5, (b, 4, (hh + 3) // 4, (ww + 3) // 4)).astype(np.float32))
+        fl = torch.nn.functional.interpolate(coarse, scale_factor=4, mode="nearest")
+        noise = (r.rand(b, 4, hh, ww) < 0.3) * r.uniform(-1, 1, (b, 4, hh, ww))
+        fl = (fl[:, :, :hh, :ww] + torch.from_numpy(noise).float()).to(device)
+        img = torch.from_numpy(r.rand(b, 3, hh, ww).astype(np.float32)).to(device, dtype)
+        w_fwd = torch.from_numpy(r.rand(b, 1, hh, ww).astype(np.float32)).to(device, dtype)
+        return fl[:, :2].contiguous(), fl[:, 2:].contiguous(), img, w_fwd
+
+    def reg_run(fn, case, cot):
+        fb, ff, img, w_fwd = case
+        fb = fb.clone().requires_grad_(True)
+        ff = ff.clone().requires_grad_(True)
+        out = fn(fb, ff, img, w_fwd)
+        gb, gf = torch.autograd.grad(sum((out[k] * cot[k]).sum() for k in out), [fb, ff])
+        return {k: v.detach() for k, v in out.items()}, gb, gf
+
+    reg_keys = ("s_sx", "s_sy", "s_consis")
+    for name, (b, hh, ww) in PHOTO_SCALES.items():
+        cot = {"s_sx": torch.rand(2 * b, generator=gen, device=device),
+               "s_sy": torch.rand(2 * b, generator=gen, device=device),
+               "s_consis": torch.rand(b, generator=gen, device=device)}
+        for dtype in (torch.float32, torch.bfloat16):
+            case = reg_case(b, hh, ww, dtype)
+            got, gb, gf = reg_run(regularizer_cuda.regularizer, case, cot)
+            torch.cuda.synchronize()
+            refs = [reg_run(regularizer_pack_reference, case, cot)]
+            if dtype == torch.bfloat16:
+                for k in reg_keys:
+                    torch.testing.assert_close(got[k], refs[0][0][k], rtol=2e-2, atol=2e-2)
+                refs = [reg_run(regularizer_pack_reference,
+                                [t.float() for t in case], cot)]
+            want, wb, wf = refs[0]
+            for k in reg_keys:
+                if got[k].dtype != torch.float32 or got[k].shape != want[k].shape:
+                    raise AssertionError(f"regularizer {name}: kernel gave {got[k].dtype} "
+                                         f"{tuple(got[k].shape)}")
+                torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+            gerr = max(float((gb - wb).abs().max()), float((gf - wf).abs().max()))
+            gmax = max(float(wb.abs().max()), float(wf.abs().max()))
+            zeros = int(((gb == 0) != (wb == 0)).sum() + ((gf == 0) != (wf == 0)).sum())
+            if gerr > 1e-4 * gmax or zeros:
+                raise AssertionError(f"regularizer {name} {dtype}: d(flow) err {gerr} vs max "
+                                     f"{gmax}, {zeros} positions zero in one gradient only")
+            ferr = max(float((got[k] - want[k]).abs().max()) for k in reg_keys)
+            max_err["regularizer_fwd"] = max(max_err["regularizer_fwd"], ferr)
+            max_err["regularizer_bwd"] = max(max_err["regularizer_bwd"], gerr)
+            if name == "ragged":
+                continue
+            fb, ff, img, w_fwd = case
+            with torch.no_grad():
+                k_fwd = _time_ms(torch, lambda: regularizer_cuda.reg_fwd(fb, ff, img, w_fwd))
+                p_fwd = _time_ms(torch, lambda: regularizer_pack_reference(fb, ff, img, w_fwd),
+                                 inner=2)
+            k_bwd = _time_ms(torch, lambda: regularizer_cuda.reg_bwd(
+                fb, ff, img, w_fwd, cot["s_sx"], cot["s_sy"], cot["s_consis"]))
+            fbg = fb.clone().requires_grad_(True)
+            ffg = ff.clone().requires_grad_(True)
+            out = regularizer_pack_reference(fbg, ffg, img, w_fwd)
+            loss = sum((out[k] * cot[k]).sum() for k in out)
+            p_bwd = _time_ms(torch, lambda: torch.autograd.grad(loss, [fbg, ffg],
+                                                                 retain_graph=True), inner=2)
+            if dtype == torch.float32:
+                ms["regularizer_fwd"] += k_fwd
+                plain_ms["regularizer_fwd"] += p_fwd
+                ms["regularizer_bwd"] += k_bwd
+                plain_ms["regularizer_bwd"] += p_bwd
+                n = b * hh * ww
+                # fwd: 4 flow values, 3 image values, 1 weight read per position;
+                # bwd: the same read, 4 flow gradients written
+                add_work("regularizer_fwd", 8 * 4 * n, OPS_PER_POSITION["regularizer_fwd"] * n)
+                add_work("regularizer_bwd", 12 * 4 * n, OPS_PER_POSITION["regularizer_bwd"] * n)
+            else:
+                n = b * hh * ww
+                add_bf16("regularizer_fwd", k_fwd, p_fwd, (4 * 4 + 4 * 2) * n,
+                         OPS_PER_POSITION["regularizer_fwd"] * n)
+                add_bf16("regularizer_bwd", k_bwd, p_bwd, (4 * 4 + 4 * 2 + 4 * 4) * n,
+                         OPS_PER_POSITION["regularizer_bwd"] * n)
+            print(f"regularizer {name} {(b, 3, hh, ww)} {str(dtype)[6:]}: sums max_abs_err="
+                  f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}) "
+                  f"fwd kernel_ms={k_fwd:.4f} plain_ms={p_fwd:.4f} "
+                  f"bwd kernel_ms={k_bwd:.4f} plain_ms={p_bwd:.4f}")
+    for kname in ("regularizer_fwd", "regularizer_bwd"):
+        print(f"{kname} per training step (3 scales, float32): kernel_ms={ms[kname]:.4f} "
+              f"plain_ms={plain_ms[kname]:.4f}")
+    for kname, (k_ms, p_ms, nbytes, ops) in bf16_step.items():
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"{kname} per training step (3 scales, bfloat16 images): kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    torch.cuda.empty_cache()
+
+    # ---- 9. training with the regularizer kernels, one interleaved evaluation
+    eval_rng = np.random.RandomState(SEED + 7)
+
+    def gt_set(n):
+        gh, gw = KITTI_GT_HW
+        gts, nocs, movs = [], [], []
+        for _ in range(n):
+            gt = np.zeros((gh, gw, 3), np.float64)
+            gt[:, :, :2] = np.round(eval_rng.uniform(-20, 20, (gh, gw, 2)) * 64) / 64
+            gt[:, :, 2] = eval_rng.rand(gh, gw) > 0.2
+            gts.append(gt)
+            nocs.append(gt[:, :, 2] * (eval_rng.rand(gh, gw) > 0.3))
+            movs.append((eval_rng.rand(gh, gw) > 0.6).astype(np.uint16))
+        return gts, nocs, movs
+
+    def eval_pairs(n, seed):
+        snips = SyntheticSnippets(IMG_HW, n, seed=seed).snippets
+        return [snips[i % len(snips), :2 * h].astype(np.float32) / 255.0 for i in range(n)]
+
+    g12, n12, _ = gt_set(EVAL_SET_PAIRS)
+    g15, n15, m15 = gt_set(EVAL_SET_PAIRS)
+    sets = {"2012": evaluation.EvalSet(eval_pairs(EVAL_SET_PAIRS, SEED + 2), g12, n12),
+            "2015": evaluation.EvalSet(eval_pairs(EVAL_SET_PAIRS, SEED + 3), g15, n15, m15)}
+    reg_model_dir = os.path.join(model_dir, "reg")
+    os.makedirs(reg_model_dir, exist_ok=True)
+    rcfg = recipe_config(num_iterations=REG_STEPS, init_scheme="pwc", seed=SEED,
+                         log_interval=REG_STEPS, save_interval=1000, model_dir=reg_model_dir,
+                         num_workers=4, no_test=False, test_interval=REG_STEPS)
+    rmetrics = []
+    reset_counts()
+    t0 = time.perf_counter()
+    train(rcfg, dataset=SyntheticSnippets(IMG_HW, REG_STEPS * BATCH, seed=SEED + 4),
+          device="cuda", on_step=lambda it, m: rmetrics.append(m),
+          model_overrides={"use_pallas_reg": True}, eval_sets=sets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reg_counts = counts()
+    eval_batches = 2 * math.ceil(EVAL_SET_PAIRS / BATCH)
+    want_counts = {k: REG_STEPS * v for k, v in PER_STEP_REG.items()}
+    want_counts["corr_fwd"] += 5 * eval_batches
+    if reg_counts != want_counts:
+        raise AssertionError(f"regularizer training launches {reg_counts}, want {want_counts}")
+    if len(rmetrics) != REG_STEPS or not all(bool(torch.isfinite(v))
+                                              for m in rmetrics for v in m.values()):
+        raise AssertionError("regularizer training: missing or non-finite losses")
+    with open(os.path.join(reg_model_dir, "log.pkl"), "rb") as f:
+        log = pickle.load(f)
+    if len(log) != 1 or len(_values(log[0]["eval_2015_res"])) != 8 \
+            or len(_values(log[0]["eval_2012_res"])) != 4 \
+            or not all(math.isfinite(v) for r in log[0].values() for v in _values(r)):
+        raise AssertionError(f"interleaved evaluation log {log}")
+    print(f"training with use_pallas_reg, float32: {REG_STEPS} steps and one interleaved "
+          f"evaluation ({eval_batches} batches) in {wall:.2f} s; launches {reg_counts}")
+    print("interleaved evaluation: " + json.dumps(log[0]))
+
+    rcfg32 = FlowModelConfig(use_pallas_reg=True)
+    model = FlowModel(rcfg32, device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(SEED))
+
+    def reg_grads(x, **fns):
+        model.zero_grad(set_to_none=True)
+        total, means = loss_fn(model, rcfg32, x, weights, **fns)
+        total.backward()
+        return ({k: v.detach() for k, v in means.items()},
+                {k: p.grad.clone() for k, p in model.named_parameters()})
+
+    plain_reg = dict(reg_fn=regularizer_pack_reference)
+    want, want_g = reg_grads(batch, **plain_reg)
+    _, noise_g = reg_grads(nudged, **plain_reg)
+    got, got_g = reg_grads(batch)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
+    err = _rel_l2(flat(got_g), flat(want_g))
+    noise = _rel_l2(flat(noise_g), flat(want_g))
+    print("step parity float32, regularizer kernels vs plain regularizer, losses: "
+          + json.dumps({k: [float(got[k]), float(want[k])] for k in want})
+          + f"; total gradient rel L2 {err:.3e}, plain vs plain one ulp away {noise:.3e}")
+    if err > max(1e-4, noise):
+        raise AssertionError("step parity failed: regularizer total gradient")
+    del model, want_g, noise_g, got_g
+    torch.cuda.empty_cache()
+
+    bcfg = recipe_config(num_iterations=REG_BF16_STEPS, init_scheme="pwc", seed=SEED,
+                         precision="bfloat16", loss_precision="bfloat16", log_interval=1,
+                         save_interval=1000, model_dir=reg_model_dir, num_workers=4)
+    bmetrics = []
+    reset_counts()
+    train(bcfg, dataset=SyntheticSnippets(IMG_HW, REG_BF16_STEPS * BATCH, seed=SEED + 5),
+          device="cuda", on_step=lambda it, m: bmetrics.append(m),
+          model_overrides={"use_pallas_reg": True})
+    torch.cuda.synchronize()
+    bf16_reg_counts = counts()
+    if bf16_reg_counts != {k: REG_BF16_STEPS * v for k, v in PER_STEP_REG.items()}:
+        raise AssertionError(f"bf16 regularizer training launches {bf16_reg_counts}")
+    if not all(bool(torch.isfinite(v)) for m in bmetrics for v in m.values()):
+        raise AssertionError("bf16 regularizer training: non-finite loss")
+    print(f"bf16 training with use_pallas_reg: {REG_BF16_STEPS} steps, finite losses, "
+          f"launches {bf16_reg_counts}")
+    torch.cuda.empty_cache()
+
+    # ---- 10. evaluation: batched inference and the KITTI metrics ------------
+    emodel = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
+                       generator=torch.Generator().manual_seed(SEED))
+    pairs = eval_pairs(EVAL_PAIRS, SEED + 6)
+    batches = []
+
+    def infer(i1, i2):
+        before = correlation_cuda.launches["corr_fwd"]
+        out = evaluation.make_infer(emodel)(i1, i2)
+        batches.append((tuple(i1.shape), correlation_cuda.launches["corr_fwd"] - before))
+        return out
+
+    reset_counts()
+    t0 = time.perf_counter()
+    flows = evaluation._batched_flows(infer, iter(pairs), EVAL_PAIRS, device)
+    torch.cuda.synchronize()
+    t_infer = time.perf_counter() - t0
+    if batches != [((BATCH, h, w, 3), 5)] * math.ceil(EVAL_PAIRS / BATCH) \
+            or counts()["corr_fwd"] != 5 * len(batches):
+        raise AssertionError(f"evaluation batches {batches}")
+    if len(flows) != EVAL_PAIRS or any(f.shape != (h, w, 2) or not f.is_cuda for f in flows):
+        raise AssertionError("evaluation: bad flows")
+    gts, nocs, movs = gt_set(EVAL_PAIRS)
+    ecfg = types.SimpleNamespace(img_hw=IMG_HW)
+    t0 = time.perf_counter()
+    res = eval_flow_avg(gts, nocs, flows, ecfg, moving_masks=movs)
+    t_metrics = time.perf_counter() - t0
+    res_cpu = eval_flow_avg(gts, nocs, [f.cpu() for f in flows], ecfg, moving_masks=movs)
+    got_v, cpu_v = _values(res), _values(res_cpu)
+    if res.split("\n")[0] != res_cpu.split("\n")[0] or len(got_v) != 8 \
+            or not all(math.isfinite(v) for v in got_v) \
+            or max(abs(a - b) for a, b in zip(got_v, cpu_v)) > 1e-4 + 1e-9:
+        raise AssertionError(f"evaluation metrics: card\n{res}CPU\n{res_cpu}")
+    print(f"evaluation: {EVAL_PAIRS} pairs in {len(batches)} batches of {BATCH} (5 correlation "
+          f"launches each), inference {t_infer:.3f} s, metrics at {KITTI_GT_HW} "
+          f"{t_metrics:.3f} s; card and CPU agree:\n{res}", end="")
+    del emodel, flows
+
+    launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
+                "regularizer_bwd": reg_counts["regularizer_bwd"]}
+    records = []
+    for name, (src, replaces) in KERNELS.items():
+        bound_ms, bound_by = _bound(*work[name])
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": ms[name],
+            "plain_ms": plain_ms[name],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,11 @@ float32 on the widened images, which is what the kernel computes.  A whole
 step: losses rtol 1e-4, gradients by relative L2 norm (the plain warp's
 backward scatters with atomics, so elementwise maxima are not
 reproducible), as set out in ``test_train_step_kernels_match_plain``.
+Regularizer pack: sums rtol 1e-4 (float32 sums in another order), d(flow)
+within 1e-4 of its largest value; with bfloat16 images the same tolerances
+against the plain version on the same inputs (both widen the image to
+float32), and the zero pattern of d(flow) identical (the second differences
+round as the plain version's, so sign(0) = 0 lands on the same positions).
 """
 
 import importlib
@@ -29,7 +34,7 @@ import pytest
 import torch
 
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda
+from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda, regularizer_cuda
 from unopticalflow_tpu_torch.ops.cost_volume import (
     corr_df1_reference,
     corr_df2_reference,
@@ -37,6 +42,7 @@ from unopticalflow_tpu_torch.ops.cost_volume import (
     cost_volume_reference,
 )
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
+from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack, regularizer_pack_reference
 from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
 from unopticalflow_tpu_torch.utils.device import resolve_device
 
@@ -310,4 +316,90 @@ def test_train_step_bf16_is_finite(device):
     torch.cuda.synchronize()
     assert all(_counts()[k] > before[k] for k in before)
     assert all(bool(torch.isfinite(v)) for v in got.values())
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def _reg_case(b, h, w, device, dtype, seed=0):
+    """Flows upsampled from a coarse field (second differences exactly zero
+    inside the 4x4 blocks) plus sparse noise; image and weights in ``dtype``."""
+    rng = np.random.RandomState(seed)
+    coarse = torch.from_numpy(rng.uniform(-5, 5, (b, 4, (h + 3) // 4, (w + 3) // 4)).astype(np.float32))
+    fl = torch.nn.functional.interpolate(coarse, scale_factor=4, mode="nearest")[:, :, :h, :w]
+    noise = (rng.rand(b, 4, h, w) < 0.3) * rng.uniform(-1, 1, (b, 4, h, w))
+    fl = (fl + torch.from_numpy(noise).float()).to(device)
+    img = torch.from_numpy(rng.rand(b, 3, h, w).astype(np.float32)).to(device, dtype)
+    w_fwd = torch.from_numpy(rng.rand(b, 1, h, w).astype(np.float32)).to(device, dtype)
+    return fl[:, :2].contiguous(), fl[:, 2:].contiguous(), img, w_fwd
+
+
+def _reg_run(fn, flow_b, flow_f, img, w_fwd, cot):
+    fb = flow_b.clone().requires_grad_(True)
+    ff = flow_f.clone().requires_grad_(True)
+    out = fn(fb, ff, img, w_fwd)
+    total = sum((out[k] * cot[k]).sum() for k in out)
+    total.backward()
+    return out, fb.grad, ff.grad
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32), (1, 13, 45), (2, 64, 208)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_regularizer_kernels_match_plain(device, shape, dtype):
+    b, h, w = shape
+    case = _reg_case(b, h, w, device, dtype)
+    g = torch.Generator(device=device).manual_seed(2)
+    cot = {"s_sx": torch.rand(2 * b, generator=g, device=device),
+           "s_sy": torch.rand(2 * b, generator=g, device=device),
+           "s_consis": torch.rand(b, generator=g, device=device)}
+    want, wb, wf = _reg_run(regularizer_pack_reference, *case, cot)
+    before = dict(regularizer_cuda.launches)
+    got, gb, gf = _reg_run(regularizer_pack, *case, cot)
+    torch.cuda.synchronize()
+    assert regularizer_cuda.launches == {k: v + 1 for k, v in before.items()}
+    for k in ("s_sx", "s_sy", "s_consis"):
+        assert got[k].shape == want[k].shape and got[k].dtype == torch.float32
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+    for g_, r in ((gb, wb), (gf, wf)):
+        assert float((g_ - r).abs().max()) <= 1e-4 * float(r.abs().max())
+        assert torch.equal(g_ == 0, r == 0)
+
+
+def test_regularizer_consis_grad_only_reaches_fwd(device):
+    flow_b, flow_f, img, w_fwd = _reg_case(2, 16, 32, device, torch.float32)
+    fb = flow_b.clone().requires_grad_(True)
+    ff = flow_f.clone().requires_grad_(True)
+    out = regularizer_pack(fb, ff, img, w_fwd)
+    (out["s_consis"].sum() + 0.0 * out["s_sx"].sum()).backward()
+    assert float(fb.grad.abs().max()) == 0.0 and float(ff.grad.abs().max()) > 0.0
+
+
+def test_regularizer_wrapper_rejects_what_the_kernel_does_not_take(device):
+    flow_b, flow_f, img, w_fwd = _reg_case(1, 8, 8, device, torch.float32)
+    before = dict(regularizer_cuda.launches)
+    with pytest.raises(TypeError):
+        regularizer_cuda.reg_fwd(flow_b, flow_f, img.half(), w_fwd.half())
+    with pytest.raises(TypeError):
+        regularizer_cuda.reg_fwd(flow_b, flow_f, img, w_fwd.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        regularizer_cuda.reg_fwd(flow_b.transpose(2, 3), flow_f.transpose(2, 3),
+                                 img.transpose(2, 3), w_fwd.transpose(2, 3))
+    with pytest.raises(ValueError, match="weights"):
+        regularizer_cuda.reg_fwd(flow_b, flow_f, img, w_fwd[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        regularizer_cuda.reg_fwd(flow_b.cpu(), flow_f, img, w_fwd)
+    assert regularizer_cuda.launches == before
+
+
+def test_train_step_with_regularizer_kernels_matches_plain(device):
+    """``use_pallas_reg`` at 64x64, batch 2, float32: 3 + 3 regularizer
+    launches per step and the losses of the plain regularizer (rtol 1e-4)."""
+    cfg = FlowModelConfig(use_pallas_reg=True)
+    model = FlowModel(cfg, device=device, scheme="pwc", generator=torch.Generator().manual_seed(0))
+    batch = torch.from_numpy(np.random.RandomState(0).rand(2, 192, 64, 3).astype(np.float32)).to(device)
+    want, _ = _step_grads(model, cfg, batch, reg_fn=regularizer_pack_reference)
+    before = dict(regularizer_cuda.launches)
+    got, grads = _step_grads(model, cfg, batch)
+    torch.cuda.synchronize()
+    assert regularizer_cuda.launches == {k: v + 3 for k, v in before.items()}
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())

@@ -1,0 +1,102 @@
+"""The port stands alone: no module of it, and not ``chip_smoke.py``, imports
+or loads by path anything of the JAX package (``unopticalflow_tpu``), nor a
+root module of the repo (``serve.py``, ``train.py``, ... import the JAX
+package), and importing every module of the port loads neither ``jax`` nor
+any file under ``unopticalflow_tpu/``."""
+
+import ast
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = "unopticalflow_tpu"
+ROOT_MODULES = {os.path.splitext(os.path.basename(p))[0]
+                for p in glob.glob(os.path.join(REPO, "*.py"))} - {"chip_smoke"}
+SOURCES = sorted(glob.glob(os.path.join(REPO, "unopticalflow_tpu_torch", "**", "*.py"),
+                           recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top == JAX_PKG or top in ROOT_MODULES
+
+
+def _violations(path: str) -> list[str]:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [f"{node.lineno}: import {a.name}" for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(f"{node.lineno}: from {node.module} import ...")
+        elif isinstance(node, ast.Call):
+            # importlib.import_module("..."), __import__("..."), and loading a
+            # file of the JAX package by its path
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__", "spec_from_file_location"):
+                for arg in node.args:
+                    if isinstance(arg, ast.Constant) and isinstance(arg.value, str) and (
+                            _forbidden(arg.value) or f"{JAX_PKG}/" in arg.value
+                            or arg.value == JAX_PKG):
+                        bad.append(f"{node.lineno}: {name}({arg.value!r})")
+            if name == "join" and any(isinstance(a, ast.Constant) and a.value == JAX_PKG
+                                      for a in node.args):
+                bad.append(f"{node.lineno}: a path into {JAX_PKG}/")
+    return bad
+
+
+def test_the_scan_catches_each_kind_of_import(tmp_path):
+    src = tmp_path / "x.py"
+    src.write_text(
+        "import unopticalflow_tpu\n"
+        "import unopticalflow_tpu.ops as o\n"
+        "from unopticalflow_tpu.utils.config import Config\n"
+        "from serve import make_handler\n"
+        "import importlib\n"
+        "importlib.import_module('unopticalflow_tpu.data')\n"
+        "import os\n"
+        "p = os.path.join('r', 'unopticalflow_tpu', 'data', 'datasets.py')\n"
+        "import unopticalflow_tpu_torch.ops\n"
+        "from unopticalflow_tpu_torch.utils import convert\n"
+    )
+    assert [v.split(":")[0] for v in _violations(str(src))] == ["1", "2", "3", "4", "6", "8"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_of_the_port_imports_the_jax_package(path):
+    assert _violations(path) == []
+
+
+def test_importing_every_module_loads_nothing_of_the_jax_package():
+    code = f"""
+import importlib, json, os, pkgutil, sys
+sys.path.insert(0, {REPO!r})
+import unopticalflow_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(unopticalflow_tpu_torch.__path__,
+                                               "unopticalflow_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import unopticalflow_tpu_torch.data, chip_smoke
+jax_dir = os.path.realpath(os.path.join({REPO!r}, {JAX_PKG!r})) + os.sep
+named = sorted(m for m in sys.modules if m == {JAX_PKG!r} or m.startswith({JAX_PKG!r} + "."))
+by_path = sorted(m for m, mod in list(sys.modules.items())
+                 if os.path.realpath(getattr(mod, "__file__", None) or "").startswith(jax_dir))
+print(json.dumps({{"names": names, "named": named, "by_path": by_path,
+                  "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"unopticalflow_tpu_torch.test", "unopticalflow_tpu_torch.evaluation.evaluate_flow",
+            "unopticalflow_tpu_torch.ops.regularizer_cuda",
+            "unopticalflow_tpu_torch.data.datasets"} <= set(got["names"])
+    assert got["named"] == [] and got["by_path"] == [] and got["jax"] == []

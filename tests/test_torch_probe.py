@@ -10,6 +10,7 @@ from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
 from unopticalflow_tpu_torch.probe import (
     ConstructorWarmServer,
     _busy_us,
+    device_ops_per_step,
     device_time_by_kind,
     serve_run,
     top_device_ops,
@@ -95,3 +96,14 @@ def test_device_time_by_kind_sums_kernel_rows_per_step():
     assert got["port kernels"] == 1.0 and got["convolution (cuDNN/cuBLAS)"] == 3.0
     assert got["gather/scatter (warps)"] == 0.5 and got["other"] == 0.2
     assert sum(got.values()) == 4.7
+
+
+def test_device_ops_per_step_counts_device_rows():
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def row(key, count, dev=cuda):
+        return types.SimpleNamespace(key=key, count=count, device_type=dev)
+
+    rows = [row("k1", 6), row("k2", 4), row("aten::add", 50, cpu),
+            row("Command Buffer Full", 9)]
+    assert device_ops_per_step(rows, steps=2) == 5.0

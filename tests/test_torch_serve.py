@@ -87,7 +87,7 @@ def test_png_round_trip_over_http(engine):
     import cv2
     from http.server import ThreadingHTTPServer
 
-    from serve import make_handler
+    from unopticalflow_tpu_torch.serve import make_handler
 
     cfg = types.SimpleNamespace(img_hw=(H, W))
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine, cfg))

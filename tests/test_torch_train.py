@@ -249,8 +249,10 @@ def test_train_loop_saves_and_resumes(workspace, capsys):
 
 
 def test_trainer_refuses_what_this_slice_does_not_run(workspace):
-    with pytest.raises(ValueError, match="test.py"):
-        train(_cfg(workspace, no_test=False))
+    # without --no_test the interleaved evaluation needs the ground truth
+    with pytest.raises(FileNotFoundError, match="gt_2012_dir.*--no_test"):
+        train(_cfg(workspace, no_test=False, gt_2012_dir=str(workspace / "missing"),
+                   gt_2015_dir=str(workspace / "missing")))
     with pytest.raises(ValueError, match="flow only"):
         train(_cfg(workspace, mode="flowposenet"))
     with pytest.raises(ValueError, match="config file needed"):

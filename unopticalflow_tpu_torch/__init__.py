@@ -3,23 +3,25 @@
 The JAX package ``unopticalflow_tpu`` is the reference: every module here is
 held against its counterpart on the same inputs, with weights moved across by
 ``utils.convert.load_jax_params``.  This package imports ``torch`` and never
-``jax``; it reuses only the JAX package's numpy-only host modules
-(``utils.torch_convert``, ``utils.visualizer``, ``utils.config``,
-``evaluation.flowlib``, and ``data/datasets.py`` loaded by its path).
+``jax``, and nothing of the JAX package: it keeps its own copies of the host
+modules it needs (config, visualizer, datasets, flowlib, the weight-key
+mapping).
 
 Layout:
-    ops/       cost volume and its backward, photometric pack (plain PyTorch
-               + the hand-written CUDA kernels and their wrappers), pyramid,
-               SSIM, warp, resize, the kernels' nvcc build
-    models/    conv blocks, feature encoder, PWC decoder, FlowModel with
-               inference_flow and the training forward, the loss stack
-    training/  loss weights, Adam, the training step
-    data/      the datasets, BatchLoader, device_prefetch, synthetic snippets
-    utils/     device selection, weight conversion, checkpoints
-    csrc/      CUDA C++ sources, built with nvcc at first use
-    serve.py   the batching flow server
-    train.py   the trainer (--mode flow)
-    probe.py   serving and training measurements on one CUDA device
+    ops/        cost volume and its backward, photometric pack, regularizer
+                pack (plain PyTorch + the hand-written CUDA kernels and their
+                wrappers), pyramid, SSIM, warp, resize, the kernels' nvcc build
+    models/     conv blocks, feature encoder, PWC decoder, FlowModel with
+                inference_flow and the training forward, the loss stack
+    training/   loss weights, Adam, the training step
+    evaluation/ KITTI ground truth and metrics, flow file I/O
+    data/       the datasets, BatchLoader, device_prefetch, synthetic snippets
+    utils/      device selection, config, logging, weight conversion, checkpoints
+    csrc/       CUDA C++ sources, built with nvcc at first use
+    serve.py    the batching flow server and its HTTP handler
+    train.py    the trainer (--mode flow, with the interleaved evaluation)
+    test.py     the KITTI flow evaluation (--task kitti_flow)
+    probe.py    serving and training measurements on one CUDA device
 """
 
 __version__ = "0.1.0"

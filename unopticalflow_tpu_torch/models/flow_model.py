@@ -19,6 +19,7 @@ from unopticalflow_tpu_torch.models.pwc_decoder import PWCDecoder
 from unopticalflow_tpu_torch.ops.cost_volume import cost_volume
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack
 from unopticalflow_tpu_torch.ops.pyramid import avg_pool_pyramid
+from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack
 from unopticalflow_tpu_torch.ops.warp import bilinear_warp
 
 
@@ -35,6 +36,10 @@ class FlowModelConfig(NamedTuple):
     # ablation: False replaces the softmax occlusion weights by the warp
     # validity alone and takes the unfused plain loss path
     use_occlusion_weights: bool = True
+    # the JAX field's name: route smoothness and consistency through the fused
+    # regularizer (the port's CUDA kernels, ops/regularizer.py) at each scale
+    # of the fused photometric path; off by default, as in the JAX package
+    use_pallas_reg: bool = False
 
 
 class FlowModel(nn.Module):
@@ -67,15 +72,17 @@ def inference_flow(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
 
 
 def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
-            corr_fn=cost_volume, photo_fn=photometric_pack) -> dict:
+            corr_fn=cost_volume, photo_fn=photometric_pack, reg_fn=regularizer_pack) -> dict:
     """Training forward pass -> the four per-sample (B,) float32 losses.
 
     images: (B, 3H, W, 3) vertically stacked (prev, center, next) frames in
     [0, 1], the JAX layout.  One encoder pass at 3B ``[img; imgl; imgr]``
     and one decoder pass at 2B ``[bwd; fwd]`` (center->prev, center->next).
-    Each loss scale runs ``photo_fn`` (the fused photometric pack); the
-    occlusion ablation takes the unfused plain path instead.  ``corr_fn`` and
-    ``photo_fn`` let a check run the plain versions on the card.
+    Each loss scale runs ``photo_fn`` (the fused photometric pack) and, with
+    ``cfg.use_pallas_reg``, ``reg_fn`` (the fused smoothness and consistency
+    sums); the occlusion ablation takes the unfused plain path instead.
+    ``corr_fn``, ``photo_fn`` and ``reg_fn`` let a check run the plain
+    versions on the card.
     """
     b, h3, w = images.shape[:3]
     h = h3 // 3
@@ -94,16 +101,25 @@ def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
     ns = cfg.num_scales
     flows_bwd = [f[:b] for f in flows[:ns]]
     flows_fwd = [f[b:] for f in flows[:ns]]
+    fused_reg = cfg.use_pallas_reg and cfg.use_occlusion_weights
     if cfg.use_occlusion_weights:
-        loss_pixel = loss_ssim = 0.0
+        loss_pixel = loss_ssim = smooth = consis = 0.0
         weights = []
         for s in range(ns):
             out = photo_fn(pyr_lr[s][:b], pyr_lr[s][b:], flows_bwd[s], flows_fwd[s], pyr_c[s])
-            hw = pyr_c[s].shape[2] * pyr_c[s].shape[3]
+            h_s, w_s = pyr_c[s].shape[2], pyr_c[s].shape[3]
+            hw = h_s * w_s
             mean_w = out["s_w"] / hw + 1e-12
             loss_pixel = loss_pixel + (out["s_dw"] / hw) / mean_w
             loss_ssim = loss_ssim + (out["s_cl"] / hw) / mean_w
             weights.append(out["weights"])
+            if fused_reg:
+                # the plain losses' mean denominators (JAX flow_model.py:287-294)
+                reg = reg_fn(flows_bwd[s], flows_fwd[s], pyr_c[s], out["weights"][b:].detach())
+                err = reg["s_sx"] / (h_s * (w_s - 2) * 2) + reg["s_sy"] / ((h_s - 2) * w_s * 2)
+                smooth = smooth + err / 2.0
+                occ_mean = 1.0 - out["s_w"][b:] / hw  # mean(1 - w_fwd)
+                consis = consis + (reg["s_consis"] / (hw * 2)) / (occ_mean + 1e-12)
     else:
         warped_lr = [bilinear_warp(i, f, use_mask=True) for i, f in zip(pyr_lr[:ns], flows[:ns])]
         diffs, weights = losses.diff_and_occlusion_weights_packed(
@@ -112,9 +128,10 @@ def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
         loss_pixel = losses.masked_diff_loss(diffs, weights, ns)
         loss_ssim = losses.masked_ssim_loss(pyr_cc, warped_lr, weights, ns)
 
-    # the B-sized center pyramid: both packed halves share its edge weights
-    smooth = losses.flow_smooth_loss(flows, pyr_c[:ns], ns)
-    consis = losses.flow_consistency_loss(flows_fwd, flows_bwd, [w[b:] for w in weights], ns)
+    if not fused_reg:
+        # the B-sized center pyramid: both packed halves share its edge weights
+        smooth = losses.flow_smooth_loss(flows, pyr_c[:ns], ns)
+        consis = losses.flow_consistency_loss(flows_fwd, flows_bwd, [w[b:] for w in weights], ns)
     return {
         "loss_pixel": loss_pixel[:b] + loss_pixel[b:],
         "loss_ssim": loss_ssim[:b] + loss_ssim[b:],

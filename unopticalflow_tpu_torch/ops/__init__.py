@@ -1,4 +1,4 @@
-"""Compute primitives of the serving and training paths (NCHW)."""
+"""Compute primitives of the serving, training and evaluation paths (NCHW)."""
 
 from unopticalflow_tpu_torch.ops.cost_volume import (
     cost_volume,
@@ -7,6 +7,7 @@ from unopticalflow_tpu_torch.ops.cost_volume import (
 )
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
 from unopticalflow_tpu_torch.ops.pyramid import avg_pool_pyramid
+from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack, regularizer_pack_reference
 from unopticalflow_tpu_torch.ops.resize import resize_bilinear, upsample2x_double
 from unopticalflow_tpu_torch.ops.ssim import ssim
 from unopticalflow_tpu_torch.ops.warp import bilinear_warp, warp_validity_mask
@@ -19,6 +20,8 @@ __all__ = [
     "cost_volume_reference",
     "photometric_pack",
     "photometric_pack_reference",
+    "regularizer_pack",
+    "regularizer_pack_reference",
     "resize_bilinear",
     "ssim",
     "upsample2x_double",

@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("correlation", "photometric")
+SOURCES = ("correlation", "photometric", "regularizer")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -26,15 +26,20 @@ phase prints JSON lines:
    Each run reports its first request's latency (the fresh server's first
    batch), then served pairs/s and request-latency percentiles over
    ``--requests`` requests.
-3. ``train``: ``train_step`` at the KITTI recipe, once in float32 (TF32
-   off) and once in bfloat16 (``--precision``/``--loss_precision``), on one
-   device-resident uint8 batch of synthetic snippets.
+3. ``train``: ``train_step`` at the KITTI recipe in float32 (TF32 off) and
+   in bfloat16 (``--precision``/``--loss_precision``), on one
+   device-resident uint8 batch of synthetic snippets; per dtype four runs,
+   with ``FlowModelConfig.use_pallas_reg`` off, on, on, off (the fused
+   regularizer kernels against the plain smoothness and consistency terms,
+   in turns within one process).
    * ``ms_step``: CUDA events around each step, median of 20, with no
      profiler running;
    * ``busy_ms_step`` and ``idle_share`` as in ``profile``, over 5 profiled
      steps; device time per step by kind of kernel and the top device ops
-     (the full table goes to ``<out>/train_<dtype>.txt``);
-   * ``launches_per_step``: the hand-written kernels' launch counts.
+     (the full table goes to ``<out>/train_<dtype>[_reg].txt``);
+   * ``launches_per_step``: the hand-written kernels' launch counts;
+     ``device_ops_per_step``: every kernel, copy and set the device ran per
+     profiled step (what the host had to launch).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import torch
 
 from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda
+from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda, regularizer_cuda
 from unopticalflow_tpu_torch.serve import FlowServer
 from unopticalflow_tpu_torch.training import loss_weights_from_config, make_optimizer, train_step
 from unopticalflow_tpu_torch.utils.device import resolve_device
@@ -224,7 +229,8 @@ def top_device_ops(averages, steps: int, n: int = TOP_OPS) -> list[dict]:
 # kinds of device work in a training step, by kernel name (first match wins)
 KINDS = (
     ("port kernels", ("corr_fwd_kernel", "corr_df1_kernel", "corr_df2_kernel",
-                      "photo_fwd_kernel", "photo_bwd_kernel")),
+                      "photo_fwd_kernel", "photo_bwd_kernel", "reg_fwd_kernel",
+                      "reg_bwd_kernel")),
     ("convolution (cuDNN/cuBLAS)", ("cudnn", "xmma", "fft", "winograd", "dgrad", "wgrad",
                                     "gemm", "DSE::", "region_transform", "nchwToNhwc",
                                     "nhwcToNchw", "scalePackedTensor",
@@ -234,6 +240,12 @@ KINDS = (
     ("elementwise/reduction", ("elementwise", "reduce", "Reduce", "CatArray", "pool", "upsample",
                                "softmax", "copy", "fill")),
 )
+
+
+def device_ops_per_step(averages, steps: int) -> float:
+    """Kernels, copies and sets the device ran per step (``prof.key_averages()``)."""
+    return sum(e.count for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in _NOT_DEVICE_WORK) / steps
 
 
 def device_time_by_kind(averages, steps: int) -> dict:
@@ -249,16 +261,18 @@ def device_time_by_kind(averages, steps: int) -> dict:
 
 
 def _launch_counts() -> dict:
-    return {**correlation_cuda.launches, **photometric_cuda.launches}
+    return {**correlation_cuda.launches, **photometric_cuda.launches,
+            **regularizer_cuda.launches}
 
 
-def train_run(device, precision: str, out_dir: str, seed: int, reps: int = TRAIN_REPS,
-              profiled: int = PROFILED) -> dict:
-    """The train phase for one dtype (see the module docstring)."""
+def train_run(device, precision: str, out_dir: str, seed: int, use_pallas_reg: bool = False,
+              reps: int = TRAIN_REPS, profiled: int = PROFILED) -> dict:
+    """One run of the train phase (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.reset_peak_memory_stats(device)
-    cfg = FlowModelConfig(compute_dtype=precision, loss_dtype=precision)
+    cfg = FlowModelConfig(compute_dtype=precision, loss_dtype=precision,
+                          use_pallas_reg=use_pallas_reg)
     model = FlowModel(cfg, device=device, scheme="pwc",
                       generator=torch.Generator().manual_seed(seed))
     opt = make_optimizer(model, 1e-4)
@@ -284,15 +298,19 @@ def train_run(device, precision: str, out_dir: str, seed: int, reps: int = TRAIN
     busy = _busy_us(prof.events()) / 1e3 / profiled
     h, w = IMG_HW
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=50)
-    with open(os.path.join(out_dir, f"train_{precision}.txt"), "w") as f:
-        f.write(f"{profiled} train steps, {precision}, {MAX_BATCH}x{h}x{w}, 3 scales\n{table}\n")
+    tag = "_reg" if use_pallas_reg else ""
+    with open(os.path.join(out_dir, f"train_{precision}{tag}.txt"), "w") as f:
+        f.write(f"{profiled} train steps, {precision}, use_pallas_reg={use_pallas_reg}, "
+                f"{MAX_BATCH}x{h}x{w}, 3 scales\n{table}\n")
     return {
-        "phase": "train", "precision": precision, "ms_step": ms_step,
+        "phase": "train", "precision": precision, "use_pallas_reg": use_pallas_reg,
+        "ms_step": ms_step,
         "ms_step_min": min(times), "ms_step_max": max(times), "reps": reps,
         "snippets_per_s": MAX_BATCH / ms_step * 1e3, "busy_ms_step": busy,
         "idle_share": 1.0 - busy / ms_step, "profiled_steps": profiled,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 2**30,
         "launches_per_step": launches,
+        "device_ops_per_step": device_ops_per_step(prof.key_averages(), profiled),
         "device_ms_by_kind": device_time_by_kind(prof.key_averages(), profiled),
         "top_ops": top_device_ops(prof.key_averages(), profiled),
     }
@@ -332,8 +350,10 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         for precision in ("float32", "bfloat16"):
-            print(json.dumps(train_run(device, precision, args.out, args.seed)), flush=True)
-            torch.cuda.empty_cache()
+            for reg in (False, True, True, False):
+                print(json.dumps(train_run(device, precision, args.out, args.seed, reg)),
+                      flush=True)
+                torch.cuda.empty_cache()
     for warm_up in ("serving", "constructor", "constructor", "serving") if "serve" in phases else ():
         proc = subprocess.run(
             [sys.executable, "-m", "unopticalflow_tpu_torch.probe", "--serve_one", warm_up,

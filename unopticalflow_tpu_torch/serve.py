@@ -9,9 +9,11 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 * requests whose waiter has timed out are shed;
 * ``served`` / ``batches`` / ``shed`` / ``errors`` / ``occupancy`` stats.
 
-The HTTP layer (``make_handler``, PNG decoding, ``.flo`` encoding) is the
-root ``serve.py``'s, imported when the server starts, since it needs
-``yaml`` and ``cv2``; ``FlowServer`` itself needs only torch and numpy.
+The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
+/flow`` with a PNG/JPEG of the vertically stacked pair, answered with
+Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it imports ``cv2``
+where a request body is decoded, and ``main`` reads the yaml, so
+``FlowServer`` itself needs only torch and numpy.
 
 Usage:
     python -m unopticalflow_tpu_torch.serve -c config/kitti.yaml \
@@ -22,17 +24,20 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
+import json
 import queue
-import sys
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
+from unopticalflow_tpu_torch.evaluation.flowlib import encode_flow
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
 from unopticalflow_tpu_torch.utils.device import resolve_device
+
+MAX_BODY_BYTES = 64 * 1024 * 1024  # a request body larger than this is refused (413)
 
 
 class _Request:
@@ -156,6 +161,70 @@ class FlowServer:
         self._thread.join(timeout=5)
 
 
+def _decode_pair(body: bytes, img_hw) -> np.ndarray:
+    """PNG/JPEG bytes of a vertically stacked pair -> (2H, W, 3) float32."""
+    import cv2
+
+    arr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    if arr is None:
+        raise ValueError("request body is not a decodable image")
+    if arr.shape[0] % 2:
+        raise ValueError("stacked pair must have even height")
+    h, w = img_hw
+    half = arr.shape[0] // 2
+    frames = [cv2.resize(arr[:half], (w, h)).astype(np.float32) / 255.0,
+              cv2.resize(arr[half:], (w, h)).astype(np.float32) / 255.0]
+    return np.concatenate(frames, 0)
+
+
+def make_handler(server: FlowServer, cfg):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code, body, ctype="application/json"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, json.dumps({
+                    "ok": True, "img_hw": list(cfg.img_hw), "max_batch": server.max_batch,
+                }).encode())
+            elif self.path == "/stats":
+                self._send(200, json.dumps(server.stats).encode())
+            else:
+                self._send(404, b'{"error": "not found"}')
+
+        def do_POST(self):
+            if self.path != "/flow":
+                self._send(404, b'{"error": "not found"}')
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                if length > MAX_BODY_BYTES:
+                    self._send(413, json.dumps({
+                        "error": f"body {length} bytes exceeds {MAX_BODY_BYTES}"
+                    }).encode())
+                    return
+                pair = _decode_pair(self.rfile.read(length), cfg.img_hw)
+            except Exception as e:  # malformed request -> client error
+                self._send(400, json.dumps({"error": str(e)}).encode())
+                return
+            try:
+                flow = server.infer(pair)
+                self._send(200, encode_flow(flow), "application/octet-stream")
+            except TimeoutError as e:  # overload -> retryable server error
+                self._send(503, json.dumps({"error": str(e)}).encode())
+            except Exception as e:  # device/internal fault -> server error
+                self._send(500, json.dumps({"error": str(e)}).encode())
+
+    return Handler
+
+
 def build_server(cfg, args) -> FlowServer:
     from unopticalflow_tpu_torch.utils.checkpoint import load_pretrained
 
@@ -182,12 +251,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    # the HTTP helpers and the YAML loader live beside the JAX server
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from http.server import ThreadingHTTPServer
-
-    from serve import make_handler
-    from unopticalflow_tpu.utils.config import Config, load_yaml_config
+    from unopticalflow_tpu_torch.utils.config import Config, load_yaml_config
 
     cfg = Config(load_yaml_config(args.config_file))
     server = build_server(cfg, args)

@@ -1,15 +1,22 @@
 """Training entry point of the port: unsupervised flow training (``--mode flow``).
 
     python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --mode flow \
-        --no_test --device cuda
+        [--test_interval 2000 | --no_test] --device cuda
 
 Port of the root ``train.py`` for the flags below (same names and
 defaults).  One step is ``training.train_step``: the training forward (5
 correlation kernels in the decoder, 3 photometric kernels over the loss
-scales), autograd (5 + 5 correlation-backward kernels, 3 photometric
-backward kernels) and Adam.  Batches come from the JAX package's
-``KITTI_Prepared`` (uint8, cast on the device) through ``BatchLoader`` and
-``device_prefetch``.
+scales, and 3 regularizer kernels with ``use_pallas_reg``), autograd (5 + 5
+correlation-backward kernels, 3 photometric and 3 regularizer backward
+kernels) and Adam.  Batches come from ``data.KITTI_Prepared`` (uint8, cast on
+the device) through ``BatchLoader`` and ``device_prefetch``.
+
+Interleaved evaluation: unless ``--no_test``, KITTI 2012 and 2015 (the
+yaml's ``gt_2012_dir``/``gt_2015_dir``, read once at start) are evaluated
+with ``test.test_kitti_2012``/``test_kitti_2015`` at the top of every step
+whose count from the start of the run, plus one, is a multiple of
+``--test_interval``; the result strings go to ``log.pkl`` as
+``eval_2012_res``/``eval_2015_res``.
 
 Checkpoints: ``iter_<n>.pth`` and ``last.pth`` every ``--save_interval``
 iterations, and ``last.pth`` at loop exit when ``num_iterations`` is off that
@@ -18,10 +25,8 @@ grid; ``--resume`` restores model, optimizer and iteration from
 iteration.  Log lines are the JAX trainer's ``iter: N, loss_pixel: ...``,
 with ``snippets_per_sec`` between log points.
 
-Not here yet: interleaved KITTI evaluation (it waits for the port of
-``test.py``, so the trainer refuses to start without ``--no_test``), modes
-other than ``flow``, several devices, K steps per dispatch, asynchronous
-checkpoints and preemption handling.
+Not here yet: modes other than ``flow``, several devices, K steps per
+dispatch, asynchronous checkpoints and preemption handling.
 """
 
 from __future__ import annotations
@@ -39,6 +44,13 @@ import torch
 
 from unopticalflow_tpu_torch.data import BatchLoader, KITTI_Prepared, device_prefetch
 from unopticalflow_tpu_torch.models.flow_model import FlowModel, FlowModelConfig
+from unopticalflow_tpu_torch.test import (
+    load_kitti_2012,
+    load_kitti_2015,
+    make_infer,
+    test_kitti_2012,
+    test_kitti_2015,
+)
 from unopticalflow_tpu_torch.training import (
     loss_weights_from_config,
     make_optimizer,
@@ -46,6 +58,7 @@ from unopticalflow_tpu_torch.training import (
 )
 from unopticalflow_tpu_torch.utils import checkpoint as ckpt
 from unopticalflow_tpu_torch.utils.device import resolve_device
+from unopticalflow_tpu_torch.utils.visualizer import Visualizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -60,6 +73,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--log_interval", type=int, default=100)
     p.add_argument("--save_interval", type=int, default=2000)
+    p.add_argument("--test_interval", type=int, default=2000)
     p.add_argument("--model_dir", type=str, default=None)
     p.add_argument("--prepared_save_dir", type=str, default="data_s1")
     p.add_argument("--resume", action="store_true")
@@ -103,13 +117,30 @@ def _get(cfg, key, default=None):
     return getattr(cfg, key, default)
 
 
-def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
+def _load_eval_sets(cfg) -> dict:
+    """KITTI 2012 and 2015 evaluation sets from the yaml's ground-truth dirs."""
+    for key in ("gt_2012_dir", "gt_2015_dir"):
+        path = _get(cfg, key)
+        if not path or not os.path.isdir(path):
+            raise FileNotFoundError(
+                f"{key}={path!r} is not a directory: the interleaved KITTI evaluation "
+                "needs the 2012 and 2015 ground truth (pass --no_test to train without it)"
+            )
+    return {"2012": load_kitti_2012(cfg), "2015": load_kitti_2015(cfg)}
+
+
+def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
+          eval_sets=None) -> TrainResult:
     """Train by ``cfg`` (the merged YAML + flags; any attribute object).
 
     ``dataset`` replaces the prepared KITTI directory (anything with
     ``__len__`` and ``__getitem__`` giving (3H, W, 3) uint8 or [0, 1] float
     snippets); ``device`` overrides ``cfg.device``.  ``on_step(iteration,
     metrics)`` is called after each step with its device-tensor metrics.
+    ``model_overrides`` replaces fields of the ``FlowModelConfig`` built from
+    ``cfg`` (e.g. ``{"use_pallas_reg": True}``).  ``eval_sets`` ({"2012",
+    "2015"}: ``test.EvalSet``) replaces the ground-truth directories of the
+    interleaved evaluation.
     """
     device = resolve_device(device or _get(cfg, "device", "cuda"))
     if cfg.mode != "flow":
@@ -117,11 +148,11 @@ def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
             f"--mode {cfg.mode}: the port trains --mode flow only; flowposenet "
             "and the 2-frame modes are a later slice of the port"
         )
-    if not cfg.no_test:
-        raise ValueError(
-            "interleaved KITTI evaluation waits for the port of test.py (a later "
-            "slice); pass --no_test"
-        )
+    # the JAX trainer's rule: evaluate while training on the raw-video datasets
+    if cfg.no_test or cfg.dataset not in ("kitti_depth", "kitti_odo", "sintel_raw"):
+        eval_sets = None
+    elif eval_sets is None:
+        eval_sets = _load_eval_sets(cfg)
     precision = _get(cfg, "precision", "float32")
     if device.type == "cuda" and precision == "float32":
         # the JAX package's float32 convolutions run at Precision.HIGHEST
@@ -132,7 +163,7 @@ def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
         num_scales=int(cfg.num_scales),
         compute_dtype=precision,
         loss_dtype=_get(cfg, "loss_precision") or precision,
-    )
+    )._replace(**(model_overrides or {}))
     model = FlowModel(model_cfg, device=device, scheme=_get(cfg, "init_scheme", "torch"),
                       generator=torch.Generator().manual_seed(int(_get(cfg, "seed", 0))))
     opt = make_optimizer(model, cfg.lr)
@@ -142,9 +173,6 @@ def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
         cfg.iter_start = ckpt.restore_checkpoint(os.path.join(cfg.model_dir, name), model, opt)
 
     weights = loss_weights_from_config(cfg)
-    # the JAX package's numpy-only logger (unopticalflow_tpu/utils/ imports no jax)
-    from unopticalflow_tpu.utils.visualizer import Visualizer
-
     visualizer = Visualizer(weights, _get(cfg, "log_dump_dir"))
 
     n_samples = (cfg.num_iterations - cfg.iter_start) * cfg.batch_size
@@ -155,12 +183,21 @@ def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
         if not os.path.exists(os.path.join(data_dir, "train.txt")):
             raise FileNotFoundError(
                 f"{data_dir}/train.txt: prepare the raw data first (the raw-data "
-                "preparers are unopticalflow_tpu.data.preparers)"
+                "preparers are the JAX package's unopticalflow_tpu.data.preparers)"
             )
         dataset = KITTI_Prepared(data_dir, num_scales=cfg.num_scales, img_hw=cfg.img_hw,
                                  num_iterations=n_samples, emit_uint8=True)
     loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
     stream = device_prefetch(iter(loader), device)
+
+    def evaluate():
+        infer = make_infer(model)
+        res_2012 = test_kitti_2012(cfg, infer, eval_sets["2012"], device)
+        res_2015 = test_kitti_2015(cfg, infer, eval_sets["2015"], device)
+        visualizer.add_log_pack({"eval_2012_res": res_2012, "eval_2015_res": res_2015})
+        visualizer.dump_log(os.path.join(cfg.model_dir, "log.pkl"))
+
+    test_interval = int(_get(cfg, "test_interval", 2000))
 
     def save(iteration):
         ckpt.save_checkpoint([os.path.join(cfg.model_dir, f"iter_{iteration}.pth"),
@@ -172,6 +209,9 @@ def train(cfg, dataset=None, device=None, on_step=None) -> TrainResult:
     it = cfg.iter_start - 1
     for i, batch in enumerate(stream):
         it = cfg.iter_start + i
+        # counted from the start of this run, as the JAX trainer counts
+        if eval_sets is not None and (i + 1) % test_interval == 0:
+            evaluate()
         metrics = train_step(model, opt, batch, weights, model_cfg)
         if on_step is not None:
             on_step(it, metrics)
@@ -198,8 +238,7 @@ def main(argv=None) -> int:
         raise ValueError("config file needed. -c --config_file.")
     if not os.path.exists(args.config_file):
         raise ValueError("config file not found.")
-    # the JAX package's config module (yaml + an attribute bag, no jax)
-    from unopticalflow_tpu.utils.config import load_yaml_config, merge_cli_args
+    from unopticalflow_tpu_torch.utils.config import load_yaml_config, merge_cli_args
 
     if args.model_dir is None:
         args.model_dir = os.path.join(

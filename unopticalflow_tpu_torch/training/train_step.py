@@ -2,9 +2,9 @@
 
 Port of ``unopticalflow_tpu/training/train_step.py`` (flow mode).  The JAX
 package compiles the whole step into one XLA program; here it runs eagerly:
-the forward launches the correlation and photometric kernels, autograd
-launches their backward kernels, and ``torch.optim.Adam`` updates the
-parameters.
+the forward launches the correlation and photometric kernels (and the regularizer's,
+with ``FlowModelConfig.use_pallas_reg``), autograd launches their backward
+kernels, and ``torch.optim.Adam`` updates the parameters.
 
 Loss weighting (``generate_loss_weights_dict`` of the reference):
 pixel = 1 - w_ssim, ssim = w_ssim, smooth = w_flow_smooth,
@@ -38,8 +38,8 @@ def loss_fn(model, cfg: FlowModelConfig, batch: torch.Tensor, weights: dict, **f
     """(weighted total, {loss name: batch mean}) of one (B, 3H, W, 3) batch.
 
     A uint8 batch (the datasets' ``emit_uint8`` path) is cast to float32 and
-    divided by 255 on its device.  ``fns`` (``corr_fn``, ``photo_fn``) pass
-    through to ``forward``.
+    divided by 255 on its device.  ``fns`` (``corr_fn``, ``photo_fn``,
+    ``reg_fn``) pass through to ``forward``.
     """
     if batch.dtype == torch.uint8:
         batch = batch.float() / 255.0

@@ -1,1 +1,1 @@
-"""Device selection, weight conversion and checkpoint loading."""
+"""Device selection, config, logging, weight conversion and checkpoints."""

@@ -11,11 +11,20 @@ The JAX package's own ``.ckpt`` (flax msgpack) is not read here yet.
 from __future__ import annotations
 
 import os
+import re
 
 import torch
 from torch import nn
 
-from unopticalflow_tpu.utils.torch_convert import strip_prefixes
+
+def strip_prefixes(state_dict) -> dict:
+    """Drop the DataParallel ``module.`` and warm-start wrapper prefixes."""
+    out = {}
+    for k, v in state_dict.items():
+        k = re.sub(r"^(module\.)+", "", k)
+        k = re.sub(r"^(model_flow\.|model_pose\.model_flow\.)", "", k)
+        out[k] = v
+    return out
 
 
 def _atomic_save(obj, path: str) -> None:

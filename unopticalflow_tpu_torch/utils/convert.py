@@ -1,9 +1,10 @@
 """Move JAX parameter trees into the port's modules.
 
-The mapping itself is the JAX package's numpy-only
-``unopticalflow_tpu.utils.torch_convert.params_to_torch_state_dict``
-(HWIO -> OIHW, reference key names), so both packages share one source of
-the key layout.
+``params_to_torch_state_dict`` maps a ``{"fpyramid", "pwc"}`` tree of HWIO
+numpy arrays to the reference's state-dict keys with OIHW weights (the
+mapping of ``unopticalflow_tpu/utils/torch_convert.py``, numpy only): a conv
+inside an ``nn.Sequential`` with its LeakyReLU is ``<prefix>.<name>.0``, the
+bare convs ``predict_flow*`` and ``dc_conv7`` are ``<prefix>.<name>``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from unopticalflow_tpu.utils.torch_convert import params_to_torch_state_dict
+
+def params_to_torch_state_dict(params) -> dict[str, np.ndarray]:
+    """HWIO -> OIHW, with the reference's module paths as keys."""
+    out = {}
+    for group, prefix in (("fpyramid", "fpyramid"), ("pwc", "pwc_model")):
+        for name, leaf in params[group].items():
+            seq = not name.startswith(("predict_flow", "dc_conv7"))
+            base = f"{prefix}.{name}.0" if seq else f"{prefix}.{name}"
+            out[f"{base}.weight"] = np.transpose(np.asarray(leaf["w"]), (3, 2, 0, 1))
+            out[f"{base}.bias"] = np.asarray(leaf["b"])
+    return out
 
 
 def load_jax_params(model: nn.Module, params) -> nn.Module:
