@@ -71,11 +71,37 @@ Phases (each raises on failure, so the run exits non-zero):
    then ``eval_flow_avg`` against seeded ground truth at KITTI 2015's
    375x1242 with valid, noc and moving masks: the 8-column string, all
    finite, and the same metrics (within 1e-4) from the same flows on the CPU.
+11. Spatial (height-sharded) inference and serving, every shard on its own
+   card when there are enough, else all on ``cuda:0`` named explicitly (a
+   line says which).  (a) The halo-prepadded correlation kernels
+   (``corr_fwd_hpad``, ``corr_df1_hpad``, ``corr_df2_hpad``) against their
+   plain versions at the per-shard shapes of the serving recipe (batch 8,
+   256x832) at n = 2 and 4 and a ragged shape, float32 (1e-5 / 1e-6) and
+   bfloat16 (2e-2), timed.  (b) ``make_spatial_infer`` at 256x832, batch 8,
+   full width, random "pwc" weights, n = 1, 2, 4, float32 and bfloat16:
+   within 1e-4 * (1 + max|flow|) (float32) or 2e-2 * max|flow| (bfloat16) of
+   the unsharded ``inference_flow`` on the same card and weights, exactly
+   5 * n ``corr_fwd_hpad`` launches and no other per batch; ms/batch against
+   the unsharded path.  (c) The n = 4 sharded cost volume's values and both
+   input gradients at the five training-level shapes (2B = 16) against the
+   unsharded kernels, float32 1e-5 / 1e-6, the rows within 4 of a seam
+   reported on their own; the parameter gradient of sum(flow * a fixed
+   cotangent) through the n = 2 spatial path against the unsharded path, with
+   exactly 10 launches of each hpad kernel: the last layer's (downstream of
+   every warp and activation) within 1e-4 in relative L2, all parameters'
+   under phase 7's one-ulp rule (the warps' flow derivatives and LeakyReLU's
+   kink make it as ill-conditioned as the training step's).
+   (d) ``FlowServer(spatial=2)`` (bfloat16) serves 8 requests from 4 client
+   threads: finite (256, 832, 2) flows, 10 ``corr_fwd_hpad`` launches per
+   batch and no other, and one flow within (b)'s bfloat16 tolerance of the
+   unsharded server's for the same pair.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
-training run of phase 6, of phase 9 for the regularizer; ``ms``/``plain_ms``
-per float32 training step: the sum over the five decoder levels or the three
-loss scales; ``bound_ms``: the larger of the bytes the function must move
+training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
+``corr_fwd_hpad`` and 11 (c)'s gradient for the hpad backward; ``ms``/
+``plain_ms`` per float32 training step: the sum over the five decoder levels
+or the three loss scales, for the hpad kernels per float32 spatial batch at
+n = 2: 5 levels x 2 shards; ``bound_ms``: the larger of the bytes the function must move
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32), from this run's
 shapes; ``library_ms`` null: no single PyTorch call computes any of these
 functions); the last line is ``{"ok": true, "device": {...}}``.  Only the
@@ -107,6 +133,10 @@ TRAIN_STEPS = 10
 BF16_STEPS = 3
 REG_STEPS = 5  # phase 9, with one interleaved evaluation at the top of the last step
 REG_BF16_STEPS = 2
+SPATIAL_N = (2, 4)  # phase 11: row-shards of the 256-row frame
+SPATIAL_REQUESTS = 8
+SPATIAL_CLIENTS = 4
+MD = 4  # the decoder's correlation window, +-4 px; the hpad operands carry 2 * MD more rows
 EVAL_PAIRS = 37  # phase 10: 4 full batches and one padded
 EVAL_SET_PAIRS = 8  # phase 9's in-memory KITTI 2012/2015 sets
 KITTI_GT_HW = (375, 1242)  # KITTI 2015's ground-truth resolution
@@ -128,12 +158,14 @@ SERVE_LEVELS = {
 # training: the decoder runs at 2B = 16 ([bwd; fwd])
 TRAIN_LEVELS = {k: (2 * BATCH,) + v[1:] for k, v in SERVE_LEVELS.items()}
 RAGGED_CORR = (2, 5, 7, 33)
+RAGGED_HPAD = (2, 5, 3, 33)  # a 3-row shard
 # (B, H, W) of the three loss scales, + a ragged one
 PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208),
                 "ragged": (1, 13, 45)}
 PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
             "photometric_fwd": 3, "photometric_bwd": 3,
-            "regularizer_fwd": 0, "regularizer_bwd": 0}
+            "regularizer_fwd": 0, "regularizer_bwd": 0,
+            "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0}
 PER_STEP_REG = {**PER_STEP, "regularizer_fwd": 3, "regularizer_bwd": 3}
 KERNELS = {
     "corr_fwd": ("unopticalflow_tpu_torch/csrc/correlation.cu",
@@ -150,6 +182,12 @@ KERNELS = {
                         "unopticalflow_tpu/ops/pallas_regularizer.py:151"),
     "regularizer_bwd": ("unopticalflow_tpu_torch/csrc/regularizer.cu",
                         "unopticalflow_tpu/ops/pallas_regularizer.py:179"),
+    "corr_fwd_hpad": ("unopticalflow_tpu_torch/csrc/correlation.cu",
+                      "unopticalflow_tpu/ops/pallas_spmd.py:58"),
+    "corr_bwd_df1_hpad": ("unopticalflow_tpu_torch/csrc/correlation.cu",
+                          "unopticalflow_tpu/ops/pallas_spmd.py:80"),
+    "corr_bwd_df2_hpad": ("unopticalflow_tpu_torch/csrc/correlation.cu",
+                          "unopticalflow_tpu/ops/pallas_spmd.py:104"),
 }
 PHOTO_W = {"loss_pixel": 0.15, "loss_ssim": 0.85, "loss_flow_smooth": 0.0,
            "loss_flow_consis": 0.0}
@@ -210,12 +248,17 @@ def main() -> int:
         regularizer_cuda,
     )
     from unopticalflow_tpu_torch.ops.cost_volume import (
+        corr_df1_hpad_reference,
         corr_df1_reference,
+        corr_df2_hpad_reference,
         corr_df2_reference,
+        corr_fwd_hpad_reference,
         cost_volume_reference,
     )
+    from unopticalflow_tpu_torch.ops.cost_volume_spmd import cost_volume_sharded
     from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
     from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack_reference
+    from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
     from unopticalflow_tpu_torch.serve import FlowServer
     from unopticalflow_tpu_torch.train import recipe_config, train
     from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
@@ -256,6 +299,7 @@ def main() -> int:
     # the loss kernels with bfloat16 images, per bf16 training step:
     # [kernel ms, plain ms, bytes, operations]
     bf16_step = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNELS if not k.startswith("corr")}
+    zero_counts = dict.fromkeys(KERNELS, 0)
 
     def add_work(name, nbytes, ops):
         work[name][0] += nbytes
@@ -833,9 +877,221 @@ def main() -> int:
           f"launches each), inference {t_infer:.3f} s, metrics at {KITTI_GT_HW} "
           f"{t_metrics:.3f} s; card and CPU agree:\n{res}", end="")
     del emodel, flows
+    torch.cuda.empty_cache()
+
+    # ---- 11. spatial (height-sharded) inference and serving -----------------
+    n_cards = torch.cuda.device_count()
+
+    def shard_devices(n):
+        return [f"cuda:{i}" for i in range(n)] if n_cards >= n else ["cuda:0"] * n
+
+    for n in (1, *SPATIAL_N):
+        print(f"spatial n={n}: shards on {shard_devices(n)} ({n_cards} card(s) visible)")
+
+    # (a) the halo-prepadded kernels against their plain versions, per shard
+    hpad_kernels = (
+        ("corr_fwd_hpad", correlation_cuda.corr_fwd_hpad, corr_fwd_hpad_reference),
+        ("corr_bwd_df1_hpad", correlation_cuda.corr_df1_hpad, corr_df1_hpad_reference),
+        ("corr_bwd_df2_hpad", correlation_cuda.corr_df2_hpad, corr_df2_hpad_reference),
+    )
+    hpad_cases = [(f"n{n}_{lvl}", n, (b_, c_, h_ // n, w_))
+                  for n in SPATIAL_N for lvl, (b_, c_, h_, w_) in SERVE_LEVELS.items()]
+    for name, n, (b_, c_, h_, w_) in [*hpad_cases, ("ragged", 0, RAGGED_HPAD)]:
+        for dtype, rtol, atol in corr_tols:
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+            f1, f2h, f1h = rnd(b_, c_, h_, w_), rnd(b_, c_, h_ + 2 * MD, w_), rnd(
+                b_, c_, h_ + 2 * MD, w_)
+            g, gh = rnd(b_, 81, h_, w_), rnd(b_, 81, h_ + 2 * MD, w_)
+            args = {"corr_fwd_hpad": (f1, f2h), "corr_bwd_df1_hpad": (g, f2h),
+                    "corr_bwd_df2_hpad": (gh, f1h)}
+            line = []
+            for kname, kern, ref in hpad_kernels:
+                got = kern(*args[kname], MD)
+                torch.cuda.synchronize()
+                want = ref(*args[kname], MD)
+                want_shape = (b_, 81 if kname == "corr_fwd_hpad" else c_, h_, w_)
+                if got.dtype != dtype or tuple(got.shape) != want_shape:
+                    raise AssertionError(f"{kname} {name}: kernel gave {got.dtype} "
+                                         f"{tuple(got.shape)}")
+                torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+                note(kname, got, want)
+                err = float((got.float() - want.float()).abs().max())
+                if name == "ragged":
+                    line.append(f"{kname} max_abs_err={err:.3e}")
+                    continue
+                k_ms = _time_ms(torch, lambda: kern(*args[kname], MD))
+                p_ms = _time_ms(torch, lambda: ref(*args[kname], MD), inner=2)
+                line.append(f"{kname} max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+                            f"plain_ms={p_ms:.4f}")
+                if n == 2 and dtype == torch.float32:  # both shards of a level
+                    ms[kname] += n * k_ms
+                    plain_ms[kname] += n * p_ms
+                    in_rows = h_ + 2 * MD  # the operands that carry the halo
+                    nbytes = {"corr_fwd_hpad": c_ * h_ + c_ * in_rows + 81 * h_,
+                              "corr_bwd_df1_hpad": 81 * h_ + c_ * in_rows + c_ * h_,
+                              "corr_bwd_df2_hpad": 81 * in_rows + c_ * in_rows + c_ * h_}
+                    add_work(kname, n * nbytes[kname] * b_ * w_ * 4,
+                             n * 2 * 81 * c_ * b_ * h_ * w_)
+            print(f"hpad {name} {(b_, c_, h_, w_)} {str(dtype)[6:]}: " + "; ".join(line))
+    for kname, _, _ in hpad_kernels:
+        print(f"{kname} per spatial batch (n=2: 5 levels x 2 shards, float32): "
+              f"kernel_ms={ms[kname]:.4f} plain_ms={plain_ms[kname]:.4f}")
+
+    # (b) make_spatial_infer against the unsharded inference_flow
+    sp_model32 = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
+                           generator=torch.Generator().manual_seed(SEED))
+    sp_model16 = FlowModel(FlowModelConfig(compute_dtype="bfloat16"), device=device)
+    sp_model16.load_state_dict(sp_model32.state_dict())
+    sp_rng = np.random.RandomState(SEED + 8)
+    i1, i2 = (torch.from_numpy(sp_rng.rand(BATCH, h, w, 3).astype(np.float32)).to(device)
+              for _ in range(2))
+    spatial_fns = {n: {} for n in (1, *SPATIAL_N)}
+    for prec, model in (("float32", sp_model32), ("bfloat16", sp_model16)):
+        with torch.inference_mode():
+            ref = inference_flow(model, i1, i2)
+            peak = float(ref.abs().max())
+            tol = 1e-4 * (1 + peak) if prec == "float32" else 2e-2 * peak
+            dense_ms = _time_ms(torch, lambda: inference_flow(model, i1, i2), reps=10, inner=1)
+            line = [f"unsharded {dense_ms:.3f}"]
+            for n in spatial_fns:
+                fn = make_spatial_infer(model, spatial_mesh(n, devices=shard_devices(n)))
+                spatial_fns[n][prec] = fn
+                reset_counts()
+                grid = fn(i1, i2)
+                torch.cuda.synchronize()
+                got_counts = counts()
+                if got_counts != {**zero_counts, "corr_fwd_hpad": 5 * n}:
+                    raise AssertionError(f"spatial n={n} {prec}: launches {got_counts}")
+                out = gather_rows(grid, device)
+                err = float((out - ref).abs().max())
+                print(f"spatial n={n} {prec} {BATCH}x{h}x{w}: max_abs_err={err:.4e} against "
+                      f"unsharded (max|flow|={peak:.4f}, tolerance {tol:.4e}); launches "
+                      f"{5 * n} corr_fwd_hpad, 0 corr_fwd")
+                if out.shape != ref.shape or not err <= tol:
+                    raise AssertionError(f"spatial n={n} {prec}: parity failed")
+                sp_ms = _time_ms(torch, lambda: fn(i1, i2), reps=10, inner=1)
+                line.append(f"n={n} {sp_ms:.3f}")
+        print(f"spatial {prec} ms/batch (CUDA events, one card): " + ", ".join(line))
+
+    # (c) the sharded cost volume and the spatial path's parameter gradient
+    for lvl, shape in TRAIN_LEVELS.items():
+        n = SPATIAL_N[-1]
+        f1 = torch.randn(shape, generator=gen, device=device)
+        f2 = torch.randn(shape, generator=gen, device=device)
+        g = torch.randn((shape[0], 81) + shape[2:], generator=gen, device=device)
+        want = (correlation_cuda.corr_fwd(f1, f2, MD), correlation_cuda.corr_df1(g, f2, MD),
+                correlation_cuda.corr_df2(g, f1, MD))
+        a = [x.contiguous().requires_grad_(True) for x in torch.chunk(f1, n, 2)]
+        b = [x.contiguous().requires_grad_(True) for x in torch.chunk(f2, n, 2)]
+        cv = cost_volume_sharded(a, b, MD)
+        torch.autograd.backward(cv, [x.contiguous() for x in torch.chunk(g, n, 2)])
+        torch.cuda.synchronize()
+        got = (torch.cat([x.detach() for x in cv], 2), torch.cat([x.grad for x in a], 2),
+               torch.cat([x.grad for x in b], 2))
+        rows = torch.arange(shape[2], device=device)
+        hs = shape[2] // n
+        seam = torch.zeros(shape[2], dtype=torch.bool, device=device)
+        for k in range(1, n):
+            seam |= (rows >= k * hs - MD) & (rows < k * hs + MD)
+        line = []
+        for what, x, y in zip(("values", "d(f1)", "d(f2)"), got, want):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+            e = (x - y).abs()
+            line.append(f"{what} max_abs_err={float(e.max()):.3e} "
+                        f"(seam rows {float(e[:, :, seam].max()):.3e})")
+        print(f"sharded cost volume n={n} {lvl} {shape}: " + "; ".join(line))
+
+    cot = torch.from_numpy(sp_rng.randn(BATCH, h, w, 2).astype(np.float32)).to(device)
+
+    def param_grad(run):
+        sp_model32.zero_grad(set_to_none=True)
+        (run() * cot).sum().backward()
+        return {k: p.grad.clone() for k, p in sp_model32.named_parameters()}
+
+    g_dense = param_grad(lambda: inference_flow(sp_model32, i1, i2))
+    g_noise = param_grad(lambda: inference_flow(
+        sp_model32, *(torch.nextafter(x, torch.full_like(x, 2.0)) for x in (i1, i2))))
+    reset_counts()
+    g_sp = param_grad(lambda: gather_rows(spatial_fns[2]["float32"](i1, i2), device))
+    torch.cuda.synchronize()
+    grad_counts = counts()
+    want_counts = {**zero_counts, "corr_fwd_hpad": 10, "corr_bwd_df1_hpad": 10,
+                   "corr_bwd_df2_hpad": 10}
+    # the last layer's gradient reads no warp and no activation after it: 1e-4;
+    # the whole gradient passes every warp's flow derivative and LeakyReLU's
+    # kink, so it is held to the unsharded path's own change on images moved by
+    # one ulp (phase 7's rule)
+    last = "pwc_model.dc_conv7.weight"
+    rel_last = _rel_l2(g_sp[last], g_dense[last])
+    rel = _rel_l2(flat(g_sp), flat(g_dense))
+    noise = _rel_l2(flat(g_noise), flat(g_dense))
+    worst = sorted(((_rel_l2(g_sp[k], g_dense[k]), k) for k in g_dense), reverse=True)[:3]
+    print(f"spatial n=2 float32 parameter gradient of sum(flow * cot) against unsharded: "
+          f"{last} rel L2 {rel_last:.3e}; all parameters rel L2 {rel:.3e}, unsharded vs "
+          f"unsharded on images one ulp away {noise:.3e}; worst tensors "
+          + ", ".join(f"{k} {e:.2e}" for e, k in worst) + f"; launches {grad_counts}")
+    if grad_counts != want_counts or not rel_last <= 1e-4 or not rel <= max(1e-4, noise):
+        raise AssertionError("spatial gradient check failed")
+    sp_model32.zero_grad(set_to_none=True)
+    del g_dense, g_noise, g_sp
+
+    # (d) FlowServer(spatial=2) against the unsharded server
+    sp_pairs = [np.concatenate([sp_rng.rand(h, w, 3), sp_rng.rand(h, w, 3)]).astype(np.float32)
+                for _ in range(SPATIAL_REQUESTS)]
+    server = FlowServer(types.SimpleNamespace(img_hw=IMG_HW), sp_model16, max_batch=BATCH,
+                        max_wait_ms=5.0, spatial=2, devices=shard_devices(2))
+    try:
+        flows = [None] * SPATIAL_REQUESTS
+
+        def sp_client(k):
+            for i in range(k, SPATIAL_REQUESTS, SPATIAL_CLIENTS):
+                flows[i] = server.infer(sp_pairs[i], timeout=300.0)
+
+        threads = [threading.Thread(target=sp_client, args=(k,))
+                   for k in range(SPATIAL_CLIENTS)]
+        reset_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        sp_serve_counts = counts()
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("spatial client threads did not finish")
+        stats = json.loads(json.dumps(server.stats))
+    finally:
+        server.close()
+    for i, f in enumerate(flows):
+        if f is None or f.shape != (h, w, 2) or f.dtype != np.float32 or not np.isfinite(f).all():
+            raise AssertionError(f"spatial request {i}: bad flow")
+    if stats["served"] != SPATIAL_REQUESTS or stats["errors"] or stats["shed"] \
+            or sp_serve_counts != {**zero_counts, "corr_fwd_hpad": 10 * stats["batches"]}:
+        raise AssertionError(f"spatial server stats {stats}, launches {sp_serve_counts}")
+    dense_server = FlowServer(types.SimpleNamespace(img_hw=IMG_HW), sp_model16,
+                              max_batch=BATCH, max_wait_ms=5.0)
+    try:
+        want = dense_server.infer(sp_pairs[0], timeout=300.0)
+    finally:
+        dense_server.close()
+    peak = float(np.abs(want).max())
+    err = float(np.abs(flows[0] - want).max())
+    print(f"spatial server (n=2, bfloat16): {stats['served']} requests in {stats['batches']} "
+          f"batches, occupancy {stats['occupancy']}, corr_fwd_hpad launches "
+          f"{sp_serve_counts['corr_fwd_hpad']} (10 per batch), wall {wall:.3f} s; request 0 "
+          f"against the unsharded server max_abs_err={err:.4e} (max|flow|={peak:.4f})")
+    if not err <= 2e-2 * peak:
+        raise AssertionError("spatial server parity failed")
+    del sp_model32, sp_model16, spatial_fns, server, dense_server
+    torch.cuda.empty_cache()
 
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
-                "regularizer_bwd": reg_counts["regularizer_bwd"]}
+                "regularizer_bwd": reg_counts["regularizer_bwd"],
+                "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
+                "corr_bwd_df1_hpad": grad_counts["corr_bwd_df1_hpad"],
+                "corr_bwd_df2_hpad": grad_counts["corr_bwd_df2_hpad"]}
     records = []
     for name, (src, replaces) in KERNELS.items():
         bound_ms, bound_by = _bound(*work[name])

@@ -25,6 +25,9 @@ within 1e-4 of its largest value; with bfloat16 images the same tolerances
 against the plain version on the same inputs (both widen the image to
 float32), and the zero pattern of d(flow) identical (the second differences
 round as the plain version's, so sign(0) = 0 lands on the same positions).
+Halo-prepadded correlation kernels: the correlation's tolerances; spatial
+inference at n = 2 within 1e-4 * (1 + max|flow|) of the unsharded flow
+(float32; cuDNN may pick other algorithms for slabs of other heights).
 """
 
 import importlib
@@ -36,13 +39,17 @@ import torch
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
 from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda, regularizer_cuda
 from unopticalflow_tpu_torch.ops.cost_volume import (
+    corr_df1_hpad_reference,
     corr_df1_reference,
+    corr_df2_hpad_reference,
     corr_df2_reference,
+    corr_fwd_hpad_reference,
     cost_volume,
     cost_volume_reference,
 )
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
 from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack, regularizer_pack_reference
+from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
 from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
 from unopticalflow_tpu_torch.utils.device import resolve_device
 
@@ -113,6 +120,64 @@ def test_backward_kernels_match_plain(device, shape, dtype, tol):
     torch.testing.assert_close(df2, corr_df2_reference(g, f1, 4), rtol=tol[0], atol=tol[1])
 
 
+HPAD = {
+    "corr_fwd_hpad": (correlation_cuda.corr_fwd_hpad, corr_fwd_hpad_reference),
+    "corr_bwd_df1_hpad": (correlation_cuda.corr_df1_hpad, corr_df1_hpad_reference),
+    "corr_bwd_df2_hpad": (correlation_cuda.corr_df2_hpad, corr_df2_hpad_reference),
+}
+
+
+@pytest.mark.parametrize("shape", CORR_SHAPES)
+@pytest.mark.parametrize("dtype,tol", CORR_TOLS)
+@pytest.mark.parametrize("name", sorted(HPAD))
+def test_hpad_kernels_match_plain(device, name, shape, dtype, tol):
+    """The halo-prepadded kernels of a row-shard (its read operands carry 4
+    rows above and below) against their plain versions."""
+    b, c, h, w = shape
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=device).to(dtype)
+
+    args = {"corr_fwd_hpad": (rnd(b, c, h, w), rnd(b, c, h + 8, w)),
+            "corr_bwd_df1_hpad": (rnd(b, 81, h, w), rnd(b, c, h + 8, w)),
+            "corr_bwd_df2_hpad": (rnd(b, 81, h + 8, w), rnd(b, c, h + 8, w))}[name]
+    kern, ref = HPAD[name]
+    before = _counts()
+    got = kern(*args, 4)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, name: before[name] + 1}
+    assert got.dtype == dtype and got.shape == (b, 81 if name == "corr_fwd_hpad" else c, h, w)
+    torch.testing.assert_close(got, ref(*args, 4), rtol=tol[0], atol=tol[1])
+
+
+def test_spatial_infer_goes_through_the_hpad_kernel(device):
+    """make_spatial_infer with two row-shards on this card: the unsharded flow
+    within 1e-4 * (1 + max|flow|), 5 launches of each shard's hpad forward and
+    none of the whole-map kernel; and a gradient through both hpad backwards."""
+    model = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(1)
+    i1 = torch.rand(2, 128, 128, 3, generator=g, device=device)
+    i2 = torch.rand(2, 128, 128, 3, generator=g, device=device)
+    fn = make_spatial_infer(model, spatial_mesh(2, devices=[device, device]))
+    with torch.inference_mode():
+        want = inference_flow(model, i1, i2)
+        before = _counts()
+        got = gather_rows(fn(i1, i2))
+        torch.cuda.synchronize()
+    assert _counts() == {**before, "corr_fwd_hpad": before["corr_fwd_hpad"] + 10}
+    assert got.shape == want.shape and got.device == want.device
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * (1 + peak)
+    before = _counts()
+    gather_rows(fn(i1, i2)).square().sum().backward()
+    torch.cuda.synchronize()
+    after = _counts()
+    assert [after[k] - before[k] for k in HPAD] == [10, 10, 10]
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(device):
     f1, f2 = _pair((1, 4, 8, 8), device)
     g = torch.zeros((1, 81, 8, 8), device=device)
@@ -131,6 +196,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         correlation_cuda.corr_df1(g[:, :80].contiguous(), f2, 4)
     with pytest.raises(TypeError):
         correlation_cuda.corr_df2(g.bfloat16(), f1, 4)
+    with pytest.raises(ValueError, match="halo"):  # f2 without its halo rows
+        correlation_cuda.corr_fwd_hpad(f1, f2, 4)
+    with pytest.raises(ValueError, match="gradient"):  # df2 reads g's halo too
+        correlation_cuda.corr_df2_hpad(g, torch.zeros((1, 4, 16, 8), device=device), 4)
     with pytest.raises(ValueError, match="CUDA"):
         photometric_cuda.photo_fwd(f1[:, :3].cpu(), f1[:, :3], f2[:, :2], f2[:, :2], f1[:, :3])
     assert _counts() == before
@@ -295,7 +364,8 @@ def test_train_step_kernels_match_plain(device):
     after = _counts()
     assert {k: after[k] - before[k] for k in after} == {
         "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-        "photometric_fwd": 3, "photometric_bwd": 3}
+        "photometric_fwd": 3, "photometric_bwd": 3,
+        "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0}
     for k in want:
         assert torch.isfinite(got[k]) and torch.isfinite(want[k])
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
@@ -314,7 +384,7 @@ def test_train_step_bf16_is_finite(device):
     before = _counts()
     got, grads = _step_grads(model, cfg, batch)
     torch.cuda.synchronize()
-    assert all(_counts()[k] > before[k] for k in before)
+    assert all(_counts()[k] > before[k] for k in before if not k.endswith("_hpad"))
     assert all(bool(torch.isfinite(v)) for v in got.values())
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 

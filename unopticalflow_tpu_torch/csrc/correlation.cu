@@ -25,6 +25,20 @@
 // 255 and spilled).  At the coarse levels there are few pixels and each thread
 // runs C*81 taps in sequence, so the kernel is latency-bound there; splitting a
 // pixel's work over threads and shared-memory tiles of the f2 window come next.
+//
+// Halo-prepadded variants (h_prepad = 1).  A row-shard of a height-sharded map
+// (parallel/spatial.py) gets its md real neighbour rows above and below from the
+// shards next to it (ops/cost_volume_spmd.py), so the operand the window reads
+// carries H + 2md rows and output row y finds tap dy at its row y + dy.  They
+// replace the same Pallas kernels run with h_prepad=True by
+// unopticalflow_tpu/ops/pallas_spmd.py (_fwd_hpad, _df1_hpad, _df2_hpad).  The
+// kernels below take it as a template parameter HPAD: the read operand carries
+// PRE = HPAD ? MD : 0 rows on each side, and a tap of global row r is read at
+// row r + PRE of an operand with H + 2*PRE rows.  One body serves both forms; the
+// bounds check covers the image's edges in the first and never fails in the
+// second; every H is taken (the TPU kernel's H % 8 tiling does not apply).  A
+// compile-time PRE leaves the whole-map instantiation's code as it was: as a
+// runtime argument it made the float32 forward about half again as slow.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,24 +60,29 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 constexpr int kThreads = 64;
 
-template <typename T, int MD>
+template <typename T, int MD, bool HPAD>
 __global__ void __launch_bounds__(kThreads)
 corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
                 int C, int H, int W, float inv_c) {
   constexpr int S = 2 * MD + 1;
   constexpr int ND = S * S;
+  constexpr int PRE = HPAD ? MD : 0;
   const int x = blockIdx.x * kThreads + threadIdx.x;
   const int y = blockIdx.y;
   const int b = blockIdx.z;
   if (x >= W) return;
 
   const int64_t plane = (int64_t)H * W;
+  const int Hs = H + 2 * PRE;  // rows of f2
+  const int64_t plane2 = (int64_t)Hs * W;
   const T* p1 = f1 + (int64_t)b * C * plane + (int64_t)y * W + x;
-  const T* p2 = f2 + (int64_t)b * C * plane;
-  // offset of the window's top-left tap (y - MD, x - MD) in a channel plane;
-  // tap (dy, dx) is at win + dy*W + dx, read only when it lies in the map, so
-  // the loads need one base per row and immediate offsets, not 81 addresses
-  const int64_t win = (int64_t)(y - MD) * W + (x - MD);
+  const T* p2 = f2 + (int64_t)b * C * plane2;
+  // offset of the window's top-left tap (y - MD, x - MD) in a channel plane of
+  // f2 (row y0 there); tap (dy, dx) is at win + dy*W + dx, read only when it lies
+  // in the map, so the loads need one base per row and immediate offsets, not 81
+  // addresses
+  const int y0 = y + PRE - MD;
+  const int64_t win = (int64_t)y0 * W + (x - MD);
 
   float acc[ND];
 #pragma unroll
@@ -71,10 +90,10 @@ corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restric
 
   for (int c = 0; c < C; ++c) {
     const float a = to_f32(p1[(int64_t)c * plane]);
-    const T* q = p2 + (int64_t)c * plane + win;
+    const T* q = p2 + (int64_t)c * plane2 + win;
 #pragma unroll
     for (int dy = 0; dy < S; ++dy) {
-      const bool row_ok = (unsigned)(y + dy - MD) < (unsigned)H;
+      const bool row_ok = (unsigned)(y0 + dy) < (unsigned)Hs;
       const T* r = q + (int64_t)dy * W;
 #pragma unroll
       for (int dx = 0; dx < S; ++dx) {
@@ -105,25 +124,30 @@ corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restric
 // neighbouring threads on neighbouring x so every load is coalesced across the
 // warp; the 81 g planes are re-read for every channel and served from L1/L2.
 // Unlike the Pallas kernels they take every H and W (no H % 8 condition).
+// With HPAD, df1's f2 and both of df2's operands carry their halo rows
+// (H + 2md rows; the output has H).
 
-template <typename T, int MD>
+template <typename T, int MD, bool HPAD>
 __global__ void __launch_bounds__(kThreads)
 corr_df1_kernel(const T* __restrict__ g, const T* __restrict__ f2, T* __restrict__ out,
                 int C, int H, int W, float inv_c) {
   constexpr int S = 2 * MD + 1;
+  constexpr int PRE = HPAD ? MD : 0;
   const int x = blockIdx.x * kThreads + threadIdx.x;
   const int y = blockIdx.y;
   const int b = blockIdx.z / C;
   const int c = blockIdx.z % C;
   if (x >= W) return;
+  const int Hs = H + 2 * PRE;  // rows of f2
   const int64_t plane = (int64_t)H * W;
+  const int64_t plane2 = (int64_t)Hs * W;
   const T* pg = g + (int64_t)b * S * S * plane + (int64_t)y * W + x;
-  const T* p2 = f2 + ((int64_t)b * C + c) * plane;
+  const T* p2 = f2 + ((int64_t)b * C + c) * plane2;
   float acc = 0.f;
 #pragma unroll
   for (int dy = 0; dy < S; ++dy) {
-    const int yy = y + dy - MD;
-    if ((unsigned)yy >= (unsigned)H) continue;
+    const int yy = y + dy + PRE - MD;
+    if ((unsigned)yy >= (unsigned)Hs) continue;
 #pragma unroll
     for (int dx = 0; dx < S; ++dx) {
       const int xx = x + dx - MD;
@@ -135,24 +159,27 @@ corr_df1_kernel(const T* __restrict__ g, const T* __restrict__ f2, T* __restrict
   out[((int64_t)b * C + c) * plane + (int64_t)y * W + x] = from_f32<T>(acc * inv_c);
 }
 
-template <typename T, int MD>
+template <typename T, int MD, bool HPAD>
 __global__ void __launch_bounds__(kThreads)
 corr_df2_kernel(const T* __restrict__ g, const T* __restrict__ f1, T* __restrict__ out,
                 int C, int H, int W, float inv_c) {
   constexpr int S = 2 * MD + 1;
+  constexpr int PRE = HPAD ? MD : 0;
   const int x = blockIdx.x * kThreads + threadIdx.x;
   const int y = blockIdx.y;
   const int b = blockIdx.z / C;
   const int c = blockIdx.z % C;
   if (x >= W) return;
-  const int64_t plane = (int64_t)H * W;
+  const int Hs = H + 2 * PRE;  // rows of g and f1
+  const int64_t plane = (int64_t)Hs * W;
+  const int64_t out_plane = (int64_t)H * W;
   const T* pg = g + (int64_t)b * S * S * plane;
   const T* p1 = f1 + ((int64_t)b * C + c) * plane;
   float acc = 0.f;
 #pragma unroll
   for (int dy = 0; dy < S; ++dy) {
-    const int py = y - dy + MD;
-    if ((unsigned)py >= (unsigned)H) continue;
+    const int py = y - dy + MD + PRE;
+    if ((unsigned)py >= (unsigned)Hs) continue;
 #pragma unroll
     for (int dx = 0; dx < S; ++dx) {
       const int px = x - dx + MD;
@@ -161,11 +188,11 @@ corr_df2_kernel(const T* __restrict__ g, const T* __restrict__ f1, T* __restrict
       acc = fmaf(to_f32(pg[(int64_t)(dy * S + dx) * plane + p]), to_f32(p1[p]), acc);
     }
   }
-  out[((int64_t)b * C + c) * plane + (int64_t)y * W + x] = from_f32<T>(acc * inv_c);
+  out[((int64_t)b * C + c) * out_plane + (int64_t)y * W + x] = from_f32<T>(acc * inv_c);
 }
 
 // which: 0 = df1 (src = f2), 1 = df2 (src = f1)
-template <typename T>
+template <typename T, bool HPAD>
 cudaError_t launch_bwd(int which, const void* g, const void* src, void* out, int B, int C,
                        int H, int W, int md, cudaStream_t stream) {
   if (md != 4) return cudaErrorInvalidValue;  // the decoder's window (+-4 px)
@@ -175,13 +202,13 @@ cudaError_t launch_bwd(int which, const void* g, const void* src, void* out, int
   const T* s = static_cast<const T*>(src);
   T* o = static_cast<T*>(out);
   if (which == 0)
-    corr_df1_kernel<T, 4><<<grid, kThreads, 0, stream>>>(gg, s, o, C, H, W, inv_c);
+    corr_df1_kernel<T, 4, HPAD><<<grid, kThreads, 0, stream>>>(gg, s, o, C, H, W, inv_c);
   else
-    corr_df2_kernel<T, 4><<<grid, kThreads, 0, stream>>>(gg, s, o, C, H, W, inv_c);
+    corr_df2_kernel<T, 4, HPAD><<<grid, kThreads, 0, stream>>>(gg, s, o, C, H, W, inv_c);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HPAD>
 cudaError_t launch(const void* f1, const void* f2, void* out, int B, int C, int H, int W,
                    int md, cudaStream_t stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, H, B);
@@ -190,36 +217,44 @@ cudaError_t launch(const void* f1, const void* f2, void* out, int B, int C, int 
   const T* b = static_cast<const T*>(f2);
   T* o = static_cast<T*>(out);
   if (md != 4) return cudaErrorInvalidValue;  // the decoder's window (+-4 px)
-  corr_fwd_kernel<T, 4><<<grid, kThreads, 0, stream>>>(a, b, o, C, H, W, inv_c);
+  corr_fwd_kernel<T, 4, HPAD><<<grid, kThreads, 0, stream>>>(a, b, o, C, H, W, inv_c);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t (0 = success).
+// H is the output's rows; h_prepad = 1: f2 carries md halo rows on each side
+// (H + 2md rows).  dtype: 0 = float32, 1 = bfloat16.  Returns the launch's
+// cudaError_t (0 = success).
 extern "C" int corr_fwd(const void* f1, const void* f2, void* out, int B, int C, int H, int W,
-                        int md, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535)
+                        int md, int h_prepad, int dtype, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535 ||
+      (h_prepad != 0 && h_prepad != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch<float>(f1, f2, out, B, C, H, W, md, s);
-    case 1: return (int)launch<__nv_bfloat16>(f1, f2, out, B, C, H, W, md, s);
+  switch (dtype * 2 + h_prepad) {
+    case 0: return (int)launch<float, false>(f1, f2, out, B, C, H, W, md, s);
+    case 1: return (int)launch<float, true>(f1, f2, out, B, C, H, W, md, s);
+    case 2: return (int)launch<__nv_bfloat16, false>(f1, f2, out, B, C, H, W, md, s);
+    case 3: return (int)launch<__nv_bfloat16, true>(f1, f2, out, B, C, H, W, md, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // g: (B, 81, H, W) gradient of the cost volume; src: f2 for which = 0 (df1),
-// f1 for which = 1 (df2); out: (B, C, H, W).  dtype as corr_fwd.
+// f1 for which = 1 (df2); out: (B, C, H, W).  h_prepad = 1: df1's f2, and df2's
+// g and f1, carry md halo rows on each side (H + 2md rows).  dtype as corr_fwd.
 extern "C" int corr_bwd(int which, const void* g, const void* src, void* out, int B, int C,
-                        int H, int W, int md, int dtype, void* stream) {
+                        int H, int W, int md, int h_prepad, int dtype, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || H > 65535 || (int64_t)B * C > 65535 ||
-      (which != 0 && which != 1))
+      (which != 0 && which != 1) || (h_prepad != 0 && h_prepad != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch_bwd<float>(which, g, src, out, B, C, H, W, md, s);
-    case 1: return (int)launch_bwd<__nv_bfloat16>(which, g, src, out, B, C, H, W, md, s);
+  switch (dtype * 2 + h_prepad) {
+    case 0: return (int)launch_bwd<float, false>(which, g, src, out, B, C, H, W, md, s);
+    case 1: return (int)launch_bwd<float, true>(which, g, src, out, B, C, H, W, md, s);
+    case 2: return (int)launch_bwd<__nv_bfloat16, false>(which, g, src, out, B, C, H, W, md, s);
+    case 3: return (int)launch_bwd<__nv_bfloat16, true>(which, g, src, out, B, C, H, W, md, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,12 +31,15 @@ class FeaturePyramid(nn.Module):
         for i, (cin, cout, stride) in enumerate(_LAYERS):
             self.add_module(f"conv{i + 1}", conv_block(cin, cout, stride, device=device))
 
-    def forward(self, img: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        """img (B, 3, H, W) -> 6 feature maps at 1/2 .. 1/64 resolution."""
+    def forward(self, img, conv=lambda layer, x: layer(x)) -> tuple[torch.Tensor, ...]:
+        """img (B, 3, H, W) -> 6 feature maps at 1/2 .. 1/64 resolution.
+
+        ``conv(layer, x)`` applies a layer (``parallel/spatial.py`` passes its
+        row-shard form, with ``img`` a list of row-shards)."""
         feats = []
         x = img
         for i, (_, _, stride) in enumerate(_LAYERS):
-            x = getattr(self, f"conv{i + 1}")(x)
+            x = conv(getattr(self, f"conv{i + 1}"), x)
             if stride == 1:  # every stride-1 conv closes one pyramid stage
                 feats.append(x)
         return tuple(feats)

@@ -50,11 +50,21 @@ class Conv2d(nn.Conv2d):
                 raise ValueError(f"unknown init scheme {scheme!r} (torch|pwc)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.padding)
+
+    def forward_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The same convolution of a row slab that already carries the rows
+        above and below it that its output rows read (a row-shard with its
+        halo, ``parallel/spatial.py``): no padding along H, the usual along W.
+        The weights are moved to the slab's device when they live elsewhere."""
+        return self._conv(x, (0, self.padding[1]))
+
+    def _conv(self, x: torch.Tensor, padding) -> torch.Tensor:
         dt = self.compute_dtype or x.dtype
         x = x.to(dt)
-        out = F.conv2d(x, self.weight.to(dt), None, self.stride, self.padding,
+        out = F.conv2d(x, self.weight.to(x.device, dt), None, self.stride, padding,
                        self.dilation)
-        return out + self.bias.to(dt)[:, None, None]
+        return out + self.bias.to(x.device, dt)[:, None, None]
 
 
 def _draw(fn, like: torch.Tensor, generator) -> torch.Tensor:

@@ -10,6 +10,11 @@ sampling positions and weights stay float32 whatever the image dtype (in
 bfloat16 the spacing near x = 208 is already 1 px, which would collapse the
 bilinear weights), the blend runs in float32 with one cast at the end, and
 no ``(size - 1)`` normalisation breaks on a size-1 map.
+
+A row-shard of a height-sharded model warps by its own flow rows but samples
+the whole target map (``row0``: the global row of the flow's first row), as
+GSPMD all-gathers the warped map in the JAX package's spatial mode: flow
+displacements are unbounded, so no bounded halo would do.
 """
 
 from __future__ import annotations
@@ -17,14 +22,16 @@ from __future__ import annotations
 import torch
 
 
-def _corners(flow: torch.Tensor, h: int, w: int):
+def _corners(flow: torch.Tensor, h: int, w: int, row0: int = 0):
     """[(flat index, weight)] for the 4 taps; weights f32 and zero out of bounds.
 
-    flow: (B, 2, H, W), channel 0 = x (width) and channel 1 = y (height)
-    displacement.  Indices are clamped into the map; their weight is zeroed.
+    flow: (B, 2, Hf, W), channel 0 = x (width) and channel 1 = y (height)
+    displacement; its row y sits at row ``row0 + y`` of the (h, w) map sampled.
+    Indices are clamped into the map; their weight is zeroed.
     """
     gx = torch.arange(w, dtype=torch.float32, device=flow.device)[None, None, :]
-    gy = torch.arange(h, dtype=torch.float32, device=flow.device)[None, :, None]
+    gy = torch.arange(row0, row0 + flow.shape[2], dtype=torch.float32,
+                      device=flow.device)[None, :, None]
     x = gx + flow[:, 0].float()
     y = gy + flow[:, 1].float()
     x0f = torch.floor(x)
@@ -46,19 +53,23 @@ def _corners(flow: torch.Tensor, h: int, w: int):
     return out
 
 
-def bilinear_warp(img: torch.Tensor, flow: torch.Tensor, use_mask: bool = False) -> torch.Tensor:
-    """Warp ``img`` (B, C, H, W) back to the source frame by ``flow`` (B, 2, H, W).
+def bilinear_warp(img: torch.Tensor, flow: torch.Tensor, use_mask: bool = False,
+                  row0: int = 0) -> torch.Tensor:
+    """Warp ``img`` (B, C, H, W) back to the source frame by ``flow`` (B, 2, Hf, W).
 
     ``use_mask`` multiplies by the border-validity mask (total in-bounds
-    weight >= 0.9999).  Returns (B, C, H, W) in ``img.dtype``.
+    weight >= 0.9999).  The flow's rows are rows ``row0 .. row0 + Hf`` of the
+    frame (the whole frame, Hf = H, by default).  Returns (B, C, Hf, W) in
+    ``img.dtype``.
     """
     b, c, h, w = img.shape
-    corners = _corners(flow, h, w)
+    hf = flow.shape[2]
+    corners = _corners(flow, h, w, row0)
     flat = img.reshape(b, c, h * w)
     out = 0.0
     for idx, wgt in corners:
-        taps = torch.gather(flat, 2, idx.reshape(b, 1, h * w).expand(b, c, h * w))
-        out = out + taps.reshape(b, c, h, w).float() * wgt[:, None]
+        taps = torch.gather(flat, 2, idx.reshape(b, 1, hf * w).expand(b, c, hf * w))
+        out = out + taps.reshape(b, c, hf, w).float() * wgt[:, None]
     if use_mask:
         total = sum(wgt for _, wgt in corners)
         out = out * (total >= 0.9999).float()[:, None]

@@ -1,7 +1,7 @@
 """Measure the port's serving and training slices on one CUDA device.
 
     python -m unopticalflow_tpu_torch.probe [--out build/probe] \
-        [--requests 512] [--seed 0] [--phases profile,serve,train]
+        [--requests 512] [--seed 0] [--phases profile,serve,train,spatial]
 
 Everything runs at the KITTI shape (``config/kitti.yaml``: img_hw 256x832)
 with random "pwc" weights from ``--seed``; serving at ``max_batch`` 8 in
@@ -40,6 +40,13 @@ phase prints JSON lines:
    * ``launches_per_step``: the hand-written kernels' launch counts;
      ``device_ops_per_step``: every kernel, copy and set the device ran per
      profiled step (what the host had to launch).
+4. ``spatial``: one full batch of ``inference_flow`` (``n_spatial`` 0) against
+   ``make_spatial_infer`` with 1, 2 and 4 row-shards, all on this card, in
+   float32 (TF32 off) and bfloat16, in the order 0, 1, 2, 4, 4, 2, 1, 0 per
+   dtype: ``ms_batch`` (CUDA events, median of ``REPS``, no profiler),
+   ``busy_ms_batch``, ``idle_share``, ``device_ops_per_batch`` and
+   ``device_ms_by_kind`` over 5 profiled batches, and the hand-written
+   kernels' launches per batch (tables in ``<out>/spatial_<dtype>_n<n>.txt``).
 """
 
 from __future__ import annotations
@@ -316,6 +323,53 @@ def train_run(device, precision: str, out_dir: str, seed: int, use_pallas_reg: b
     }
 
 
+def spatial_run(model: FlowModel, n_spatial: int, out_dir: str, seed: int) -> dict:
+    """One run of the spatial phase; ``n_spatial`` 0 is the unsharded path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unopticalflow_tpu_torch.parallel import make_spatial_infer, spatial_mesh
+
+    reps, profiled = REPS, PROFILED
+    device = next(model.parameters()).device
+    h, w = IMG_HW
+    pairs = np.stack(_pairs(IMG_HW, MAX_BATCH, seed))
+    i1 = torch.from_numpy(pairs[:, :h].copy()).to(device)
+    i2 = torch.from_numpy(pairs[:, h:].copy()).to(device)
+    fn = (make_spatial_infer(model, spatial_mesh(n_spatial, devices=[device] * n_spatial))
+          if n_spatial else lambda a, b: inference_flow(model, a, b))
+    with torch.inference_mode():
+        for _ in range(3):
+            fn(i1, i2)
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        events[0].record()
+        for i in range(reps):
+            fn(i1, i2)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        launches = {k: (v - before[k]) / reps for k, v in _launch_counts().items() if v > before[k]}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled):
+                fn(i1, i2)
+            torch.cuda.synchronize()
+    times = [events[i].elapsed_time(events[i + 1]) for i in range(reps)]
+    ms_batch = statistics.median(times)
+    busy = _busy_us(prof.events()) / 1e3 / profiled
+    precision = str(model.fpyramid.conv1[0].compute_dtype).replace("torch.", "")
+    with open(os.path.join(out_dir, f"spatial_{precision}_n{n_spatial}.txt"), "w") as f:
+        f.write(f"{profiled} batches, {precision}, n_spatial={n_spatial}, {MAX_BATCH}x{h}x{w}\n"
+                + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    return {
+        "phase": "spatial", "precision": precision, "n_spatial": n_spatial,
+        "ms_batch": ms_batch, "ms_batch_min": min(times), "ms_batch_max": max(times),
+        "reps": reps, "busy_ms_batch": busy, "idle_share": 1.0 - busy / ms_batch,
+        "launches_per_batch": launches,
+        "device_ops_per_batch": device_ops_per_step(prof.key_averages(), profiled),
+        "device_ms_by_kind": device_time_by_kind(prof.key_averages(), profiled),
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="measure the port's serving and training slices")
     p.add_argument("--out", default="build/probe")
@@ -324,7 +378,7 @@ def main(argv=None) -> int:
     p.add_argument("--serve_one", choices=WARM_UPS, default=None,
                    help="run one serve measurement in this process and exit")
     p.add_argument("--phases", default="profile,serve,train",
-                   help="comma-separated subset of profile,serve,train")
+                   help="comma-separated subset of profile,serve,train,spatial")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -354,6 +408,16 @@ def main(argv=None) -> int:
                 print(json.dumps(train_run(device, precision, args.out, args.seed, reg)),
                       flush=True)
                 torch.cuda.empty_cache()
+    if "spatial" in phases:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for precision in ("float32", "bfloat16"):
+            model = FlowModel(FlowModelConfig(compute_dtype=precision), device=device,
+                              scheme="pwc", generator=torch.Generator().manual_seed(args.seed))
+            for n in (0, 1, 2, 4, 4, 2, 1, 0):
+                print(json.dumps(spatial_run(model, n, args.out, args.seed)), flush=True)
+            del model
+            torch.cuda.empty_cache()
     for warm_up in ("serving", "constructor", "constructor", "serving") if "serve" in phases else ():
         proc = subprocess.run(
             [sys.executable, "-m", "unopticalflow_tpu_torch.probe", "--serve_one", warm_up,

@@ -7,7 +7,11 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 * a collector thread drains the queue up to ``max_batch`` requests or
   ``max_wait_ms``, whichever comes first;
 * requests whose waiter has timed out are shed;
-* ``served`` / ``batches`` / ``shed`` / ``errors`` / ``occupancy`` stats.
+* ``served`` / ``batches`` / ``shed`` / ``errors`` / ``occupancy`` stats;
+* ``spatial=N`` splits each batch's rows over N devices (``--spatial N``,
+  ``parallel/spatial.py``): for frames too large for one card.  The batch
+  stays whole, H must be divisible by N * 64 (checked at construction), and
+  the flow rows are gathered before they go to the waiters.
 
 The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
 /flow`` with a PNG/JPEG of the vertically stacked pair, answered with
@@ -18,7 +22,8 @@ where a request body is decoded, and ``main`` reads the yaml, so
 Usage:
     python -m unopticalflow_tpu_torch.serve -c config/kitti.yaml \
         --pretrained_model model.pth [--port 8000] [--max_batch 8] \
-        [--max_wait_ms 5] [--precision bfloat16] [--device cuda]
+        [--max_wait_ms 5] [--precision bfloat16] [--device cuda] \
+        [--spatial N [--spatial_devices cuda:0,cuda:0]]
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import torch
 
 from unopticalflow_tpu_torch.evaluation.flowlib import encode_flow
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
+from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
+from unopticalflow_tpu_torch.parallel.spatial import check_height
 from unopticalflow_tpu_torch.utils.device import resolve_device
 
 MAX_BODY_BYTES = 64 * 1024 * 1024  # a request body larger than this is refused (413)
@@ -55,10 +62,17 @@ class FlowServer:
     """Dynamic-batching inference engine over one model on one device."""
 
     def __init__(self, cfg, model: FlowModel, max_batch: int = 8,
-                 max_wait_ms: float = 5.0):
+                 max_wait_ms: float = 5.0, spatial: int = 1, devices=None):
         self.h, self.w = cfg.img_hw
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self._spatial = None
+        if spatial > 1:
+            # height-sharded serving: ``devices`` (default: the first
+            # ``spatial`` CUDA devices) hold the row-shards of every batch
+            check_height(self.h, spatial)
+            self._spatial = make_spatial_infer(
+                self.model, spatial_mesh(spatial, devices=devices))
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.queue: "queue.Queue[_Request]" = queue.Queue()
@@ -76,6 +90,8 @@ class FlowServer:
 
     def _run(self, img1: np.ndarray, img2: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
+            if self._spatial is not None:
+                return gather_rows(self._spatial(img1, img2), "cpu").numpy()
             i1 = torch.from_numpy(img1).to(self.device)
             i2 = torch.from_numpy(img2).to(self.device)
             return inference_flow(self.model, i1, i2).cpu().numpy()
@@ -234,8 +250,9 @@ def build_server(cfg, args) -> FlowServer:
                       generator=torch.Generator().manual_seed(0))
     if args.pretrained_model:
         load_pretrained(model, args.pretrained_model)
+    devices = args.spatial_devices.split(",") if args.spatial_devices else None
     return FlowServer(cfg, model, max_batch=args.max_batch,
-                      max_wait_ms=args.max_wait_ms)
+                      max_wait_ms=args.max_wait_ms, spatial=args.spatial, devices=devices)
 
 
 def main(argv=None):
@@ -249,6 +266,12 @@ def main(argv=None):
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--precision", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="split each frame's height over this many devices (frames too "
+                        "large for one card; H must be divisible by spatial*64)")
+    p.add_argument("--spatial_devices", default=None,
+                   help="comma-separated devices of the row-shards (default: the first "
+                        "--spatial CUDA devices), e.g. cuda:0,cuda:0 for one card")
     args = p.parse_args(argv)
 
     from unopticalflow_tpu_torch.utils.config import Config, load_yaml_config
@@ -258,7 +281,7 @@ def main(argv=None):
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server, cfg))
     print(f"serving flow on http://{args.host}:{args.port} "
           f"(device={args.device}, max_batch={args.max_batch}, "
-          f"wait={args.max_wait_ms}ms, precision={args.precision})")
+          f"wait={args.max_wait_ms}ms, precision={args.precision}, spatial={args.spatial})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
