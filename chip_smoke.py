@@ -96,21 +96,40 @@ Phases (each raises on failure, so the run exits non-zero):
    batch and no other, and one flow within (b)'s bfloat16 tolerance of the
    unsharded server's for the same pair.
 
+12. The gather probes (TPU kernel rows 11-12).  (a) ``row_gather`` against
+   its plain version (``torch.gather``) at the row-gather probe's default
+   shape (batch 16 at 256x832, 12 channels: 3,407,872 rows of 214,081) and a
+   ragged one (3 at 45x61, 5 channels), bfloat16 and float32;
+   ``lane_gather`` at (4096, 128) float32 and bfloat16 and ``sublane_gather``
+   at (8, 8192) float32, the block-gather probe's shapes, and ragged ones;
+   every one bit for bit (``torch.equal``: a copy, and sums in x's dtype in
+   the plain version's order), timed, with ``torch.gather`` timed beside the
+   row gather.  (b) The probes' entry points on the card:
+   ``gather_probe.main`` in every mode (default, --widths, --layout,
+   --diffwarp) and ``block_gather_probe.main``: no FAIL line, and each of
+   the three kernels launched (no other).
+
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
-``corr_fwd_hpad`` and 11 (c)'s gradient for the hpad backward; ``ms``/
-``plain_ms`` per float32 training step: the sum over the five decoder levels
-or the three loss scales, for the hpad kernels per float32 spatial batch at
-n = 2: 5 levels x 2 shards; ``bound_ms``: the larger of the bytes the function must move
-over 3.35 TB/s and its operations over 67 TFLOP/s (float32), from this run's
-shapes; ``library_ms`` null: no single PyTorch call computes any of these
-functions); the last line is ``{"ok": true, "device": {...}}``.  Only the
-CUDA path is driven: with no GPU the script exits non-zero before printing
-any result.
+``corr_fwd_hpad`` and 11 (c)'s gradient for the hpad backward, of phase 12
+(b)'s probe runs for the gathers; ``ms``/``plain_ms`` per float32 training
+step: the sum over the five decoder levels or the three loss scales, for the
+hpad kernels per float32 spatial batch at n = 2: 5 levels x 2 shards, for the
+gathers per call at the probes' default shapes: ``row_gather`` bfloat16,
+``lane_gather`` and ``sublane_gather`` float32; ``bound_ms``: the larger of
+the bytes the function must move over 3.35 TB/s and its operations over 67
+TFLOP/s (float32), from this run's shapes, for ``row_gather`` the source
+rows that this run's indices touch, each once; ``library_ms``: the time of
+``torch.gather`` on the expanded int64 index for ``row_gather``, null for
+the others: no single PyTorch call computes any of them); the last line is
+``{"ok": true, "device": {...}}``.  Only the CUDA path is driven: with no
+GPU the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -140,6 +159,14 @@ MD = 4  # the decoder's correlation window, +-4 px; the hpad operands carry 2 * 
 EVAL_PAIRS = 37  # phase 10: 4 full batches and one padded
 EVAL_SET_PAIRS = 8  # phase 9's in-memory KITTI 2012/2015 sets
 KITTI_GT_HW = (375, 1242)  # KITTI 2015's ground-truth resolution
+# phase 12: (B, H, W, C) of the row gather (benchmarks/gather_probe.py's
+# defaults, and a ragged one); the block gathers' (kind, (S, W), dtype), the
+# first of each kind the record's; REPS gathers summed per element
+ROW_GATHER_CASES = {"probe": (16, 256, 832, 12), "ragged": (3, 45, 61, 5)}
+BLOCK_GATHER_CASES = (("lane", (4096, 128), "float32"), ("lane", (4096, 128), "bfloat16"),
+                      ("sublane", (8, 8192), "float32"), ("lane", (13, 96), "bfloat16"),
+                      ("sublane", (5, 333), "float32"))
+GATHER_PROBE_MODES = ([], ["--widths"], ["--layout"], ["--diffwarp"])
 # the H100 SXM's published peaks: HBM and float32 outside
 # the tensor cores; every kernel here computes in float32
 HBM_BYTES_PER_S = 3.35e12
@@ -165,7 +192,8 @@ PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208),
 PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
             "photometric_fwd": 3, "photometric_bwd": 3,
             "regularizer_fwd": 0, "regularizer_bwd": 0,
-            "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0}
+            "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0,
+            "row_gather": 0, "lane_gather": 0, "sublane_gather": 0}
 PER_STEP_REG = {**PER_STEP, "regularizer_fwd": 3, "regularizer_bwd": 3}
 KERNELS = {
     "corr_fwd": ("unopticalflow_tpu_torch/csrc/correlation.cu",
@@ -188,6 +216,11 @@ KERNELS = {
                           "unopticalflow_tpu/ops/pallas_spmd.py:80"),
     "corr_bwd_df2_hpad": ("unopticalflow_tpu_torch/csrc/correlation.cu",
                           "unopticalflow_tpu/ops/pallas_spmd.py:104"),
+    "row_gather": ("unopticalflow_tpu_torch/csrc/gather.cu", "benchmarks/gather_probe.py:352"),
+    "lane_gather": ("unopticalflow_tpu_torch/csrc/gather.cu",
+                    "benchmarks/pallas_gather_probe.py:42"),
+    "sublane_gather": ("unopticalflow_tpu_torch/csrc/gather.cu",
+                       "benchmarks/pallas_gather_probe.py:50"),
 }
 PHOTO_W = {"loss_pixel": 0.15, "loss_ssim": 0.85, "loss_flow_smooth": 0.0,
            "loss_flow_consis": 0.0}
@@ -209,6 +242,28 @@ def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, pattern: str, calls: int = 10, tries: int = 3) -> str:
+    """Device ms per launch of the kernels whose name holds ``pattern``
+    (``torch.profiler``): the kernel alone, without the host's launch.  The
+    profiler now and then reports no device event for a window; after
+    ``tries`` such windows this says "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and pattern in e.key]
+        n = sum(e.count for e in found)
+        if n:
+            return f"{sum(e.self_device_time_total for e in found) / 1e3 / n:.5f}"
+    return "not measured"
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -235,15 +290,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     import numpy as np
 
     from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
     from unopticalflow_tpu_torch import test as evaluation
+    from unopticalflow_tpu_torch.benchmarks import block_gather_probe, gather_probe
     from unopticalflow_tpu_torch.evaluation import eval_flow_avg
     from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
     from unopticalflow_tpu_torch.ops import (
         _build,
         correlation_cuda,
+        gather_cuda,
         photometric_cuda,
         regularizer_cuda,
     )
@@ -256,6 +314,12 @@ def main() -> int:
         cost_volume_reference,
     )
     from unopticalflow_tpu_torch.ops.cost_volume_spmd import cost_volume_sharded
+    from unopticalflow_tpu_torch.ops.gather import (
+        REPS,
+        lane_gather_reference,
+        row_gather_reference,
+        sublane_gather_reference,
+    )
     from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
     from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack_reference
     from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
@@ -266,11 +330,11 @@ def main() -> int:
 
     def counts():
         return {**correlation_cuda.launches, **photometric_cuda.launches,
-                **regularizer_cuda.launches}
+                **regularizer_cuda.launches, **gather_cuda.launches}
 
     def reset_counts():
         for d in (correlation_cuda.launches, photometric_cuda.launches,
-                  regularizer_cuda.launches):
+                  regularizer_cuda.launches, gather_cuda.launches):
             for k in d:
                 d[k] = 0
 
@@ -294,11 +358,13 @@ def main() -> int:
     max_err = dict.fromkeys(KERNELS, 0.0)
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
+    library_ms = dict.fromkeys(KERNELS)
     # bytes and operations of the float32 training step's calls, for bound_ms
     work = {k: [0.0, 0.0] for k in KERNELS}
     # the loss kernels with bfloat16 images, per bf16 training step:
     # [kernel ms, plain ms, bytes, operations]
-    bf16_step = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNELS if not k.startswith("corr")}
+    bf16_step = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNELS
+                 if k.startswith(("photometric", "regularizer"))}
     zero_counts = dict.fromkeys(KERNELS, 0)
 
     def add_work(name, nbytes, ops):
@@ -1087,11 +1153,113 @@ def main() -> int:
     del sp_model32, sp_model16, spatial_fns, server, dense_server
     torch.cuda.empty_cache()
 
+    # ---- 12. the gather probes' kernels (TPU kernel rows 11-12) -------------
+    # (a) each kernel against its plain version, bit for bit, timed
+    for name, (b_, h_, w_, c_) in ROW_GATHER_CASES.items():
+        n_src, rows = (h_ + 1) * (w_ + 1), b_ * h_ * w_
+        r = np.random.RandomState(SEED + c_)
+        img32 = torch.from_numpy(r.rand(b_, n_src, c_).astype(np.float32)).to(device)
+        idx_np = r.randint(0, n_src, (b_, h_ * w_, 1)).astype(np.int32)
+        idx_np[0, 0, 0], idx_np[-1, -1, 0] = 0, n_src - 1
+        idx = torch.from_numpy(idx_np).to(device)
+        # the source rows this run's indices touch, each read once
+        offs = torch.arange(b_, device=device)[:, None, None] * n_src
+        touched = int(torch.unique(idx.long() + offs).numel())
+        for dtype in (torch.bfloat16, torch.float32):
+            img = img32.to(dtype)
+            got = gather_cuda.row_gather(img, idx)
+            torch.cuda.synchronize()
+            want = row_gather_reference(img, idx)
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError(f"row_gather {name} {dtype}: differs from the plain version")
+            note("row_gather", got, want)
+            if name == "ragged":
+                print(f"row_gather {name} {(b_, n_src, c_)} -> {tuple(got.shape)} "
+                      f"{str(dtype)[6:]}: equal to the plain version")
+                continue
+            idx_lib = idx.long().expand(-1, -1, c_)  # the library call's index, made once
+            k_ms = _time_ms(torch, lambda: gather_cuda.row_gather(img, idx))
+            p_ms = _time_ms(torch, lambda: row_gather_reference(img, idx))
+            l_ms = _time_ms(torch, lambda: torch.gather(img, 1, idx_lib))
+            k_dev = _device_ms(torch, lambda: gather_cuda.row_gather(img, idx),
+                               "row_gather_kernel")
+            l_dev = _device_ms(torch, lambda: torch.gather(img, 1, idx_lib), "gather")
+            es = img.element_size()
+            nbytes = rows * c_ * es + rows * 4 + touched * c_ * es
+            bound_ms, _ = _bound(nbytes, 0.0)
+            if dtype == torch.bfloat16:  # the probe's dtype: the record
+                ms["row_gather"], plain_ms["row_gather"] = k_ms, p_ms
+                library_ms["row_gather"] = l_ms
+                add_work("row_gather", nbytes, 0.0)
+            print(f"row_gather {name} {(b_, n_src, c_)} -> {tuple(got.shape)} "
+                  f"{str(dtype)[6:]}: equal to the plain version; kernel_ms={k_ms:.4f} "
+                  f"({k_ms * 1e6 / rows:.3f} ns/row) plain_ms={p_ms:.4f} torch.gather_ms="
+                  f"{l_ms:.4f} bound_ms={bound_ms:.4f} ({touched} of {b_ * n_src} source "
+                  f"rows touched); device ms per launch (profiler): kernel {k_dev}, "
+                  f"torch.gather {l_dev}")
+    torch.cuda.empty_cache()
+
+    block = {"lane": (gather_cuda.lane_gather, lane_gather_reference),
+             "sublane": (gather_cuda.sublane_gather, sublane_gather_reference)}
+    recorded = set()
+    for kind, shape, dtype_name in BLOCK_GATHER_CASES:
+        kname, dtype = f"{kind}_gather", getattr(torch, dtype_name)
+        kern, ref = block[kind]
+        r = np.random.RandomState(SEED + shape[0])
+        x = torch.from_numpy(r.rand(*shape).astype(np.float32)).to(device, dtype)
+        span = shape[1] if kind == "lane" else shape[0]
+        idx = torch.from_numpy(r.randint(0, span, shape).astype(np.int32)).to(device)
+        got = kern(x, idx)
+        torch.cuda.synchronize()
+        want = ref(x, idx)
+        if got.dtype != dtype or not torch.equal(got, want):
+            raise AssertionError(f"{kname} {shape} {dtype_name}: differs from the plain version")
+        note(kname, got, want)
+        k_ms = _time_ms(torch, lambda: kern(x, idx))
+        p_ms = _time_ms(torch, lambda: ref(x, idx))
+        k_dev = _device_ms(torch, lambda: kern(x, idx), f"{kname}_kernel")
+        # x and idx read once, the output written once; REPS adds per element
+        nbytes, ops = x.numel() * (2 * x.element_size() + 4), x.numel() * REPS
+        bound_ms, bound_by = _bound(nbytes, ops)
+        if kname not in recorded:
+            recorded.add(kname)
+            ms[kname], plain_ms[kname] = k_ms, p_ms
+            add_work(kname, nbytes, ops)
+        print(f"{kname} {shape} {dtype_name}: equal to the plain version; kernel_ms={k_ms:.5f} "
+              f"({k_ms * 1e6 / (x.numel() * REPS):.4f} ns/gather) plain_ms={p_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}); device ms per launch (profiler) "
+              f"{k_dev}")
+
+    # (b) the probes' entry points on the card, every mode
+    probe_runs = [(gather_probe, argv) for argv in GATHER_PROBE_MODES]
+    probe_runs.append((block_gather_probe, []))
+    reset_counts()
+    for probe, argv in probe_runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = probe.main([*argv, "--device", "cuda"])
+        text = buf.getvalue()
+        print(text, end="")
+        rec = json.loads(text.strip().splitlines()[-1])
+        if rc != 0 or "FAIL" in text or rec["device"] != torch.cuda.get_device_name(device):
+            raise AssertionError(f"{probe.__name__} {argv}: rc {rc} or a FAIL line")
+    torch.cuda.synchronize()
+    probe_counts = counts()
+    gathers = ("row_gather", "lane_gather", "sublane_gather")
+    if any(probe_counts[k] == 0 for k in gathers) or any(
+            v for k, v in probe_counts.items() if k not in gathers):
+        raise AssertionError(f"gather probes: launches {probe_counts}")
+    print("gather probes, every mode on the card: launches "
+          + json.dumps({k: probe_counts[k] for k in gathers}))
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
                 "corr_bwd_df1_hpad": grad_counts["corr_bwd_df1_hpad"],
-                "corr_bwd_df2_hpad": grad_counts["corr_bwd_df2_hpad"]}
+                "corr_bwd_df2_hpad": grad_counts["corr_bwd_df2_hpad"],
+                "row_gather": probe_counts["row_gather"],
+                "lane_gather": probe_counts["lane_gather"],
+                "sublane_gather": probe_counts["sublane_gather"]}
     records = []
     for name, (src, replaces) in KERNELS.items():
         bound_ms, bound_by = _bound(*work[name])
@@ -1106,8 +1274,9 @@ def main() -> int:
             "plain_ms": plain_ms[name],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": library_ms[name],
         })
+    print(f"chip_smoke: 12 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

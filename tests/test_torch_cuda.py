@@ -28,6 +28,8 @@ round as the plain version's, so sign(0) = 0 lands on the same positions).
 Halo-prepadded correlation kernels: the correlation's tolerances; spatial
 inference at n = 2 within 1e-4 * (1 + max|flow|) of the unsharded flow
 (float32; cuDNN may pick other algorithms for slabs of other heights).
+Gathers: bit for bit (``torch.equal``): the row gather copies, and the
+block gathers add in x's dtype in the plain versions' order.
 """
 
 import importlib
@@ -37,7 +39,12 @@ import pytest
 import torch
 
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda, regularizer_cuda
+from unopticalflow_tpu_torch.ops import (
+    correlation_cuda,
+    gather_cuda,
+    photometric_cuda,
+    regularizer_cuda,
+)
 from unopticalflow_tpu_torch.ops.cost_volume import (
     corr_df1_hpad_reference,
     corr_df1_reference,
@@ -46,6 +53,14 @@ from unopticalflow_tpu_torch.ops.cost_volume import (
     corr_fwd_hpad_reference,
     cost_volume,
     cost_volume_reference,
+)
+from unopticalflow_tpu_torch.ops.gather import (
+    lane_gather,
+    lane_gather_reference,
+    row_gather,
+    row_gather_reference,
+    sublane_gather,
+    sublane_gather_reference,
 )
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
 from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack, regularizer_pack_reference
@@ -473,3 +488,77 @@ def test_train_step_with_regularizer_kernels_matches_plain(device):
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+# the gather probes' shapes (benchmarks/gather_probe.py, pallas_gather_probe.py)
+# and ragged ones: (B, H, W, C) for the row gather, (S, W) for the block gathers
+ROW_GATHER_SHAPES = [(16, 256, 832, 12), (3, 45, 61, 5)]
+BLOCK_GATHER_CASES = [("lane", (4096, 128), torch.float32), ("lane", (4096, 128), torch.bfloat16),
+                      ("sublane", (8, 8192), torch.float32), ("lane", (13, 96), torch.bfloat16),
+                      ("sublane", (5, 333), torch.float32)]
+
+
+@pytest.mark.parametrize("shape", ROW_GATHER_SHAPES, ids=["probe", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_gather_kernel_equals_plain(device, shape, dtype):
+    """Bit for bit (a copy), every row of a ragged R written, one launch."""
+    b, h, w, c = shape
+    n = (h + 1) * (w + 1)
+    rng = np.random.RandomState(c)
+    img = torch.from_numpy(rng.rand(b, n, c).astype(np.float32)).to(device, dtype)
+    idx_np = rng.randint(0, n, (b, h * w, 1)).astype(np.int32)
+    idx_np[0, 0, 0], idx_np[-1, -1, 0] = 0, n - 1
+    idx = torch.from_numpy(idx_np).to(device)
+    before = gather_cuda.launches["row_gather"]
+    got = row_gather(img, idx)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches["row_gather"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, h * w, c)
+    assert torch.equal(got, row_gather_reference(img, idx))
+
+
+@pytest.mark.parametrize("kind,shape,dtype", BLOCK_GATHER_CASES,
+                         ids=["lane_f32", "lane_bf16", "sublane_f32", "lane_ragged_bf16",
+                              "sublane_ragged_f32"])
+def test_block_gather_kernels_equal_plain(device, kind, shape, dtype):
+    """Summed in x's dtype in the plain version's order: bit for bit."""
+    rng = np.random.RandomState(shape[0])
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device, dtype)
+    span = shape[1] if kind == "lane" else shape[0]
+    idx = torch.from_numpy(rng.randint(-span, 2 * span, shape).astype(np.int32)).to(device)
+    fn, ref = ((lane_gather, lane_gather_reference) if kind == "lane"
+               else (sublane_gather, sublane_gather_reference))
+    name = f"{kind}_gather"
+    before = gather_cuda.launches[name]
+    got = fn(x, idx)
+    torch.cuda.synchronize()
+    assert gather_cuda.launches[name] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    assert torch.equal(got, ref(x, idx))
+
+
+def test_gather_wrappers_reject_what_the_kernels_do_not_take(device):
+    x = torch.rand(8, 128, device=device)
+    idx = torch.zeros((8, 128), dtype=torch.int32, device=device)
+    img = torch.rand(2, 9, 3, device=device)
+    ridx = torch.zeros((2, 4, 1), dtype=torch.int32, device=device)
+    before = dict(gather_cuda.launches)
+    with pytest.raises(TypeError):
+        gather_cuda.row_gather(img.half(), ridx)
+    with pytest.raises(TypeError):
+        gather_cuda.row_gather(img, ridx.long())
+    with pytest.raises(ValueError, match="idx"):
+        gather_cuda.row_gather(img, ridx[:, :, 0].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_cuda.lane_gather(x.T, idx.T)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_cuda.lane_gather(x, idx.cpu())
+    with pytest.raises(ValueError, match="at most"):
+        gather_cuda.lane_gather(torch.rand(1, 5000, device=device),
+                                torch.zeros((1, 5000), dtype=torch.int32, device=device))
+    with pytest.raises(ValueError, match="at most"):
+        gather_cuda.sublane_gather(torch.rand(65, 4, device=device),
+                                   torch.zeros((65, 4), dtype=torch.int32, device=device))
+    assert gather_cuda.launches == before
+    assert gather_cuda.row_gather(img, ridx[:, :0].contiguous()).shape == (2, 0, 3)
+    assert gather_cuda.launches == before  # an empty output launches nothing

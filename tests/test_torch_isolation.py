@@ -1,8 +1,10 @@
 """The port stands alone: no module of it, and not ``chip_smoke.py``, imports
-or loads by path anything of the JAX package (``unopticalflow_tpu``), nor a
-root module of the repo (``serve.py``, ``train.py``, ... import the JAX
-package), and importing every module of the port loads neither ``jax`` nor
-any file under ``unopticalflow_tpu/``."""
+or loads by path anything of the JAX package (``unopticalflow_tpu``), of JAX
+itself (``jax``, ``jaxlib``, ``flax``, ``optax``), of the repo's root
+``benchmarks/`` (the JAX probes), nor a root module of the repo
+(``serve.py``, ``train.py``, ... import the JAX package), and importing every
+module of the port loads neither JAX nor any file under
+``unopticalflow_tpu/``."""
 
 import ast
 import glob
@@ -15,6 +17,9 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = "unopticalflow_tpu"
+JAX_LIBS = {"jax", "jaxlib", "flax", "optax"}
+# top-level names whose files the port must not load by path either
+PATH_ROOTS = (JAX_PKG, "benchmarks")
 ROOT_MODULES = {os.path.splitext(os.path.basename(p))[0]
                 for p in glob.glob(os.path.join(REPO, "*.py"))} - {"chip_smoke"}
 SOURCES = sorted(glob.glob(os.path.join(REPO, "unopticalflow_tpu_torch", "**", "*.py"),
@@ -23,7 +28,7 @@ SOURCES = sorted(glob.glob(os.path.join(REPO, "unopticalflow_tpu_torch", "**", "
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top == JAX_PKG or top in ROOT_MODULES
+    return top in PATH_ROOTS or top in JAX_LIBS or top in ROOT_MODULES
 
 
 def _violations(path: str) -> list[str]:
@@ -38,18 +43,19 @@ def _violations(path: str) -> list[str]:
                 bad.append(f"{node.lineno}: from {node.module} import ...")
         elif isinstance(node, ast.Call):
             # importlib.import_module("..."), __import__("..."), and loading a
-            # file of the JAX package by its path
+            # file of the JAX package or the root benchmarks/ by its path
             fn = node.func
             name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
             if name in ("import_module", "__import__", "spec_from_file_location"):
                 for arg in node.args:
                     if isinstance(arg, ast.Constant) and isinstance(arg.value, str) and (
-                            _forbidden(arg.value) or f"{JAX_PKG}/" in arg.value
-                            or arg.value == JAX_PKG):
+                            _forbidden(arg.value)
+                            or any(f"{root}/" in arg.value for root in PATH_ROOTS)):
                         bad.append(f"{node.lineno}: {name}({arg.value!r})")
-            if name == "join" and any(isinstance(a, ast.Constant) and a.value == JAX_PKG
-                                      for a in node.args):
-                bad.append(f"{node.lineno}: a path into {JAX_PKG}/")
+            roots = [a.value for a in node.args
+                     if isinstance(a, ast.Constant) and a.value in PATH_ROOTS]
+            if name == "join" and roots:
+                bad.append(f"{node.lineno}: a path into {roots[0]}/")
     return bad
 
 
@@ -66,8 +72,21 @@ def test_the_scan_catches_each_kind_of_import(tmp_path):
         "p = os.path.join('r', 'unopticalflow_tpu', 'data', 'datasets.py')\n"
         "import unopticalflow_tpu_torch.ops\n"
         "from unopticalflow_tpu_torch.utils import convert\n"
+        "import jax\n"
+        "import jax.numpy as jnp\n"
+        "from jax.experimental import pallas as pl\n"
+        "import jaxlib\n"
+        "import flax.linen as nn\n"
+        "from optax import adam\n"
+        "from benchmarks import gather_probe\n"
+        "import benchmarks.pallas_gather_probe\n"
+        "importlib.import_module('jax.numpy')\n"
+        "q = os.path.join('r', 'benchmarks', 'gather_probe.py')\n"
+        "from unopticalflow_tpu_torch.benchmarks import gather_probe\n"
+        "from . import time_ms\n"
     )
-    assert [v.split(":")[0] for v in _violations(str(src))] == ["1", "2", "3", "4", "6", "8"]
+    assert sorted(int(v.split(":")[0]) for v in _violations(str(src))) == [
+        1, 2, 3, 4, 6, 8, *range(11, 21)]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
@@ -90,7 +109,8 @@ named = sorted(m for m in sys.modules if m == {JAX_PKG!r} or m.startswith({JAX_P
 by_path = sorted(m for m, mod in list(sys.modules.items())
                  if os.path.realpath(getattr(mod, "__file__", None) or "").startswith(jax_dir))
 print(json.dumps({{"names": names, "named": named, "by_path": by_path,
-                  "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))}}))
+                  "jax": sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))}}))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
@@ -98,5 +118,8 @@ print(json.dumps({{"names": names, "named": named, "by_path": by_path,
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"unopticalflow_tpu_torch.test", "unopticalflow_tpu_torch.evaluation.evaluate_flow",
             "unopticalflow_tpu_torch.ops.regularizer_cuda",
+            "unopticalflow_tpu_torch.ops.gather_cuda",
+            "unopticalflow_tpu_torch.benchmarks.gather_probe",
+            "unopticalflow_tpu_torch.benchmarks.block_gather_probe",
             "unopticalflow_tpu_torch.data.datasets"} <= set(got["names"])
     assert got["named"] == [] and got["by_path"] == [] and got["jax"] == []

@@ -1,9 +1,18 @@
-"""Compute primitives of the serving, training and evaluation paths (NCHW)."""
+"""Compute primitives of the serving, training and evaluation paths (NCHW), and
+the gathers of the gather probes."""
 
 from unopticalflow_tpu_torch.ops.cost_volume import (
     cost_volume,
     cost_volume_bwd_reference,
     cost_volume_reference,
+)
+from unopticalflow_tpu_torch.ops.gather import (
+    lane_gather,
+    lane_gather_reference,
+    row_gather,
+    row_gather_reference,
+    sublane_gather,
+    sublane_gather_reference,
 )
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
 from unopticalflow_tpu_torch.ops.pyramid import avg_pool_pyramid
@@ -18,12 +27,18 @@ __all__ = [
     "cost_volume",
     "cost_volume_bwd_reference",
     "cost_volume_reference",
+    "lane_gather",
+    "lane_gather_reference",
     "photometric_pack",
     "photometric_pack_reference",
     "regularizer_pack",
     "regularizer_pack_reference",
     "resize_bilinear",
+    "row_gather",
+    "row_gather_reference",
     "ssim",
+    "sublane_gather",
+    "sublane_gather_reference",
     "upsample2x_double",
     "warp_validity_mask",
 ]
