@@ -8,13 +8,18 @@ Phases (each raises on failure, so the run exits non-zero):
 1. Setup: require CUDA, print the card (nvidia-smi name and power limit),
    torch and CUDA versions, build every kernel source of
    ``unopticalflow_tpu_torch/csrc/`` (one nvcc each, all at once) and print
-   the build time.  TF32 is switched off for cuDNN and matmul, so float32
-   comparisons are float32.
+   the build time and ptxas's registers and spills for the correlation
+   forward and the row gather.  TF32 is switched off for cuDNN and matmul, so
+   float32 comparisons are float32 (phase 13 starts from PyTorch's default
+   and checks that the entry points turn it off).
 2. Correlation forward vs plain: ``cost_volume_reference`` at the five
    decoder-level shapes of the KITTI serving recipe (batch 8, 256x832) and
-   one ragged shape, float32 (rtol 1e-5 / atol 1e-6) and bfloat16 (2e-2),
-   the JAX package's tolerances (benchmarks/PALLAS_VALIDATE.json); then the
-   five training-level shapes (batch 2B = 16), timed.  Times by CUDA events.
+   ragged shapes (W no multiple of the 32-column tile, with and without
+   W % 4 == 0, H = 1, C = 1, odd C), float32 (rtol 1e-5 / atol 1e-6) and
+   bfloat16 (2e-2), the JAX package's tolerances
+   (benchmarks/PALLAS_VALIDATE.json); then the five training-level shapes
+   (batch 2B = 16), timed, with one line of the per-level times.  Times by
+   CUDA events.
 3. The serving slice: a full-width FlowModel (random "pwc" weights from a
    seed, bfloat16 as serve's default) behind the port's FlowServer at
    256x832, max_batch 8; 24 requests from 8 client threads.  Every flow must
@@ -46,9 +51,10 @@ Phases (each raises on failure, so the run exits non-zero):
    argument vanishes (the smoothness term between the upsampled flow's
    samples), and a bilinear warp's jumps where a sampling position crosses
    a pixel (at 256x832 a rounding-sized change of the flow moves some of the
-   3.4 million positions across one).  Then 3 steps of
+   3.4 million positions across one).  Then 8 steps of
    ``train()`` at --precision bfloat16 --loss_precision bfloat16: finite
-   losses and every bf16 kernel launched.
+   losses, every bf16 kernel launched, ms/step (median CUDA-event interval
+   after the first two, phase 13's bf16 step rate).
 8. Regularizer forward and backward vs ``regularizer_pack_reference`` at the
    three loss scales of batch 8 at 256x832 and a ragged shape, on flows
    upsampled from a coarse field (their second differences vanish over
@@ -76,11 +82,16 @@ Phases (each raises on failure, so the run exits non-zero):
    line says which).  (a) The halo-prepadded correlation kernels
    (``corr_fwd_hpad``, ``corr_df1_hpad``, ``corr_df2_hpad``) against their
    plain versions at the per-shard shapes of the serving recipe (batch 8,
-   256x832) at n = 2 and 4 and a ragged shape, float32 (1e-5 / 1e-6) and
-   bfloat16 (2e-2), timed.  (b) ``make_spatial_infer`` at 256x832, batch 8,
-   full width, random "pwc" weights, n = 1, 2, 4, float32 and bfloat16:
-   within 1e-4 * (1 + max|flow|) (float32) or 2e-2 * max|flow| (bfloat16) of
-   the unsharded ``inference_flow`` on the same card and weights, exactly
+   256x832) at n = 2 and 4 and ragged shapes (a 3-row shard for all three;
+   the forward also at phase 2's other ragged widths as 1- and 5-row
+   shards), float32 (1e-5 / 1e-6) and bfloat16 (2e-2), timed, with one line
+   of the per-level forward times.  (b) ``make_spatial_infer`` at 256x832,
+   batch 8, full width, random "pwc" weights, n = 1, 2, 4, float32 and
+   bfloat16: within 1e-4 * (1 + max|flow|) (float32) of the unsharded
+   ``inference_flow`` on the same card and weights, or (bfloat16) no farther
+   from the float32 flow than 1.2 times the unsharded bfloat16 flow is
+   (each slab's convolutions sum in another order than the whole map's and
+   round differently to bfloat16: ``probe.py --phases spatial_gap``), exactly
    5 * n ``corr_fwd_hpad`` launches and no other per batch; ms/batch against
    the unsharded path.  (c) The n = 4 sharded cost volume's values and both
    input gradients at the five training-level shapes (2B = 16) against the
@@ -93,13 +104,17 @@ Phases (each raises on failure, so the run exits non-zero):
    kink make it as ill-conditioned as the training step's).
    (d) ``FlowServer(spatial=2)`` (bfloat16) serves 8 requests from 4 client
    threads: finite (256, 832, 2) flows, 10 ``corr_fwd_hpad`` launches per
-   batch and no other, and one flow within (b)'s bfloat16 tolerance of the
-   unsharded server's for the same pair.
+   batch and no other, and one flow held to (b)'s bfloat16 rule: no farther
+   from the float32 flow of the same pair than 1.2 times the unsharded
+   server's.
 
 12. The gather probes (TPU kernel rows 11-12).  (a) ``row_gather`` against
    its plain version (``torch.gather``) at the row-gather probe's default
-   shape (batch 16 at 256x832, 12 channels: 3,407,872 rows of 214,081) and a
-   ragged one (3 at 45x61, 5 channels), bfloat16 and float32;
+   shape (batch 16 at 256x832, 12 channels: 3,407,872 rows of 214,081) and
+   ragged ones (3 at 45x61 with 5 channels, 2 at 17x19 with 3, 2 at 9x31 with
+   128: 2-, 4-, 8- and 16-byte copies, rows wider than 4 units), two indices
+   out of range (the kernel clamps them; the plain version gets them
+   clamped), bfloat16 and float32;
    ``lane_gather`` at (4096, 128) float32 and bfloat16 and ``sublane_gather``
    at (8, 8192) float32, the block-gather probe's shapes, and ragged ones;
    every one bit for bit (``torch.equal``: a copy, and sums in x's dtype in
@@ -108,6 +123,23 @@ Phases (each raises on failure, so the run exits non-zero):
    ``gather_probe.main`` in every mode (default, --widths, --layout,
    --diffwarp) and ``block_gather_probe.main``: no FAIL line, and each of
    the three kernels launched (no other).
+13. The entry points as a user runs them, with ``yaml`` and ``cv2`` blocked
+   (``sys.modules[name] = None``; the card's machine has neither) and TF32 at
+   PyTorch's default: the smoke writes a prepared directory of 8 stacked
+   3-frame PNGs at KITTI's 375x1242 (the loader resizes them to 256x832),
+   every PNG of the phase filtered row by row as libpng filters it (so, as
+   in files cv2.imwrite or KITTI wrote, most rows are Average or Paeth), and
+   a YAML file as config/kitti.yaml, then runs ``train.main(["-c", yaml,
+   "--no_test", "-g", "0", ...])``: 4 float32 steps at batch 8, each through
+   the training kernels (5 + 5 + 5 + 3 + 3 launches), TF32 off afterwards, a
+   checkpoint written.  Then ``test.main`` with that checkpoint on a KITTI
+   2015-shaped tree of 200 pairs at 375x1242, its ground truth at half size
+   (188x621: the evaluation reads 600 ground-truth PNGs, and phase 10 covers
+   375x1242): 5 correlation launches per batch of 8 and a finite 8-column
+   table.  It prints each part's seconds, the port's PNG decode rate on those
+   frames, and the training loader's
+   snippets/s (decode and resize in 4 threads) beside the float32 (phase 6)
+   and bfloat16 (phase 7) step rates.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -134,12 +166,14 @@ import json
 import math
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import types
+import zlib
 
 SEED = 0
 # config/kitti.yaml: img_hw [256, 832], num_scales 3; serve.py: --max_batch 8,
@@ -149,10 +183,14 @@ BATCH = 8
 N_REQUESTS = 24
 N_CLIENTS = 8
 TRAIN_STEPS = 10
-BF16_STEPS = 3
+BF16_STEPS = 8
 REG_STEPS = 5  # phase 9, with one interleaved evaluation at the top of the last step
 REG_BF16_STEPS = 2
 SPATIAL_N = (2, 4)  # phase 11: row-shards of the 256-row frame
+# phase 11: a bfloat16 sharded flow's distance to the float32 flow within this
+# many times the unsharded bf16 flow's own (both round the same float32 flow;
+# probe.py spatial_gap read 0.90-1.00 of it at n = 2, 4 and 8)
+BF16_SPATIAL_FACTOR = 1.2
 SPATIAL_REQUESTS = 8
 SPATIAL_CLIENTS = 4
 MD = 4  # the decoder's correlation window, +-4 px; the hpad operands carry 2 * MD more rows
@@ -162,11 +200,20 @@ KITTI_GT_HW = (375, 1242)  # KITTI 2015's ground-truth resolution
 # phase 12: (B, H, W, C) of the row gather (benchmarks/gather_probe.py's
 # defaults, and a ragged one); the block gathers' (kind, (S, W), dtype), the
 # first of each kind the record's; REPS gathers summed per element
-ROW_GATHER_CASES = {"probe": (16, 256, 832, 12), "ragged": (3, 45, 61, 5)}
+ROW_GATHER_CASES = {"probe": (16, 256, 832, 12), "ragged": (3, 45, 61, 5),
+                    "c3": (2, 17, 19, 3), "c128": (2, 9, 31, 128)}
 BLOCK_GATHER_CASES = (("lane", (4096, 128), "float32"), ("lane", (4096, 128), "bfloat16"),
                       ("sublane", (8, 8192), "float32"), ("lane", (13, 96), "bfloat16"),
                       ("sublane", (5, 333), "float32"))
 GATHER_PROBE_MODES = ([], ["--widths"], ["--layout"], ["--diffwarp"])
+# phase 13: the entry points on PNG trees; KITTI's frames, its 2015 frame
+# count, the ground truth at half size
+KITTI_HW = (375, 1242)
+ENTRY_STEPS = 4
+ENTRY_SNIPPETS = 8
+ENTRY_GT_HW = (188, 621)
+ENTRY_PAIRS = 200
+LOADER_SNIPPETS = 64  # 8 batches through the training loader in phase 13
 # the H100 SXM's published peaks: HBM and float32 outside
 # the tensor cores; every kernel here computes in float32
 HBM_BYTES_PER_S = 3.35e12
@@ -184,8 +231,11 @@ SERVE_LEVELS = {
 }
 # training: the decoder runs at 2B = 16 ([bwd; fwd])
 TRAIN_LEVELS = {k: (2 * BATCH,) + v[1:] for k, v in SERVE_LEVELS.items()}
-RAGGED_CORR = (2, 5, 7, 33)
-RAGGED_HPAD = (2, 5, 3, 33)  # a 3-row shard
+# ragged shapes of the tiled forward (4 x 32 output tiles, channels staged 8
+# at a time): W no multiple of 32 with and without W % 4 == 0, H = 1, C = 1,
+# odd C; the first is also phase 4's ragged backward shape
+RAGGED_CORR = ((2, 5, 7, 33), (2, 1, 1, 45), (1, 7, 5, 100), (2, 13, 6, 36))
+RAGGED_HPAD = ((2, 5, 3, 33), (2, 1, 1, 45), (1, 7, 5, 100))  # 3- and 1-row shards
 # (B, H, W) of the three loss scales, + a ragged one
 PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208),
                 "ragged": (1, 13, 45)}
@@ -273,6 +323,23 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_registers(log: str, kernel: str) -> list[str]:
+    """"<mangled name>: N registers, S bytes spill" for each instantiation of
+    ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            out.append(f"{name}: {m.group(1)} registers")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name and kernel in name and m.group(1) != "0":
+            out.append(f"{name}: {m.group(1)} bytes spill stores")
+    return out or [f"no report for {kernel}"]
+
+
 def _values(res: str) -> list[float]:
     return [float(v) for v in res.split("\n")[1].split(",")]
 
@@ -353,6 +420,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs.values())} in {time.perf_counter() - t0:.2f} s")
+    for src, kernel in (("correlation", "corr_fwd_kernel"), ("gather", "row_gather_kernel")):
+        print(f"ptxas {src}: " + "; ".join(_ptxas_registers(_build.ptxas_log.get(src, ""),
+                                                            kernel)))
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err = dict.fromkeys(KERNELS, 0.0)
@@ -381,7 +451,8 @@ def main() -> int:
     # ---- 2. correlation forward vs plain --------------------------------
     corr_tols = ((torch.float32, 1e-5, 1e-6), (torch.bfloat16, 2e-2, 2e-2))
     serve_k = serve_p = 0.0
-    for name, shape in [*SERVE_LEVELS.items(), ("ragged", RAGGED_CORR),
+    level_ms = {}  # (level, dtype) -> kernel ms at the training shapes
+    for name, shape in [*SERVE_LEVELS.items(), *(("ragged", r) for r in RAGGED_CORR),
                         *(("train_" + k, v) for k, v in TRAIN_LEVELS.items())]:
         for dtype, rtol, atol in corr_tols:
             f1 = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -397,6 +468,8 @@ def main() -> int:
                 continue
             k_ms = _time_ms(torch, lambda: correlation_cuda.correlation(f1, f2, 4))
             p_ms = _time_ms(torch, lambda: cost_volume_reference(f1, f2, 4), inner=2)
+            if name.startswith("train_"):
+                level_ms[f"{name[6:]} {str(dtype)[6:]}"] = round(k_ms, 4)
             if name.startswith("train_") and dtype == torch.float32:
                 ms["corr_fwd"] += k_ms
                 plain_ms["corr_fwd"] += p_ms
@@ -412,6 +485,7 @@ def main() -> int:
           f"plain_ms={serve_p:.4f}")
     print(f"corr_fwd per training step (5 levels at 2B=16, float32): kernel_ms="
           f"{ms['corr_fwd']:.4f} plain_ms={plain_ms['corr_fwd']:.4f}")
+    print("corr_fwd kernel ms per training level (2B=16): " + json.dumps(level_ms))
 
     # ---- 3. the serving slice: FlowServer at the KITTI serving shape ----
     h, w = IMG_HW
@@ -483,7 +557,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. correlation backward vs plain --------------------------------
-    for name, shape in [*TRAIN_LEVELS.items(), ("ragged", RAGGED_CORR)]:
+    for name, shape in [*TRAIN_LEVELS.items(), ("ragged", RAGGED_CORR[0])]:
         for dtype, rtol, atol in corr_tols:
             f1 = torch.randn(shape, generator=gen, device=device).to(dtype)
             f2 = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -699,17 +773,27 @@ def main() -> int:
     bcfg = recipe_config(num_iterations=BF16_STEPS, init_scheme="pwc", seed=SEED,
                          precision="bfloat16", loss_precision="bfloat16", log_interval=1,
                          save_interval=1000, model_dir=model_dir, num_workers=4)
-    bmetrics = []
+    bmetrics, bevents = [], []
+
+    def on_bf16_step(it, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        bevents.append(ev)
+        bmetrics.append(m)
+
     reset_counts()
     train(bcfg, dataset=SyntheticSnippets(IMG_HW, BF16_STEPS * BATCH, seed=SEED + 1),
-          device="cuda", on_step=lambda it, m: bmetrics.append(m))
+          device="cuda", on_step=on_bf16_step)
     torch.cuda.synchronize()
     bf16_counts = counts()
     if bf16_counts != {k: BF16_STEPS * v for k, v in PER_STEP.items()}:
         raise AssertionError(f"bf16 training launches {bf16_counts}")
     if not all(bool(torch.isfinite(v)) for m in bmetrics for v in m.values()):
         raise AssertionError("bf16 training: non-finite loss")
-    print(f"bf16 training: {BF16_STEPS} steps, finite losses, launches {bf16_counts}")
+    ms_step_bf16 = statistics.median(bevents[i].elapsed_time(bevents[i + 1])
+                                     for i in range(2, BF16_STEPS - 1))
+    print(f"bf16 training: {BF16_STEPS} steps, finite losses, ms/step median "
+          f"{ms_step_bf16:.3f} (CUDA events), launches {bf16_counts}")
     torch.cuda.empty_cache()
 
     # ---- 8. regularizer forward and backward vs plain -----------------------
@@ -962,7 +1046,8 @@ def main() -> int:
     )
     hpad_cases = [(f"n{n}_{lvl}", n, (b_, c_, h_ // n, w_))
                   for n in SPATIAL_N for lvl, (b_, c_, h_, w_) in SERVE_LEVELS.items()]
-    for name, n, (b_, c_, h_, w_) in [*hpad_cases, ("ragged", 0, RAGGED_HPAD)]:
+    hpad_level_ms = {}
+    for name, n, (b_, c_, h_, w_) in [*hpad_cases, *(("ragged", 0, r) for r in RAGGED_HPAD)]:
         for dtype, rtol, atol in corr_tols:
             def rnd(*shape):
                 return torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -974,6 +1059,9 @@ def main() -> int:
                     "corr_bwd_df2_hpad": (gh, f1h)}
             line = []
             for kname, kern, ref in hpad_kernels:
+                if name == "ragged" and (b_, c_, h_, w_) != RAGGED_HPAD[0] \
+                        and kname != "corr_fwd_hpad":
+                    continue  # the forward's ragged tiles; the backward as before
                 got = kern(*args[kname], MD)
                 torch.cuda.synchronize()
                 want = ref(*args[kname], MD)
@@ -991,6 +1079,8 @@ def main() -> int:
                 p_ms = _time_ms(torch, lambda: ref(*args[kname], MD), inner=2)
                 line.append(f"{kname} max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
                             f"plain_ms={p_ms:.4f}")
+                if kname == "corr_fwd_hpad":
+                    hpad_level_ms[f"{name} {str(dtype)[6:]}"] = round(k_ms, 4)
                 if n == 2 and dtype == torch.float32:  # both shards of a level
                     ms[kname] += n * k_ms
                     plain_ms[kname] += n * p_ms
@@ -1004,6 +1094,7 @@ def main() -> int:
     for kname, _, _ in hpad_kernels:
         print(f"{kname} per spatial batch (n=2: 5 levels x 2 shards, float32): "
               f"kernel_ms={ms[kname]:.4f} plain_ms={plain_ms[kname]:.4f}")
+    print("corr_fwd_hpad kernel ms per shard launch: " + json.dumps(hpad_level_ms))
 
     # (b) make_spatial_infer against the unsharded inference_flow
     sp_model32 = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
@@ -1014,11 +1105,17 @@ def main() -> int:
     i1, i2 = (torch.from_numpy(sp_rng.rand(BATCH, h, w, 3).astype(np.float32)).to(device)
               for _ in range(2))
     spatial_fns = {n: {} for n in (1, *SPATIAL_N)}
+    refs = {}
     for prec, model in (("float32", sp_model32), ("bfloat16", sp_model16)):
         with torch.inference_mode():
-            ref = inference_flow(model, i1, i2)
+            ref = refs[prec] = inference_flow(model, i1, i2)
             peak = float(ref.abs().max())
-            tol = 1e-4 * (1 + peak) if prec == "float32" else 2e-2 * peak
+            # bfloat16: the slabs' convolutions sum in other orders than the
+            # whole map's and round differently to bf16 (probe.py spatial_gap),
+            # so the sharded flow is held to the float32 flow, no farther from
+            # it than BF16_SPATIAL_FACTOR times the unsharded bf16 flow is
+            gap = 0.0 if prec == "float32" else float((ref - refs["float32"]).abs().max())
+            tol = 1e-4 * (1 + peak) if prec == "float32" else BF16_SPATIAL_FACTOR * gap
             dense_ms = _time_ms(torch, lambda: inference_flow(model, i1, i2), reps=10, inner=1)
             line = [f"unsharded {dense_ms:.3f}"]
             for n in spatial_fns:
@@ -1032,10 +1129,16 @@ def main() -> int:
                     raise AssertionError(f"spatial n={n} {prec}: launches {got_counts}")
                 out = gather_rows(grid, device)
                 err = float((out - ref).abs().max())
+                if prec == "float32":
+                    held = f"tolerance {tol:.4e}, {err / tol:.3f} of it"
+                else:  # held to the float32 flow
+                    err_32 = float((out - refs["float32"]).abs().max())
+                    held = (f"against float32 {err_32:.4e}, the unsharded bf16 flow's "
+                            f"{gap:.4e}, {err_32 / gap:.3f} of it (limit {BF16_SPATIAL_FACTOR})")
                 print(f"spatial n={n} {prec} {BATCH}x{h}x{w}: max_abs_err={err:.4e} against "
-                      f"unsharded (max|flow|={peak:.4f}, tolerance {tol:.4e}); launches "
-                      f"{5 * n} corr_fwd_hpad, 0 corr_fwd")
-                if out.shape != ref.shape or not err <= tol:
+                      f"unsharded (max|flow|={peak:.4f}); {held}; launches {5 * n} "
+                      "corr_fwd_hpad, 0 corr_fwd")
+                if out.shape != ref.shape or not (err if prec == "float32" else err_32) <= tol:
                     raise AssertionError(f"spatial n={n} {prec}: parity failed")
                 sp_ms = _time_ms(torch, lambda: fn(i1, i2), reps=10, inner=1)
                 line.append(f"n={n} {sp_ms:.3f}")
@@ -1144,11 +1247,18 @@ def main() -> int:
         dense_server.close()
     peak = float(np.abs(want).max())
     err = float(np.abs(flows[0] - want).max())
+    with torch.inference_mode():
+        pair = torch.from_numpy(sp_pairs[0]).to(device)
+        want32 = inference_flow(sp_model32, pair[None, :h], pair[None, h:])[0].cpu().numpy()
+    gap = float(np.abs(want - want32).max())
+    err_32 = float(np.abs(flows[0] - want32).max())
     print(f"spatial server (n=2, bfloat16): {stats['served']} requests in {stats['batches']} "
           f"batches, occupancy {stats['occupancy']}, corr_fwd_hpad launches "
           f"{sp_serve_counts['corr_fwd_hpad']} (10 per batch), wall {wall:.3f} s; request 0 "
-          f"against the unsharded server max_abs_err={err:.4e} (max|flow|={peak:.4f})")
-    if not err <= 2e-2 * peak:
+          f"against the unsharded server max_abs_err={err:.4e} (max|flow|={peak:.4f}); "
+          f"against the float32 flow {err_32:.4e}, the unsharded server's {gap:.4e}, "
+          f"{err_32 / gap:.3f} of it (limit {BF16_SPATIAL_FACTOR})")
+    if not err_32 <= BF16_SPATIAL_FACTOR * gap:
         raise AssertionError("spatial server parity failed")
     del sp_model32, sp_model16, spatial_fns, server, dense_server
     torch.cuda.empty_cache()
@@ -1161,25 +1271,27 @@ def main() -> int:
         img32 = torch.from_numpy(r.rand(b_, n_src, c_).astype(np.float32)).to(device)
         idx_np = r.randint(0, n_src, (b_, h_ * w_, 1)).astype(np.int32)
         idx_np[0, 0, 0], idx_np[-1, -1, 0] = 0, n_src - 1
+        idx_np[0, 1, 0], idx_np[-1, 0, 0] = -3, n_src + 5  # out of range: clamped
         idx = torch.from_numpy(idx_np).to(device)
+        idx_ok = idx.clamp(0, n_src - 1)  # torch.gather faults on an index out of range
         # the source rows this run's indices touch, each read once
         offs = torch.arange(b_, device=device)[:, None, None] * n_src
-        touched = int(torch.unique(idx.long() + offs).numel())
+        touched = int(torch.unique(idx_ok.long() + offs).numel())
         for dtype in (torch.bfloat16, torch.float32):
             img = img32.to(dtype)
             got = gather_cuda.row_gather(img, idx)
             torch.cuda.synchronize()
-            want = row_gather_reference(img, idx)
+            want = row_gather_reference(img, idx_ok)
             if got.dtype != dtype or not torch.equal(got, want):
                 raise AssertionError(f"row_gather {name} {dtype}: differs from the plain version")
             note("row_gather", got, want)
-            if name == "ragged":
+            if name != "probe":
                 print(f"row_gather {name} {(b_, n_src, c_)} -> {tuple(got.shape)} "
                       f"{str(dtype)[6:]}: equal to the plain version")
                 continue
-            idx_lib = idx.long().expand(-1, -1, c_)  # the library call's index, made once
+            idx_lib = idx_ok.long().expand(-1, -1, c_)  # the library call's index, made once
             k_ms = _time_ms(torch, lambda: gather_cuda.row_gather(img, idx))
-            p_ms = _time_ms(torch, lambda: row_gather_reference(img, idx))
+            p_ms = _time_ms(torch, lambda: row_gather_reference(img, idx_ok))
             l_ms = _time_ms(torch, lambda: torch.gather(img, 1, idx_lib))
             k_dev = _device_ms(torch, lambda: gather_cuda.row_gather(img, idx),
                                "row_gather_kernel")
@@ -1252,6 +1364,133 @@ def main() -> int:
     print("gather probes, every mode on the card: launches "
           + json.dumps({k: probe_counts[k] for k in gathers}))
 
+    # ---- 13. the entry points as a user runs them, without yaml and cv2 ------
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.data.loader import BatchLoader
+    from unopticalflow_tpu_torch.evaluation.flowlib import flow_png_samples
+    from unopticalflow_tpu_torch.utils import imageio
+
+    root = os.path.join(model_dir, "entry")
+    prep = os.path.join(root, "prepared", "data_s1")
+    gt = os.path.join(root, "kitti2015")
+    for d in (os.path.join(prep, "d", "r"), *(os.path.join(gt, s) for s in
+                                              ("image_2", "flow_occ", "flow_noc", "obj_map"))):
+        os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    snips = SyntheticSnippets(KITTI_HW, ENTRY_SNIPPETS, seed=SEED + 9).snippets
+    lines = []
+    # the port's writer filters each row as libpng (cv2.imwrite, KITTI's own
+    # files) does: mostly Average and Paeth rows
+    for i, snip in enumerate(snips):
+        with open(os.path.join(prep, "d", "r", f"{i:010d}.png"), "wb") as f:
+            f.write(imageio.encode_png(snip, level=1))
+        lines.append(f"d/r/{i:010d}.png d/calib.txt\n")
+    with open(os.path.join(prep, "d", "calib.txt"), "w") as f:
+        f.write("P_rect_02: 721.5 0.0 609.6 44.9 0.0 721.5 172.9 0.2 0.0 0.0 1.0 0.003\n")
+    with open(os.path.join(prep, "train.txt"), "w") as f:
+        f.writelines(lines)
+    # 8 distinct pairs and ground truths, each written under 25 frame numbers
+    frame_px = [np.ascontiguousarray(snip[j * KITTI_HW[0]:(j + 1) * KITTI_HW[0]])
+                for snip in snips for j in range(2)]
+    frames = [imageio.encode_png(f, level=1) for f in frame_px]
+    gts_e, nocs_e, movs_e = gt_set(ENTRY_SNIPPETS)
+    gh_e, gw_e = ENTRY_GT_HW
+    occ_png = [imageio.encode_png(flow_png_samples(g[:gh_e, :gw_e]), level=1)
+               for g in gts_e]
+    noc_png = [imageio.encode_png(flow_png_samples(np.dstack([g[:gh_e, :gw_e, :2],
+                                                                nc[:gh_e, :gw_e]])), level=1) for g, nc in zip(gts_e, nocs_e)]
+    obj_png = [imageio.encode_png(m[:gh_e, :gw_e].astype(np.uint8), level=1)
+               for m in movs_e]
+    for i in range(ENTRY_PAIRS):
+        k = i % ENTRY_SNIPPETS
+        for rel, data in ((f"image_2/{i:06d}_10.png", frames[2 * k]),
+                          (f"image_2/{i:06d}_11.png", frames[2 * k + 1]),
+                          (f"flow_occ/{i:06d}_10.png", occ_png[k]),
+                          (f"flow_noc/{i:06d}_10.png", noc_png[k]),
+                          (f"obj_map/{i:06d}_10.png", obj_png[k])):
+            with open(os.path.join(gt, rel), "wb") as f:
+                f.write(data)
+    cfg_path = os.path.join(root, "kitti.yaml")
+    with open(cfg_path, "w") as f:
+        f.write("# config/kitti.yaml, with this run's directories and steps\n"
+                f"prepared_base_dir: '{os.path.join(root, 'prepared')}'\n"
+                f"gt_2012_dir: '{gt}'\ngt_2015_dir: '{gt}'\n"
+                f"dataset: 'kitti_depth'\nnum_scales: 3\nnum_iterations: {ENTRY_STEPS}\n"
+                "w_ssim: 0.85\nw_flow_smooth: 10.0\nw_flow_consis: 0.01\n"
+                f"img_hw: [{h}, {w}]\n")
+    t_write = time.perf_counter() - t0
+    filters = np.zeros(5, np.int64)  # the row filters the frames hold
+    for data in frames:
+        idat = b"".join(body for kind, body in imageio._chunks(data) if kind == b"IDAT")
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(KITTI_HW[0], -1)
+        filters += np.bincount(rows[:, 0], minlength=5)
+    t0 = time.perf_counter()
+    for i in range(20):
+        if not np.array_equal(imageio.decode_png(frames[i % len(frames)]),
+                              frame_px[i % len(frames)]):
+            raise AssertionError(f"PNG reader: frame {i % len(frames)} differs")
+    decode_rate = 20 / (time.perf_counter() - t0)
+    # the training loader on the prepared snippets: decode, resize, 4 threads
+    loader = BatchLoader(train_cli.PREPARED["kitti_depth"](
+        prep, num_scales=3, img_hw=IMG_HW, num_iterations=LOADER_SNIPPETS, emit_uint8=True),
+        batch_size=BATCH, num_workers=4)
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b) for b in loader)
+    loader_rate = n_loaded / (time.perf_counter() - t0)
+    need = {"float32": BATCH / ms_step * 1e3, "bfloat16": BATCH / ms_step_bf16 * 1e3}
+    print(f"entry points: wrote {ENTRY_SNIPPETS} prepared snippets at {KITTI_HW} and a KITTI "
+          f"2015 tree of {ENTRY_PAIRS} pairs (ground truth {ENTRY_GT_HW}) in {t_write:.2f} s, "
+          f"every PNG filtered as libpng filters it (frames' rows None/Sub/Up/Average/Paeth: "
+          f"{filters.tolist()}); the port's PNG reader: {decode_rate:.1f} frames/s of "
+          f"{KITTI_HW} on one thread; the training loader (decode and resize, 4 threads): "
+          f"{loader_rate:.1f} snippets/s against the steps' " + ", ".join(
+              f"{k} {v:.1f} ({'kept up' if loader_rate >= v else 'fell behind'})"
+              for k, v in need.items()))
+
+    blocked = {m: sys.modules.get(m) for m in ("yaml", "cv2")}
+    entry_dir = os.path.join(root, "models")
+    try:
+        for m in blocked:
+            sys.modules[m] = None  # as on a machine without pyyaml and opencv
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+        torch.backends.cuda.matmul.allow_tf32 = True
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["-c", cfg_path, "--no_test", "-g", "0", "--batch_size", str(BATCH),
+                             "--num_workers", "4", "--log_interval", "1", "--save_interval",
+                             "1000", "--init_scheme", "pwc", "--model_dir", entry_dir])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        entry_train = counts()
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        last = os.path.join(entry_dir, "flow", "last.pth")
+        if rc != 0 or entry_train != {k: ENTRY_STEPS * v for k, v in PER_STEP.items()} \
+                or tf32 != (False, False) or not os.path.exists(last):
+            raise AssertionError(f"train.main: rc {rc}, launches {entry_train}, TF32 {tf32}, "
+                                 f"checkpoint {os.path.exists(last)}")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = evaluation.main(["-c", cfg_path, "--task", "kitti_flow", "--pretrained_model", last,
+                               "-g", "0"])
+        torch.cuda.synchronize()
+        t_test = time.perf_counter() - t0
+        entry_test = counts()
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    n_batches = math.ceil(ENTRY_PAIRS / BATCH)
+    vals = _values(res)
+    if entry_test != {**zero_counts, "corr_fwd": 5 * n_batches} or len(vals) != 8 \
+            or not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"test.main: launches {entry_test}, result {res!r}")
+    print(f"entry points (yaml and cv2 blocked): train.main {ENTRY_STEPS} float32 steps at "
+          f"batch {BATCH} from {KITTI_HW} PNGs in {t_train:.2f} s, launches {entry_train}, "
+          f"TF32 off, {last} written; test.main on {ENTRY_PAIRS} pairs in {t_test:.2f} s, "
+          f"{entry_test['corr_fwd']} corr_fwd launches ({n_batches} batches)")
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
@@ -1276,7 +1515,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 12 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: 13 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -102,7 +102,11 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-CORR_SHAPES = [(2, 5, 7, 33), (1, 16, 1, 1), (3, 40, 9, 70)]
+# ragged shapes of the tiled forward (tiles of 4 rows x 32 columns, channels in
+# chunks of 8): W no multiple of 32 with W % 4 == 0 (16-byte copies) and
+# without, H = 1, C = 1, odd C, and a coarse level whose dy rows split over the grid
+CORR_SHAPES = [(2, 5, 7, 33), (1, 16, 1, 1), (3, 40, 9, 70), (2, 1, 1, 45), (1, 7, 5, 100),
+               (2, 13, 6, 36), (4, 196, 4, 13)]
 CORR_TOLS = [(torch.float32, (1e-5, 1e-6)), (torch.bfloat16, (2e-2, 2e-2))]
 
 
@@ -492,13 +496,16 @@ def test_train_step_with_regularizer_kernels_matches_plain(device):
 
 # the gather probes' shapes (benchmarks/gather_probe.py, pallas_gather_probe.py)
 # and ragged ones: (B, H, W, C) for the row gather, (S, W) for the block gathers
-ROW_GATHER_SHAPES = [(16, 256, 832, 12), (3, 45, 61, 5)]
+# (B, H, W, C): the probe's 12 channels (8-byte bf16 and 16-byte f32 copies),
+# a ragged 5 (2-byte bf16 copies), 3 (4- and 2-byte) and a wide 128 (rows of
+# more than 4 copy units)
+ROW_GATHER_SHAPES = [(16, 256, 832, 12), (3, 45, 61, 5), (2, 17, 19, 3), (2, 9, 31, 128)]
 BLOCK_GATHER_CASES = [("lane", (4096, 128), torch.float32), ("lane", (4096, 128), torch.bfloat16),
                       ("sublane", (8, 8192), torch.float32), ("lane", (13, 96), torch.bfloat16),
                       ("sublane", (5, 333), torch.float32)]
 
 
-@pytest.mark.parametrize("shape", ROW_GATHER_SHAPES, ids=["probe", "ragged"])
+@pytest.mark.parametrize("shape", ROW_GATHER_SHAPES, ids=["probe", "ragged", "c3", "c128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_row_gather_kernel_equals_plain(device, shape, dtype):
     """Bit for bit (a copy), every row of a ragged R written, one launch."""
@@ -508,13 +515,14 @@ def test_row_gather_kernel_equals_plain(device, shape, dtype):
     img = torch.from_numpy(rng.rand(b, n, c).astype(np.float32)).to(device, dtype)
     idx_np = rng.randint(0, n, (b, h * w, 1)).astype(np.int32)
     idx_np[0, 0, 0], idx_np[-1, -1, 0] = 0, n - 1
+    idx_np[0, 1, 0], idx_np[-1, 0, 0] = -3, n + 5  # out of range: clamped
     idx = torch.from_numpy(idx_np).to(device)
     before = gather_cuda.launches["row_gather"]
     got = row_gather(img, idx)
     torch.cuda.synchronize()
     assert gather_cuda.launches["row_gather"] == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (b, h * w, c)
-    assert torch.equal(got, row_gather_reference(img, idx))
+    assert torch.equal(got, row_gather_reference(img, idx.clamp(0, n - 1)))
 
 
 @pytest.mark.parametrize("kind,shape,dtype", BLOCK_GATHER_CASES,
@@ -562,3 +570,38 @@ def test_gather_wrappers_reject_what_the_kernels_do_not_take(device):
     assert gather_cuda.launches == before
     assert gather_cuda.row_gather(img, ridx[:, :0].contiguous()).shape == (2, 0, 3)
     assert gather_cuda.launches == before  # an empty output launches nothing
+
+
+def test_float32_server_from_build_server_runs_without_tf32(device, tmp_path):
+    """``serve.build_server`` at --precision float32, started from PyTorch's
+    default (TF32 on for cuDNN): TF32 is off once the server is built, and
+    the served flow is within the float32 tolerance of the plain-correlation
+    flow of the same weights."""
+    import types
+
+    from unopticalflow_tpu_torch.serve import build_server
+    from unopticalflow_tpu_torch.training import make_optimizer
+    from unopticalflow_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(0))
+    pth = str(tmp_path / "m.pth")
+    save_checkpoint([pth], 1, model, make_optimizer(model))
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default; the fixture restores it
+    torch.backends.cuda.matmul.allow_tf32 = True
+    args = types.SimpleNamespace(device="cuda", precision="float32", pretrained_model=pth,
+                                 spatial=1, spatial_devices=None, max_batch=2, max_wait_ms=5.0)
+    server = build_server(types.SimpleNamespace(img_hw=(128, 256)), args)
+    try:
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        pair = np.random.RandomState(3).rand(256, 256, 3).astype(np.float32)
+        flow = server.infer(pair, timeout=300.0)
+    finally:
+        server.close()
+    i1 = torch.from_numpy(pair[None, :128]).to(device)
+    i2 = torch.from_numpy(pair[None, 128:]).to(device)
+    with torch.inference_mode():
+        want = inference_flow(model, i1, i2, corr_fn=cost_volume_reference)[0].cpu().numpy()
+    peak = float(np.abs(want).max())
+    assert flow.shape == want.shape and float(np.abs(flow - want).max()) <= 1e-4 * (1 + peak)

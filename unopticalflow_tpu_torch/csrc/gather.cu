@@ -11,13 +11,21 @@
 // What bounds it on this card: device-memory bytes, with no arithmetic at all
 // (the output once, 4 bytes of index per row, and the source rows the indices
 // touch; a random 24- or 48-byte row touches one or two 32-byte sectors, so the
-// real floor sits above the byte count).  Design (simple and right first): one
-// thread per output element over a grid-stride loop with 64-bit offsets, so
-// every C and every R is taken; neighbouring threads write neighbouring
-// elements (coalesced writes), the C threads of a row read its one int32 index
-// (4 bytes per row, not torch.gather's int64 per element) and its C neighbouring
-// source elements.  The element is copied as its bits (uint32_t for float32,
-// uint16_t for bfloat16), so the result equals the plain version bit for bit.
+// real floor sits above the byte count).  Design: a warp copies 32 consecutive
+// rows of one image, the grid is (row blocks, B), so the index arithmetic is
+// 32-bit with no division per element.  Each lane loads one row's int32 index
+// once and clamps it; the warp's 32 rows form one contiguous run of output
+// copy units (16, 8, 4 or 2 bytes: the widest that divides the row and both
+// arrays' alignment, 8 for the probe's 24-byte bf16 rows, 16 for its 48-byte
+// f32 rows), and lane l copies units l, l + 32, ...: every store instruction
+// writes 32 neighbouring units, and the lanes that share a row read its
+// neighbouring units, the row's index coming from its lane by a shuffle.  A
+// lane steps its (row, unit in row) pair by adding, with no division past
+// the first.  On the card this beat one row per thread (its 48-byte f32 rows
+// stored 16 bytes per lane 48 bytes apart) in both dtypes.  The row is copied
+// as its bits, so the result equals the plain version bit for bit.  (The first
+// version ran one thread per element with a 64-bit division and modulo per
+// element and re-read the row's index for every element.)
 //
 // lane_gather_kernel and sublane_gather_kernel replace the TPU kernels of
 // benchmarks/pallas_gather_probe.py:42 (lane_kernel) and :50 (sublane_kernel),
@@ -49,25 +57,55 @@
 namespace {
 
 constexpr int kRowThreads = 256;
-constexpr int kRowBlocksPerSM = 16;
-constexpr int kSMs = 132;  // H100 SXM; the grid-stride loop takes any size
+constexpr int kRowUnits = 4;  // rows of at most this many units: loads batched before stores
 constexpr int kLaneThreads = 256;
 constexpr int kLaneRows = 2;   // rows of x staged per block
 constexpr int kSubCols = 128;  // columns per block, one thread each
 constexpr int kReps = 64;      // taps summed per element: ops/gather.py's REPS
 
-template <typename T>
+// U: the copy unit (uint4, uint2, uint32_t or uint16_t); a row is `units` of
+// them.  grid (ceil(R / kRowThreads), B): each warp copies 32 rows.
+template <typename U>
 __global__ void __launch_bounds__(kRowThreads)
-row_gather_kernel(const T* __restrict__ img, const int* __restrict__ idx, T* __restrict__ out,
-                  int64_t N, int64_t R, int64_t C, int64_t total) {
-  const int64_t stride = (int64_t)gridDim.x * kRowThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kRowThreads + threadIdx.x; e < total; e += stride) {
-    const int64_t row = e / C;  // b * R + r
-    const int64_t c = e - row * C;
-    const int64_t b = row / R;
-    int64_t i = idx[row];
+row_gather_kernel(const U* __restrict__ img, const int* __restrict__ idx, U* __restrict__ out,
+                  int N, int R, int units) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5)) * 32;
+  if (r0 >= R) return;  // the whole warp
+  const int b = blockIdx.y;
+  const int64_t row0 = (int64_t)b * R + r0;
+  int i = 0;  // this lane's row's source index
+  if (r0 + lane < R) {
+    i = __ldg(idx + row0 + lane);
     i = i < 0 ? 0 : (i >= N ? N - 1 : i);
-    out[e] = img[(b * N + i) * C + c];
+  }
+  const int total = min(32, R - r0) * units;  // the warp's output units
+  const U* src = img + (int64_t)b * N * units;
+  U* dst = out + row0 * units;
+  // unit lane + 32k is unit `off` of row `r` of the warp's rows
+  int r = lane / units, off = lane - r * units;
+  const int dr = 32 / units, doff = 32 - dr * units;
+  if (units <= kRowUnits) {  // every load in flight before the stores
+    U v[kRowUnits];
+#pragma unroll
+    for (int k = 0; k < kRowUnits; ++k) {
+      const int s = __shfl_sync(0xffffffffu, i, r & 31);
+      if (k < units && lane + 32 * k < total) v[k] = __ldg(src + (int64_t)s * units + off);
+      r += dr;
+      off += doff;
+      if (off >= units) off -= units, ++r;
+    }
+#pragma unroll
+    for (int k = 0; k < kRowUnits; ++k)
+      if (k < units && lane + 32 * k < total) dst[lane + 32 * k] = v[k];
+    return;
+  }
+  for (int k = 0; k < units; ++k) {
+    const int s = __shfl_sync(0xffffffffu, i, r & 31);
+    if (lane + 32 * k < total) dst[lane + 32 * k] = __ldg(src + (int64_t)s * units + off);
+    r += dr;
+    off += doff;
+    if (off >= units) off -= units, ++r;
   }
 }
 
@@ -129,16 +167,24 @@ sublane_gather_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-template <typename T>
-cudaError_t launch_row(const void* img, const int* idx, void* out, int B, int N, int R, int C,
-                       cudaStream_t stream) {
-  const int64_t total = (int64_t)B * R * C;
-  const int64_t need = (total + kRowThreads - 1) / kRowThreads;
-  const int64_t cap = (int64_t)kSMs * kRowBlocksPerSM;
-  const int blocks = (int)(need < cap ? need : cap);
-  row_gather_kernel<T><<<blocks, kRowThreads, 0, stream>>>(
-      static_cast<const T*>(img), idx, static_cast<T*>(out), N, R, C, total);
+template <typename U>
+cudaError_t launch_row_units(const void* img, const int* idx, void* out, int B, int N, int R,
+                             int row_bytes, cudaStream_t stream) {
+  const dim3 grid((R + kRowThreads - 1) / kRowThreads, B);
+  row_gather_kernel<U><<<grid, kRowThreads, 0, stream>>>(
+      static_cast<const U*>(img), idx, static_cast<U*>(out), N, R, row_bytes / (int)sizeof(U));
   return cudaGetLastError();
+}
+
+cudaError_t launch_row(const void* img, const int* idx, void* out, int B, int N, int R,
+                       int row_bytes, cudaStream_t stream) {
+  // the widest unit that divides the row and both arrays' alignment
+  const uintptr_t align = (uintptr_t)row_bytes | (uintptr_t)img | (uintptr_t)out;
+  if (align % 16 == 0) return launch_row_units<uint4>(img, idx, out, B, N, R, row_bytes, stream);
+  if (align % 8 == 0) return launch_row_units<uint2>(img, idx, out, B, N, R, row_bytes, stream);
+  if (align % 4 == 0)
+    return launch_row_units<uint32_t>(img, idx, out, B, N, R, row_bytes, stream);
+  return launch_row_units<uint16_t>(img, idx, out, B, N, R, row_bytes, stream);
 }
 
 template <typename T>
@@ -164,19 +210,18 @@ cudaError_t launch_sublane(const void* x, const int* idx, void* out, int S, int 
 }  // namespace
 
 // img (B, N, C), idx (B, R) int32, out (B, R, C); dtype 0 = float32, 1 = bfloat16
-// (copied as uint32_t / uint16_t bits).  B, R or C of 0 launches nothing.
-// Returns the launch's cudaError_t (0 = success).
+// (copied as bits).  B at most 65535 (the grid's y), a row at most INT_MAX
+// bytes.  B, R or C of 0 launches nothing.  Returns the launch's cudaError_t
+// (0 = success).
 extern "C" int row_gather(const void* img, const void* idx, void* out, int B, int N, int R,
                           int C, int dtype, void* stream) {
-  if (B < 0 || N <= 0 || R < 0 || C < 0) return (int)cudaErrorInvalidValue;
+  if (B < 0 || B > 65535 || N <= 0 || R < 0 || C < 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if ((int64_t)B * R * C == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ix = static_cast<const int*>(idx);
-  switch (dtype) {
-    case 0: return (int)launch_row<uint32_t>(img, ix, out, B, N, R, C, s);
-    case 1: return (int)launch_row<uint16_t>(img, ix, out, B, N, R, C, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int64_t row_bytes = (int64_t)C * (dtype == 0 ? 4 : 2);
+  if (row_bytes > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  return (int)launch_row(img, static_cast<const int*>(idx), out, B, N, R, (int)row_bytes,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // x, out (S, W) of dtype 0 = float32 / 1 = bfloat16, idx (S, W) int32; W at most

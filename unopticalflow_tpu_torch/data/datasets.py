@@ -1,8 +1,8 @@
 """Host-side training and evaluation datasets over prepared directories.
 
-The port's copy of ``unopticalflow_tpu/data/datasets.py`` (numpy; cv2 is
-imported only where a PNG is read or resized): a ``train.txt`` manifest of
-vertically stacked PNGs, per-frame resize to ``img_hw``, a joint horizontal
+The port's copy of ``unopticalflow_tpu/data/datasets.py`` (numpy; PNGs are
+read and resized by ``utils/imageio.py``, as cv2 reads and resizes them): a
+``train.txt`` manifest of vertically stacked PNGs, per-frame resize to ``img_hw``, a joint horizontal
 flip, /255 normalisation, intrinsics, and the reference's idx-seeded
 resampling (``np.random.RandomState(idx)`` then a uniform draw), which makes
 every sample a pure function of its index, so the loader's threads decode in
@@ -16,20 +16,18 @@ import os
 
 import numpy as np
 
+from unopticalflow_tpu_torch.utils import imageio
+
 
 def _imread(path):
-    import cv2
-
-    img = cv2.imread(path)
+    img = imageio.imread(path)
     if img is None:
         raise FileNotFoundError(path)
     return img
 
 
 def _resize(img, wh):
-    import cv2
-
-    return cv2.resize(img, wh)
+    return imageio.resize(img, wh)
 
 
 def _maybe_flip(img, rng):

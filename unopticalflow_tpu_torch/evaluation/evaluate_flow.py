@@ -2,8 +2,8 @@
 
 Port of ``unopticalflow_tpu/evaluation/evaluate_flow.py`` (and of
 ``load_gt_mask`` from ``evaluate_mask.py``): the flow_occ/flow_noc PNGs and
-the object maps read in a pool of threads (cv2 releases the interpreter lock
-while it decodes), each prediction vector-rescaled from network to
+the object maps read in a pool of threads (the PNG reader's zlib and row
+unfiltering release the interpreter lock), each prediction vector-rescaled from network to
 ground-truth resolution and resized bilinearly, average EPE over valid /
 non-occluded / occluded pixels, the KITTI outlier rate (> 3 px and > 5% of
 the ground-truth magnitude), the moving/static splits, and the same
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from unopticalflow_tpu_torch.evaluation.flowlib import read_flow_png
+from unopticalflow_tpu_torch.utils import imageio
 
 KITTI_NUM_GT = {"kitti_2012": 194, "kitti_2015": 200}
 
@@ -47,11 +48,10 @@ def load_gt_flow_kitti(gt_dataset_dir: str, mode: str, num_workers: int = 5):
 
 def load_gt_mask(gt_dataset_dir: str, num_workers: int = 5):
     """KITTI 2015 moving-object masks (``obj_map``), binarised at > 0."""
-    import cv2
 
     def read(i):
         path = os.path.join(gt_dataset_dir, "obj_map", f"{i:06d}_10.png")
-        m = cv2.imread(path, -1)
+        m = imageio.imread(path, imageio.IMREAD_UNCHANGED)
         if m is None:
             raise FileNotFoundError(path)
         return (m > 0.0).astype(m.dtype)

@@ -3,13 +3,15 @@
 The port's copy of the parts of ``unopticalflow_tpu/evaluation/flowlib.py``
 that evaluation and serving use: Middlebury ``.flo`` reading and encoding,
 the KITTI 16-bit PNG flow encoding ((value - 2^15) / 64, third channel
-validity) and the Middlebury colour wheel.  PNGs go through OpenCV (16-bit,
-BGR channel order), imported where a PNG is read or written.
+validity) and the Middlebury colour wheel.  PNGs go through
+``utils/imageio.py`` (16-bit, in cv2's BGR channel order).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from unopticalflow_tpu_torch.utils import imageio
 
 TAG_FLOAT = 202021.25  # .flo magic
 
@@ -41,9 +43,7 @@ def read_flow_png(flow_file: str) -> np.ndarray:
 
     Invalid pixels are zeroed.
     """
-    import cv2
-
-    raw = cv2.imread(flow_file, cv2.IMREAD_UNCHANGED)
+    raw = imageio.imread(flow_file, imageio.IMREAD_UNCHANGED)
     if raw is None:
         raise FileNotFoundError(flow_file)
     raw = raw.astype(np.float64)
@@ -59,8 +59,11 @@ def read_flow_png(flow_file: str) -> np.ndarray:
 
 def write_flow_png(flo: np.ndarray, flow_file: str) -> None:
     """Write (H, W, >=2) flow in the KITTI 16-bit PNG encoding."""
-    import cv2
+    imageio.imwrite(flow_file, flow_png_samples(flo))
 
+
+def flow_png_samples(flo: np.ndarray) -> np.ndarray:
+    """(H, W, >=2) flow -> the (H, W, 3) uint16 BGR samples of its KITTI PNG."""
     h, w = flo.shape[:2]
     enc = np.ones((h, w, 3), dtype=np.uint16)
     u = np.clip(flo[:, :, 0] * 64.0 + 2.0**15, 0, 2**16 - 1)
@@ -69,7 +72,7 @@ def write_flow_png(flo: np.ndarray, flow_file: str) -> None:
     enc[:, :, 1] = v.astype(np.uint16)  # G
     if flo.shape[2] > 2:
         enc[:, :, 0] = flo[:, :, 2].astype(np.uint16)
-    cv2.imwrite(flow_file, enc)
+    return enc
 
 
 # ---------------------------------------------------------------------------

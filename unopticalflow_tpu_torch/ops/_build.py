@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v -shared \
         -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so csrc/<name>.cu
 
+and the host code of ``csrc/<name>.c`` (``utils/imageio.py``'s PNG row
+unfiltering and resize) with the host's C compiler, ``cc -O2 -shared -fPIC``, on every machine,
 at first use, into ``build/kernels/`` at the repository root, under a name
 keyed on a hash of the source, so an edited source is rebuilt and an
 unchanged one is not.  ``build_all`` starts one ``nvcc`` per source, all at
@@ -25,8 +27,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("correlation", "photometric", "regularizer", "gather")
+HOST_SOURCES = ("imageio",)
 
 _libs: dict[str, ctypes.CDLL] = {}
+# ptxas's report (registers, shared memory, spills per kernel) of each source
+# built in this process: nvcc runs with -Xptxas -v, which changes no code
+ptxas_log: dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -42,8 +48,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _cc() -> str:
+    for cand in (os.environ.get("CC"), shutil.which("cc"), shutil.which("gcc")):
+        if cand:
+            return cand
+    raise RuntimeError("no C compiler found: set CC or put cc on PATH")
+
+
 def _paths(name: str) -> tuple[str, str]:
-    src = os.path.join(CSRC, f"{name}.cu")
+    src = os.path.join(CSRC, f"{name}.c" if name in HOST_SOURCES else f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, f"{name}_{digest}.so")
@@ -56,10 +69,13 @@ def _start(name: str):
         return lib_path, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
-    ]
+    if name in HOST_SOURCES:
+        cmd = [_cc(), "-O2", "-shared", "-fPIC", "-o", tmp, src]
+    else:
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        ]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return lib_path, (proc, cmd, tmp)
 
@@ -70,7 +86,10 @@ def _finish(lib_path: str, job) -> str:
     proc, cmd, tmp = job
     _, err = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    name = os.path.basename(lib_path).rsplit("_", 1)[0]
+    if name not in HOST_SOURCES:
+        ptxas_log[name] = err
     os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
     return lib_path
 
@@ -89,7 +108,8 @@ def build_all() -> dict[str, str]:
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """Build if needed, load once, and declare each function's argument types.
 
-    Every exported function returns the launch's ``cudaError_t`` as an int.
+    Every exported function returns an int: a kernel's launch its
+    ``cudaError_t``.
     """
     with _lock:
         lib = _libs.get(name)

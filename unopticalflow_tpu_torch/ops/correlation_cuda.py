@@ -56,9 +56,9 @@ def _check(a: torch.Tensor, b: torch.Tensor, md: int, what: str) -> None:
         raise ValueError(f"correlation kernel supports md={_MD} only, got {md}")
 
 
-def _check_grid(shape, grid_z: int) -> None:
-    """The launch grid is (ceil(W / 64), H, grid_z): CUDA caps y and z at 65535."""
-    if min(shape) < 1 or shape[2] > 65535 or grid_z > 65535:
+def _check_grid(shape, grid_y: int, grid_z: int) -> None:
+    """CUDA caps a grid's y and z at 65535."""
+    if min(shape) < 1 or grid_y > 65535 or grid_z > 65535:
         raise ValueError(f"correlation kernel cannot launch shape {tuple(shape)}")
 
 
@@ -71,7 +71,9 @@ def _fwd(f1: torch.Tensor, f2: torch.Tensor, md: int, hpad: bool) -> torch.Tenso
         raise ValueError(f"correlation kernel needs f2 of shape {(b, c, h + halo, w)} for f1 "
                          f"{tuple(f1.shape)} (two equal (B, C, H, W) shapes, plus {halo} halo "
                          f"rows), got {tuple(f2.shape)}")
-    _check_grid(f1.shape, b)
+    # grid (ceil(W / 32), ceil(H / 4), B): a block takes all 9 dy rows, or 3
+    # of them (z = 3B) where a level has under 2 blocks per SM, so B < 264
+    _check_grid(f1.shape, -(-h // 4), b)
     lib = _lib()
     out = torch.empty((b, (2 * md + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)
     with torch.cuda.device(f1.device):
@@ -104,7 +106,7 @@ def _bwd(which: int, g: torch.Tensor, src: torch.Tensor, md: int, hpad: bool) ->
     if h < 1 or tuple(g.shape) != (b, nd, g_rows, w):
         raise ValueError(f"correlation kernel needs a ({b}, {nd}, {g_rows}, {w}) gradient "
                          f"for features {tuple(src.shape)}, got {tuple(g.shape)}")
-    _check_grid((b, c, h, w), b * c)
+    _check_grid((b, c, h, w), h, b * c)  # grid (ceil(W / 64), H, B * C)
     lib = _lib()
     out = torch.empty((b, c, h, w), dtype=src.dtype, device=src.device)
     with torch.cuda.device(src.device):

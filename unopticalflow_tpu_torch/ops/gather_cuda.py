@@ -66,7 +66,8 @@ def row_gather(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{tuple(img.shape)} and {tuple(idx.shape)}")
     b, n, c = img.shape
     r = idx.shape[1]
-    if n < 1 or max(b, n, r, c) > _INT_MAX:
+    # the grid's y is the batch (at most 65535); a row is at most INT_MAX bytes
+    if n < 1 or b > 65535 or max(n, r, c * img.element_size()) > _INT_MAX:
         raise ValueError(f"row_gather kernel cannot launch img {tuple(img.shape)}, "
                          f"idx {tuple(idx.shape)}")
     out = torch.empty((b, r, c), dtype=img.dtype, device=img.device)

@@ -1,7 +1,7 @@
 """Measure the port's serving and training slices on one CUDA device.
 
     python -m unopticalflow_tpu_torch.probe [--out build/probe] \
-        [--requests 512] [--seed 0] [--phases profile,serve,train,spatial]
+        [--requests 512] [--seed 0] [--phases profile,serve,train,spatial,spatial_gap]
 
 Everything runs at the KITTI shape (``config/kitti.yaml``: img_hw 256x832)
 with random "pwc" weights from ``--seed``; serving at ``max_batch`` 8 in
@@ -47,6 +47,16 @@ phase prints JSON lines:
    ``busy_ms_batch``, ``idle_share``, ``device_ops_per_batch`` and
    ``device_ms_by_kind`` over 5 profiled batches, and the hand-written
    kernels' launches per batch (tables in ``<out>/spatial_<dtype>_n<n>.txt``).
+5. ``spatial_gap``: where the sharded bfloat16 flow departs from the
+   unsharded one.  The same random "pwc" weights in float32 (TF32 off) and
+   bfloat16, the same images; every operation of the encoder and decoder
+   (convolutions, cost volumes, warps, upsamplings, additions) recorded on
+   the unsharded path and on ``make_spatial_infer``'s row-shards (joined),
+   at n = 2, batch 8, 256x832.  Per operation, max |sharded - unsharded| /
+   max |unsharded| in each dtype; the first operations whose bfloat16 gap
+   exceeds the float32 one.  Then the final flow's gaps at n = 2 and 4
+   (256x832) and n = 8 (512x832), each beside the unsharded path's own
+   bfloat16-versus-float32 gap, all relative to max |flow|.
 """
 
 from __future__ import annotations
@@ -74,6 +84,8 @@ from unopticalflow_tpu_torch.utils.device import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG_HW = (256, 832)  # config/kitti.yaml
 MAX_BATCH = 8  # serve.py --max_batch default
+# spatial_gap's final-flow cases: (row-shards, image size)
+GAP_CASES = ((2, IMG_HW), (4, IMG_HW), (8, (512, 832)))
 WARM_UPS = ("serving", "constructor")
 CLIENTS = 8  # closed-loop client threads: one full batch in flight
 REPS = 30  # timed batches per measurement of the profile phase
@@ -370,6 +382,122 @@ def spatial_run(model: FlowModel, n_spatial: int, out_dir: str, seed: int) -> di
     }
 
 
+class _TracedOps:
+    """An ops object (``DenseOps`` or the row-shard ops) that records each
+    operation's output as one float32 map (row-shards joined)."""
+
+    def __init__(self, base, join):
+        self.base, self.join, self.rec = base, join, []
+
+    def _keep(self, kind, out):
+        self.rec.append((kind, self.join(out).float()))
+        return out
+
+    def conv(self, layer, x):
+        return self._keep("conv", self.base.conv(layer, x))
+
+    def cat(self, parts):
+        return self.base.cat(parts)  # a copy: exact on both paths
+
+    def add(self, a, b):
+        return self._keep("add", self.base.add(a, b))
+
+    def corr(self, f1, f2):
+        return self._keep("corr", self.base.corr(f1, f2))
+
+    def up(self, flow):
+        return self._keep("up", self.base.up(flow))
+
+    def warp(self, f2, flow):
+        return self._keep("warp", self.base.warp(f2, flow))
+
+
+def _trace(model, i1, i2, n_spatial: int) -> list:
+    """(kind, float32 map) of every encoder and decoder operation of one batch."""
+    from unopticalflow_tpu_torch.models.pwc_decoder import DenseOps
+    from unopticalflow_tpu_torch.parallel.spatial import _ShardOps, shard_images, spatial_mesh
+
+    b = i1.shape[0]
+    if n_spatial == 0:
+        ops = _TracedOps(DenseOps(), lambda x: x)
+        imgs = torch.cat([i1, i2], 0).permute(0, 3, 1, 2).contiguous()
+    else:
+        device = i1.device
+        ops = _TracedOps(_ShardOps(), lambda xs: torch.cat(xs, 2))
+        g1, g2 = shard_images(spatial_mesh(n_spatial, devices=[device] * n_spatial), None,
+                              i1, i2)
+        imgs = [torch.cat([a, c], 0).permute(0, 3, 1, 2).contiguous()
+                for a, c in zip(g1[0], g2[0])]
+    with torch.inference_mode():
+        feats = model.fpyramid(imgs, conv=ops.conv)
+        if n_spatial == 0:
+            f1, f2 = [f[:b] for f in feats], [f[b:] for f in feats]
+        else:
+            f1 = [[x[:b] for x in f] for f in feats]
+            f2 = [[x[b:] for x in f] for f in feats]
+        model.pwc_model.decode(f1, f2, ops)
+    return ops.rec
+
+
+def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def spatial_gap_run(device, seed: int) -> list[dict]:
+    """The spatial_gap phase: one JSON record per measurement."""
+    from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
+
+    models = {}
+    for precision in ("float32", "bfloat16"):
+        models[precision] = FlowModel(FlowModelConfig(compute_dtype=precision), device=device)
+    models["bfloat16"].load_state_dict(_model(device, seed).state_dict())
+    models["float32"].load_state_dict(models["bfloat16"].state_dict())
+    h, w = IMG_HW
+    pairs = np.stack(_pairs(IMG_HW, MAX_BATCH, seed))
+    i1 = torch.from_numpy(pairs[:, :h].copy()).to(device)
+    i2 = torch.from_numpy(pairs[:, h:].copy()).to(device)
+    gaps = {}
+    for precision, model in models.items():
+        dense, shard = _trace(model, i1, i2, 0), _trace(model, i1, i2, 2)
+        if [k for k, _ in dense] != [k for k, _ in shard]:
+            raise RuntimeError("the sharded and unsharded paths ran different operations")
+        gaps[precision] = [(k, tuple(d.shape), _gap(s, d)) for (k, d), (_, s) in zip(dense, shard)]
+        del dense, shard
+        torch.cuda.empty_cache()
+    ops = [{"op": i, "kind": k, "shape": list(shape), "gap_bfloat16": g16,
+            "gap_float32": gaps["float32"][i][2]}
+           for i, (k, shape, g16) in enumerate(gaps["bfloat16"])]
+    first = [o for o in ops if o["gap_bfloat16"] > o["gap_float32"]][:5]
+    out = [{"phase": "spatial_gap", "n_spatial": 2, "batch": MAX_BATCH, "img_hw": list(IMG_HW),
+            "ops": len(ops), "first_departing_ops": first,
+            "largest_bfloat16_gaps": sorted(ops, key=lambda o: -o["gap_bfloat16"])[:5],
+            "ops_equal_in_bfloat16": sum(o["gap_bfloat16"] == 0 for o in ops),
+            "ops_equal_in_float32": sum(o["gap_float32"] == 0 for o in ops)}]
+    for n, hw in GAP_CASES:
+        rng = np.random.RandomState(seed + n)
+        a, b = (torch.from_numpy(rng.rand(MAX_BATCH, *hw, 3).astype(np.float32)).to(device)
+                for _ in range(2))
+        with torch.inference_mode():
+            flows = {p: inference_flow(m, a, b) for p, m in models.items()}
+            sharded = {p: gather_rows(make_spatial_infer(
+                m, spatial_mesh(n, devices=[device] * n))(a, b), device)
+                for p, m in models.items()}
+        peak = float(flows["float32"].abs().max())
+        rec = {"phase": "spatial_gap", "n_spatial": n, "batch": MAX_BATCH, "img_hw": list(hw),
+               "max_abs_flow": peak}
+        for p in models:
+            rec[f"sharded_vs_unsharded_{p}"] = float((sharded[p] - flows[p]).abs().max()) / peak
+        rec["unsharded_bfloat16_vs_float32"] = float(
+            (flows["bfloat16"] - flows["float32"]).abs().max()) / peak
+        rec["sharded_bfloat16_vs_unsharded_float32"] = float(
+            (sharded["bfloat16"] - flows["float32"]).abs().max()) / peak
+        out.append(rec)
+        del flows, sharded
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="measure the port's serving and training slices")
     p.add_argument("--out", default="build/probe")
@@ -378,7 +506,7 @@ def main(argv=None) -> int:
     p.add_argument("--serve_one", choices=WARM_UPS, default=None,
                    help="run one serve measurement in this process and exit")
     p.add_argument("--phases", default="profile,serve,train",
-                   help="comma-separated subset of profile,serve,train,spatial")
+                   help="comma-separated subset of profile,serve,train,spatial,spatial_gap")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -418,6 +546,11 @@ def main(argv=None) -> int:
                 print(json.dumps(spatial_run(model, n, args.out, args.seed)), flush=True)
             del model
             torch.cuda.empty_cache()
+    if "spatial_gap" in phases:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for rec in spatial_gap_run(device, args.seed):
+            print(json.dumps(rec), flush=True)
     for warm_up in ("serving", "constructor", "constructor", "serving") if "serve" in phases else ():
         proc = subprocess.run(
             [sys.executable, "-m", "unopticalflow_tpu_torch.probe", "--serve_one", warm_up,

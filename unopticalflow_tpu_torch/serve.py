@@ -15,8 +15,9 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 
 The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
 /flow`` with a PNG/JPEG of the vertically stacked pair, answered with
-Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it imports ``cv2``
-where a request body is decoded, and ``main`` reads the yaml, so
+Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it
+decodes a PNG body with the port's own reader and a JPEG body with ``cv2``
+(a 400 where opencv is missing), and ``main`` reads the yaml, so
 ``FlowServer`` itself needs only torch and numpy.
 
 Usage:
@@ -42,7 +43,8 @@ from unopticalflow_tpu_torch.evaluation.flowlib import encode_flow
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
 from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
 from unopticalflow_tpu_torch.parallel.spatial import check_height
-from unopticalflow_tpu_torch.utils.device import resolve_device
+from unopticalflow_tpu_torch.utils import imageio
+from unopticalflow_tpu_torch.utils.device import resolve_device, set_float32_precision
 
 MAX_BODY_BYTES = 64 * 1024 * 1024  # a request body larger than this is refused (413)
 
@@ -178,18 +180,19 @@ class FlowServer:
 
 
 def _decode_pair(body: bytes, img_hw) -> np.ndarray:
-    """PNG/JPEG bytes of a vertically stacked pair -> (2H, W, 3) float32."""
-    import cv2
+    """PNG/JPEG bytes of a vertically stacked pair -> (2H, W, 3) float32.
 
-    arr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    JPEG needs opencv; without it a JPEG body is refused (a 400 that says so).
+    """
+    arr = imageio.imdecode(body, imageio.IMREAD_COLOR)
     if arr is None:
         raise ValueError("request body is not a decodable image")
     if arr.shape[0] % 2:
         raise ValueError("stacked pair must have even height")
     h, w = img_hw
     half = arr.shape[0] // 2
-    frames = [cv2.resize(arr[:half], (w, h)).astype(np.float32) / 255.0,
-              cv2.resize(arr[half:], (w, h)).astype(np.float32) / 255.0]
+    frames = [imageio.resize(arr[:half], (w, h)).astype(np.float32) / 255.0,
+              imageio.resize(arr[half:], (w, h)).astype(np.float32) / 255.0]
     return np.concatenate(frames, 0)
 
 
@@ -245,6 +248,7 @@ def build_server(cfg, args) -> FlowServer:
     from unopticalflow_tpu_torch.utils.checkpoint import load_pretrained
 
     device = resolve_device(args.device)
+    set_float32_precision(device, args.precision)
     model_cfg = FlowModelConfig(compute_dtype=args.precision)
     model = FlowModel(model_cfg, device=device,
                       generator=torch.Generator().manual_seed(0))

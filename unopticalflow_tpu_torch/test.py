@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-from unopticalflow_tpu_torch.utils.device import resolve_device
+from unopticalflow_tpu_torch.utils.device import gpu_device, resolve_device, set_float32_precision
 
 LATER_TASKS = {
     "sintel_flow": "the Sintel evaluation slice",
@@ -132,6 +132,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_model", type=str, default=None,
                    help="reference-format .pth (the port's trainer writes them)")
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("-g", "--gpu", type=str, default=None,
+                   help="index of the CUDA device (the reference CLI's flag): --device "
+                        "cuda becomes cuda:<gpu>.")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (raises without a GPU) or cpu.")
     return p
@@ -152,10 +155,8 @@ def main(argv=None) -> str:
     from unopticalflow_tpu_torch.utils.config import load_yaml_config, merge_cli_args
 
     cfg = merge_cli_args(load_yaml_config(args.config_file), args)
-    device = resolve_device(args.device)
-    if device.type == "cuda" and args.precision == "float32":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(gpu_device(args.device, args.gpu))
+    set_float32_precision(device, args.precision)
     model = FlowModel(FlowModelConfig(compute_dtype=args.precision), device=device)
     if args.pretrained_model:
         load_pretrained(model, args.pretrained_model)

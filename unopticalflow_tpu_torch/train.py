@@ -8,8 +8,9 @@ defaults).  One step is ``training.train_step``: the training forward (5
 correlation kernels in the decoder, 3 photometric kernels over the loss
 scales, and 3 regularizer kernels with ``use_pallas_reg``), autograd (5 + 5
 correlation-backward kernels, 3 photometric and 3 regularizer backward
-kernels) and Adam.  Batches come from ``data.KITTI_Prepared`` (uint8, cast on
-the device) through ``BatchLoader`` and ``device_prefetch``.
+kernels) and Adam.  Batches come from ``data.KITTI_Prepared`` (``dataset``
+kitti_depth or kitti_odo) or ``data.SINTEL_Prepared`` (sintel_raw), uint8
+and cast on the device, through ``BatchLoader`` and ``device_prefetch``.
 
 Interleaved evaluation: unless ``--no_test``, KITTI 2012 and 2015 (the
 yaml's ``gt_2012_dir``/``gt_2015_dir``, read once at start) are evaluated
@@ -42,7 +43,12 @@ from typing import NamedTuple
 
 import torch
 
-from unopticalflow_tpu_torch.data import BatchLoader, KITTI_Prepared, device_prefetch
+from unopticalflow_tpu_torch.data import (
+    BatchLoader,
+    KITTI_Prepared,
+    SINTEL_Prepared,
+    device_prefetch,
+)
 from unopticalflow_tpu_torch.models.flow_model import FlowModel, FlowModelConfig
 from unopticalflow_tpu_torch.test import (
     load_kitti_2012,
@@ -57,10 +63,14 @@ from unopticalflow_tpu_torch.training import (
     train_step,
 )
 from unopticalflow_tpu_torch.utils import checkpoint as ckpt
-from unopticalflow_tpu_torch.utils.device import resolve_device
+from unopticalflow_tpu_torch.utils.device import gpu_device, resolve_device, set_float32_precision
 from unopticalflow_tpu_torch.utils.visualizer import Visualizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the prepared 3-frame datasets by the yaml's ``dataset`` (the JAX trainer's
+# choice; sintel_raw is evaluated on KITTI while it trains, as there)
+PREPARED = {"kitti_depth": KITTI_Prepared, "kitti_odo": KITTI_Prepared,
+            "sintel_raw": SINTEL_Prepared}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -87,6 +97,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="dtype of the image-space loss stack.")
     p.add_argument("--init_scheme", type=str, default="torch", choices=["torch", "pwc"])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("-g", "--gpu", type=str, default=None,
+                   help="index of the CUDA device (the reference CLI's flag): --device "
+                        "cuda becomes cuda:<gpu>.")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (raises without a GPU) or cpu.")
     return p
@@ -142,7 +155,7 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     "2015"}: ``test.EvalSet``) replaces the ground-truth directories of the
     interleaved evaluation.
     """
-    device = resolve_device(device or _get(cfg, "device", "cuda"))
+    device = resolve_device(device or gpu_device(_get(cfg, "device", "cuda"), _get(cfg, "gpu")))
     if cfg.mode != "flow":
         raise ValueError(
             f"--mode {cfg.mode}: the port trains --mode flow only; flowposenet "
@@ -154,11 +167,7 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     elif eval_sets is None:
         eval_sets = _load_eval_sets(cfg)
     precision = _get(cfg, "precision", "float32")
-    if device.type == "cuda" and precision == "float32":
-        # the JAX package's float32 convolutions run at Precision.HIGHEST
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        print("float32: TF32 off (cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False)")
+    set_float32_precision(device, precision)
     model_cfg = FlowModelConfig(
         num_scales=int(cfg.num_scales),
         compute_dtype=precision,
@@ -177,16 +186,18 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
 
     n_samples = (cfg.num_iterations - cfg.iter_start) * cfg.batch_size
     if dataset is None:
-        if cfg.dataset not in ("kitti_depth", "kitti_odo"):
-            raise NotImplementedError(f"dataset {cfg.dataset!r}: the port reads KITTI only")
+        if cfg.dataset not in PREPARED:
+            raise NotImplementedError(f"dataset {cfg.dataset!r}: the port trains on "
+                                      f"{', '.join(sorted(PREPARED))}")
         data_dir = os.path.join(cfg.prepared_base_dir, cfg.prepared_save_dir)
         if not os.path.exists(os.path.join(data_dir, "train.txt")):
             raise FileNotFoundError(
                 f"{data_dir}/train.txt: prepare the raw data first (the raw-data "
                 "preparers are the JAX package's unopticalflow_tpu.data.preparers)"
             )
-        dataset = KITTI_Prepared(data_dir, num_scales=cfg.num_scales, img_hw=cfg.img_hw,
-                                 num_iterations=n_samples, emit_uint8=True)
+        dataset = PREPARED[cfg.dataset](data_dir, num_scales=cfg.num_scales,
+                                        img_hw=cfg.img_hw, num_iterations=n_samples,
+                                        emit_uint8=True)
     loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
     stream = device_prefetch(iter(loader), device)
 
