@@ -5,8 +5,8 @@ kernels) is held against autograd through ``cost_volume_reference``, the JAX
 package's ``cost_volume_bwd_xla``, and ``jax.vjp`` of ``cost_volume_pallas``
 with its Pallas kernels (``_corr_df1_kernel``/``_corr_df2_kernel``) run in
 interpret mode, as tests/test_pallas_kernels.py runs them.  The Pallas path
-takes H % 8 == 0 only; the ragged shapes (H % 8 != 0, W not a multiple of 32)
-check df2's index reversal against the XLA formula.  Float32, rtol 1e-5 /
+takes H % 8 == 0 only; the ragged shapes (H % 8 != 0, W not a multiple of 32,
+H = 1, C = 1, odd C) check df2's index reversal against the XLA formula.  Float32, rtol 1e-5 /
 atol 1e-5 (sums of 81 products in another order); bfloat16 inputs within
 2e-2 of the float32 result.
 """
@@ -52,6 +52,10 @@ def _port(f1, f2, g):
 
 # (B, H, W, C): H % 8 == 0; ragged (H % 8 != 0, W % 32 != 0); the level-6 form
 SHAPES = [(2, 16, 24, 8), (1, 13, 45, 5), (1, 4, 13, 7)]
+# the ragged shapes at which the card holds the tiled df1/df2 kernels to these
+# plain versions (chip_smoke.py phase 4): W = 33, H = 1 with C = 1, odd C,
+# W % 4 == 0 off the 32-column tile, and C no multiple of the 16-channel chunk
+RAGGED_BWD = [(2, 7, 33, 5), (2, 1, 45, 1), (1, 5, 100, 7), (2, 6, 36, 13), (3, 5, 19, 37)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -64,7 +68,7 @@ def test_plain_backward_is_autograd_of_the_plain_forward(shape):
     np.testing.assert_allclose(df2, _nhwc(b.grad), **TOL)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + RAGGED_BWD)
 def test_plain_backward_matches_jax_xla(shape):
     f1, f2, g = _case(shape, sum(shape) + 1)
     want = cost_volume_bwd_xla(4, (jnp.asarray(f1), jnp.asarray(f2)), jnp.asarray(g))

@@ -94,3 +94,21 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         correlation_cuda.corr_df2(g, _nchw(f1), 4)
     assert set(correlation_cuda.launches.values()) == {0}
+
+
+@pytest.mark.parametrize("shape,ok", [
+    ((2, 40000, 1, 3), True),            # B * C above 65535: the grid's z is B
+    ((65535, 1, 4 * 65535, 1), True),    # the largest grid y and z
+    ((1, 1, 4 * 65535 + 1, 1), False),   # ceil(H / 4) above 65535
+    ((65536, 1, 1, 1), False),           # B above 65535
+    ((1, 0, 4, 4), False),
+])
+def test_kernel_grid_bound(shape, ok):
+    """Every correlation kernel (forward and df1/df2) launches the grid
+    (ceil(W / 32), ceil(H / 4), B): only H and B bound it, checked before any
+    launch."""
+    if ok:
+        correlation_cuda._check_grid(shape)
+    else:
+        with pytest.raises(ValueError, match="cannot launch"):
+            correlation_cuda._check_grid(shape)

@@ -102,11 +102,13 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-# ragged shapes of the tiled forward (tiles of 4 rows x 32 columns, channels in
-# chunks of 8): W no multiple of 32 with W % 4 == 0 (16-byte copies) and
-# without, H = 1, C = 1, odd C, and a coarse level whose dy rows split over the grid
+# ragged shapes of the tiled kernels (tiles of 4 rows x 32 columns, channels in
+# chunks of 8 forward and 16 backward): W no multiple of 32 with W % 4 == 0
+# (16-byte copies) and without, H = 1, C = 1, odd C, coarse levels whose dy rows
+# (forward) or channel chunks (backward) split over the grid (the second is the
+# training level 6), and C no multiple of either chunk with a channel split
 CORR_SHAPES = [(2, 5, 7, 33), (1, 16, 1, 1), (3, 40, 9, 70), (2, 1, 1, 45), (1, 7, 5, 100),
-               (2, 13, 6, 36), (4, 196, 4, 13)]
+               (2, 13, 6, 36), (4, 196, 4, 13), (16, 196, 4, 13), (3, 37, 5, 19)]
 CORR_TOLS = [(torch.float32, (1e-5, 1e-6)), (torch.bfloat16, (2e-2, 2e-2))]
 
 
@@ -137,6 +139,51 @@ def test_backward_kernels_match_plain(device, shape, dtype, tol):
     assert df1.dtype == df2.dtype == dtype and df1.shape == df2.shape == f1.shape
     torch.testing.assert_close(df1, corr_df1_reference(g, f2, 4), rtol=tol[0], atol=tol[1])
     torch.testing.assert_close(df2, corr_df2_reference(g, f1, 4), rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("hpad", [False, True], ids=["whole", "hpad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernels_are_deterministic(device, hpad, dtype):
+    """df1 and df2 sum in a fixed order without atomics: two calls on the same
+    inputs give the same bits, at a level whose channels split over the grid."""
+    b, c, h, w = 16, 196, 4, 13
+    halo = 8 if hpad else 0
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=device).to(dtype)
+
+    g, gh, f = rnd(b, 81, h, w), rnd(b, 81, h + halo, w), rnd(b, c, h + halo, w)
+    df1 = correlation_cuda.corr_df1_hpad if hpad else correlation_cuda.corr_df1
+    df2 = correlation_cuda.corr_df2_hpad if hpad else correlation_cuda.corr_df2
+    for kern, grad in ((df1, g), (df2, gh)):
+        first = kern(grad, f, 4)
+        second = kern(grad, f, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_backward_grid_takes_what_the_forward_takes(device):
+    """The backward's grid is the forward's (z = B, or B * channel groups below
+    2 blocks per SM): B * C above 65535 launches, and only H > 4 * 65535 or
+    B > 65535 is refused, before any launch."""
+    f1, f2 = _pair((2, 40000, 1, 3), device)
+    g = torch.randn((2, 81, 1, 3), device=device)
+    before = _counts()
+    torch.testing.assert_close(correlation_cuda.corr_df1(g, f2, 4), corr_df1_reference(g, f2, 4),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(correlation_cuda.corr_df2(g, f1, 4), corr_df2_reference(g, f1, 4),
+                               rtol=1e-5, atol=1e-6)
+    after = _counts()
+    assert (after["corr_bwd_df1"], after["corr_bwd_df2"]) == (before["corr_bwd_df1"] + 1,
+                                                              before["corr_bwd_df2"] + 1)
+    tall = torch.zeros((1, 1, 4 * 65535 + 1, 1), device=device)
+    with pytest.raises(ValueError, match="cannot launch"):
+        correlation_cuda.corr_df1(torch.zeros((1, 81, 4 * 65535 + 1, 1), device=device), tall, 4)
+    wide = torch.zeros((65536, 1, 1, 1), device=device)
+    with pytest.raises(ValueError, match="cannot launch"):
+        correlation_cuda.corr_df2(torch.zeros((65536, 81, 1, 1), device=device), wide, 4)
+    assert _counts() == after
 
 
 HPAD = {

@@ -36,7 +36,14 @@
 // and the result does not depend on the tiling.  HPAD only moves the staged
 // f2 rows by PRE.
 //
-// The backward kernels (one thread per output element) are as before.
+// Design of the backward (corr_df1_kernel, corr_df2_kernel; the note above
+// them has the details).  The first version put one thread on each output
+// element and re-read g's 81 planes for every channel: bound by the L2
+// cache's bandwidth on those re-reads.  Now a block owns a tile of kTY x kTX
+// output pixels of one image, stages g's 81 planes for it once (df2 each plane
+// at its own shift) and walks over the channels, kBCC at a time, staging the
+// feature map's tile with its halo as the forward stages f2; each output's
+// sum runs over the 81 taps in order with fmaf.
 //
 // Halo-prepadded variants (h_prepad = 1).  A row-shard of a height-sharded map
 // (parallel/spatial.py) gets its md real neighbour rows above and below from the
@@ -46,29 +53,18 @@
 // unopticalflow_tpu/ops/pallas_spmd.py (_fwd_hpad, _df1_hpad, _df2_hpad).  The
 // kernels below take it as a template parameter HPAD: the read operand carries
 // PRE = HPAD ? MD : 0 rows on each side, and a tap of global row r is read at
-// row r + PRE of an operand with H + 2*PRE rows.  One body serves both forms; the
-// bounds check covers the image's edges in the first and never fails in the
-// second; every H is taken (the TPU kernel's H % 8 tiling does not apply).
+// row r + PRE of an operand with H + 2*PRE rows.  One body serves both forms: a
+// staged row outside the operand is zero-filled, which covers the image's
+// edges in the first and never happens in the second; every H is taken (the
+// TPU kernel's H % 8 tiling does not apply).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-constexpr int kThreads = 64;  // backward: one thread per output element
 
 // ---- forward ----------------------------------------------------------------
 
@@ -288,100 +284,237 @@ corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restric
 
 // ---- backward ---------------------------------------------------------------
 //
-//   df1[b, c, y, x] = (1/C) * sum_k g[b, k, y, x] * f2[b, c, y + dy - md, x + dx - md]
-//   df2[b, c, y, x] = (1/C) * sum_k g[b, k, p] * f1[b, c, p],  p = (y - dy + md, x - dx + md)
+//   df1[b, c, q] = (1/C) * sum_k g[b, k, q]       * f2[b, c, q + s_k]
+//   df2[b, c, q] = (1/C) * sum_k g[b, k, q - s_k] * f1[b, c, q - s_k]
 //
-// with taps outside the map reading zero.  df2 is the gather form of the
-// transpose (each output sums the 81 pixels whose window covered it), so no
-// atomics are needed and the result is deterministic.
+// with s_k = (dy - md, dx - md), k = dy * 9 + dx, and taps outside the map
+// reading zero.  df2 is the gather form of the transpose (each output sums the
+// 81 pixels whose window covered it): no atomics, and the result is
+// deterministic.
 //
-// What bounds them: per output element 81 loads of g and 81 of f2 (df1) or f1
-// (df2) for 162 flops, so both are load-issue bound like the forward.  Design
-// (simple and right first): one thread per output element (b, c, y, x),
-// neighbouring threads on neighbouring x so every load is coalesced across the
-// warp; the 81 g planes are re-read for every channel and served from L1/L2.
-// Unlike the Pallas kernels they take every H and W (no H % 8 condition).
-// With HPAD, df1's f2 and both of df2's operands carry their halo rows
-// (H + 2md rows; the output has H).
+// What bounds them on the card: the same 2 * 81 flops per output element as
+// the forward, against reads of g (81 planes), one feature map and a write of
+// C planes.  The first version (one thread per output element) issued 162
+// global loads behind bounds checks for 81 FMAs and re-read the 81 g planes
+// for every channel, more than the L2 holds at the finest level: it was bound
+// by the L2 cache's bandwidth on those re-reads.  The tiled kernels read each
+// operand from memory about once; at the fine levels their shared-memory
+// reads bound them (per dy, 9 + 3 * kBNC 16-byte loads a thread for
+// 36 * kBNC FMAs), at the coarse ones the host's call does.
+//
+// Design (corr_df1_kernel, corr_df2_kernel: one body, DF2 picks the form).  A
+// block owns a tile of kTY x kTX output pixels of one image.  It stages g's 81
+// planes for that tile once, widened to float32 (df2: plane k at its own shift,
+// G'[k, i, j] = g[k, y0 + i - dy + md, x0 + j - dx + md], so each plane is
+// still one tile and not a haloed one), then walks over its channels kBCC at a
+// time, staging the feature map's tile plus its md-pixel halo on every side
+// (f2 for df1, f1 for df2) double buffered with cp.async, as the forward
+// stages f2.  Taps outside the map are zero-filled at the copy, so the inner
+// loop has no bounds checks.  A thread owns kPX = 4 neighbouring pixels and
+// kBNC = 2 channels (8 accumulators): for each dy it loads the 9 x 4 g values
+// of its pixels once and, for each of its channels, the 12 values of the
+// window row (df2 reads the row and columns reversed) and does 36 FMAs.  Two
+// channels a thread rather than more keep 256 threads a block, whose extra
+// warps hide the bfloat16 copies' load latency (they go through registers);
+// float32 is as fast with 4.  The g tile is the largest operand, so it is
+// read from memory once per block; a level with too few tiles to fill the
+// card splits its channel chunks over the grid's z, as the forward splits dy.
+// Each output's sum runs over k = 0..80 in order with fmaf; a zero-filled tap
+// adds fmaf(a, 0, acc) == acc, so the float32 result does not depend on the
+// tiling.  The 103 KB of shared memory per block is dynamic (above the 48 KB
+// static limit; two blocks fit on an SM), allowed with cudaFuncSetAttribute.
+// With HPAD the staged rows move by PRE: df1 reads f2 with H + 2md rows, df2
+// reads both g and f1 with H + 2md rows; the output has H rows.
 
-template <typename T, int MD, bool HPAD>
-__global__ void __launch_bounds__(kThreads)
-corr_df1_kernel(const T* __restrict__ g, const T* __restrict__ f2, T* __restrict__ out,
-                int C, int H, int W, float inv_c) {
-  constexpr int S = 2 * MD + 1;
-  constexpr int PRE = HPAD ? MD : 0;
-  const int x = blockIdx.x * kThreads + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z / C;
-  const int c = blockIdx.z % C;
-  if (x >= W) return;
-  const int Hs = H + 2 * PRE;  // rows of f2
-  const int64_t plane = (int64_t)H * W;
-  const int64_t plane2 = (int64_t)Hs * W;
-  const T* pg = g + (int64_t)b * S * S * plane + (int64_t)y * W + x;
-  const T* p2 = f2 + ((int64_t)b * C + c) * plane2;
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < S; ++dy) {
-    const int yy = y + dy + PRE - MD;
-    if ((unsigned)yy >= (unsigned)Hs) continue;
-#pragma unroll
-    for (int dx = 0; dx < S; ++dx) {
-      const int xx = x + dx - MD;
-      if ((unsigned)xx >= (unsigned)W) continue;
-      acc = fmaf(to_f32(pg[(int64_t)(dy * S + dx) * plane]),
-                 to_f32(p2[(int64_t)yy * W + xx]), acc);
+constexpr int kBCC = 16;  // channels per staged chunk
+constexpr int kBNC = 2;   // channels per thread
+constexpr int kBThreads = kGX * kTY * (kBCC / kBNC);  // one warp per kBNC channels
+constexpr int kTile = kTY * kTX;                      // output pixels of a block
+constexpr int kRB = kTY + 2 * kMD;                    // staged rows of the haloed map
+constexpr int kGS = kS * kS * kTile;                  // floats of the g tile (41.5 KB)
+constexpr int kFS = kBCC * kRB * kW2;                 // floats of one staged chunk
+constexpr int kBwdSmem = (kGS + 2 * kFS) * (int)sizeof(float);
+
+// The g tile: plane k's kTY x kTX pixels, at the output's place (df1) or at
+// q - s_k (df2).  df2's g carries the halo rows under HPAD, df1's does not.
+template <typename T, bool DF2, bool HPAD>
+__device__ __forceinline__ void stage_g(float* gs, const T* gb, int H, int W, int x0, int y0,
+                                        bool vec) {
+  constexpr int PRE = (DF2 && HPAD) ? kMD : 0;
+  const int Hg = H + 2 * PRE;
+  const int64_t plane = (int64_t)Hg * W;
+  constexpr int kU = kTX / 4;  // 4-element units of a tile row
+  for (int e = threadIdx.x; e < kS * kS * kTY * kU; e += kBThreads) {
+    const int q = e / kU, u = e - q * kU;
+    const int k = q / kTY, i = q - k * kTY;
+    int r = y0 + i, x = x0 + 4 * u;
+    bool unit_vec = vec;
+    if (DF2) {
+      const int dy = k / kS, dx = k - dy * kS;
+      r += kMD - dy + PRE;
+      x += kMD - dx;
+      unit_vec = vec && (dx & 3) == 0;  // the unit stays 4-aligned
     }
+    const bool ok = r >= 0 && r < Hg;
+    const T* row = gb + (ok ? (int64_t)k * plane + (int64_t)r * W : 0);
+    stage_unit<T>(gs + q * kTX + 4 * u, row, x, W, ok, unit_vec);
   }
-  out[((int64_t)b * C + c) * plane + (int64_t)y * W + x] = from_f32<T>(acc * inv_c);
 }
 
-template <typename T, int MD, bool HPAD>
-__global__ void __launch_bounds__(kThreads)
-corr_df2_kernel(const T* __restrict__ g, const T* __restrict__ f1, T* __restrict__ out,
-                int C, int H, int W, float inv_c) {
-  constexpr int S = 2 * MD + 1;
-  constexpr int PRE = HPAD ? MD : 0;
-  const int x = blockIdx.x * kThreads + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z / C;
-  const int c = blockIdx.z % C;
-  if (x >= W) return;
-  const int Hs = H + 2 * PRE;  // rows of g and f1
+// Channels [c0, c0 + kBCC) of the feature map's tile with its md-pixel halo
+// (rows from y0 - md); channels past C are zero.
+template <typename T, bool HPAD>
+__device__ __forceinline__ void stage_halo(float* fs, const T* fb, int c0, int C, int H, int W,
+                                           int x0, int y0, bool vec) {
+  constexpr int PRE = HPAD ? kMD : 0;
+  const int Hs = H + 2 * PRE;
   const int64_t plane = (int64_t)Hs * W;
-  const int64_t out_plane = (int64_t)H * W;
-  const T* pg = g + (int64_t)b * S * S * plane;
-  const T* p1 = f1 + ((int64_t)b * C + c) * plane;
-  float acc = 0.f;
+  constexpr int kU = kW2 / 4;
+  for (int e = threadIdx.x; e < kBCC * kRB * kU; e += kBThreads) {
+    const int q = e / kU, u = e - q * kU;
+    const int cl = q / kRB, i = q - cl * kRB;
+    const int r = y0 - kMD + i + PRE;
+    const bool ok = c0 + cl < C && r >= 0 && r < Hs;
+    const T* row = fb + (ok ? (int64_t)(c0 + cl) * plane + (int64_t)r * W : 0);
+    stage_unit<T>(fs + q * kW2 + 4 * u, row, x0 - kMD + 4 * u, W, ok, vec);
+  }
+}
+
+// grid (ceil(W / kTX), ceil(H / kTY), B * groups), block kBThreads, kBwdSmem
+// bytes of dynamic shared memory.  Group z % groups takes the channel chunks
+// [grp * per_group, min(chunks, (grp + 1) * per_group)).  f: f2 (df1) or f1
+// (df2).  vec: W % 4 == 0 and g, f, out 16-byte aligned.
+template <typename T, bool DF2, bool HPAD>
+__device__ __forceinline__ void corr_bwd_body(const T* __restrict__ g, const T* __restrict__ f,
+                                              T* __restrict__ out, int C, int H, int W,
+                                              int groups, int per_group, float inv_c, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem;
+  float* fs = smem + kGS;  // two chunks
+
+  constexpr int PRE = HPAD ? kMD : 0;
+  const int b = blockIdx.z / groups;
+  const int grp = blockIdx.z - b * groups;
+  const int chunks = (C + kBCC - 1) / kBCC;
+  const int k_lo = grp * per_group;
+  const int k_hi = min(chunks, k_lo + per_group);
+  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
+  const int gx = threadIdx.x % kGX;
+  const int ty = (threadIdx.x / kGX) % kTY;
+  const int cg = threadIdx.x / (kGX * kTY);
+  const int Hs = H + 2 * PRE;  // rows of the haloed map
+  const int64_t plane = (int64_t)H * W;
+  const T* gb = g + (int64_t)b * kS * kS * (DF2 ? Hs : H) * W;
+  const T* fb = f + (int64_t)b * C * Hs * W;
+
+  stage_g<T, DF2, HPAD>(gs, gb, H, W, x0, y0, vec);
+  stage_halo<T, HPAD>(fs, fb, k_lo * kBCC, C, H, W, x0, y0, vec);
+  cp_async_commit();
+  const int y = y0 + ty, x = x0 + kPX * gx;
+  for (int k = k_lo; k < k_hi; ++k) {
+    const float* cur = fs + ((k - k_lo) & 1) * kFS;
+    if (k + 1 < k_hi) {
+      stage_halo<T, HPAD>(fs + ((k + 1 - k_lo) & 1) * kFS, fb, (k + 1) * kBCC, C, H, W, x0,
+                          y0, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float acc[kBNC][kPX];
 #pragma unroll
-  for (int dy = 0; dy < S; ++dy) {
-    const int py = y - dy + MD + PRE;
-    if ((unsigned)py >= (unsigned)Hs) continue;
+    for (int j = 0; j < kBNC; ++j)
 #pragma unroll
-    for (int dx = 0; dx < S; ++dx) {
-      const int px = x - dx + MD;
-      if ((unsigned)px >= (unsigned)W) continue;
-      const int64_t p = (int64_t)py * W + px;
-      acc = fmaf(to_f32(pg[(int64_t)(dy * S + dx) * plane + p]), to_f32(p1[p]), acc);
+      for (int p = 0; p < kPX; ++p) acc[j][p] = 0.f;
+    const float* g_base = gs + ty * kTX + kPX * gx;
+    const float* f_base = cur + cg * kBNC * kRB * kW2 + kPX * gx;
+#pragma unroll 1
+    for (int dy = 0; dy < kS; ++dy) {
+      float gr[kS][kPX];
+#pragma unroll
+      for (int dx = 0; dx < kS; ++dx) {
+        const float4 v = *reinterpret_cast<const float4*>(g_base + (dy * kS + dx) * kTile);
+        gr[dx][0] = v.x;
+        gr[dx][1] = v.y;
+        gr[dx][2] = v.z;
+        gr[dx][3] = v.w;
+      }
+      const float* row = f_base + (DF2 ? ty + 2 * kMD - dy : ty + dy) * kW2;
+#pragma unroll
+      for (int j = 0; j < kBNC; ++j) {
+        const float* wr = row + j * kRB * kW2;
+        const float4 w0 = *reinterpret_cast<const float4*>(wr);
+        const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
+        const float4 w2 = *reinterpret_cast<const float4*>(wr + 8);
+        const float w[kPX + 2 * kMD] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y,
+                                        w1.z, w1.w, w2.x, w2.y, w2.z, w2.w};
+#pragma unroll
+        for (int p = 0; p < kPX; ++p)
+#pragma unroll
+          for (int dx = 0; dx < kS; ++dx)
+            acc[j][p] = fmaf(gr[dx][p], w[DF2 ? p + 2 * kMD - dx : p + dx], acc[j][p]);
+      }
+    }
+    __syncthreads();  // the buffer is restaged two chunks on
+    if (y < H && x < W) {
+#pragma unroll
+      for (int j = 0; j < kBNC; ++j) {
+        const int c = k * kBCC + cg * kBNC + j;
+        if (c >= C) break;
+        float v[kPX];
+#pragma unroll
+        for (int p = 0; p < kPX; ++p) v[p] = acc[j][p] * inv_c;
+        store4<T>(out + ((int64_t)b * C + c) * plane + (int64_t)y * W + x, v, W - x, vec);
+      }
     }
   }
-  out[((int64_t)b * C + c) * out_plane + (int64_t)y * W + x] = from_f32<T>(acc * inv_c);
+}
+
+template <typename T, bool HPAD>
+__global__ void __launch_bounds__(kBThreads)
+corr_df1_kernel(const T* __restrict__ g, const T* __restrict__ f2, T* __restrict__ out, int C,
+                int H, int W, int groups, int per_group, float inv_c, bool vec) {
+  corr_bwd_body<T, false, HPAD>(g, f2, out, C, H, W, groups, per_group, inv_c, vec);
+}
+
+template <typename T, bool HPAD>
+__global__ void __launch_bounds__(kBThreads)
+corr_df2_kernel(const T* __restrict__ g, const T* __restrict__ f1, T* __restrict__ out, int C,
+                int H, int W, int groups, int per_group, float inv_c, bool vec) {
+  corr_bwd_body<T, true, HPAD>(g, f1, out, C, H, W, groups, per_group, inv_c, vec);
 }
 
 // which: 0 = df1 (src = f2), 1 = df2 (src = f1)
 template <typename T, bool HPAD>
 cudaError_t launch_bwd(int which, const void* g, const void* src, void* out, int B, int C,
                        int H, int W, int md, cudaStream_t stream) {
-  if (md != 4) return cudaErrorInvalidValue;  // the decoder's window (+-4 px)
-  const dim3 grid((W + kThreads - 1) / kThreads, H, B * C);
-  const float inv_c = 1.f / (float)C;
+  if (md != kMD) return cudaErrorInvalidValue;  // the decoder's window (+-4 px)
   const T* gg = static_cast<const T*>(g);
   const T* s = static_cast<const T*>(src);
   T* o = static_cast<T*>(out);
-  if (which == 0)
-    corr_df1_kernel<T, 4, HPAD><<<grid, kThreads, 0, stream>>>(gg, s, o, C, H, W, inv_c);
-  else
-    corr_df2_kernel<T, 4, HPAD><<<grid, kThreads, 0, stream>>>(gg, s, o, C, H, W, inv_c);
+  const bool vec = W % 4 == 0 &&
+                   (((uintptr_t)g | (uintptr_t)src | (uintptr_t)out) % 16) == 0;
+  // below 2 blocks per SM (the shared memory holds 2), split the channel
+  // chunks over the grid's z: B < 2 * kSMs there, so z < 4 * kSMs
+  const int tiles = ((W + kTX - 1) / kTX) * ((H + kTY - 1) / kTY);
+  const int chunks = (C + kBCC - 1) / kBCC;
+  const int64_t blocks = (int64_t)tiles * B;
+  int groups = 1;
+  if (blocks < 2 * kSMs) groups = std::min(chunks, (int)((2 * kSMs + blocks - 1) / blocks));
+  const int per_group = (chunks + groups - 1) / groups;
+  groups = (chunks + per_group - 1) / per_group;  // no empty group
+  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, B * groups);
+  const float inv_c = 1.f / (float)C;
+  // above 48 KB of dynamic shared memory a kernel must be allowed it, on the
+  // current device: set before every launch (the attribute call is cheap
+  // beside the wrapper's own cost per call)
+  const auto kernel = which == 0 ? corr_df1_kernel<T, HPAD> : corr_df2_kernel<T, HPAD>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBThreads, kBwdSmem, stream>>>(gg, s, o, C, H, W, groups, per_group, inv_c,
+                                                vec);
   return cudaGetLastError();
 }
 
@@ -411,15 +544,21 @@ cudaError_t launch(const void* f1, const void* f2, void* out, int B, int C, int 
 
 }  // namespace
 
+// Both entry points launch grids (ceil(W / kTX), ceil(H / kTY), z), with z = B,
+// or below 2 blocks per SM (so B < 2 * kSMs) 3B (the forward's dy groups) or
+// B * groups < 4 * kSMs (the backward's channel groups): CUDA caps y and z at
+// 65535, so H <= 65535 * kTY and B <= 65535 bound them all.
+static bool bad_shape(int B, int C, int H, int W, int h_prepad) {
+  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || H > 65535 * kTY || B > 65535 ||
+         (h_prepad != 0 && h_prepad != 1);
+}
+
 // H is the output's rows; h_prepad = 1: f2 carries md halo rows on each side
 // (H + 2md rows).  dtype: 0 = float32, 1 = bfloat16.  Returns the launch's
-// cudaError_t (0 = success).  The grid's z is B, or 3B below 2 blocks per SM
-// (so B < 2 * kSMs): B <= 65535 bounds both.
+// cudaError_t (0 = success).
 extern "C" int corr_fwd(const void* f1, const void* f2, void* out, int B, int C, int H, int W,
                         int md, int h_prepad, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || H > 65535 * kTY || B > 65535 ||
-      (h_prepad != 0 && h_prepad != 1))
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, C, H, W, h_prepad)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 2 + h_prepad) {
     case 0: return (int)launch<float, false>(f1, f2, out, B, C, H, W, md, s);
@@ -435,8 +574,7 @@ extern "C" int corr_fwd(const void* f1, const void* f2, void* out, int B, int C,
 // g and f1, carry md halo rows on each side (H + 2md rows).  dtype as corr_fwd.
 extern "C" int corr_bwd(int which, const void* g, const void* src, void* out, int B, int C,
                         int H, int W, int md, int h_prepad, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || H > 65535 || (int64_t)B * C > 65535 ||
-      (which != 0 && which != 1) || (h_prepad != 0 && h_prepad != 1))
+  if (bad_shape(B, C, H, W, h_prepad) || (which != 0 && which != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 2 + h_prepad) {

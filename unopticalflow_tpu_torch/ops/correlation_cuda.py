@@ -56,9 +56,13 @@ def _check(a: torch.Tensor, b: torch.Tensor, md: int, what: str) -> None:
         raise ValueError(f"correlation kernel supports md={_MD} only, got {md}")
 
 
-def _check_grid(shape, grid_y: int, grid_z: int) -> None:
-    """CUDA caps a grid's y and z at 65535."""
-    if min(shape) < 1 or grid_y > 65535 or grid_z > 65535:
+def _check_grid(shape) -> None:
+    """Every correlation kernel's grid is (ceil(W / 32), ceil(H / 4), B), whose z
+    grows to 3B (forward dy groups) or B * channel groups (backward) only where
+    a level has under 2 blocks per SM, so B < 264 there; CUDA caps y and z at
+    65535.  Output shape (B, C, H, W)."""
+    b, _, h, _ = shape
+    if min(shape) < 1 or -(-h // 4) > 65535 or b > 65535:
         raise ValueError(f"correlation kernel cannot launch shape {tuple(shape)}")
 
 
@@ -71,9 +75,7 @@ def _fwd(f1: torch.Tensor, f2: torch.Tensor, md: int, hpad: bool) -> torch.Tenso
         raise ValueError(f"correlation kernel needs f2 of shape {(b, c, h + halo, w)} for f1 "
                          f"{tuple(f1.shape)} (two equal (B, C, H, W) shapes, plus {halo} halo "
                          f"rows), got {tuple(f2.shape)}")
-    # grid (ceil(W / 32), ceil(H / 4), B): a block takes all 9 dy rows, or 3
-    # of them (z = 3B) where a level has under 2 blocks per SM, so B < 264
-    _check_grid(f1.shape, -(-h // 4), b)
+    _check_grid(f1.shape)
     lib = _lib()
     out = torch.empty((b, (2 * md + 1) ** 2, h, w), dtype=f1.dtype, device=f1.device)
     with torch.cuda.device(f1.device):
@@ -106,7 +108,7 @@ def _bwd(which: int, g: torch.Tensor, src: torch.Tensor, md: int, hpad: bool) ->
     if h < 1 or tuple(g.shape) != (b, nd, g_rows, w):
         raise ValueError(f"correlation kernel needs a ({b}, {nd}, {g_rows}, {w}) gradient "
                          f"for features {tuple(src.shape)}, got {tuple(g.shape)}")
-    _check_grid((b, c, h, w), h, b * c)  # grid (ceil(W / 64), H, B * C)
+    _check_grid((b, c, h, w))
     lib = _lib()
     out = torch.empty((b, c, h, w), dtype=src.dtype, device=src.device)
     with torch.cuda.device(src.device):
