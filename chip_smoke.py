@@ -9,7 +9,8 @@ Phases (each raises on failure, so the run exits non-zero):
    torch and CUDA versions, build every kernel source of
    ``unopticalflow_tpu_torch/csrc/`` (one nvcc each, all at once) and print
    the build time and ptxas's registers and spills for the correlation
-   forward, df1 and df2 and the row gather.  TF32 is switched off for cuDNN
+   forward, df1 and df2, the row gather and both photometric kernels (each
+   instantiation).  TF32 is switched off for cuDNN
    and matmul, so float32 comparisons are float32 (phase 13 starts from
    PyTorch's default and checks that the entry points turn it off).
 2. Correlation forward vs plain: ``cost_volume_reference`` at the five
@@ -40,12 +41,20 @@ Phases (each raises on failure, so the run exits non-zero):
    the profiler's device time per launch (the kernel without the host's
    call, which sets the coarse levels' call times).
 5. Photometric forward and backward vs ``photometric_pack_reference`` at
-   the three loss scales of batch 8 at 256x832 and a ragged shape: float32
+   the three loss scales of batch 8 at 256x832 and at ragged shapes (H and W
+   no multiple of the 16 x 32 tile, odd W where the pixel pairs are loaded
+   one at a time, H = 1, W = 1, H = 2): float32
    sums rtol 1e-4, weights 1e-5, d(flow) within 1e-4 of its largest value;
    bfloat16 sums and weights within 2e-2 of the plain version on the same
    inputs, and everything at the float32 tolerances against the plain
    version on the widened images (the kernel computes in float32 and never
-   rounds).  Timed (the plain backward alone, by autograd on a kept graph).
+   rounds).  Each pack launches each kernel once; two calls of each kernel
+   give the same bits; each line prints a digest of the weights' bits.
+   Timed (the plain backward alone, by autograd on a kept graph), with one
+   line of the per-scale kernel ms, one of the profiler's device ms per
+   launch (both dtypes), the per-step sums against the bound, and the device
+   ms at s0 once more on smooth flows (upsampled from a field 32 times
+   coarser): the per-pixel uniform flows above are the gathers' worst case.
 6. The training slice: ``train()`` at the KITTI recipe (batch 8, 256x832,
    3 scales, float32), 10 steps, on in-memory snippets made from a seed,
    through the port's BatchLoader and device_prefetch.  Every loss must be
@@ -253,9 +262,14 @@ RAGGED_HPAD = ((2, 5, 3, 33), (2, 1, 1, 45), (1, 7, 5, 100))  # 3-, 1- and 5-row
 # a float32 backward sum of 81 products with C at most this may cancel below
 # what float32 accumulation resolves; it is then held to _hold_bwd's bound
 CANCEL_MAX_C = 16
-# (B, H, W) of the three loss scales, + a ragged one
-PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208),
-                "ragged": (1, 13, 45)}
+# (B, H, W) of the three loss scales
+PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208)}
+# ragged shapes of the photometric kernels (16 x 32 tiles, two adjacent pixels
+# a thread, loaded as one vector where W is even): H and W no multiple of the
+# tile, odd W (scalar loads), H = 1, W = 1, H = 2 (the backward's 2-pixel halo
+# wider than the image), one row of tiles with a ragged last column pair
+PHOTO_RAGGED = ((1, 13, 45), (2, 37, 45), (2, 1, 40), (1, 7, 1), (2, 2, 50), (3, 17, 66),
+                (1, 16, 33))
 PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
             "photometric_fwd": 3, "photometric_bwd": 3,
             "regularizer_fwd": 0, "regularizer_bwd": 0,
@@ -457,7 +471,9 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {sorted(libs.values())} in {time.perf_counter() - t0:.2f} s")
     for src, kernel in (("correlation", "corr_fwd_kernel"), ("correlation", "corr_df1_kernel"),
-                        ("correlation", "corr_df2_kernel"), ("gather", "row_gather_kernel")):
+                        ("correlation", "corr_df2_kernel"), ("gather", "row_gather_kernel"),
+                        ("photometric", "photo_fwd_kernel"),
+                        ("photometric", "photo_bwd_kernel")):
         print(f"ptxas {src}: " + "; ".join(_ptxas_registers(_build.ptxas_log.get(src, ""),
                                                             kernel)))
 
@@ -662,12 +678,30 @@ def main() -> int:
         gb, gf = torch.autograd.grad(photo_loss(out), [fb, ff])
         return out, gb, gf
 
-    for name, (b, hh, ww) in PHOTO_SCALES.items():
+    def photo_bits(t):
+        """A digest of a tensor's bits (equal digests: equal bits)."""
+        ints = t.detach().contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                                            else torch.int32)
+        return f"{zlib.crc32(ints.cpu().numpy().tobytes()):08x}"
+
+    photo_scale_ms = {}  # "kernel scale dtype" -> kernel ms (CUDA events)
+    photo_device_ms = {}  # the same keys -> the profiler's device ms per launch
+    photo_step = {}  # (kernel, dtype) -> [kernel ms, [device ms], bytes, operations] per step
+    photo_cases = [*PHOTO_SCALES.items(), *(("ragged", r) for r in PHOTO_RAGGED)]
+    for name, (b, hh, ww) in photo_cases:
         for dtype in (torch.float32, torch.bfloat16):
             case = photo_case(b, hh, ww, dtype)
             want, wb, wf = photo_run(photometric_pack_reference, case)
+            reset_counts()
             got, gb, gf = photo_run(photometric_cuda.photometric, case)
             torch.cuda.synchronize()
+            one = counts()
+            if one != {**zero_counts, "photometric_fwd": 1, "photometric_bwd": 1}:
+                raise AssertionError(f"photometric {name}: launches {one}, not 1 + 1")
+            if got["weights"].dtype != dtype or got["weights"].shape != (2 * b, 1, hh, ww) \
+                    or any(got[k].shape != (2 * b,) for k in ("s_dw", "s_w", "s_cl")):
+                raise AssertionError(f"photometric {name}: kernel gave "
+                                     f"{ {k: (v.dtype, tuple(v.shape)) for k, v in got.items()} }")
             if dtype == torch.float32:
                 ref32, rb32, rf32 = want, wb, wf
             else:
@@ -691,46 +725,98 @@ def main() -> int:
                        for k in ("s_dw", "s_w", "s_cl"))
             max_err["photometric_fwd"] = max(max_err["photometric_fwd"], ferr)
             max_err["photometric_bwd"] = max(max_err["photometric_bwd"], gerr)
-            if name == "ragged":
-                continue
+            # two calls on the same inputs: the same bits (no atomics)
             il, ir, fb, ff, im = case
+            gdw = torch.rand(2 * b, generator=gen, device=device)
+            gcl = torch.rand(2 * b, generator=gen, device=device)
+            f1, f2 = (photometric_cuda.photo_fwd(il, ir, fb, ff, im) for _ in range(2))
+            d1, d2 = (photometric_cuda.photo_bwd(il, ir, fb, ff, im, gdw, gcl) for _ in range(2))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in (*zip(f1, f2), *zip(d1, d2))):
+                raise AssertionError(f"photometric {name} {(b, hh, ww)} {dtype}: two calls differ")
+            bits = f"weights bits {photo_bits(got['weights'])}"
+            if name == "ragged":
+                print(f"photometric ragged {(b, 3, hh, ww)} {str(dtype)[6:]}: sums max_abs_err="
+                      f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}), 1 + 1 "
+                      f"launches, two calls bit-equal, {bits}")
+                continue
             fbg = fb.clone().requires_grad_(True)
             ffg = ff.clone().requires_grad_(True)
             with torch.no_grad():
                 k_fwd = _time_ms(torch, lambda: photometric_cuda.photo_fwd(il, ir, fb, ff, im))
+                dev_fwd = _device_ms(torch, lambda: photometric_cuda.photo_fwd(il, ir, fb, ff, im),
+                                     "photo_fwd_kernel")
                 p_fwd = _time_ms(torch, lambda: photometric_pack_reference(il, ir, fb, ff, im),
                                  inner=2)
-            gdw = torch.rand(2 * b, device=device)
-            gcl = torch.rand(2 * b, device=device)
             k_bwd = _time_ms(torch, lambda: photometric_cuda.photo_bwd(il, ir, fb, ff, im, gdw, gcl))
+            dev_bwd = _device_ms(torch, lambda: photometric_cuda.photo_bwd(il, ir, fb, ff, im, gdw,
+                                                                           gcl),
+                                 "photo_bwd_kernel")
             loss = photo_loss(photometric_pack_reference(il, ir, fbg, ffg, im))
             p_bwd = _time_ms(torch, lambda: torch.autograd.grad(loss, [fbg, ffg],
                                                                  retain_graph=True), inner=2)
-            if dtype == torch.float32:
-                ms["photometric_fwd"] += k_fwd
-                plain_ms["photometric_fwd"] += p_fwd
-                ms["photometric_bwd"] += k_bwd
-                plain_ms["photometric_bwd"] += p_bwd
-                n = b * hh * ww
-                # fwd: 3 images and 2 flows read, 2B weights written; bwd: the
-                # same inputs read, 2 flow gradients written
-                add_work("photometric_fwd", (9 + 4 + 2) * 4 * n,
-                         OPS_PER_POSITION["photometric_fwd"] * n)
-                add_work("photometric_bwd", (9 + 4 + 4) * 4 * n,
-                         OPS_PER_POSITION["photometric_bwd"] * n)
-            else:  # bf16 images and weights, float32 flows
-                n = b * hh * ww
-                add_bf16("photometric_fwd", k_fwd, p_fwd, (9 * 2 + 4 * 4 + 2 * 2) * n,
-                         OPS_PER_POSITION["photometric_fwd"] * n)
-                add_bf16("photometric_bwd", k_bwd, p_bwd, (9 * 2 + 4 * 4 + 4 * 4) * n,
-                         OPS_PER_POSITION["photometric_bwd"] * n)
-            print(f"photometric {name} {(b, 3, hh, ww)} {str(dtype)[6:]}: sums max_abs_err="
-                  f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}) "
-                  f"fwd kernel_ms={k_fwd:.4f} plain_ms={p_fwd:.4f} "
-                  f"bwd kernel_ms={k_bwd:.4f} plain_ms={p_bwd:.4f}")
-    for kname in ("photometric_fwd", "photometric_bwd"):
-        print(f"{kname} per training step (3 scales, float32): kernel_ms={ms[kname]:.4f} "
-              f"plain_ms={plain_ms[kname]:.4f}")
+            n = b * hh * ww
+            esz = 4 if dtype == torch.float32 else 2
+            # fwd: 3 images and 2 flows read, 2B weights written; bwd: the
+            # same inputs read, 2 flow gradients written
+            works = {"photometric_fwd": ((9 * esz + 4 * 4 + 2 * esz) * n,
+                                         OPS_PER_POSITION["photometric_fwd"] * n),
+                     "photometric_bwd": ((9 * esz + 4 * 4 + 4 * 4) * n,
+                                         OPS_PER_POSITION["photometric_bwd"] * n)}
+            dt = str(dtype)[6:]
+            for kname, k_ms, dev, p_ms in (("photometric_fwd", k_fwd, dev_fwd, p_fwd),
+                                           ("photometric_bwd", k_bwd, dev_bwd, p_bwd)):
+                key = f"{kname[12:]} {name} {dt}"
+                photo_scale_ms[key] = round(k_ms, 4)
+                photo_device_ms[key] = dev
+                acc = photo_step.setdefault((kname, dt), [0.0, [], 0.0, 0.0])
+                acc[0] += k_ms
+                acc[1].append(dev)
+                acc[2] += works[kname][0]
+                acc[3] += works[kname][1]
+                if dtype == torch.float32:
+                    ms[kname] += k_ms
+                    plain_ms[kname] += p_ms
+                    add_work(kname, *works[kname])
+                else:  # bf16 images and weights, float32 flows
+                    add_bf16(kname, k_ms, p_ms, *works[kname])
+            print(f"photometric {name} {(b, 3, hh, ww)} {dt}: sums max_abs_err="
+                  f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}), 1 + 1 launches, "
+                  f"two calls bit-equal, {bits}; fwd kernel_ms={k_fwd:.4f} device_ms={dev_fwd} "
+                  f"plain_ms={p_fwd:.4f} bwd kernel_ms={k_bwd:.4f} device_ms={dev_bwd} "
+                  f"plain_ms={p_bwd:.4f}")
+    print("photometric kernel ms per scale (batch 8): " + json.dumps(photo_scale_ms))
+    print("photometric device ms per launch (profiler, batch 8): " + json.dumps(photo_device_ms))
+    for (kname, dt), (k_ms, dev, nbytes, ops) in photo_step.items():
+        bound_ms, bound_by = _bound(nbytes, ops)
+        dev_s = ("not measured" if "not measured" in dev
+                 else f"{sum(float(v) for v in dev):.4f}")
+        print(f"{kname} per training step (3 scales, {dt} images): kernel_ms={k_ms:.4f} "
+              f"device_ms={dev_s} bound_ms={bound_ms:.4f} ({bound_by}), "
+              f"{k_ms / bound_ms:.1f}x the bound")
+    # the flows above are uniform in +-5 px pixel by pixel, the worst case for
+    # the kernels' gathers; the decoder's flows are smooth: s0 again on flows
+    # bilinearly upsampled from a field 32 times coarser, in the same range
+    smooth_ms = {}
+    b, hh, ww = PHOTO_SCALES["s0"]
+    r = np.random.RandomState(SEED + 5)
+    fb, ff = (torch.nn.functional.interpolate(
+        torch.from_numpy(r.uniform(-5, 5, (b, 2, hh // 32, ww // 32)).astype(np.float32)).to(
+            device), size=(hh, ww), mode="bilinear", align_corners=False).contiguous()
+        for _ in range(2))
+    gdw = torch.rand(2 * b, generator=gen, device=device)
+    gcl = torch.rand(2 * b, generator=gen, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        il, ir, _, _, im = photo_case(b, hh, ww, dtype)
+        dt = str(dtype)[6:]
+        with torch.no_grad():
+            smooth_ms[f"fwd s0 {dt}"] = _device_ms(
+                torch, lambda: photometric_cuda.photo_fwd(il, ir, fb, ff, im), "photo_fwd_kernel")
+        smooth_ms[f"bwd s0 {dt}"] = _device_ms(
+            torch, lambda: photometric_cuda.photo_bwd(il, ir, fb, ff, im, gdw, gcl),
+            "photo_bwd_kernel")
+    print("photometric device ms per launch at s0 on smooth flows (profiler): "
+          + json.dumps(smooth_ms))
     torch.cuda.empty_cache()
 
     # ---- 6. the training slice: train() at the KITTI recipe --------------
@@ -868,7 +954,7 @@ def main() -> int:
         return {k: v.detach() for k, v in out.items()}, gb, gf
 
     reg_keys = ("s_sx", "s_sy", "s_consis")
-    for name, (b, hh, ww) in PHOTO_SCALES.items():
+    for name, (b, hh, ww) in {**PHOTO_SCALES, "ragged": PHOTO_RAGGED[0]}.items():
         cot = {"s_sx": torch.rand(2 * b, generator=gen, device=device),
                "s_sy": torch.rand(2 * b, generator=gen, device=device),
                "s_consis": torch.rand(b, generator=gen, device=device)}

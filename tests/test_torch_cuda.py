@@ -324,10 +324,30 @@ def _photo_run(fn, img_l, img_r, flow_b, flow_f, img):
     return out, fb.grad, ff.grad
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 32), (1, 13, 45), (2, 64, 208)])
+# (B, H, W) at the edges of the photometric kernels' 16 x 32 tile (two adjacent
+# pixels a thread, loaded as one vector where W is even and the pointers
+# aligned): a whole tile, H and W no multiple of it with W odd and even, a loss
+# scale, H = 1, W = 1, H = 2 (the backward's 2-pixel halo wider than the image)
+PHOTO_SHAPES = [(2, 16, 32), (1, 13, 45), (2, 37, 45), (2, 64, 208), (2, 1, 40), (1, 7, 1),
+                (2, 2, 50), (3, 17, 66)]
+
+
+def _misalign(t):
+    """t's values in a tensor whose storage starts one element into a buffer:
+    contiguous, but no longer aligned to two elements."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("shape", PHOTO_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_photometric_kernels_match_plain(device, shape, dtype):
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+def test_photometric_kernels_match_plain(device, shape, dtype, aligned):
     case = _photo_case(*shape, device, dtype)
+    if not aligned:
+        case = tuple(_misalign(t) for t in case)
     want, wb, wf = _photo_run(photometric_pack_reference, *case)
     before = _counts()
     got, gb, gf = _photo_run(photometric_pack, *case)
@@ -359,6 +379,21 @@ def test_photometric_kernels_match_plain(device, shape, dtype):
                                    rtol=2**-8, atol=1e-5)
         for g, r in ((gb, wb32), (gf, wf32)):
             assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 45), (2, 64, 208)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_photometric_kernels_are_deterministic(device, shape, dtype):
+    """Two calls on the same inputs give the same bits (no atomics in the sums)."""
+    img_l, img_r, flow_b, flow_f, img = _photo_case(*shape, device, dtype, seed=1)
+    g = torch.rand(4 * shape[0], generator=torch.Generator(device=device).manual_seed(2),
+                   device=device)
+    runs = [(photometric_cuda.photo_fwd(img_l, img_r, flow_b, flow_f, img),
+             photometric_cuda.photo_bwd(img_l, img_r, flow_b, flow_f, img, g[:2 * shape[0]],
+                                        g[2 * shape[0]:])) for _ in range(2)]
+    torch.cuda.synchronize()
+    (f1, d1), (f2, d2) = runs
+    assert all(torch.equal(a, b) for a, b in (*zip(f1, f2), *zip(d1, d2)))
 
 
 def test_photometric_weights_and_sw_carry_no_gradient(device):

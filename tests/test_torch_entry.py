@@ -26,6 +26,18 @@ from unopticalflow_tpu_torch.evaluation.flowlib import flow_png_samples, write_f
 from unopticalflow_tpu_torch.utils import config, imageio
 from unopticalflow_tpu_torch.utils.device import gpu_device, set_float32_precision
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    # the suite runs in several workers on one machine's cores, where torch's
+    # spinning thread pools (one thread a core in every worker) made the model
+    # runs here up to ~70 times slower than alone (a 7 s test took 504 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FRAME_HW = (40, 70)  # source frames, resized to the yaml's img_hw [64, 64]
 N_GT = 200  # KITTI 2015's frame count
 

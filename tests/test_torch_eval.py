@@ -32,6 +32,18 @@ from unopticalflow_tpu_torch.train import recipe_config, train
 from unopticalflow_tpu_torch.training import make_optimizer
 from unopticalflow_tpu_torch.utils.checkpoint import save_checkpoint
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    # the suite runs in several workers on one machine's cores, where torch's
+    # spinning thread pools (one thread a core in every worker) made the model
+    # runs here up to ~70 times slower than alone (a 7 s test took 504 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 IMG_HW = (32, 64)
 
 
@@ -136,10 +148,10 @@ def kitti_tree(tmp_path_factory):
     return dirs
 
 
-def test_kitti_2015_end_to_end(kitti_tree, tmp_path):
+def test_kitti_2015_end_to_end(kitti_tree, tmp_path, monkeypatch):
     """``python -m unopticalflow_tpu_torch.test --task kitti_flow`` on the
     fake tree: the 8-column table, finite, and the JAX package's metrics on
-    the same flows."""
+    the flows it computed, whose first batch is the saved model's."""
     model = FlowModel(device="cpu", scheme="pwc", generator=torch.Generator().manual_seed(0))
     pth = str(tmp_path / "m.pth")
     save_checkpoint([pth], 7, model, make_optimizer(model))
@@ -148,7 +160,16 @@ def test_kitti_2015_end_to_end(kitti_tree, tmp_path):
                         f"gt_2012_dir: {kitti_tree['2012']}\n")
     argv = ["-c", str(cfg_path), "--mode", "flow", "--task", "kitti_flow",
             "--pretrained_model", pth, "--device", "cpu"]
+    computed = []  # the flows test.main evaluates, kept rather than computed twice
+    batched_flows = port_test._batched_flows
+
+    def keep(*args, **kwargs):
+        computed.append(batched_flows(*args, **kwargs))
+        return computed[-1]
+
+    monkeypatch.setattr(port_test, "_batched_flows", keep)
     res = port_test.main(argv)
+    monkeypatch.undo()
     header, values = _values(res)
     assert header.split(",")[3].strip() == "epe_move" and len(values) == 8
     assert np.isfinite(values).all() and values[0] > 0
@@ -160,9 +181,12 @@ def test_kitti_2015_end_to_end(kitti_tree, tmp_path):
         gts[3], read_flow_png(os.path.join(kitti_tree["2015"], "flow_occ", "000003_10.png")))
     cfg = types.SimpleNamespace(img_hw=(64, 64), gt_2015_dir=kitti_tree["2015"])
     data = port_test.load_kitti_2015(cfg)
-    flows = port_test._batched_flows(port_test.make_infer(model),
-                                     (data.pairs[i] for i in range(200)), 200,
-                                     torch.device("cpu"))
+    assert len(computed) == 1 and len(computed[0]) == 200
+    flows = computed[0]
+    first = port_test._batched_flows(port_test.make_infer(model),
+                                     (data.pairs[i] for i in range(8)), 8, torch.device("cpu"))
+    for f, g in zip(first, flows[:8]):
+        torch.testing.assert_close(f, g, rtol=0, atol=0)
     want = jax_eval_flow_avg(gts, nocs, [f.numpy() for f in flows], cfg, moving_masks=masks)
     np.testing.assert_allclose(values, _values(want)[1], rtol=0, atol=1e-4 + 1e-9)
 

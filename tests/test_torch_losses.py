@@ -19,6 +19,18 @@ from unopticalflow_tpu_torch.models import losses as tl
 from unopticalflow_tpu_torch.ops.pyramid import avg_pool_pyramid
 from unopticalflow_tpu_torch.ops.ssim import ssim
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    # the suite runs in several workers on one machine's cores, where torch's
+    # spinning thread pools (one thread a core in every worker) made the model
+    # runs here up to ~70 times slower than alone (a 7 s test took 504 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 GTOL = dict(rtol=1e-4, atol=1e-6)
 NS = 3

@@ -31,6 +31,18 @@ from unopticalflow_tpu_torch.ops import (
 )
 from unopticalflow_tpu_torch.utils.convert import load_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    # the suite runs in several workers on one machine's cores, where torch's
+    # spinning thread pools (one thread a core in every worker) made the model
+    # runs here up to ~70 times slower than alone (a 7 s test took 504 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, H, W = 2, 64, 128
 
 

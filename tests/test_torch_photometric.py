@@ -26,6 +26,17 @@ from unopticalflow_tpu_torch.ops import photometric_cuda
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    # the suite runs in several workers on one machine's cores, where torch's
+    # spinning thread pools (one thread a core in every worker) made the model
+    # runs here up to ~70 times slower than alone (a 7 s test took 504 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def interpret_pack():
     """photometric_pack with pallas_call forced into interpreter mode."""
@@ -122,4 +133,27 @@ def test_cpu_dispatch_never_launches_the_kernels():
         photometric_cuda.photo_fwd(*case)
     with pytest.raises(ValueError, match="CUDA"):
         photometric_cuda.photometric(*case)
+    assert set(photometric_cuda.launches.values()) == {0}
+
+
+@pytest.mark.parametrize("shape,ok", [
+    ((8, 3, 256, 832), True),              # the finest loss scale of the KITTI recipe
+    ((1, 3, 16 * 65535, 1), True),         # the largest grid y
+    ((1, 3, 16 * 65535 + 1, 1), False),    # ceil(H / 16) above 65535
+    ((65535, 3, 1, 1), True),              # the largest grid z
+    ((65536, 3, 1, 1), False),             # B above 65535
+    ((1, 3, 1, 715827882), True),          # B * 3 * H * W = 2**31 - 2: 32-bit indices hold
+    ((1, 3, 2, 357913942), False),         # B * 3 * H * W = 2**31 + 4
+    ((2, 3, 16384, 21846), False),         # the same bound with every dimension above 1
+    ((1, 3, 0, 4), False),
+])
+def test_kernel_grid_bound(shape, ok):
+    """Both photometric kernels launch the grid (ceil(W / 32), ceil(H / 16), B)
+    and index with 32-bit integers: a shape is refused before any launch when
+    the grid's y or z passes 65535 or B * 3 * H * W reaches 2**31."""
+    if ok:
+        photometric_cuda._check_grid(shape)
+    else:
+        with pytest.raises(ValueError, match="cannot launch"):
+            photometric_cuda._check_grid(shape)
     assert set(photometric_cuda.launches.values()) == {0}

@@ -17,6 +17,18 @@ from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference
 from unopticalflow_tpu_torch.serve import FlowServer, _Request
 from unopticalflow_tpu_torch.utils.device import resolve_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    # the suite runs in several workers on one machine's cores, where torch's
+    # spinning thread pools (one thread a core in every worker) made the model
+    # runs here up to ~70 times slower than alone (a 7 s test took 504 s)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 H, W = 64, 128
 RNG = np.random.RandomState(21)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -17,9 +17,9 @@ import torch
 from unopticalflow_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TY, _TX = 8, 32  # the kernels' tile, which sets the number of partial sums
+_TY, _TX = 16, 32  # the kernels' tile, which sets the grid and the forward's workspace
 _SIGNATURES = {
-    # img_l, img_r, img, flow_b, flow_f, weights, partials, B, H, W, dtype, stream
+    # img_l, img_r, img, flow_b, flow_f, weights, work, B, H, W, dtype, stream
     "photo_fwd": [_build.P] * 7 + [_build.I] * 4 + [_build.P],
     # img_l, img_r, img, flow_b, flow_f, g_dw, g_cl, dflow_b, dflow_f, B, H, W, dtype, stream
     "photo_bwd": [_build.P] * 9 + [_build.I] * 4 + [_build.P],
@@ -59,8 +59,16 @@ def _check(img_l, img_r, flow_b, flow_f, img) -> None:
                          f"{tuple(flow_b.shape)} and {tuple(flow_f.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("photometric kernel needs contiguous NCHW inputs")
-    if min(b, h, w) < 1 or b > 65535 or -(-h // _TY) > 65535:
-        raise ValueError(f"photometric kernel cannot launch shape {tuple(img.shape)}")
+    _check_grid(img.shape)
+
+
+def _check_grid(shape) -> None:
+    """Both photometric kernels launch the grid (ceil(W / 32), ceil(H / 16), B),
+    whose y and z CUDA caps at 65535, and index the (B, 3, H, W) images with
+    32-bit integers, so B * 3 * H * W stays below 2**31."""
+    b, _, h, w = shape
+    if min(b, h, w) < 1 or b > 65535 or -(-h // _TY) > 65535 or b * 3 * h * w >= 2**31:
+        raise ValueError(f"photometric kernel cannot launch shape {tuple(shape)}")
 
 
 def photo_fwd(img_l, img_r, flow_b, flow_f, img):
@@ -70,18 +78,16 @@ def photo_fwd(img_l, img_r, flow_b, flow_f, img):
     b, _, h, w = img.shape
     n_tiles = -(-h // _TY) * -(-w // _TX)
     weights = torch.empty((2 * b, 1, h, w), dtype=img.dtype, device=img.device)
-    partials = torch.empty((b, n_tiles, 6), dtype=torch.float32, device=img.device)
+    # the kernel's workspace: the (3, 2B) sums it returns, then what it adds them from
+    work = torch.empty(7 * b + 6 * b * n_tiles, dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.photo_fwd(img_l.data_ptr(), img_r.data_ptr(), img.data_ptr(),
                             flow_b.data_ptr(), flow_f.data_ptr(), weights.data_ptr(),
-                            partials.data_ptr(), b, h, w, _DTYPES[img.dtype], stream)
+                            work.data_ptr(), b, h, w, _DTYPES[img.dtype], stream)
     _build.check_launch(err, "photometric forward")
     launches["photometric_fwd"] += 1
-    tots = partials.sum(1)  # (B, 6): a deterministic reduction over the tiles
-    s_dw = torch.cat([tots[:, 0], tots[:, 3]])
-    s_w = torch.cat([tots[:, 1], tots[:, 4]])
-    s_cl = torch.cat([tots[:, 2], tots[:, 5]])
+    s_dw, s_w, s_cl = work[:6 * b].view(3, 2 * b)
     return s_dw, s_w, s_cl, weights
 
 
