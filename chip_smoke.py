@@ -9,8 +9,9 @@ Phases (each raises on failure, so the run exits non-zero):
    torch and CUDA versions, build every kernel source of
    ``unopticalflow_tpu_torch/csrc/`` (one nvcc each, all at once) and print
    the build time and ptxas's registers and spills for the correlation
-   forward, df1 and df2, the row gather and both photometric kernels (each
-   instantiation).  TF32 is switched off for cuDNN
+   forward, df1 and df2, the row gather and both photometric and both
+   regularizer kernels (each instantiation; the regularizer's with its static
+   shared memory and the blocks of 256 an SM holds).  TF32 is switched off for cuDNN
    and matmul, so float32 comparisons are float32 (phase 13 starts from
    PyTorch's default and checks that the entry points turn it off).
 2. Correlation forward vs plain: ``cost_volume_reference`` at the five
@@ -76,13 +77,22 @@ Phases (each raises on failure, so the run exits non-zero):
    losses, every bf16 kernel launched, ms/step (median CUDA-event interval
    after the first two, phase 13's bf16 step rate).
 8. Regularizer forward and backward vs ``regularizer_pack_reference`` at the
-   three loss scales of batch 8 at 256x832 and a ragged shape, on flows
-   upsampled from a coarse field (their second differences vanish over
-   large areas, as the decoder's upsampled flows' do): float32 sums rtol
-   1e-4, d(flow) within 1e-4 of its largest value and zero where the plain
-   gradient is zero; bfloat16 images within 2e-2 of the bf16 plain version
-   and at the float32 tolerances against the plain version on the widened
-   images.  Timed per float32 training step.
+   three loss scales of batch 8 at 256x832 and at ragged shapes (H and W no
+   multiple of the 16 x 32 tile, odd W where the position pairs are loaded one
+   at a time, W = 1, 2, 3, H = 1, 2, 3, one exact tile), on flows upsampled
+   from a coarse field (their second differences vanish over large areas, as
+   the decoder's upsampled flows' do): float32 sums rtol 1e-4, d(flow) within
+   1e-4 of its largest value and zero where the plain gradient is zero;
+   bfloat16 images within 2e-2 of the bf16 plain version and at the float32
+   tolerances against the plain version on the widened images.  Each pack
+   launches each kernel once; two calls of each kernel launch once each and
+   give the same bits; each line prints a CRC32 of d(flow)'s bits (equal
+   CRCs: equal bits, so two trees' kernels can be held to each other in one
+   call).  Timed per scale in both dtypes, with one line each of the CUDA-event
+   ms per call, the profiler's device ms per launch and the device ms per call
+   (every kernel and memset of a call, the calls queued behind
+   ``torch.cuda._sleep`` so the host is ahead), and the per-step sums against
+   the bound in both dtypes.
 9. Training with ``use_pallas_reg``: ``train()`` at the KITTI recipe, float32,
    5 steps, with ``test_interval`` 5 so that one interleaved evaluation runs
    on in-memory KITTI 2012/2015-shaped sets (8 pairs each, ground truth at
@@ -270,6 +280,13 @@ PHOTO_SCALES = {"s0": (8, 256, 832), "s1": (8, 128, 416), "s2": (8, 64, 208)}
 # wider than the image), one row of tiles with a ragged last column pair
 PHOTO_RAGGED = ((1, 13, 45), (2, 37, 45), (2, 1, 40), (1, 7, 1), (2, 2, 50), (3, 17, 66),
                 (1, 16, 33))
+# ragged shapes of the regularizer kernels (16 x 32 tiles, two adjacent
+# positions a thread, loaded as one vector where W is even): H and W no
+# multiple of the tile, odd W (scalar loads), even ragged W, W = 1, 2, 3 (no
+# x anchor, or one), H = 1, 2, 3 (no y anchor, or one), one exact tile, 3 x 5
+# tiles
+REG_RAGGED = ((1, 13, 45), (2, 37, 100), (2, 21, 70), (1, 5, 1), (1, 7, 2), (2, 9, 3),
+              (2, 1, 50), (1, 2, 33), (2, 3, 130), (2, 16, 32), (1, 33, 129))
 PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
             "photometric_fwd": 3, "photometric_bwd": 3,
             "regularizer_fwd": 0, "regularizer_bwd": 0,
@@ -347,6 +364,29 @@ def _device_ms(torch, fn, pattern: str, calls: int = 10, tries: int = 3) -> str:
     return "not measured"
 
 
+def _queued_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Device ms of one call of ``fn``: every kernel and memset it launches
+    and the gaps between them, without the host's time.  The calls are queued
+    behind ``torch.cuda._sleep`` (20M cycles, ~11 ms, far longer than the host
+    takes to enqueue them) and timed by CUDA events recorded after the sleep;
+    median of ``reps``.  (The profiler's per-event times can miss part of a
+    window, so a sum of them under-reads a call.)"""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -355,20 +395,31 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def _ptxas_registers(log: str, kernel: str) -> list[str]:
-    """"<mangled name>: N registers, S bytes spill" for each instantiation of
-    ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    """"<mangled name>: N registers, S bytes smem" (and the spill stores, if
+    any) for each instantiation of ``kernel`` in an ``nvcc -Xptxas -v``
+    report."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
         if m:
             name = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name and kernel in name:
-            out.append(f"{name}: {m.group(1)} registers")
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} bytes smem")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name and kernel in name and m.group(1) != "0":
             out.append(f"{name}: {m.group(1)} bytes spill stores")
     return out or [f"no report for {kernel}"]
+
+
+def _blocks_per_sm(registers: int, smem: int, threads: int = 256) -> int:
+    """Blocks of ``threads`` an H100 SM holds at that many registers a thread
+    and bytes of static shared memory a block: registers go to warps in units
+    of 256 of the SM's 65,536; the SM's 233,472 bytes of shared memory hold
+    1 KB reserved a block; at most 2,048 threads and 32 blocks."""
+    warps = threads // 32
+    by_regs = 65536 // (-(-registers * 32 // 256) * 256) // warps
+    return min(by_regs, 233472 // (smem + 1024), 2048 // threads, 32)
 
 
 def _hold_bwd(torch, got, want, rtol, atol, abs_ref) -> str:
@@ -473,9 +524,14 @@ def main() -> int:
     for src, kernel in (("correlation", "corr_fwd_kernel"), ("correlation", "corr_df1_kernel"),
                         ("correlation", "corr_df2_kernel"), ("gather", "row_gather_kernel"),
                         ("photometric", "photo_fwd_kernel"),
-                        ("photometric", "photo_bwd_kernel")):
-        print(f"ptxas {src}: " + "; ".join(_ptxas_registers(_build.ptxas_log.get(src, ""),
-                                                            kernel)))
+                        ("photometric", "photo_bwd_kernel"),
+                        ("regularizer", "reg_fwd_kernel"), ("regularizer", "reg_bwd_kernel")):
+        report = _ptxas_registers(_build.ptxas_log.get(src, ""), kernel)
+        if src == "regularizer":  # 256-thread blocks
+            report = [f"{r_} ({_blocks_per_sm(*map(int, m_.groups()))} blocks an SM)"
+                      if (m_ := re.search(r"(\d+) registers, (\d+) bytes smem", r_)) else r_
+                      for r_ in report]
+        print(f"ptxas {src}: " + "; ".join(report))
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err = dict.fromkeys(KERNELS, 0.0)
@@ -954,14 +1010,22 @@ def main() -> int:
         return {k: v.detach() for k, v in out.items()}, gb, gf
 
     reg_keys = ("s_sx", "s_sy", "s_consis")
-    for name, (b, hh, ww) in {**PHOTO_SCALES, "ragged": PHOTO_RAGGED[0]}.items():
+    reg_scale_ms = {}  # "kernel scale dtype" -> kernel ms (CUDA events)
+    reg_device_ms = {}  # the same keys -> the profiler's device ms per launch
+    reg_call_ms = {}  # the same keys -> device ms per call, the calls queued behind a sleep
+    reg_step = {}  # (kernel, dtype) -> [kernel ms, [device ms], [call ms], bytes, operations]
+    for name, (b, hh, ww) in [*PHOTO_SCALES.items(), *(("ragged", r) for r in REG_RAGGED)]:
         cot = {"s_sx": torch.rand(2 * b, generator=gen, device=device),
                "s_sy": torch.rand(2 * b, generator=gen, device=device),
                "s_consis": torch.rand(b, generator=gen, device=device)}
         for dtype in (torch.float32, torch.bfloat16):
             case = reg_case(b, hh, ww, dtype)
+            reset_counts()
             got, gb, gf = reg_run(regularizer_cuda.regularizer, case, cot)
             torch.cuda.synchronize()
+            one = counts()
+            if one != {**zero_counts, "regularizer_fwd": 1, "regularizer_bwd": 1}:
+                raise AssertionError(f"regularizer {name}: launches {one}, not 1 + 1")
             refs = [reg_run(regularizer_pack_reference, case, cot)]
             if dtype == torch.bfloat16:
                 for k in reg_keys:
@@ -983,44 +1047,84 @@ def main() -> int:
             ferr = max(float((got[k] - want[k]).abs().max()) for k in reg_keys)
             max_err["regularizer_fwd"] = max(max_err["regularizer_fwd"], ferr)
             max_err["regularizer_bwd"] = max(max_err["regularizer_bwd"], gerr)
-            if name == "ragged":
-                continue
+            # two calls of each kernel on the same inputs: one launch each, the same bits
             fb, ff, img, w_fwd = case
+            reset_counts()
+            f1, f2 = (regularizer_cuda.reg_fwd(fb, ff, img, w_fwd) for _ in range(2))
+            d1, d2 = (regularizer_cuda.reg_bwd(fb, ff, img, w_fwd, cot["s_sx"], cot["s_sy"],
+                                               cot["s_consis"]) for _ in range(2))
+            torch.cuda.synchronize()
+            if counts() != {**zero_counts, "regularizer_fwd": 2, "regularizer_bwd": 2}:
+                raise AssertionError(f"regularizer {name}: two calls launched {counts()}")
+            if not all(torch.equal(x, y) for x, y in (*zip(f1, f2), *zip(d1, d2))):
+                raise AssertionError(f"regularizer {name} {(b, hh, ww)} {dtype}: two calls differ")
+            # a digest of d(flow)'s bits, to hold this kernel's against another's
+            bits = f"d(flow) bits {photo_bits(torch.cat([d1[0].ravel(), d1[1].ravel()]))}"
+            dt = str(dtype)[6:]
+            head = (f"regularizer {name} {(b, 3, hh, ww)} {dt}: sums max_abs_err={ferr:.3e} "
+                    f"d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}), 1 + 1 launches, two "
+                    f"calls bit-equal, {bits}")
+            if name == "ragged":
+                print(head)
+                continue
+            bwd_call = (lambda: regularizer_cuda.reg_bwd(fb, ff, img, w_fwd, cot["s_sx"],
+                                                         cot["s_sy"], cot["s_consis"]))
             with torch.no_grad():
                 k_fwd = _time_ms(torch, lambda: regularizer_cuda.reg_fwd(fb, ff, img, w_fwd))
+                dev_fwd = _device_ms(torch, lambda: regularizer_cuda.reg_fwd(fb, ff, img, w_fwd),
+                                     "reg_fwd_kernel")
+                call_fwd = _queued_ms(torch, lambda: regularizer_cuda.reg_fwd(fb, ff, img, w_fwd))
                 p_fwd = _time_ms(torch, lambda: regularizer_pack_reference(fb, ff, img, w_fwd),
                                  inner=2)
-            k_bwd = _time_ms(torch, lambda: regularizer_cuda.reg_bwd(
-                fb, ff, img, w_fwd, cot["s_sx"], cot["s_sy"], cot["s_consis"]))
+            k_bwd = _time_ms(torch, bwd_call)
+            dev_bwd = _device_ms(torch, bwd_call, "reg_bwd_kernel")
+            call_bwd = _queued_ms(torch, bwd_call)
             fbg = fb.clone().requires_grad_(True)
             ffg = ff.clone().requires_grad_(True)
             out = regularizer_pack_reference(fbg, ffg, img, w_fwd)
             loss = sum((out[k] * cot[k]).sum() for k in out)
             p_bwd = _time_ms(torch, lambda: torch.autograd.grad(loss, [fbg, ffg],
                                                                  retain_graph=True), inner=2)
-            if dtype == torch.float32:
-                ms["regularizer_fwd"] += k_fwd
-                plain_ms["regularizer_fwd"] += p_fwd
-                ms["regularizer_bwd"] += k_bwd
-                plain_ms["regularizer_bwd"] += p_bwd
-                n = b * hh * ww
-                # fwd: 4 flow values, 3 image values, 1 weight read per position;
-                # bwd: the same read, 4 flow gradients written
-                add_work("regularizer_fwd", 8 * 4 * n, OPS_PER_POSITION["regularizer_fwd"] * n)
-                add_work("regularizer_bwd", 12 * 4 * n, OPS_PER_POSITION["regularizer_bwd"] * n)
-            else:
-                n = b * hh * ww
-                add_bf16("regularizer_fwd", k_fwd, p_fwd, (4 * 4 + 4 * 2) * n,
-                         OPS_PER_POSITION["regularizer_fwd"] * n)
-                add_bf16("regularizer_bwd", k_bwd, p_bwd, (4 * 4 + 4 * 2 + 4 * 4) * n,
-                         OPS_PER_POSITION["regularizer_bwd"] * n)
-            print(f"regularizer {name} {(b, 3, hh, ww)} {str(dtype)[6:]}: sums max_abs_err="
-                  f"{ferr:.3e} d(flow) max_abs_err={gerr:.3e} (max {gmax:.3e}) "
-                  f"fwd kernel_ms={k_fwd:.4f} plain_ms={p_fwd:.4f} "
-                  f"bwd kernel_ms={k_bwd:.4f} plain_ms={p_bwd:.4f}")
-    for kname in ("regularizer_fwd", "regularizer_bwd"):
-        print(f"{kname} per training step (3 scales, float32): kernel_ms={ms[kname]:.4f} "
-              f"plain_ms={plain_ms[kname]:.4f}")
+            n = b * hh * ww
+            esz = 4 if dtype == torch.float32 else 2
+            # fwd: 4 flow values, 3 image values and 1 weight read per position;
+            # bwd: the same read, 4 flow gradients written
+            works = {"regularizer_fwd": ((4 * 4 + 4 * esz) * n,
+                                         OPS_PER_POSITION["regularizer_fwd"] * n),
+                     "regularizer_bwd": ((4 * 4 + 4 * esz + 4 * 4) * n,
+                                         OPS_PER_POSITION["regularizer_bwd"] * n)}
+            for kname, k_ms, dev, call, p_ms in (
+                    ("regularizer_fwd", k_fwd, dev_fwd, call_fwd, p_fwd),
+                    ("regularizer_bwd", k_bwd, dev_bwd, call_bwd, p_bwd)):
+                key = f"{kname[12:]} {name} {dt}"
+                reg_scale_ms[key] = round(k_ms, 4)
+                reg_device_ms[key] = dev
+                reg_call_ms[key] = round(call, 5)
+                acc = reg_step.setdefault((kname, dt), [0.0, [], [], 0.0, 0.0])
+                acc[0] += k_ms
+                acc[1].append(dev)
+                acc[2].append(call)
+                acc[3] += works[kname][0]
+                acc[4] += works[kname][1]
+                if dtype == torch.float32:
+                    ms[kname] += k_ms
+                    plain_ms[kname] += p_ms
+                    add_work(kname, *works[kname])
+                else:  # bf16 images and weights, float32 flows
+                    add_bf16(kname, k_ms, p_ms, *works[kname])
+            print(f"{head}; fwd kernel_ms={k_fwd:.4f} device_ms={dev_fwd} call_device_ms="
+                  f"{call_fwd:.4f} plain_ms={p_fwd:.4f} bwd kernel_ms={k_bwd:.4f} device_ms="
+                  f"{dev_bwd} call_device_ms={call_bwd:.4f} plain_ms={p_bwd:.4f}")
+    print("regularizer kernel ms per scale (batch 8): " + json.dumps(reg_scale_ms))
+    print("regularizer device ms per launch (profiler, batch 8): " + json.dumps(reg_device_ms))
+    print("regularizer device ms per call (every kernel and memset of a call, the calls "
+          "queued behind a sleep): " + json.dumps(reg_call_ms))
+    for (kname, dt), (k_ms, dev, call, nbytes, ops) in reg_step.items():
+        bound_ms, bound_by = _bound(nbytes, ops)
+        dev_s = "not measured" if "not measured" in dev else f"{sum(map(float, dev)):.4f}"
+        print(f"{kname} per training step (3 scales, {dt} images): kernel_ms={k_ms:.4f} "
+              f"device_ms={dev_s} call_device_ms={sum(call):.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}), {k_ms / bound_ms:.1f}x the bound")
     for kname, (k_ms, p_ms, nbytes, ops) in bf16_step.items():
         bound_ms, bound_by = _bound(nbytes, ops)
         print(f"{kname} per training step (3 scales, bfloat16 images): kernel_ms={k_ms:.4f} "

@@ -512,9 +512,20 @@ def _reg_run(fn, flow_b, flow_f, img, w_fwd, cot):
     return out, fb.grad, ff.grad
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 32), (1, 13, 45), (2, 64, 208)])
+# (B, H, W) at the kernels' 16 x 32 tile's edges (chip_smoke.py's REG_RAGGED):
+# H and W no multiple of the tile, odd W (scalar loads), even ragged W (vector
+# loads), W = 1, 2, 3 (no x anchor, or one), H = 1, 2, 3, one exact tile, two
+# tiles, 3 x 5 tiles; and the smallest loss scale of the KITTI recipe
+REG_SHAPES = [(2, 16, 32), (1, 13, 45), (2, 64, 208), (2, 37, 100), (2, 21, 70), (1, 5, 1),
+              (1, 7, 2), (2, 9, 3), (2, 1, 50), (1, 2, 33), (2, 3, 130), (2, 16, 64),
+              (1, 33, 129)]
+
+
+@pytest.mark.parametrize("shape", REG_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_regularizer_kernels_match_plain(device, shape, dtype):
+    """The kernels against the plain version; each call one launch, and two
+    calls on the same inputs the same bits (no atomics on floats)."""
     b, h, w = shape
     case = _reg_case(b, h, w, device, dtype)
     g = torch.Generator(device=device).manual_seed(2)
@@ -532,6 +543,15 @@ def test_regularizer_kernels_match_plain(device, shape, dtype):
     for g_, r in ((gb, wb), (gf, wf)):
         assert float((g_ - r).abs().max()) <= 1e-4 * float(r.abs().max())
         assert torch.equal(g_ == 0, r == 0)
+    for name, call in (
+            ("regularizer_fwd", lambda: regularizer_cuda.reg_fwd(*case)),
+            ("regularizer_bwd", lambda: regularizer_cuda.reg_bwd(*case, cot["s_sx"], cot["s_sy"],
+                                                                 cot["s_consis"]))):
+        before = regularizer_cuda.launches[name]
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert regularizer_cuda.launches[name] == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_regularizer_consis_grad_only_reaches_fwd(device):

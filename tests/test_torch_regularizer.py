@@ -156,6 +156,30 @@ def test_dispatch_takes_the_plain_version_on_cpu():
     assert regularizer_cuda.launches == before
 
 
+@pytest.mark.parametrize("shape,ok", [
+    ((8, 3, 256, 832), True),              # the finest loss scale of the KITTI recipe
+    ((1, 3, 16 * 65535, 1), True),         # the largest grid y
+    ((1, 3, 16 * 65535 + 1, 1), False),    # ceil(H / 16) above 65535
+    ((65535, 3, 1, 1), True),              # the largest grid z
+    ((65536, 3, 1, 1), False),             # B above 65535
+    ((1, 3, 1, 715827882), True),          # B * 3 * H * W = 2**31 - 2: 32-bit indices hold
+    ((1, 3, 2, 357913942), False),         # B * 3 * H * W = 2**31 + 4
+    ((2, 3, 16384, 21846), False),         # the same bound with every dimension above 1
+    ((1, 3, 0, 4), False),
+])
+def test_kernel_grid_bound(shape, ok):
+    """Both regularizer kernels launch the grid (ceil(W / 32), ceil(H / 16), B)
+    and index with 32-bit integers: a shape is refused before any launch when
+    the grid's y or z passes 65535 or B * 3 * H * W reaches 2**31."""
+    before = dict(regularizer_cuda.launches)
+    if ok:
+        regularizer_cuda._check_grid(shape)
+    else:
+        with pytest.raises(ValueError, match="cannot launch"):
+            regularizer_cuda._check_grid(shape)
+    assert regularizer_cuda.launches == before
+
+
 @pytest.fixture(scope="module")
 def params():
     init = jax.jit(init_flow_model, static_argnames="scheme")

@@ -16,9 +16,9 @@ import torch
 from unopticalflow_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TY, _TX = 8, 32  # the kernels' tile, which sets the number of partial sums
+_TY, _TX = 16, 32  # the kernels' tile, which sets the grid and the forward's workspace
 _SIGNATURES = {
-    # flow_b, flow_f, img, w_fwd, partials (5, B, tiles), B, H, W, dtype, stream
+    # flow_b, flow_f, img, w_fwd, work, B, H, W, dtype, stream
     "reg_fwd": [_build.P] * 5 + [_build.I] * 4 + [_build.P],
     # flow_b, flow_f, img, w_fwd, g_sx, g_sy, g_c, dflow_b, dflow_f, B, H, W, dtype, stream
     "reg_bwd": [_build.P] * 9 + [_build.I] * 4 + [_build.P],
@@ -59,8 +59,16 @@ def _check(flow_b, flow_f, img, w_fwd) -> None:
                          f"{tuple(w_fwd.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("regularizer kernel needs contiguous NCHW inputs")
-    if min(b, h, w) < 1 or b > 65535 or -(-h // _TY) > 65535:
-        raise ValueError(f"regularizer kernel cannot launch shape {tuple(img.shape)}")
+    _check_grid(img.shape)
+
+
+def _check_grid(shape) -> None:
+    """Both regularizer kernels launch the grid (ceil(W / 32), ceil(H / 16), B),
+    whose y and z CUDA caps at 65535, and index the (B, 3, H, W) image with
+    32-bit integers, so B * 3 * H * W stays below 2**31."""
+    b, _, h, w = shape
+    if min(b, h, w) < 1 or b > 65535 or -(-h // _TY) > 65535 or b * 3 * h * w >= 2**31:
+        raise ValueError(f"regularizer kernel cannot launch shape {tuple(shape)}")
 
 
 def reg_fwd(flow_b, flow_f, img, w_fwd):
@@ -69,18 +77,18 @@ def reg_fwd(flow_b, flow_f, img, w_fwd):
     lib = _lib()
     b, _, h, w = img.shape
     n_tiles = -(-h // _TY) * -(-w // _TX)
-    # [s_sx bwd, s_sx fwd, s_sy bwd, s_sy fwd, s_consis] x sample x tile
-    partials = torch.empty((5, b, n_tiles), dtype=torch.float32, device=img.device)
+    # the kernel's workspace: the sums it returns, [s_sx bwd, s_sx fwd, s_sy bwd,
+    # s_sy fwd, s_consis] x sample, then what it adds them from
+    work = torch.empty(6 * b + 5 * b * n_tiles, dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.reg_fwd(flow_b.data_ptr(), flow_f.data_ptr(), img.data_ptr(),
-                          w_fwd.data_ptr(), partials.data_ptr(), b, h, w,
-                          _DTYPES[img.dtype], stream)
+                          w_fwd.data_ptr(), work.data_ptr(), b, h, w, _DTYPES[img.dtype],
+                          stream)
     _build.check_launch(err, "regularizer forward")
     launches["regularizer_fwd"] += 1
-    # one deterministic reduction over the tiles; the packed [bwd; fwd] sums are views
-    tots = partials.sum(-1)  # (5, B)
-    return tots[0:2].reshape(2 * b), tots[2:4].reshape(2 * b), tots[4]
+    # the packed [bwd; fwd] sums are views
+    return work[:2 * b], work[2 * b:4 * b], work[4 * b:5 * b]
 
 
 def reg_bwd(flow_b, flow_f, img, w_fwd, g_sx, g_sy, g_c):
