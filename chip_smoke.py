@@ -9,9 +9,11 @@ Phases (each raises on failure, so the run exits non-zero):
    torch and CUDA versions, build every kernel source of
    ``unopticalflow_tpu_torch/csrc/`` (one nvcc each, all at once) and print
    the build time and ptxas's registers and spills for the correlation
-   forward, df1 and df2, the row gather and both photometric and both
-   regularizer kernels (each instantiation; the regularizer's with its static
-   shared memory and the blocks of 256 an SM holds).  TF32 is switched off for cuDNN
+   forward, df1 and df2, the row gather, the block gathers
+   (``lane_gather_kernel``, ``lane_gather_rows_kernel``,
+   ``sublane_gather_kernel``) and both photometric and both regularizer
+   kernels (each instantiation; the regularizer's with its static shared
+   memory and the blocks of 256 an SM holds).  TF32 is switched off for cuDNN
    and matmul, so float32 comparisons are float32 (phase 13 starts from
    PyTorch's default and checks that the entry points turn it off).
 2. Correlation forward vs plain: ``cost_volume_reference`` at the five
@@ -146,11 +148,22 @@ Phases (each raises on failure, so the run exits non-zero):
    128: 2-, 4-, 8- and 16-byte copies, rows wider than 4 units), two indices
    out of range (the kernel clamps them; the plain version gets them
    clamped), bfloat16 and float32;
-   ``lane_gather`` at (4096, 128) float32 and bfloat16 and ``sublane_gather``
-   at (8, 8192) float32, the block-gather probe's shapes, and ragged ones;
-   every one bit for bit (``torch.equal``: a copy, and sums in x's dtype in
-   the plain version's order), timed, with ``torch.gather`` timed beside the
-   row gather.  (b) The probes' entry points on the card:
+   ``lane_gather`` and ``sublane_gather`` at the block-gather probe's shapes
+   ((4096, 128) float32 and bfloat16, (8, 8192) float32) and 11 more
+   (BLOCK_GATHER_CASES: W = 1, 127, 129 and 4096, one row, S = 1 and 64, S =
+   8 in bfloat16, ragged ones), each on five index sets (in range, the column
+   or row number, negative, past the span, within 63 of INT32_MAX and
+   INT32_MIN, where the JAX kernels' int32 idx + k wraps), each call one
+   launch and two calls bit-equal; every one bit for bit (``torch.equal``: a
+   copy, and sums in x's dtype in the plain version's order), timed, with
+   ``torch.gather`` timed beside the row gather; each block-gather line names
+   the kernel csrc/gather.cu chose and its launch (threads, dynamic shared
+   memory, grid, blocks an SM, registers, local bytes; ``block_gather_plan``),
+   and prints the shared-memory floor (the taps at one 32-bit read each, 32 a
+   clock on every SM at ``nvidia-smi``'s clocks.max.sm) beside ``bound_ms``,
+   and the profiler's device ms per launch on in-range and on column-number
+   indices; then one JSON line of them all.  (b) The probes' entry points
+   on the card:
    ``gather_probe.main`` in every mode (default, --widths, --layout,
    --diffwarp) and ``block_gather_probe.main``: no FAIL line, and each of
    the three kernels launched (no other).
@@ -235,7 +248,16 @@ ROW_GATHER_CASES = {"probe": (16, 256, 832, 12), "ragged": (3, 45, 61, 5),
                     "c3": (2, 17, 19, 3), "c128": (2, 9, 31, 128)}
 BLOCK_GATHER_CASES = (("lane", (4096, 128), "float32"), ("lane", (4096, 128), "bfloat16"),
                       ("sublane", (8, 8192), "float32"), ("lane", (13, 96), "bfloat16"),
-                      ("sublane", (5, 333), "float32"))
+                      ("sublane", (5, 333), "float32"), ("lane", (4224, 1), "bfloat16"),
+                      ("lane", (2100, 127), "bfloat16"), ("lane", (2200, 129), "bfloat16"),
+                      ("lane", (16, 4096), "float32"), ("lane", (3, 4096), "bfloat16"),
+                      ("lane", (1, 333), "float32"), ("sublane", (1, 4096), "float32"),
+                      ("sublane", (64, 1000), "float32"), ("sublane", (8, 8192), "bfloat16"))
+# the block gathers' index sets (_block_indices): in range (timed), the column or
+# row number (timed: neighbouring lanes start in neighbouring banks), negative,
+# past the span, and within 63 of INT32_MAX and INT32_MIN, where idx + k wraps in
+# the JAX kernels' int32
+BLOCK_GATHER_INDICES = ("uniform", "column", "negative", "beyond", "extreme")
 GATHER_PROBE_MODES = ([], ["--widths"], ["--layout"], ["--diffwarp"])
 # phase 13: the entry points on PNG trees; KITTI's frames, its 2015 frame
 # count, the ground truth at half size
@@ -394,6 +416,26 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _block_indices(rng, shape, span: int, kind: str, name: str):
+    """int32 indices of one of BLOCK_GATHER_INDICES for a block gather of
+    ``shape`` whose taps wrap modulo ``span``."""
+    import numpy as np
+
+    if name == "uniform":
+        i = rng.randint(0, span, shape)
+    elif name == "column":
+        i = np.broadcast_to(np.arange(shape[1]) if kind == "lane"
+                            else np.arange(shape[0])[:, None], shape)
+    elif name == "negative":
+        i = rng.randint(-10 * span - 7, 0, shape)
+    elif name == "beyond":
+        i = rng.randint(span, 10 * span + 7, shape)
+    else:
+        i = np.where(rng.rand(*shape) < 0.5, 2**31 - 1 - rng.randint(0, 64, shape),
+                     -2**31 + rng.randint(0, 64, shape))
+    return np.ascontiguousarray(i).astype(np.int32)
+
+
 def _ptxas_registers(log: str, kernel: str) -> list[str]:
     """"<mangled name>: N registers, S bytes smem" (and the spill stores, if
     any) for each instantiation of ``kernel`` in an ``nvcc -Xptxas -v``
@@ -523,6 +565,7 @@ def main() -> int:
     print(f"build: {sorted(libs.values())} in {time.perf_counter() - t0:.2f} s")
     for src, kernel in (("correlation", "corr_fwd_kernel"), ("correlation", "corr_df1_kernel"),
                         ("correlation", "corr_df2_kernel"), ("gather", "row_gather_kernel"),
+                        ("gather", "lane_gather"),
                         ("photometric", "photo_fwd_kernel"),
                         ("photometric", "photo_bwd_kernel"),
                         ("regularizer", "reg_fwd_kernel"), ("regularizer", "reg_bwd_kernel")):
@@ -1560,34 +1603,62 @@ def main() -> int:
 
     block = {"lane": (gather_cuda.lane_gather, lane_gather_reference),
              "sublane": (gather_cuda.sublane_gather, sublane_gather_reference)}
-    recorded = set()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    recorded, block_lines = set(), []
     for kind, shape, dtype_name in BLOCK_GATHER_CASES:
         kname, dtype = f"{kind}_gather", getattr(torch, dtype_name)
         kern, ref = block[kind]
+        plan = gather_cuda.block_gather_plan(kind, shape, dtype)
         r = np.random.RandomState(SEED + shape[0])
         x = torch.from_numpy(r.rand(*shape).astype(np.float32)).to(device, dtype)
         span = shape[1] if kind == "lane" else shape[0]
-        idx = torch.from_numpy(r.randint(0, span, shape).astype(np.int32)).to(device)
-        got = kern(x, idx)
-        torch.cuda.synchronize()
-        want = ref(x, idx)
-        if got.dtype != dtype or not torch.equal(got, want):
-            raise AssertionError(f"{kname} {shape} {dtype_name}: differs from the plain version")
-        note(kname, got, want)
+        idx_sets = {name: torch.from_numpy(_block_indices(r, shape, span, kind, name)).to(device)
+                    for name in BLOCK_GATHER_INDICES}
+        for name, idx in idx_sets.items():  # one launch a call, two calls the same bits
+            before = gather_cuda.launches[kname]
+            got, again = kern(x, idx), kern(x, idx)
+            torch.cuda.synchronize()
+            want = ref(x, idx)
+            if gather_cuda.launches[kname] != before + 2:
+                raise AssertionError(f"{kname} {shape} {name}: not one launch a call")
+            if got.dtype != dtype or not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(f"{kname} {shape} {dtype_name} {name} indices: differs from "
+                                     "the plain version or between two calls")
+            note(kname, got, want)
+        idx, col = idx_sets["uniform"], idx_sets["column"]
         k_ms = _time_ms(torch, lambda: kern(x, idx))
         p_ms = _time_ms(torch, lambda: ref(x, idx))
-        k_dev = _device_ms(torch, lambda: kern(x, idx), f"{kname}_kernel")
+        k_dev = _device_ms(torch, lambda: kern(x, idx), plan["kernel"])
+        # the same kernel on indices that are the column (lane) or row (sublane)
+        # number: 32 neighbouring lanes start in 32 banks
+        c_dev = _device_ms(torch, lambda: kern(x, col), plan["kernel"])
         # x and idx read once, the output written once; REPS adds per element
         nbytes, ops = x.numel() * (2 * x.element_size() + 4), x.numel() * REPS
         bound_ms, bound_by = _bound(nbytes, ops)
+        # one shared-memory read of 32 bits a tap, 32 a clock on each SM
+        floor_ms = x.numel() * REPS / (32 * sms * clock_mhz * 1e6) * 1e3
         if kname not in recorded:
             recorded.add(kname)
             ms[kname], plain_ms[kname] = k_ms, p_ms
             add_work(kname, nbytes, ops)
-        print(f"{kname} {shape} {dtype_name}: equal to the plain version; kernel_ms={k_ms:.5f} "
-              f"({k_ms * 1e6 / (x.numel() * REPS):.4f} ns/gather) plain_ms={p_ms:.4f} "
-              f"bound_ms={bound_ms:.5f} ({bound_by}); device ms per launch (profiler) "
-              f"{k_dev}")
+        block_lines.append({"kind": kind, "shape": list(shape), "dtype": dtype_name,
+                            "kernel": plan["kernel"], "device_ms": k_dev,
+                            "device_ms_column_indices": c_dev, "call_ms": k_ms,
+                            "plain_ms": p_ms, "bound_ms": bound_ms, "smem_floor_ms": floor_ms})
+        print(f"{kname} {shape} {dtype_name}: {plan['kernel']} ({plan['threads']} threads, "
+              f"{plan['smem_bytes']} B dynamic shared memory, grid {plan['grid_x']} x "
+              f"{plan['grid_y']}, {plan['blocks_per_sm']} blocks an SM, {plan['registers']} "
+              f"registers, {plan['local_bytes']} B local); equal to the plain version on "
+              f"{', '.join(BLOCK_GATHER_INDICES)} indices, one launch a call, two calls "
+              f"bit-equal; kernel_ms={k_ms:.5f} ({k_ms * 1e6 / (x.numel() * REPS):.4f} "
+              f"ns/gather) plain_ms={p_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}); "
+              f"shared-memory floor {floor_ms:.5f} ms (a 32-bit read a tap, 32 a clock on "
+              f"{sms} SMs at {clock_mhz:.0f} MHz); device ms per launch (profiler) {k_dev}, "
+              f"on column-number indices {c_dev}")
+    print(json.dumps({"block_gathers": block_lines}))
 
     # (b) the probes' entry points on the card, every mode
     probe_runs = [(gather_probe, argv) for argv in GATHER_PROBE_MODES]

@@ -604,7 +604,32 @@ def test_train_step_with_regularizer_kernels_matches_plain(device):
 ROW_GATHER_SHAPES = [(16, 256, 832, 12), (3, 45, 61, 5), (2, 17, 19, 3), (2, 9, 31, 128)]
 BLOCK_GATHER_CASES = [("lane", (4096, 128), torch.float32), ("lane", (4096, 128), torch.bfloat16),
                       ("sublane", (8, 8192), torch.float32), ("lane", (13, 96), torch.bfloat16),
-                      ("sublane", (5, 333), torch.float32)]
+                      ("sublane", (5, 333), torch.float32), ("lane", (4224, 1), torch.bfloat16),
+                      ("lane", (2100, 127), torch.bfloat16), ("lane", (2200, 129), torch.bfloat16),
+                      ("lane", (16, 4096), torch.float32), ("lane", (3, 4096), torch.bfloat16),
+                      ("lane", (1, 333), torch.float32), ("sublane", (1, 4096), torch.float32),
+                      ("sublane", (64, 1000), torch.float32),
+                      ("sublane", (8, 8192), torch.bfloat16)]
+BLOCK_GATHER_IDS = ["lane_f32", "lane_bf16", "sublane_f32", "lane_ragged_bf16",
+                    "sublane_ragged_f32", "lane_w1_bf16", "lane_w127_bf16", "lane_w129_bf16",
+                    "lane_w4096_f32", "lane_w4096_bf16", "lane_s1_f32", "sublane_s1_f32",
+                    "sublane_s64_f32", "sublane_bf16"]
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def _block_indices(rng, shape, span, kind):
+    """int32 indices of one kind: in [0, span), negative, at least span, or
+    within 63 of INT32_MAX and of INT32_MIN (where JAX's int32 idx + k wraps)."""
+    if kind == "uniform":
+        i = rng.randint(0, span, shape)
+    elif kind == "negative":
+        i = rng.randint(-10 * span - 7, 0, shape)
+    elif kind == "beyond":
+        i = rng.randint(span, 10 * span + 7, shape)
+    else:
+        i = np.where(rng.rand(*shape) < 0.5, INT32_MAX - rng.randint(0, 64, shape),
+                     INT32_MIN + rng.randint(0, 64, shape))
+    return i.astype(np.int32)
 
 
 @pytest.mark.parametrize("shape", ROW_GATHER_SHAPES, ids=["probe", "ragged", "c3", "c128"])
@@ -627,11 +652,10 @@ def test_row_gather_kernel_equals_plain(device, shape, dtype):
     assert torch.equal(got, row_gather_reference(img, idx.clamp(0, n - 1)))
 
 
-@pytest.mark.parametrize("kind,shape,dtype", BLOCK_GATHER_CASES,
-                         ids=["lane_f32", "lane_bf16", "sublane_f32", "lane_ragged_bf16",
-                              "sublane_ragged_f32"])
+@pytest.mark.parametrize("kind,shape,dtype", BLOCK_GATHER_CASES, ids=BLOCK_GATHER_IDS)
 def test_block_gather_kernels_equal_plain(device, kind, shape, dtype):
-    """Summed in x's dtype in the plain version's order: bit for bit."""
+    """Summed in x's dtype in the plain version's order: bit for bit, one
+    launch a call, two calls the same bits."""
     rng = np.random.RandomState(shape[0])
     x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device, dtype)
     span = shape[1] if kind == "lane" else shape[0]
@@ -641,10 +665,40 @@ def test_block_gather_kernels_equal_plain(device, kind, shape, dtype):
     name = f"{kind}_gather"
     before = gather_cuda.launches[name]
     got = fn(x, idx)
+    again = fn(x, idx)
     torch.cuda.synchronize()
-    assert gather_cuda.launches[name] == before + 1
+    assert gather_cuda.launches[name] == before + 2
     assert got.dtype == dtype and tuple(got.shape) == shape
-    assert torch.equal(got, ref(x, idx))
+    assert torch.equal(got, ref(x, idx)) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("indices", ["uniform", "negative", "beyond", "extreme"])
+@pytest.mark.parametrize("kind,shape,dtype", BLOCK_GATHER_CASES[:3],
+                         ids=BLOCK_GATHER_IDS[:3])
+def test_block_gather_kernels_take_any_int32_index(device, kind, shape, dtype, indices):
+    """At the probes' shapes, indices over the int32 range: the start
+    idx mod n is taken once, so indices near INT32_MAX and INT32_MIN give the
+    plain version's (int64) taps, which at n = 128 and 8 are JAX's wrapped
+    int32 ones."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device, dtype)
+    span = shape[1] if kind == "lane" else shape[0]
+    idx = torch.from_numpy(_block_indices(rng, shape, span, indices)).to(device)
+    fn, ref = ((lane_gather, lane_gather_reference) if kind == "lane"
+               else (sublane_gather, sublane_gather_reference))
+    assert torch.equal(fn(x, idx), ref(x, idx))
+
+
+def test_block_gather_plans_choose_by_shape(device):
+    """The probes' lane shapes take the one-bank-per-row kernel, the 4096-wide
+    rows and a single row the row-major one; each fits its SM."""
+    want = {("lane", (4096, 128)): "lane_gather_kernel", ("lane", (16, 4096)):
+            "lane_gather_rows_kernel", ("lane", (1, 333)): "lane_gather_rows_kernel",
+            ("sublane", (8, 8192)): "sublane_gather_kernel"}
+    for (kind, shape), kernel in want.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = gather_cuda.block_gather_plan(kind, shape, dtype)
+            assert plan["kernel"] == kernel and plan["blocks_per_sm"] >= 1, plan
 
 
 def test_gather_wrappers_reject_what_the_kernels_do_not_take(device):

@@ -9,7 +9,8 @@ probes, on the CPU, where the dispatchers take the plain versions.
   ``lane_kernel``/``sublane_kernel`` (``benchmarks/pallas_gather_probe.py``,
   loaded by path), run by ``pl.pallas_call(..., interpret=True)`` with the
   VMEM specs of its ``run``, bit for bit: both sum in x's dtype in the order
-  k = 0..63, rounding after every add.
+  k = 0..63, rounding after every add; also on indices near INT32_MAX and
+  INT32_MIN and negative ones, where JAX's int32 idx + k wraps.
 * Each probe's ``main`` in every mode at a small size.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
@@ -110,6 +111,40 @@ def test_block_gathers_match_the_jax_probe_kernels(jax_probe, kind, shape, dtype
     fn, kernel = ((lane_gather, jax_probe.lane_kernel) if kind == "lane"
                   else (sublane_gather, jax_probe.sublane_kernel))
     assert gather.REPS == jax_probe.REPS
+    got = fn(x, torch.from_numpy(idx))
+    want = _run_jax_kernel(jax_probe, kernel, _to_jax(x), jnp.asarray(idx))
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+@pytest.mark.parametrize("indices", ["near_int32_max", "near_int32_min", "negative"])
+@pytest.mark.parametrize("kind,shape,dtype", [
+    ("lane", (16, 128), torch.float32),
+    ("lane", (16, 128), torch.bfloat16),
+    ("sublane", (8, 256), torch.float32),
+], ids=["lane_f32", "lane_bf16", "sublane_f32"])
+def test_block_gathers_match_the_jax_probe_kernels_at_int32_extremes(jax_probe, kind, shape,
+                                                                     dtype, indices):
+    """Indices within 63 of INT32_MAX (where the JAX kernels' int32 idx + k
+    wraps by 2**32), within 63 of INT32_MIN, and negative: at the JAX
+    kernels' widths (W = 128, S = 8, powers of two) the wrap leaves idx + k
+    mod W unchanged, so the port's taps (the plain versions add in int64; the
+    kernels take idx mod W once) equal the JAX probe's bit for bit."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32) * 1.3).to(dtype)
+    span = shape[1] if kind == "lane" else shape[0]
+    if indices == "near_int32_max":
+        idx = INT32_MAX - rng.randint(0, 64, shape)
+    elif indices == "near_int32_min":
+        idx = INT32_MIN + rng.randint(0, 64, shape)
+    else:
+        idx = rng.randint(-10 * span, 0, shape)
+    idx = idx.astype(np.int32)
+    fn, kernel = ((lane_gather, jax_probe.lane_kernel) if kind == "lane"
+                  else (sublane_gather, jax_probe.sublane_kernel))
     got = fn(x, torch.from_numpy(idx))
     want = _run_jax_kernel(jax_probe, kernel, _to_jax(x), jnp.asarray(idx))
     assert got.dtype == dtype and tuple(got.shape) == shape

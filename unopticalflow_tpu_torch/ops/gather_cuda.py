@@ -9,16 +9,20 @@ with nvcc at first use.
 
 ``launches`` counts kernel launches by kernel (one per wrapper call on
 CUDA), so a run can show that its path went through the kernels.
+``block_gather_plan`` says which of csrc/gather.cu's block-gather kernels a
+shape takes and how it launches, without launching.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from unopticalflow_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_LANE_WIDTH = 4096  # csrc/gather.cu: two rows of x in 48 KB of shared memory
+MAX_LANE_WIDTH = 4096  # csrc/gather.cu: a row and its first 63 values in 48 KB of shared memory
 MAX_SUBLANES = 64
 _INT_MAX = 2**31 - 1
 _SIGNATURES = {
@@ -27,7 +31,11 @@ _SIGNATURES = {
     # x, idx, out, S, W (or L), dtype, stream
     "lane_gather": [_build.P] * 3 + [_build.I] * 3 + [_build.P],
     "sublane_gather": [_build.P] * 3 + [_build.I] * 3 + [_build.P],
+    # kind, S, W (or L), dtype, plan (int[8])
+    "block_gather_plan": [_build.I] * 4 + [_build.P],
 }
+# csrc/gather.cu's kernels of the block gathers, by block_gather_plan's number
+BLOCK_KERNELS = ("lane_gather_kernel", "lane_gather_rows_kernel", "sublane_gather_kernel")
 
 launches = {"row_gather": 0, "lane_gather": 0, "sublane_gather": 0}
 
@@ -93,6 +101,25 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{x.shape[1]}")
     out = torch.empty_like(x)
     _launch("lane_gather", x, idx, out, x.shape[0], x.shape[1])
+    return out
+
+
+def block_gather_plan(kind: str, shape: tuple[int, int], dtype: torch.dtype) -> dict:
+    """How ``lane_gather`` (kind "lane") or ``sublane_gather`` ("sublane")
+    launches at ``shape`` on the current CUDA device: the kernel csrc/gather.cu
+    chooses, threads and dynamic shared bytes a block, the grid, the blocks an
+    SM holds (the CUDA occupancy calculator's), registers and local (spill)
+    bytes a thread.  Launches nothing."""
+    if kind not in ("lane", "sublane") or dtype not in _DTYPES:
+        raise ValueError(f"block_gather_plan: no block gather {kind!r} of {dtype}")
+    plan = (ctypes.c_int * 8)()
+    err = _lib().block_gather_plan(int(kind == "sublane"), shape[0], shape[1], _DTYPES[dtype],
+                                   ctypes.addressof(plan))
+    _build.check_launch(err, "block_gather_plan")
+    keys = ("kernel", "threads", "smem_bytes", "grid_x", "grid_y", "blocks_per_sm",
+            "registers", "local_bytes")
+    out = dict(zip(keys, plan))
+    out["kernel"] = BLOCK_KERNELS[out["kernel"]]
     return out
 
 
