@@ -184,6 +184,13 @@ Phases (each raises on failure, so the run exits non-zero):
    frames, and the training loader's
    snippets/s (decode and resize in 4 threads) beside the float32 (phase 6)
    and bfloat16 (phase 7) step rates.
+14. Learning: the port's ``benchmarks/sanity_train.run`` on the card, 800
+   iterations from the "torch" init at batch 4, 64x128, a 3 px shift, lr
+   1e-4, seed 0, in float32 and then in bfloat16.  Each must end with an EPE
+   under 0.1 px against the known flow (the JAX package's own bar; zero
+   flow's is 3 px) and launch exactly 5 + 5 + 5 + 3 + 3 training kernels a
+   step (and 5 correlation forwards for the scoring inference).  It prints
+   each leg's EPE, mean u and v, ms/step (CUDA events) and seconds.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -267,6 +274,13 @@ ENTRY_SNIPPETS = 8
 ENTRY_GT_HW = (188, 621)
 ENTRY_PAIRS = 200
 LOADER_SNIPPETS = 64  # 8 batches through the training loader in phase 13
+# phase 14: benchmarks/sanity_train.py's learning check (the JAX harness's
+# defaults but its iterations) and the JAX package's own bar for it
+LEARN_ITERS = 800
+LEARN_BATCH = 4
+LEARN_HW = (64, 128)
+LEARN_SHIFT = 3
+LEARN_EPE = 0.1
 # the H100 SXM's published peaks: HBM and float32 outside
 # the tensor cores; every kernel here computes in float32
 HBM_BYTES_PER_S = 3.35e12
@@ -1809,6 +1823,31 @@ def main() -> int:
           f"TF32 off, {last} written; test.main on {ENTRY_PAIRS} pairs in {t_test:.2f} s, "
           f"{entry_test['corr_fwd']} corr_fwd launches ({n_batches} batches)")
 
+    # ---- 14. learning: the port's sanity_train on the card ----------------
+    from unopticalflow_tpu_torch.benchmarks import sanity_train
+
+    for bf16 in (False, True):
+        reset_counts()
+        res = sanity_train.run(iters=LEARN_ITERS, batch=LEARN_BATCH, hw=LEARN_HW,
+                               shift=LEARN_SHIFT, lr=1e-4, bf16=bf16, device="cuda", seed=SEED)
+        learn_counts = counts()
+        # every step through the training kernels, and one inference_flow after
+        want = {k: LEARN_ITERS * v for k, v in PER_STEP.items()}
+        want["corr_fwd"] += 5
+        if learn_counts != want:
+            raise AssertionError(f"sanity_train {res['precision']}: launches {learn_counts}, "
+                                 f"want {want}")
+        print(f"learning {res['precision']}: sanity_train {LEARN_ITERS} iterations at batch "
+              f"{LEARN_BATCH} {LEARN_HW[0]}x{LEARN_HW[1]}, shift {LEARN_SHIFT} px: EPE "
+              f"{res['epe']:.4f} px against zero flow's {res['zero_flow_epe']:.1f} (bar "
+              f"{LEARN_EPE}), mean u {res['mean_u']:.4f} v {res['mean_v']:.4f}, ms/step "
+              f"{res['ms_per_step']:.3f} (CUDA events), {res['train_seconds']:.2f} s; "
+              f"launches per step {PER_STEP}")
+        if not res["epe"] < LEARN_EPE:
+            raise AssertionError(f"sanity_train {res['precision']}: EPE {res['epe']} px "
+                                 f"is not under {LEARN_EPE}")
+        torch.cuda.empty_cache()
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
@@ -1833,7 +1872,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 13 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: 14 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -121,5 +121,7 @@ print(json.dumps({{"names": names, "named": named, "by_path": by_path,
             "unopticalflow_tpu_torch.ops.gather_cuda",
             "unopticalflow_tpu_torch.benchmarks.gather_probe",
             "unopticalflow_tpu_torch.benchmarks.block_gather_probe",
+            "unopticalflow_tpu_torch.benchmarks.sanity_train",
+            "unopticalflow_tpu_torch.benchmarks.synthetic_epe",
             "unopticalflow_tpu_torch.data.datasets"} <= set(got["names"])
     assert got["named"] == [] and got["by_path"] == [] and got["jax"] == []

@@ -3,8 +3,10 @@
 Port of ``unopticalflow_tpu/data/loader.py`` (one process).  Samples are pure
 functions of their index (the datasets seed their draw from it), so a thread
 pool decodes batches ahead of the step, in the JAX loader's index schedule:
-batch k holds indices [k*B, (k+1)*B).  ``device_prefetch`` keeps the next
-batches' host-to-device copies in flight while the current step runs.
+batch k holds indices [k*B, (k+1)*B).  ``background`` is that producer
+thread for any iterable (the learning harness draws its snippets with it).
+``device_prefetch`` keeps the next batches' host-to-device copies in flight
+while the current step runs.
 """
 
 from __future__ import annotations
@@ -46,45 +48,68 @@ class BatchLoader:
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
 
-        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
-        stop = threading.Event()
-
-        def put(item) -> bool:
-            """Queue-put that stays responsive to stop (consumer gone)."""
-            while not stop.is_set():
-                try:
-                    out_q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def producer():
+        def load():
             with ThreadPoolExecutor(self.num_workers) as pool:
                 for idxs in batches:
-                    if stop.is_set():
-                        return
-                    try:
-                        batch = self._load_batch(pool, idxs)
-                    except Exception as e:  # surface worker errors to the consumer
-                        put(e)
-                        return
-                    if not put(batch):
-                        return
-                put(None)
+                    yield self._load_batch(pool, idxs)
 
-        thread = threading.Thread(target=producer, daemon=True)
-        thread.start()
+        yield from background(load(), self.prefetch_batches)
+
+
+class _Raised:
+    def __init__(self, error: Exception):
+        self.error = error
+
+
+_DONE = object()
+
+
+def background(items, depth: int = 2):
+    """Yield the items of the iterable ``items``, drawn ahead in one thread.
+
+    One producer keeps their order; at most ``depth`` wait in the queue.  An
+    exception raised while drawing is raised again in the consumer, and a
+    consumer that stops early stops the producer, which then closes ``items``.
+    """
+    out_q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        """Queue-put that stays responsive to stop (consumer gone)."""
+        while not stop.is_set():
+            try:
+                out_q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
         try:
-            while True:
-                item = out_q.get()
-                if item is None:
+            for item in items:
+                if not put(item):
                     return
-                if isinstance(item, Exception):
-                    raise item
-                yield item
+        except Exception as e:  # surfaced to the consumer
+            put(_Raised(e))
+            return
         finally:
-            stop.set()
+            close = getattr(items, "close", None)
+            if close is not None:
+                close()
+        put(_DONE)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is _DONE:
+                return
+            if isinstance(item, _Raised):
+                raise item.error
+            yield item
+    finally:
+        stop.set()
 
 
 def _map(fn, batch):

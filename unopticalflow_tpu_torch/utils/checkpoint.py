@@ -45,8 +45,18 @@ def save_checkpoint(paths: list[str], iteration: int, model: nn.Module,
         _atomic_save(state, path)
 
 
+def _refuse_flax(path: str) -> None:
+    if path.endswith(".ckpt"):
+        raise ValueError(
+            f"{path}: flax .ckpt checkpoints wait for the checkpoint port; "
+            "convert it first with unopticalflow_tpu.utils.torch_convert."
+            "export_torch_checkpoint and pass the resulting .pth"
+        )
+
+
 def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) -> int:
     """Load the model (strict) and the optimizer; return the iteration."""
+    _refuse_flax(path)
     data = torch.load(path, map_location="cpu", weights_only=True)
     if "optimizer_state_dict" not in data:
         raise ValueError(f"{path} holds no optimizer state to resume from")
@@ -57,12 +67,7 @@ def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) 
 
 def load_pretrained(model: nn.Module, path: str) -> int:
     """Load ``path`` into ``model`` (strict) and return its iteration."""
-    if path.endswith(".ckpt"):
-        raise ValueError(
-            f"{path}: flax .ckpt checkpoints wait for the checkpoint port; "
-            "convert it first with unopticalflow_tpu.utils.torch_convert."
-            "export_torch_checkpoint and pass the resulting .pth"
-        )
+    _refuse_flax(path)
     data = torch.load(path, map_location="cpu", weights_only=True)
     state = data.get("model_state_dict", data)
     model.load_state_dict(strip_prefixes(state), strict=True)
