@@ -191,6 +191,30 @@ Phases (each raises on failure, so the run exits non-zero):
    flow's is 3 px) and launch exactly 5 + 5 + 5 + 3 + 3 training kernels a
    step (and 5 correlation forwards for the scoring inference).  It prints
    each leg's EPE, mean u and v, ms/step (CUDA events) and seconds.
+15. The entry points complete (``entry_points_complete``): (a) a raw KITTI
+   tree (2 drives x 6 frames at 375x1242) that ``train.main`` prepares on
+   its first run (``data/preparers.py``, spawned processes), then trains 4
+   float32 steps at batch 8, 256x832, with ``--cache_decoded`` and
+   ``--flow_pretrained_model`` a full-width ``.ckpt`` that
+   ``save_flax_checkpoint`` wrote (5 + 5 + 5 + 3 + 3 launches a step); the
+   loader's snippets/s from PNGs, filling the cache and from the cache,
+   beside phase 13's rate and the step rates.  (b) The weights of that
+   ``.ckpt`` equal bit for bit those of the ``.pth`` that ``test.main
+   --task export_pth`` writes from it; a ``.ckpt`` with the trained Adam
+   state restores ``exp_avg``, ``exp_avg_sq`` and ``step`` bit for bit, and
+   ``train.main --resume`` from it (a model dir holding only ``last.ckpt``)
+   takes one step whose change agrees with the same step in memory under
+   phase 7's one-ulp rule.  (c) A trainer process (``python -m
+   unopticalflow_tpu_torch.train``) sent SIGTERM after logging iteration 2
+   exits 0 with ``last.pth`` at the last logged iteration, and a
+   ``--resume`` continues there.  (d) ``test.main --task sintel_flow`` on a
+   Sintel tree (2 pairs a pass at 436x1024, img_hw 384x832: 5 correlation
+   launches a pass) and ``--task demo`` on one pair (5 launches), whose PNG
+   reads back as ``flow_to_image`` of its flow and whose flow is within
+   1e-4 (1 + max |flow|) of the batched flow of the same pair.  (e) The
+   loop's time blocked in ``AsyncCheckpointer.save()`` against a
+   synchronous ``save_checkpoint`` of the same full-width state (model and
+   Adam), and the ``.ckpt`` read time (medians of 3).
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -218,6 +242,8 @@ import math
 import os
 import pickle
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -281,6 +307,13 @@ LEARN_BATCH = 4
 LEARN_HW = (64, 128)
 LEARN_SHIFT = 3
 LEARN_EPE = 0.1
+# phase 15: a raw KITTI tree (2 drives of 6 frames at KITTI's size) and a
+# Sintel tree (MPI-Sintel's 436x1024 frames, config/sintel.yaml's img_hw)
+RAW_DRIVES = ("2011_09_26_drive_0901_sync", "2011_09_26_drive_0902_sync")
+RAW_FRAMES = 6
+SINTEL_HW = (436, 1024)
+SINTEL_IMG_HW = (384, 832)
+SAVE_REPS = 3  # phase 15 (e): saves timed, each way
 # the H100 SXM's published peaks: HBM and float32 outside
 # the tensor cores; every kernel here computes in float32
 HBM_BYTES_PER_S = 3.35e12
@@ -504,6 +537,349 @@ def _values(res: str) -> list[float]:
 def _rel_l2(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def entry_points_complete(c) -> None:
+    """Phase 15 (see the module): ``c`` holds the run's device, shapes,
+    launch counters (``want`` maps an expected count to what this device
+    launches), ``sync``, the entry points' device flags ``cli`` and the
+    earlier phases' rates."""
+    import numpy as np
+    import torch
+
+    from unopticalflow_tpu_torch import test as evaluation
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.data.loader import BatchLoader
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.evaluation.flowlib import encode_flow, flow_to_image
+    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
+    from unopticalflow_tpu_torch.training import loss_weights_from_config, make_optimizer, train_step
+    from unopticalflow_tpu_torch.utils import checkpoint as ckpt
+    from unopticalflow_tpu_torch.utils import imageio
+
+    device, (h, w), batch_n = c.device, c.img_hw, c.batch
+    per_step = c.want(PER_STEP)
+    zero_counts = dict.fromkeys(KERNELS, 0)
+    counts, reset_counts = c.counts, c.reset_counts
+
+    t15 = time.perf_counter()
+    root15 = c.root
+    raw = os.path.join(root15, "kitti_raw", "2011_09_26")
+    frames15 = SyntheticSnippets(c.kitti_hw, 4, seed=SEED + 15).snippets[:4].reshape(
+        4 * 3, c.kitti_hw[0], c.kitti_hw[1], 3)
+    for d, drive in enumerate(RAW_DRIVES):
+        img_dir = os.path.join(raw, drive, "image_02", "data")
+        os.makedirs(img_dir, exist_ok=True)
+        for i in range(RAW_FRAMES):
+            imageio.imwrite(os.path.join(img_dir, f"{i:010d}.png"), frames15[d * RAW_FRAMES + i])
+    with open(os.path.join(raw, "calib_cam_to_cam.txt"), "w") as f:
+        f.write("P_rect_02: 721.5 0.0 609.6 44.9 0.0 721.5 172.9 0.2 0.0 0.0 1.0 0.003\n")
+    lists = {"static_frames_txt": "2011_09_26 2011_09_26_drive_0009_sync 0000000001\n",
+             "test_scenes_txt": "2011_09_26_drive_0117\n"}
+    for key, text in lists.items():
+        with open(os.path.join(root15, key + ".txt"), "w") as f:
+            f.write(text)
+    prepared15 = os.path.join(root15, "prepared")
+
+    def yaml15(name, **over):
+        keys = {"raw_base_dir": f"'{os.path.dirname(raw)}'",
+                "prepared_base_dir": f"'{prepared15}'",
+                **{k: f"'{os.path.join(root15, k + '.txt')}'" for k in lists},
+                "dataset": "'kitti_depth'", "num_scales": 3, "num_iterations": c.steps,
+                "w_ssim": 0.85, "w_flow_smooth": 10.0, "w_flow_consis": 0.01,
+                "img_hw": f"[{h}, {w}]", **over}
+        path = os.path.join(root15, name)
+        with open(path, "w") as f:
+            f.write("".join(f"{k}: {v}\n" for k, v in keys.items()))
+        return path
+
+    # (a) a full-width .ckpt, then the trainer: preparation, cache, warm start
+    warm = FlowModel(FlowModelConfig(), device=c.device, scheme="pwc",
+                     generator=torch.Generator().manual_seed(SEED + 15))
+    warm_ckpt = os.path.join(root15, "warm.ckpt")
+    ckpt.save_flax_checkpoint(warm_ckpt, 0, warm)
+    yaml_a = yaml15("kitti_raw.yaml")
+    dir_a = os.path.join(root15, "models_a")
+    reset_counts()
+    t0 = time.perf_counter()
+    out_a = io.StringIO()
+    with contextlib.redirect_stdout(out_a):
+        rc = train_cli.main(["-c", yaml_a, "--no_test", "--batch_size", str(batch_n),
+                             "--num_workers", "4", "--log_interval", "1", "--save_interval",
+                             "1000", "--cache_decoded", "--flow_pretrained_model", warm_ckpt,
+                             "--model_dir", dir_a, *c.cli])
+    c.sync()
+    t_a = time.perf_counter() - t0
+    counts_a = counts()
+    prep15 = os.path.join(prepared15, "data_s1")
+    cache15 = os.path.join(prep15, f"decoded_cache_{h}x{w}")
+    n_manifest = sum(1 for _ in open(os.path.join(prep15, "train.txt")))
+    last_a = os.path.join(dir_a, "flow", "last.pth")
+    log_a = out_a.getvalue()
+    if rc != 0 or counts_a != {k: c.steps * v for k, v in per_step.items()} \
+            or "Data Preparation Finished." not in log_a \
+            or f"Load Flow Pretrained Model from {warm_ckpt}" not in log_a \
+            or n_manifest != len(RAW_DRIVES) * (RAW_FRAMES - 2) or not os.path.isdir(cache15) \
+            or not os.path.exists(last_a) or log_a.count("loss_pixel") != c.steps:
+        raise AssertionError(f"train.main (prepare, --cache_decoded, warm start): rc {rc}, "
+                             f"launches {counts_a}, {n_manifest} snippets, log:\n{log_a}")
+    loader_rates = {}
+    for name, cache in (("PNG", None), ("cache (cold)", cache15), ("cache (warm)", cache15)):
+        if name == "cache (cold)":
+            shutil.rmtree(cache15)
+        ds = train_cli.PREPARED["kitti_depth"](prep15, num_scales=3, img_hw=c.img_hw,
+                                               num_iterations=c.loader_snippets, cache_dir=cache,
+                                               emit_uint8=True)
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b) for b in BatchLoader(ds, batch_size=batch_n, num_workers=4))
+        loader_rates[name] = n_loaded / (time.perf_counter() - t0)
+    print(f"entry points complete (a): raw KITTI tree of {len(RAW_DRIVES)} drives x "
+          f"{RAW_FRAMES} frames at {c.kitti_hw} prepared by train.main into {n_manifest} "
+          f"snippets, then {c.steps} float32 steps at batch {batch_n} {h}x{w} warm-started "
+          f"from a full-width .ckpt with --cache_decoded in {t_a:.2f} s, launches {counts_a}; "
+          f"loader snippets/s (4 threads, {c.loader_snippets} snippets of {len(RAW_DRIVES) * 4}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in loader_rates.items())
+          + f"; phase 13's from PNGs {c.loader_rate:.1f}; steps "
+          + ", ".join(f"{k} {v:.1f}" for k, v in c.need.items()) + f" ({c.smi})")
+
+    # (b) the .ckpt against the .pth that export_pth writes from it, and a resume
+    reset_counts()
+    export = evaluation.main(["-c", yaml_a, "--task", "export_pth", "--pretrained_model",
+                              warm_ckpt, "--output_pth", os.path.join(root15, "warm.pth"),
+                              *c.cli])
+    from_ckpt, from_pth = (FlowModel(FlowModelConfig(), device=c.device) for _ in range(2))
+    it_ckpt = ckpt.load_pretrained(from_ckpt, warm_ckpt)
+    it_pth = ckpt.load_pretrained(from_pth, export)
+    same = [torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
+        from_ckpt.state_dict().values(), from_pth.state_dict().values(),
+        warm.state_dict().values())]
+    if not all(same) or (it_ckpt, it_pth) != (0, 0) or counts() != zero_counts:
+        raise AssertionError(f".ckpt and export_pth: {sum(same)} of {len(same)} tensors "
+                             f"bit-equal, iterations {it_ckpt} {it_pth}")
+    del from_ckpt, from_pth, warm
+
+    src_model = FlowModel(FlowModelConfig(), device=c.device)
+    src_opt = make_optimizer(src_model)
+    it_src = ckpt.restore_checkpoint(last_a, src_model, src_opt)
+    dir_b = os.path.join(root15, "models_b", "flow")
+    os.makedirs(dir_b, exist_ok=True)
+    ckpt.save_flax_checkpoint(os.path.join(dir_b, "last.ckpt"), it_src, src_model, src_opt)
+    back = FlowModel(FlowModelConfig(), device=c.device)
+    back_opt = make_optimizer(back)
+    it_back = ckpt.restore_checkpoint(os.path.join(dir_b, "last.ckpt"), back, back_opt)
+    bad = []
+    for (name, p), q in zip(src_model.named_parameters(), back.parameters()):
+        s_, t_ = src_opt.state[p], back_opt.state[q]
+        if not (torch.equal(p, q) and torch.equal(s_["exp_avg"], t_["exp_avg"])
+                and torch.equal(s_["exp_avg_sq"], t_["exp_avg_sq"])
+                and float(s_["step"]) == float(t_["step"]) == it_src + 1):
+            bad.append(name)
+    if bad or it_back != it_src:
+        raise AssertionError(f".ckpt resume state: iteration {it_back} != {it_src} or not "
+                             f"bit-equal: {bad[:5]}")
+    del back, back_opt
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out_b:
+        rc = train_cli.main(["-c", yaml15("resume.yaml", num_iterations=it_src + 1),
+                             "--no_test", "--batch_size", str(batch_n), "--num_workers", "4",
+                             "--log_interval", "1", "--resume", "--model_dir",
+                             os.path.dirname(dir_b), *c.cli])
+    counts_b = counts()
+    if rc != 0 or counts_b != per_step \
+            or f"resumed from {os.path.join(dir_b, 'last.ckpt')} at iteration {it_src}." \
+            not in out_b.getvalue():
+        raise AssertionError(f"--resume from .ckpt: rc {rc}, launches {counts_b}, log:\n"
+                             f"{out_b.getvalue()}")
+    resumed = torch.load(os.path.join(dir_b, "last.pth"), map_location=device,
+                         weights_only=True)["model_state_dict"]
+    ds = train_cli.PREPARED["kitti_depth"](prep15, num_scales=3, img_hw=c.img_hw,
+                                           num_iterations=batch_n, emit_uint8=True)
+    batch15 = torch.from_numpy(np.stack([ds[i] for i in range(batch_n)])).to(device)
+    start = {k: v.detach().clone() for k, v in src_model.state_dict().items()}
+
+    def one_step(x):
+        m_ = FlowModel(FlowModelConfig(), device=c.device)
+        o_ = make_optimizer(m_)
+        ckpt.restore_checkpoint(last_a, m_, o_)
+        train_step(m_, o_, x, loss_weights_from_config(train_cli.recipe_config()), FlowModelConfig())
+        return m_.state_dict()
+
+    def delta(sd):
+        return torch.cat([(sd[k].float() - start[k]).ravel() for k in sorted(start)])
+
+    mem = delta(one_step(batch15))
+    nudged15 = torch.nextafter(batch15.float() / 255.0, torch.tensor(2.0, device=c.device))
+    noise15 = _rel_l2(delta(one_step(nudged15)), mem)
+    err15 = _rel_l2(delta(resumed), mem)
+    print(f"entry points complete (b): export_pth's .pth and the .ckpt load bit-equal weights "
+          f"({len(same)} tensors); a .ckpt with Adam state restores exp_avg, exp_avg_sq and "
+          f"step (= {it_src + 1}) bit for bit; train.main --resume from it: {counts_b} "
+          f"launches, one step's change vs the same step in memory rel L2 {err15:.3e} "
+          f"(snippets one ulp away {noise15:.3e})")
+    if err15 > max(1e-4, noise15):
+        raise AssertionError("the step resumed from .ckpt departs from the step in memory")
+    del src_opt, start
+
+    # (c) preemption: SIGTERM to a trainer process after iteration 2
+    dir_c = os.path.join(root15, "models_c")
+    cmd = [sys.executable, "-u", "-m", "unopticalflow_tpu_torch.train", "-c",
+           yaml15("long.yaml", num_iterations=100000), "--no_test", "--batch_size", str(batch_n),
+           "--num_workers", "4", "--log_interval", "1", "--save_interval", "100000",
+           "--init_scheme", "pwc", "--model_dir", dir_c, *c.cli]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=repo, env=env)
+    seen, t_sig = [], None
+    try:
+        import selectors
+
+        with selectors.DefaultSelector() as sel:
+            sel.register(proc.stdout, selectors.EVENT_READ)
+            while t_sig is None and time.perf_counter() - t0 < 300:
+                if not sel.select(timeout=1):
+                    continue
+                line = proc.stdout.readline()
+                if not line and proc.poll() is not None:
+                    break
+                seen.append(line)
+                if line.startswith("iter: 2,"):
+                    proc.send_signal(signal.SIGTERM)
+                    t_sig = time.perf_counter()
+        if t_sig is None:
+            raise AssertionError("preemption: the trainer never logged iteration 2:\n"
+                                 + "".join(seen[-30:]))
+        rest, _ = proc.communicate(timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    t_exit = time.perf_counter() - t_sig
+    log_c = "".join(seen) + rest
+    logged = [int(x) for x in re.findall(r"^iter: (\d+),", log_c, flags=re.M)]
+    last_c = os.path.join(dir_c, "flow", "last.pth")
+    stored = (torch.load(last_c, map_location="cpu", weights_only=True)["iteration"]
+              if os.path.exists(last_c) else None)
+    if proc.returncode != 0 or not logged or stored != logged[-1] \
+            or f"preemption signal {int(signal.SIGTERM)}" not in log_c:
+        raise AssertionError(f"preemption: exit {proc.returncode}, last.pth at {stored}, "
+                             f"logged {logged}, log:\n{log_c[-3000:]}")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out_c:
+        rc = train_cli.main(["-c", yaml15("more.yaml", num_iterations=stored + 2), "--no_test",
+                             "--batch_size", str(batch_n), "--num_workers", "4", "--log_interval",
+                             "1", "--resume", "--model_dir", dir_c, *c.cli])
+    resumed_iters = [int(x) for x in re.findall(r"^iter: (\d+),", out_c.getvalue(), flags=re.M)]
+    if rc != 0 or resumed_iters != [stored, stored + 1] \
+            or counts() != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError(f"resume after preemption: rc {rc}, iterations {resumed_iters}")
+    print(f"entry points complete (c): SIGTERM after iteration 2 of a trainer process: exit 0 "
+          f"{t_exit:.2f} s after the signal, last.pth at iteration {stored} (the last logged), "
+          f"--resume continued at iterations {resumed_iters}")
+
+    # (d) sintel_flow and demo through the correlation kernel
+    sintel = os.path.join(root15, "sintel", "training")
+    sh, sw = c.sintel_hw
+    sframes = SyntheticSnippets(c.sintel_hw, 1, seed=SEED + 16).snippets[0]
+    yy, xx = np.mgrid[0:sh, 0:sw].astype(np.float32)
+    for sub in ("clean", "final", "flow", "occlusions"):
+        os.makedirs(os.path.join(sintel, sub, "alley_1"), exist_ok=True)
+    for n in (1, 2, 3):
+        for sub in ("clean", "final"):
+            imageio.imwrite(os.path.join(sintel, sub, "alley_1", f"frame_{n:04d}.png"),
+                            np.ascontiguousarray(sframes[(n - 1) * sh:n * sh]))
+    for n in (1, 2):
+        flo = np.dstack([2.0 + 0.5 * np.sin(yy / 40.0), 1.0 + 0.5 * np.cos(xx / 50.0)])
+        with open(os.path.join(sintel, "flow", "alley_1", f"frame_{n:04d}.flo"), "wb") as f:
+            f.write(encode_flow(flo.astype(np.float32)))
+        imageio.imwrite(os.path.join(sintel, "occlusions", "alley_1", f"frame_{n:04d}.png"),
+                        ((xx > sw - 4) * 255).astype(np.uint8))
+    yaml_d = os.path.join(root15, "sintel.yaml")
+    with open(yaml_d, "w") as f:
+        f.write(f"img_hw: [{c.sintel_img_hw[0]}, {c.sintel_img_hw[1]}]\nnum_scales: 3\n"
+                f"sintel_training_dir: '{sintel}'\n")
+    kept = []
+    batched = evaluation._batched_flows
+
+    def keep(*a, **k):
+        kept.append(batched(*a, **k))
+        return kept[-1]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    evaluation._batched_flows = keep
+    try:
+        sres = evaluation.main(["-c", yaml_d, "--task", "sintel_flow", "--pretrained_model",
+                                export, *c.cli])
+    finally:
+        evaluation._batched_flows = batched
+    sintel_counts = counts()
+    reset_counts()
+    demo_dir = os.path.join(root15, "demo")
+    pair = [os.path.join(sintel, "clean", "alley_1", f"frame_{n:04d}.png") for n in (1, 2)]
+    dflow = evaluation.main(["-c", yaml_d, "--task", "demo", "--pretrained_model", warm_ckpt,
+                             "--image_path", pair[0], "--image_path2", pair[1],
+                             "--result_dir", demo_dir, *c.cli])
+    demo_counts = counts()
+    t_d = time.perf_counter() - t0
+    png = imageio.imread(os.path.join(demo_dir, "demo_flow.png"))
+    first = kept[0][0].cpu().numpy()
+    peak = float(np.abs(first).max())
+    gap = float(np.abs(dflow - first).max())
+    svals = {k: _values(v) for k, v in sres.items()}
+    if sorted(svals) != ["clean", "final"] \
+            or not all(len(v) == 4 and all(math.isfinite(x) for x in v) for v in svals.values()) \
+            or sintel_counts != c.want({**zero_counts, "corr_fwd": 10}) \
+            or demo_counts != c.want({**zero_counts, "corr_fwd": 5}) \
+            or dflow.shape != (*c.sintel_img_hw, 2) or not np.array_equal(png, flow_to_image(dflow)) \
+            or gap > 1e-4 * (1 + peak):
+        raise AssertionError(f"sintel_flow {sres} launches {sintel_counts}; demo launches "
+                             f"{demo_counts}, flow {dflow.shape}, gap to the batched flow "
+                             f"{gap} (peak {peak})")
+    print(f"entry points complete (d): test.main sintel_flow on 2 pairs a pass at "
+          f"{c.sintel_hw} -> {c.sintel_img_hw} (weights from the exported .pth), EPE "
+          + ", ".join(f"{k} {v[0]:.4f}" for k, v in svals.items())
+          + f", {sintel_counts['corr_fwd']} corr_fwd launches; demo (weights from the .ckpt): "
+          f"{demo_counts['corr_fwd']} launches, its PNG equals flow_to_image of its flow, max "
+          f"gap to the batched flow of the pair {gap:.2e} px (peak {peak:.2f}); {t_d:.2f} s")
+
+    # (e) the loop's stall in a save: asynchronous against synchronous
+    snap_paths = [os.path.join(root15, "save", f) for f in ("iter_0.pth", "last.pth")]
+    os.makedirs(os.path.dirname(snap_paths[0]), exist_ok=True)
+    src_opt = make_optimizer(src_model)
+    ckpt.restore_checkpoint(last_a, src_model, src_opt)
+    stall, drain, sync = [], [], []
+    for _ in range(SAVE_REPS):
+        saver = ckpt.AsyncCheckpointer()
+        try:
+            c.sync()
+            t0 = time.perf_counter()
+            saver.save(snap_paths, it_src, src_model, src_opt)
+            stall.append(time.perf_counter() - t0)
+            saver.wait()
+            drain.append(time.perf_counter() - t0)
+        finally:
+            saver.close()
+        c.sync()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(snap_paths, it_src, src_model, src_opt)
+        sync.append(time.perf_counter() - t0)
+    reads = []
+    for _ in range(SAVE_REPS):
+        t0 = time.perf_counter()
+        ckpt.load_pretrained(src_model, warm_ckpt)
+        c.sync()
+        reads.append(time.perf_counter() - t0)
+    mb = {name: os.path.getsize(path) / 2**20 for name, path in
+          (("pth", snap_paths[1]), ("ckpt", warm_ckpt))}
+    print(f"entry points complete (e): save of the full-width state ({mb['pth']:.1f} MiB .pth, "
+          f"model and Adam): the loop blocked in AsyncCheckpointer.save() "
+          f"{statistics.median(stall) * 1e3:.3f} ms (median of {SAVE_REPS}; written "
+          f"{statistics.median(drain) * 1e3:.1f} ms after), synchronous save_checkpoint "
+          f"{statistics.median(sync) * 1e3:.1f} ms; .ckpt read into the model "
+          f"({mb['ckpt']:.1f} MiB, weights only) {statistics.median(reads) * 1e3:.1f} ms "
+          f"(median of {SAVE_REPS}); phase 15 in {time.perf_counter() - t15:.1f} s ({c.smi})")
 
 
 def main() -> int:
@@ -1848,6 +2224,15 @@ def main() -> int:
                                  f"is not under {LEARN_EPE}")
         torch.cuda.empty_cache()
 
+    # ---- 15. the entry points complete: .ckpt, cache, preemption, Sintel ----
+    entry_points_complete(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, kitti_hw=KITTI_HW, sintel_hw=SINTEL_HW,
+        sintel_img_hw=SINTEL_IMG_HW, batch=BATCH, steps=ENTRY_STEPS,
+        loader_snippets=LOADER_SNIPPETS, root=os.path.join(model_dir, "entry15"),
+        counts=counts, reset_counts=reset_counts, want=lambda d: d,
+        sync=torch.cuda.synchronize, cli=[], smi=smi, loader_rate=loader_rate, need=need))
+    torch.cuda.empty_cache()
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
@@ -1872,7 +2257,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 14 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: 15 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,11 +8,29 @@ on a machine that lacks them): the same losses, the same checkpoint and the
 same metric string.  Also: ``dataset: sintel_raw`` trains on a prepared
 Sintel directory, ``-g 0`` is accepted, and ``set_float32_precision`` turns
 TF32 off for cuDNN and matmul.
+
+The entry points against the JAX package: a warm start and a resume from
+the JAX ``save_checkpoint``'s ``.ckpt`` (the same steps as from the ``.pth``
+the JAX ``export_torch_checkpoint`` writes, and as from the port's ``.pth``
+of the restored state), the server's weights from such a ``.ckpt``,
+``--cache_decoded`` (the same batches as without
+it, in the JAX trainer's cache directory), a SIGTERM to a trainer process
+(exit 0, ``last.pth`` at the last finished step, a resume from it), and
+``--task sintel_flow`` and ``demo`` with the weights of a JAX ``.ckpt``
+(the JAX ``test_sintel_flow``'s metrics under test_torch_eval.py's rule, the
+JAX ``test_single_pair``'s flow under test_torch_inference.py's
+tolerance), each with yaml and cv2 blocked.
 """
 
 import os
 import re
+import selectors
+import shutil
+import signal
+import subprocess
 import sys
+import time
+from pathlib import Path
 
 import cv2
 import numpy as np
@@ -255,3 +273,320 @@ def test_serve_decodes_png_without_cv2(monkeypatch):
         with pytest.raises(ValueError, match="JPEG needs opencv"):
             _decode_pair(b"\xff\xd8\xff\xe0" + bytes(16), (64, 64))
     assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's .ckpt in the trainer, --cache_decoded, preemption
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """Random "pwc" weights and an Adam state (count 5, random moments) in the
+    JAX package's layout, as numpy trees."""
+    import jax
+    import optax
+
+    from unopticalflow_tpu.models import init_flow_model
+    from unopticalflow_tpu.training import create_train_state
+
+    params = jax.tree.map(np.asarray, jax.jit(init_flow_model, static_argnames="scheme")(
+        jax.random.PRNGKey(0), scheme="pwc"))
+    opt_state = jax.tree.map(np.asarray, create_train_state(params).opt_state)
+    rng = np.random.RandomState(3)
+    moment = lambda x: (rng.randn(*x.shape) * 1e-3).astype(np.float32)  # noqa: E731
+    adam = optax.ScaleByAdamState(count=np.asarray(5, np.int32),
+                                  mu=jax.tree.map(moment, params),
+                                  nu=jax.tree.map(lambda x: moment(x) ** 2, params))
+    return params, (adam,) + tuple(opt_state[1:])
+
+
+def _yaml(tree, path, **over):
+    text = (tree / "cfg.yaml").read_text()
+    for k, v in over.items():
+        text = re.sub(rf"^{k}: .*$", f"{k}: {v}", text, flags=re.M)
+    path.write_text(text)
+    return path
+
+
+def test_train_warm_starts_and_resumes_from_a_jax_ckpt(tree, tmp_path, jax_state, capsys):
+    from unopticalflow_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from unopticalflow_tpu.utils.torch_convert import export_torch_checkpoint
+    from unopticalflow_tpu_torch.models import FlowModel
+    from unopticalflow_tpu_torch.training import make_optimizer
+    from unopticalflow_tpu_torch.utils import checkpoint as ckpt
+
+    params, opt_state = jax_state
+    src = str(tmp_path / "jax_last.ckpt")
+    jax_save(src, 5, params, opt_state)
+    pth = str(tmp_path / "jax_export.pth")
+    export_torch_checkpoint(pth, params, iteration=5)
+    runs = {}
+    for name, model in (("ckpt", src), ("pth", pth)):
+        runs[name] = _train(tree, tmp_path / name, capsys, "--flow_pretrained_model", model)
+        assert len(runs[name]) == 2
+    assert runs["ckpt"] == runs["pth"]
+    a = torch.load(tmp_path / "ckpt" / "flow" / "last.pth", weights_only=True)
+    b = torch.load(tmp_path / "pth" / "flow" / "last.pth", weights_only=True)
+    assert all(torch.equal(v, b["model_state_dict"][k]) for k, v in a["model_state_dict"].items())
+
+    # --resume where the model dir holds only the JAX trainer's last.ckpt, and
+    # where it holds the port's last.pth of the same restored state
+    model = FlowModel(device="cpu")
+    opt = make_optimizer(model)
+    assert ckpt.restore_checkpoint(src, model, opt) == 5
+    cfg7 = _yaml(tree, tmp_path / "cfg7.yaml", num_iterations=7)
+    for name in ("resume_ckpt", "resume_pth"):
+        (tmp_path / name / "flow").mkdir(parents=True)
+    shutil.copy(src, tmp_path / "resume_ckpt" / "flow" / "last.ckpt")
+    ckpt.save_checkpoint([str(tmp_path / "resume_pth" / "flow" / "last.pth")], 5, model, opt)
+    lines = {}
+    for name, last in (("resume_ckpt", "last.ckpt"), ("resume_pth", "last.pth")):
+        argv = ["-c", str(cfg7), "--no_test", "--device", "cpu", "--batch_size", "2",
+                "--num_workers", "1", "--log_interval", "1", "--resume",
+                "--model_dir", str(tmp_path / name)]
+        assert train_mod.main(argv) == 0
+        out = capsys.readouterr().out
+        assert f"resumed from {tmp_path / name / 'flow' / last} at iteration 5." in out
+        assert "starting iteration: 5." in out
+        lines[name] = _losses(out)
+    assert [ln.split(",")[0] for ln in lines["resume_ckpt"]] == ["iter: 5", "iter: 6"]
+    assert lines["resume_ckpt"] == lines["resume_pth"]
+
+
+def test_serve_loads_a_jax_ckpt(tmp_path, jax_state):
+    """``serve.py --pretrained_model`` with the JAX ``save_checkpoint``'s
+    ``.ckpt``: the server's weights are the JAX params moved across, bit for
+    bit, and a request gets a finite flow."""
+    import argparse
+
+    from unopticalflow_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from unopticalflow_tpu_torch.serve import build_server
+    from unopticalflow_tpu_torch.utils.config import Config
+    from unopticalflow_tpu_torch.utils.convert import params_to_torch_state_dict
+
+    src = str(tmp_path / "last.ckpt")
+    jax_save(src, 3, jax_state[0], jax_state[1])
+    args = argparse.Namespace(device="cpu", precision="float32", pretrained_model=src,
+                              max_batch=2, max_wait_ms=1.0, spatial=1, spatial_devices=None)
+    server = build_server(Config({"img_hw": (64, 64)}), args)
+    try:
+        want = params_to_torch_state_dict(jax_state[0])
+        got = server.model.state_dict()
+        assert set(got) == set(want)
+        assert all(np.array_equal(got[k].numpy(), want[k]) for k in want)
+        pair = np.random.RandomState(0).rand(128, 64, 3).astype(np.float32)
+        flow = server.infer(pair)
+        assert flow.shape == (64, 64, 2) and np.isfinite(flow).all()
+    finally:
+        server.close()
+
+
+def _cache_dirs(prepared):
+    return sorted(p.name for p in prepared.iterdir() if p.name.startswith("decoded_cache"))
+
+
+def test_cache_decoded_gives_the_same_batches_in_the_jax_trainers_dir(tree, tmp_path, capsys):
+    """Two runs from one prepared tree, without and with ``--cache_decoded``:
+    the same losses and weights, and the cache holds every snippet's frames;
+    the JAX trainer with ``cache_decoded`` on a copy of the tree makes the
+    same directory."""
+    import train as jax_train
+    from unopticalflow_tpu.utils.config import Config
+
+    copy = tmp_path / "tree"
+    shutil.copytree(tree / "prepared", copy / "prepared")
+    cfg = _yaml(tree, tmp_path / "cfg.yaml", prepared_base_dir=f"'{copy / 'prepared'}'")
+    prepared = copy / "prepared" / "data_s1"
+    argv = ["-c", str(cfg), "--no_test", "--device", "cpu", "--batch_size", "2",
+            "--num_workers", "2", "--log_interval", "1", "--save_interval", "100",
+            "--init_scheme", "pwc"]
+    assert train_mod.main(argv + ["--model_dir", str(tmp_path / "plain")]) == 0
+    plain = _losses(capsys.readouterr().out)
+    assert _cache_dirs(prepared) == []
+    assert train_mod.main(argv + ["--model_dir", str(tmp_path / "cached"), "--cache_decoded"]) == 0
+    cached = _losses(capsys.readouterr().out)
+    assert len(plain) == 2 and cached == plain
+    a = torch.load(tmp_path / "plain" / "flow" / "last.pth", weights_only=True)
+    b = torch.load(tmp_path / "cached" / "flow" / "last.pth", weights_only=True)
+    assert all(torch.equal(v, b["model_state_dict"][k]) for k, v in a["model_state_dict"].items())
+    port_dirs = _cache_dirs(prepared)
+    assert port_dirs == ["decoded_cache_64x64"]
+    assert train_mod.decoded_cache_dir(
+        train_mod.recipe_config(cache_decoded=True, img_hw=(64, 64)), str(prepared)) \
+        == str(prepared / "decoded_cache_64x64")
+    # 4 iterations' samples drawn from the 4 snippets: each drawn one cached
+    drawn = {np.random.RandomState(i).randint(4) for i in range(4)}
+    assert len(list((prepared / "decoded_cache_64x64").glob("*.npy"))) == len(drawn)
+
+    jax_copy = tmp_path / "jax_tree"
+    shutil.copytree(tree / "prepared", jax_copy / "prepared")
+    jax_cfg = dict(dataset="kitti_depth", num_scales=3, num_iterations=1, w_ssim=0.85,
+                   w_flow_smooth=10.0, w_flow_consis=0.01, img_hw=(64, 64),
+                   prepared_base_dir=str(jax_copy / "prepared"), prepared_save_dir="data_s1",
+                   model_dir=str(tmp_path / "jax_models"), log_dump_dir=None, batch_size=2,
+                   iter_start=0, lr=1e-4, num_workers=1, log_interval=1, test_interval=1000,
+                   save_interval=1000, mode="flow", resume=False, multi_gpu=False,
+                   no_test=True, flow_pretrained_model=None, precision="float32",
+                   pallas_corr="off", seed=0, cache_decoded=True, steps_per_dispatch=1)
+    os.makedirs(jax_cfg["model_dir"])
+    jax_train.train(Config(jax_cfg))
+    capsys.readouterr()
+    assert _cache_dirs(jax_copy / "prepared" / "data_s1") == port_dirs
+
+
+def _preempted_trainer(cfg, model_dir):
+    """A ``--device cpu`` trainer process sent SIGTERM once it has logged
+    iteration 2: (exit code, output, last logged iteration)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "unopticalflow_tpu_torch.train", "-c", str(cfg),
+         "--no_test", "--device", "cpu", "--batch_size", "2", "--num_workers", "1",
+         "--log_interval", "1", "--save_interval", "100000", "--init_scheme", "pwc",
+         "--model_dir", str(model_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=str(REPO))
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    seen, sent = [], False
+    deadline = time.time() + 120
+    try:
+        while time.time() < deadline and not sent:
+            if not sel.select(timeout=1):
+                continue
+            line = proc.stdout.readline()
+            if not line and proc.poll() is not None:
+                break
+            seen.append(line)
+            if line.startswith("iter: 2,"):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+        if not sent:
+            raise AssertionError("the trainer never logged iteration 2:\n" + "".join(seen[-20:]))
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        sel.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    out = "".join(seen) + out
+    iters = [int(m) for m in re.findall(r"^iter: (\d+),", out, flags=re.M)]
+    return proc.returncode, out, iters[-1]
+
+
+def test_sigterm_checkpoints_the_last_step_and_exits_0(tree, tmp_path, capsys):
+    cfg = _yaml(tree, tmp_path / "long.yaml", num_iterations=100000)
+    rc, out, last = _preempted_trainer(cfg, tmp_path / "m")
+    assert rc == 0, out
+    assert f"preemption signal {int(signal.SIGTERM)}: checkpointing at iteration {last}" in out
+    assert last >= 2
+    files = set(os.listdir(tmp_path / "m" / "flow"))
+    assert {"last.pth", f"iter_{last}.pth"} <= files, files
+    data = torch.load(tmp_path / "m" / "flow" / "last.pth", weights_only=True)
+    assert data["iteration"] == last
+    assert data["optimizer_state_dict"]["state"][0]["step"] == last + 1
+
+    # a --resume continues from it
+    cfg2 = _yaml(tree, tmp_path / "more.yaml", num_iterations=last + 2)
+    handler = signal.getsignal(signal.SIGTERM)
+    assert train_mod.main(["-c", str(cfg2), "--no_test", "--device", "cpu", "--batch_size",
+                           "2", "--num_workers", "1", "--log_interval", "1", "--resume",
+                           "--model_dir", str(tmp_path / "m")]) == 0
+    lines = _losses(capsys.readouterr().out)
+    assert [ln.split(",")[0] for ln in lines] == [f"iter: {last}", f"iter: {last + 1}"]
+    assert signal.getsignal(signal.SIGTERM) == handler  # put back
+
+
+# ---------------------------------------------------------------------------
+# test.py --task sintel_flow and demo against the JAX package's
+# ---------------------------------------------------------------------------
+
+SINTEL_GT_HW = (40, 70)
+
+
+@pytest.fixture(scope="module")
+def sintel_dir(tmp_path_factory):
+    """An MPI-Sintel training/ tree: 2 scenes of 3 frames in both passes
+    (written by cv2), random flows and occlusion masks (grey PNGs)."""
+    from unopticalflow_tpu.evaluation.flowlib import write_flow
+
+    root = tmp_path_factory.mktemp("sintel") / "training"
+    rng = np.random.RandomState(4)
+    h, w = SINTEL_GT_HW
+    for scene in ("alley_1", "bandage_2"):
+        for sub in ("clean", "final", "flow", "occlusions"):
+            (root / sub / scene).mkdir(parents=True)
+        for n in (1, 2, 3):
+            for sub in ("clean", "final"):
+                img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                cv2.imwrite(str(root / sub / scene / f"frame_{n:04d}.png"), img)
+        for n in (1, 2):
+            write_flow(rng.uniform(-5, 5, (h, w, 2)).astype(np.float32),
+                       str(root / "flow" / scene / f"frame_{n:04d}.flo"))
+            occ = ((rng.rand(h, w) > 0.7) * 255).astype(np.uint8)
+            cv2.imwrite(str(root / "occlusions" / scene / f"frame_{n:04d}.png"), occ)
+    return root
+
+
+def test_sintel_flow_and_demo_match_jax(sintel_dir, tmp_path, jax_state, monkeypatch):
+    """The JAX ``.ckpt``'s weights through ``test.main`` (yaml and cv2
+    blocked) and through the JAX ``test_sintel_flow``/``test_single_pair``;
+    the demo PNG reads back as ``flow_to_image`` of the flow."""
+    import jax
+    import jax.numpy as jnp
+
+    import test as jax_test
+    from unopticalflow_tpu.evaluation import load_gt_flow_sintel as jax_load_sintel
+    from unopticalflow_tpu.models import FlowModelConfig as JaxFlowModelConfig
+    from unopticalflow_tpu.models import inference_flow as jax_inference_flow
+    from unopticalflow_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from unopticalflow_tpu.utils.config import Config
+    from unopticalflow_tpu_torch.evaluation import load_gt_flow_sintel
+    from unopticalflow_tpu_torch.evaluation.flowlib import flow_to_image
+
+    params = jax_state[0]
+    src = str(tmp_path / "last.ckpt")
+    jax_save(src, 3, params)
+    cfg_path = tmp_path / "sintel.yaml"
+    cfg_path.write_text(f"img_hw: [64, 128]\nnum_scales: 3\nsintel_training_dir: '{sintel_dir}'\n")
+    pair = [str(sintel_dir / "final" / "alley_1" / f"frame_{n:04d}.png") for n in (1, 2)]
+    with monkeypatch.context() as m:
+        _block(m)
+        got_gt = [load_gt_flow_sintel(str(sintel_dir), p) for p in ("clean", "final")]
+        base = ["-c", str(cfg_path), "--pretrained_model", src, "--device", "cpu"]
+        got = port_test.main(base + ["--task", "sintel_flow"])
+        flow = port_test.main(base + ["--task", "demo", "--image_path", pair[0],
+                                      "--image_path2", pair[1], "--result_dir",
+                                      str(tmp_path / "demo")])
+        png = imageio.imread(str(tmp_path / "demo" / "demo_flow.png"))
+
+    for (g_flows, g_nocs, g_pairs), p in zip(got_gt, ("clean", "final")):
+        w_flows, w_nocs, w_pairs = jax_load_sintel(str(sintel_dir), p)
+        assert g_pairs == w_pairs and len(g_pairs) == 4
+        assert all(np.array_equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(g_flows + g_nocs, w_flows + w_nocs))
+        assert 0 < g_nocs[0].mean() < 1
+
+    jcfg = JaxFlowModelConfig(num_scales=3)
+    infer = jax.jit(lambda a, b: jax_inference_flow(
+        jax.tree.map(jnp.asarray, params), jcfg, a, b))
+    cfg = Config({"img_hw": (64, 128), "config_file": str(cfg_path), "mode": "flow"})
+    want = jax_test.test_sintel_flow(cfg, infer, str(sintel_dir))
+    assert sorted(got) == sorted(want) == ["clean", "final"]
+    for k in want:
+        (gh, gv), (wh, wv) = (_metric_values(got[k]), _metric_values(want[k]))
+        assert gh == wh and len(gv) == 4 and np.isfinite(gv).all()
+        np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-4 + 1e-9)
+
+    want_flow = jax_test.test_single_pair(cfg, infer, *pair, save_dir=str(tmp_path / "jax"))
+    assert flow.shape == want_flow.shape == (64, 128, 2) and flow.dtype == np.float32
+    peak = np.abs(want_flow).max()
+    assert peak > 1.0
+    assert np.abs(flow - want_flow).max() <= 1e-4 * (1 + peak)
+    assert np.array_equal(png, flow_to_image(flow))
+
+
+def _metric_values(res):
+    header, values = res.split("\n")[:2]
+    return header, np.array([float(v) for v in values.split(",")])

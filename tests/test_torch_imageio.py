@@ -89,7 +89,9 @@ def test_png_reads_equal_cv2_on_files_cv2_writes(ch, dtype, tmp_path):
             assert cv2.imwrite(path, img, [cv2.IMWRITE_PNG_COMPRESSION, level])
             with open(path, "rb") as f:
                 data = f.read()
-            for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_UNCHANGED):
+            # grey files also in grey (the port reads only grey files so)
+            grey = (cv2.IMREAD_GRAYSCALE,) if ch == 1 else ()
+            for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_UNCHANGED, *grey):
                 want = cv2.imread(path, flags)
                 got = imageio.decode_png(data, flags)
                 assert got.dtype == want.dtype and got.shape == want.shape, (level, flags)
@@ -195,6 +197,9 @@ def test_png_reader_refuses_what_it_does_not_read(monkeypatch):
     with pytest.raises(ValueError, match="colour type"):
         imageio.decode_png(_png(3, 2, 16, 6, _filter_rows(np.zeros((2, 24), np.uint8), 8,
                                                            [0, 0])))
+    with pytest.raises(ValueError, match="reads grey files only in grey"):
+        imageio.decode_png(imageio.encode_png(np.zeros((2, 3, 3), np.uint8)),
+                           imageio.IMREAD_GRAYSCALE)
     bad_filter = _png(3, 2, 8, 0, b"\0" + bytes(3) + b"\5" + bytes(3))
     with pytest.raises(ValueError, match="row filter 5 does not exist"):
         imageio.decode_png(bad_filter)

@@ -98,6 +98,18 @@ def test_exported_pth_loads_and_gives_the_same_flow(params, images, tmp_path):
     np.testing.assert_array_equal(_port_flow(model, images), _port_flow(direct, images))
 
 
-def test_flax_checkpoint_is_refused_with_the_way_out(tmp_path):
-    with pytest.raises(ValueError, match="export_torch_checkpoint"):
-        load_pretrained(FlowModel(device="cpu"), str(tmp_path / "last.ckpt"))
+def test_flax_checkpoint_is_refused_with_the_way_out(params, images, tmp_path):
+    """The JAX package's ``.ckpt`` now loads (the same flow as the params
+    moved across directly); a ``.ckpt`` that holds no flow-mode train state
+    is refused, naming the layout it expects."""
+    from unopticalflow_tpu.utils.checkpoint import save_checkpoint
+
+    path = str(tmp_path / "last.ckpt")
+    save_checkpoint(path, 9, params)
+    model = FlowModel(device="cpu")
+    assert load_pretrained(model, path) == 9
+    direct = load_jax_params(FlowModel(device="cpu"), params)
+    np.testing.assert_array_equal(_port_flow(model, images), _port_flow(direct, images))
+    save_checkpoint(path, 9, {"flow": params})  # a flowposenet tree
+    with pytest.raises(ValueError, match="not a flow-mode train state"):
+        load_pretrained(FlowModel(device="cpu"), path)

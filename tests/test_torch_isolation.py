@@ -1,6 +1,7 @@
 """The port stands alone: no module of it, and not ``chip_smoke.py``, imports
 or loads by path anything of the JAX package (``unopticalflow_tpu``), of JAX
-itself (``jax``, ``jaxlib``, ``flax``, ``optax``), of the repo's root
+itself (``jax``, ``jaxlib``, ``flax``, ``optax``, and ``msgpack``: the
+port reads flax's ``.ckpt`` with its own codec), of the repo's root
 ``benchmarks/`` (the JAX probes), nor a root module of the repo
 (``serve.py``, ``train.py``, ... import the JAX package), and importing every
 module of the port loads neither JAX nor any file under
@@ -17,7 +18,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = "unopticalflow_tpu"
-JAX_LIBS = {"jax", "jaxlib", "flax", "optax"}
+JAX_LIBS = {"jax", "jaxlib", "flax", "optax", "msgpack"}
 # top-level names whose files the port must not load by path either
 PATH_ROOTS = (JAX_PKG, "benchmarks")
 ROOT_MODULES = {os.path.splitext(os.path.basename(p))[0]
@@ -84,9 +85,10 @@ def test_the_scan_catches_each_kind_of_import(tmp_path):
         "q = os.path.join('r', 'benchmarks', 'gather_probe.py')\n"
         "from unopticalflow_tpu_torch.benchmarks import gather_probe\n"
         "from . import time_ms\n"
+        "import msgpack\n"
     )
     assert sorted(int(v.split(":")[0]) for v in _violations(str(src))) == [
-        1, 2, 3, 4, 6, 8, *range(11, 21)]
+        1, 2, 3, 4, 6, 8, *range(11, 21), 23]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
@@ -110,7 +112,7 @@ by_path = sorted(m for m, mod in list(sys.modules.items())
                  if os.path.realpath(getattr(mod, "__file__", None) or "").startswith(jax_dir))
 print(json.dumps({{"names": names, "named": named, "by_path": by_path,
                   "jax": sorted(m for m in sys.modules
-                                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))}}))
+                                if m.split(".")[0] in {sorted(JAX_LIBS)!r})}}))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)

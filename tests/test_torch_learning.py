@@ -201,10 +201,34 @@ TRAJ_STEPS = 20
 WEIGHTS = sanity_train.WEIGHTS
 
 
-def test_twenty_steps_match_the_jax_train_step():
+# the 20-step trajectory's cases: (use_occlusion_weights, snippets, loss weights)
+# -- the sanity snippets (a shift, nothing occluded) with the softmax occlusion
+# weights, and the occlusion campaign's regime (SYNTH_EPE_r05: its generator
+# settings and smoothness weight 1; foreground objects occlude) at 64x128
+# without them, the plain branch of the JAX forward and of the port's
+TRAJ_CASES = {
+    "occlusion_weights": (True, "sanity", WEIGHTS),
+    "no_occlusion_weights": (False, "r05", {**WEIGHTS, "loss_flow_smooth": 1.0}),
+}
+
+
+def _traj_batches(kind):
+    rng = np.random.RandomState(0)
+    if kind == "sanity":
+        return [jax_sanity.make_batch(rng, 2, 64, 64, 3)[0] for _ in range(TRAJ_STEPS)]
+    # one batch, taken 20 times: the losses of fresh batches of this generator
+    # spread more than 20 steps at lr 1e-4 lower them
+    snips, _, visible = synthetic_epe.make_batch(rng, 2, 64, 128, **GEN_SETTINGS["r05"][1])
+    assert not visible.all()  # the foreground occludes
+    return [snips] * TRAJ_STEPS
+
+
+@pytest.mark.parametrize("case", sorted(TRAJ_CASES))
+def test_twenty_steps_match_the_jax_train_step(case):
     """20 Adam steps (lr 1e-4) from the same random "pwc" weights (moved
-    across with ``params_to_torch_state_dict``) on the same sanity snippets
-    (batch 2, 64x64, float32).  Held by relative L2: the 20 weighted losses,
+    across with ``params_to_torch_state_dict``) on the same snippets (batch 2,
+    float32; ``TRAJ_CASES``), with the occlusion weights on and off in both
+    packages.  Held by relative L2: the 20 weighted losses,
     and the final parameters' change from the same init over all parameters
     (the stricter reading of the final parameters: the init cancels from the
     difference and is left out of the norm).  The tolerance is the rule of the
@@ -213,10 +237,11 @@ def test_twenty_steps_match_the_jax_train_step():
     where JAX is steadier."""
     init = jax.jit(init_flow_model, static_argnames="scheme")
     params = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0), scheme="pwc"))
-    rng = np.random.RandomState(0)
-    batches = [jax_sanity.make_batch(rng, 2, 64, 64, 3)[0] for _ in range(TRAJ_STEPS)]
+    use_weights, kind, weights = TRAJ_CASES[case]
+    batches = _traj_batches(kind)
 
-    step = make_train_step(JaxFlowModelConfig(num_scales=3), WEIGHTS, lr=1e-4)
+    step = make_train_step(JaxFlowModelConfig(num_scales=3, use_occlusion_weights=use_weights),
+                           weights, lr=1e-4)
 
     def jax_run(snippets):
         state = create_train_state(jax.tree.map(jnp.array, params), lr=1e-4)
@@ -230,10 +255,10 @@ def test_twenty_steps_match_the_jax_train_step():
     want_loss, want_p = jax_run(batches)
     noise_loss, noise_p = jax_run([np.nextafter(x, np.float32(2.0)) for x in batches])
 
-    cfg = FlowModelConfig(num_scales=3)
+    cfg = FlowModelConfig(num_scales=3, use_occlusion_weights=use_weights)
     model = load_jax_params(FlowModel(cfg, device="cpu"), params)
     opt = make_optimizer(model, 1e-4)
-    got_loss = np.array([float(train_step(model, opt, torch.from_numpy(x), WEIGHTS, cfg)
+    got_loss = np.array([float(train_step(model, opt, torch.from_numpy(x), weights, cfg)
                                ["loss_total"]) for x in batches])
     got_p = {k: v.detach().numpy() for k, v in model.state_dict().items()}
 
@@ -274,8 +299,9 @@ def test_synthetic_epe_runs_saves_and_resumes(tmp_path, capsys):
     """The harness end to end on the CPU at a tiny size: the JAX harness's
     result keys, evaluation points after the steps they name, the cosine lr
     of the last update in the checkpoint, a resume at the stored iteration,
-    a ``--supervised`` run (its step is held to JAX's above) and a refused
-    flax checkpoint."""
+    a ``--supervised`` run (its step is held to JAX's above), and a JAX
+    ``.ckpt`` without optimizer state: refused for a resume, loaded for a
+    warm start."""
     ckpt = str(tmp_path / "s.pth")
     common = ["--device", "cpu", "--batch", "2", "--hw", "64", "128", "--eval-snippets", "2",
               "--lr-schedule", "cosine"]
@@ -312,8 +338,16 @@ def test_synthetic_epe_runs_saves_and_resumes(tmp_path, capsys):
     assert len(losses) == 2 and np.isfinite(losses).all() and min(losses) > 0
     assert np.isfinite(res["epe_all"])
 
-    with pytest.raises(ValueError, match="flax .ckpt"):
-        synthetic_epe.main(common + ["--iters", "1", "--load", str(tmp_path / "x.ckpt")])
+    # the JAX package's .ckpt: one without optimizer state is refused for a
+    # resume and warm-starts the weights
+    from unopticalflow_tpu_torch.utils.checkpoint import save_flax_checkpoint
+
+    flax_ckpt = str(tmp_path / "x.ckpt")
+    save_flax_checkpoint(flax_ckpt, 3, FlowModel(device="cpu"))
+    with pytest.raises(ValueError, match="no optimizer state"):
+        synthetic_epe.main(common + ["--iters", "1", "--load", flax_ckpt])
+    synthetic_epe.main(common + ["--iters", "1", "--load", flax_ckpt, "--load-params-only"])
+    assert "warm-started params from" in capsys.readouterr().out
     if not torch.cuda.is_available():  # the card is the default and is not here
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             synthetic_epe.main(["--iters", "1"])

@@ -14,13 +14,16 @@ Layout:
     models/     conv blocks, feature encoder, PWC decoder, FlowModel with
                 inference_flow and the training forward, the loss stack
     training/   loss weights, Adam, the training step
-    evaluation/ KITTI ground truth and metrics, flow file I/O
-    data/       the datasets, BatchLoader, device_prefetch, synthetic snippets
-    utils/      device selection, config, logging, weight conversion, checkpoints
+    evaluation/ KITTI and Sintel ground truth and metrics, flow file I/O
+    data/       the datasets, BatchLoader, device_prefetch, synthetic snippets,
+                the raw-data preparers
+    utils/      device selection, config, logging, weight and Adam-state
+                conversion, checkpoints (.pth, the JAX package's .ckpt through
+                a plain-Python flax msgpack codec, asynchronous saves)
     csrc/       CUDA C++ sources, built with nvcc at first use
     serve.py    the batching flow server and its HTTP handler
     train.py    the trainer (--mode flow, with the interleaved evaluation)
-    test.py     the KITTI flow evaluation (--task kitti_flow)
+    test.py     the KITTI and Sintel flow evaluation, the demo, export_pth
     probe.py    serving and training measurements on one CUDA device
 """
 

@@ -310,7 +310,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--save", default="",
                    help=".pth to write at every evaluation point and at the end")
     p.add_argument("--load", default="",
-                   help=".pth to resume the weights, optimizer and iteration from")
+                   help=".pth (or the JAX package's .ckpt) to resume the weights, "
+                        "optimizer and iteration from")
     p.add_argument("--load-params-only", action="store_true",
                    help="with --load: the weights only (fresh optimizer, iteration 0)")
     p.add_argument("--init", choices=["torch", "pwc"], default="pwc",

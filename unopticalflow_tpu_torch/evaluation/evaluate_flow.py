@@ -1,7 +1,8 @@
-"""KITTI flow evaluation: ground-truth loading and the EPE/outlier metrics.
+"""Flow evaluation: KITTI and Sintel ground truth and the EPE/outlier metrics.
 
 Port of ``unopticalflow_tpu/evaluation/evaluate_flow.py`` (and of
-``load_gt_mask`` from ``evaluate_mask.py``): the flow_occ/flow_noc PNGs and
+``load_gt_mask`` from ``evaluate_mask.py``): the MPI-Sintel ``.flo`` ground
+truth with its occlusion PNGs, the KITTI flow_occ/flow_noc PNGs and
 the object maps read in a pool of threads (the PNG reader's zlib and row
 unfiltering release the interpreter lock), each prediction vector-rescaled from network to
 ground-truth resolution and resized bilinearly, average EPE over valid /
@@ -24,7 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from unopticalflow_tpu_torch.evaluation.flowlib import read_flow_png
+from unopticalflow_tpu_torch.evaluation.flowlib import read_flow, read_flow_png
 from unopticalflow_tpu_torch.utils import imageio
 
 KITTI_NUM_GT = {"kitti_2012": 194, "kitti_2015": 200}
@@ -58,6 +59,47 @@ def load_gt_mask(gt_dataset_dir: str, num_workers: int = 5):
 
     with ThreadPoolExecutor(num_workers) as pool:
         return list(pool.map(read, range(KITTI_NUM_GT["kitti_2015"])))
+
+
+def load_gt_flow_sintel(training_dir: str, pass_name: str = "clean"):
+    """Ground truth and image pairs of an MPI-Sintel ``training/`` tree.
+
+    ``flow/<scene>/frame_####.flo`` (frame N -> N+1) pairs with
+    ``<pass>/<scene>/frame_####.png`` and the next frame; the occlusion PNG
+    ``occlusions/<scene>/frame_####.png``, where there is one, gives the
+    non-occluded mask (grey > 127 is occluded), else every pixel counts.
+
+    Returns (gt_flows, noc_masks, image_pairs): (H, W, 3) float32 flows with
+    an all-ones validity channel (Sintel's ground truth is dense), (H, W)
+    float32 masks and pairs of paths, as ``eval_flow_avg`` takes them.
+    """
+    flow_root = os.path.join(training_dir, "flow")
+    img_root = os.path.join(training_dir, pass_name)
+    occ_root = os.path.join(training_dir, "occlusions")
+    gt_flows, noc_masks, pairs = [], [], []
+    if not os.path.isdir(flow_root) or not os.path.isdir(img_root):
+        return gt_flows, noc_masks, pairs
+    for scene in sorted(os.listdir(flow_root)):
+        scene_dir = os.path.join(flow_root, scene)
+        for fname in sorted(os.listdir(scene_dir)):
+            if not fname.endswith(".flo"):
+                continue
+            num = int(fname[:-4].split("_")[-1])
+            img1 = os.path.join(img_root, scene, f"frame_{num:04d}.png")
+            img2 = os.path.join(img_root, scene, f"frame_{num + 1:04d}.png")
+            if not (os.path.exists(img1) and os.path.exists(img2)):
+                continue
+            gt = read_flow(os.path.join(scene_dir, fname)).astype(np.float32)
+            h, w = gt.shape[:2]
+            gt_flows.append(np.concatenate([gt[:, :, :2], np.ones((h, w, 1), np.float32)], 2))
+            occ = imageio.imread(os.path.join(occ_root, scene, f"frame_{num:04d}.png"),
+                                 imageio.IMREAD_GRAYSCALE)
+            if occ is None:
+                noc_masks.append(np.ones((h, w), np.float32))
+            else:
+                noc_masks.append(1.0 - (occ > 127).astype(np.float32))
+            pairs.append((img1, img2))
+    return gt_flows, noc_masks, pairs
 
 
 def calculate_error_rate(epe_map, gt_flow, mask) -> float:

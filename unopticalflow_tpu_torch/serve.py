@@ -263,7 +263,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="flow inference server (PyTorch/CUDA)")
     p.add_argument("-c", "--config_file", required=True)
     p.add_argument("--pretrained_model", default=None,
-                   help="reference-format .pth (export_torch_checkpoint writes one)")
+                   help="a reference-format .pth or the JAX package's .ckpt")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--max_batch", type=int, default=8)

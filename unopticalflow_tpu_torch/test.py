@@ -1,19 +1,29 @@
-"""Evaluation entry point of the port: KITTI flow metrics (``--task kitti_flow``).
+"""Evaluation entry point of the port: KITTI and Sintel flow metrics, the
+flow demo, and the export to a reference ``.pth``.
 
     python -m unopticalflow_tpu_torch.test -c config/kitti.yaml --mode flow \
         --task kitti_flow --pretrained_model model.pth [--precision float32] \
         [--device cuda]
+    ... --task sintel_flow [--sintel_dir <MPI-Sintel training/>]
+    ... --task demo --image_path a.png --image_path2 b.png [--result_dir DIR]
+    ... --task export_pth --pretrained_model last.ckpt [--output_pth out.pth]
 
-Port of the root ``test.py`` for ``--mode flow --task kitti_flow`` (same
-flags).  Pairs go through ``inference_flow`` in fixed batches of 8 on the
-device (5 correlation kernels per batch); the metrics are
-``evaluation.eval_flow_avg``'s, against the ground truth of ``gt_2015_dir``.
+Port of the root ``test.py`` for ``--mode flow`` (same flags).
+``--pretrained_model`` takes a ``.pth`` or the JAX package's ``.ckpt``.
+Pairs go through ``inference_flow`` in fixed batches of 8 on the device (5
+correlation kernels per batch); the metrics are
+``evaluation.eval_flow_avg``'s, against the ground truth of ``gt_2015_dir``
+(``kitti_flow``) or of the Sintel tree's ``clean`` and ``final`` passes
+(``sintel_flow``, the yaml's ``sintel_training_dir`` unless
+``--sintel_dir``).  ``demo`` writes ``<result_dir>/demo_flow.png``, the
+colour wheel of one pair's flow; ``export_pth`` writes the weights as the
+reference's ``{"iteration", "model_state_dict"}``.  Frames are read and
+resized by ``utils/imageio.py`` (PNG, as cv2 reads and resizes them).
 ``test_kitti_2012``/``test_kitti_2015`` are also the trainer's interleaved
 evaluation.
 
-Not here yet: ``--task sintel_flow``, ``demo``, ``export_pth`` and
-``kitti_odo`` (and ``--mode flowposenet``), which wait for later slices of
-the port.
+Not here yet: ``--task kitti_odo`` (and ``--mode flowposenet``), which waits
+for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -26,14 +36,11 @@ import numpy as np
 import torch
 
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
+from unopticalflow_tpu_torch.utils import imageio
 from unopticalflow_tpu_torch.utils.device import gpu_device, resolve_device, set_float32_precision
 
-LATER_TASKS = {
-    "sintel_flow": "the Sintel evaluation slice",
-    "demo": "the demo slice (VisualizerDebug)",
-    "export_pth": "the checkpoint slice (the flax .ckpt reader)",
-    "kitti_odo": "the flowposenet slice",
-}
+TASKS = ("kitti_flow", "sintel_flow", "demo", "export_pth")
+LATER_TASKS = {"kitti_odo": "the flowposenet slice"}
 
 
 class EvalSet(NamedTuple):
@@ -124,13 +131,75 @@ def test_kitti_2015(cfg, infer_fn, data: EvalSet, device) -> str:
     return _evaluate("KITTI 2015", cfg, infer_fn, data, device)
 
 
+def read_pair(paths, img_hw) -> np.ndarray:
+    """(2H, W, 3) float32 stack in [0, 1] of two frames resized to ``img_hw``."""
+    h, w = img_hw
+    imgs = []
+    for p in paths:
+        img = imageio.imread(p)
+        if img is None:
+            raise FileNotFoundError(p)
+        imgs.append(imageio.resize(img, (w, h)).astype(np.float32) / 255.0)
+    return np.concatenate(imgs, 0)
+
+
+def test_sintel_flow(cfg, infer_fn, sintel_dir, device, passes=("clean", "final")) -> dict:
+    """EPE evaluation on the MPI-Sintel training set, per render pass."""
+    from unopticalflow_tpu_torch.evaluation import eval_flow_avg, load_gt_flow_sintel
+
+    results = {}
+    for pass_name in passes:
+        gt_flows, noc_masks, pairs = load_gt_flow_sintel(sintel_dir, pass_name)
+        if not gt_flows:
+            print(f"[EVAL] [SINTEL {pass_name}] no frames found, skipping")
+            continue
+        flow_list = _batched_flows(infer_fn, (read_pair(p, cfg.img_hw) for p in pairs),
+                                   len(pairs), device)
+        res = eval_flow_avg(gt_flows, noc_masks, flow_list, cfg)
+        print(f"CONFIG: {getattr(cfg, 'config_file', None)}, mode: {cfg.mode}")
+        print(f"[EVAL] [SINTEL {pass_name}] ({len(flow_list)} pairs)")
+        print(res)
+        results[pass_name] = res
+    return results
+
+
+def test_single_pair(cfg, infer_fn, img1_path, img2_path, device, save_dir="./") -> np.ndarray:
+    """The flow demo on one pair: saves ``<save_dir>/demo_flow.png`` and
+    returns the (H, W, 2) float32 flow."""
+    from unopticalflow_tpu_torch.utils.visualizer import VisualizerDebug
+
+    stack = torch.from_numpy(read_pair((img1_path, img2_path), cfg.img_hw)).to(device)
+    h = stack.shape[0] // 2
+    flow = infer_fn(stack[None, :h], stack[None, h:])[0].cpu().numpy()
+    VisualizerDebug(dump_dir=save_dir).save_flow_img(flow, "demo")
+    print("Flow prediction saved in " + save_dir)
+    return flow
+
+
+def export_pth(path: str, model: FlowModel, iteration: int = 0) -> str:
+    """Write the reference's ``{"iteration", "model_state_dict"}`` (float32, CPU)."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save({"iteration": int(iteration), "model_state_dict": state}, path)
+    return path
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="flow evaluation (PyTorch/CUDA port)")
     p.add_argument("-c", "--config_file", default=None)
     p.add_argument("--mode", type=str, default="flow")
-    p.add_argument("--task", type=str, default="kitti_flow")
+    p.add_argument("--task", type=str, default="kitti_flow",
+                   help="kitti_flow | sintel_flow | demo (one pair) | export_pth "
+                        "(write a reference-loadable .pth)")
+    p.add_argument("--output_pth", type=str, default=None,
+                   help="output path for --task export_pth")
+    p.add_argument("--sintel_dir", type=str, default=None,
+                   help="MPI-Sintel training/ dir for --task sintel_flow (defaults to "
+                        "the yaml's sintel_training_dir)")
+    p.add_argument("--image_path", type=str, default=None)
+    p.add_argument("--image_path2", type=str, default=None)
+    p.add_argument("--result_dir", type=str, default=None)
     p.add_argument("--pretrained_model", type=str, default=None,
-                   help="reference-format .pth (the port's trainer writes them)")
+                   help="a reference-format .pth or the JAX package's .ckpt")
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("-g", "--gpu", type=str, default=None,
                    help="index of the CUDA device (the reference CLI's flag): --device "
@@ -140,7 +209,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> str:
+def main(argv=None):
+    """Run ``--task``; returns its result: the metric string (``kitti_flow``),
+    {pass: metric string} (``sintel_flow``), the flow (``demo``) or the
+    written path (``export_pth``)."""
     args = build_arg_parser().parse_args(argv)
     if not args.config_file or not os.path.exists(args.config_file):
         raise ValueError("config file not found.")
@@ -149,7 +221,7 @@ def main(argv=None) -> str:
                          "flowposenet is a later slice of the port")
     if args.task in LATER_TASKS:
         raise ValueError(f"--task {args.task} waits for {LATER_TASKS[args.task]} of the port")
-    if args.task != "kitti_flow":
+    if args.task not in TASKS:
         raise ValueError(f"unknown task {args.task!r}")
     from unopticalflow_tpu_torch.utils.checkpoint import load_pretrained
     from unopticalflow_tpu_torch.utils.config import load_yaml_config, merge_cli_args
@@ -158,10 +230,29 @@ def main(argv=None) -> str:
     device = resolve_device(gpu_device(args.device, args.gpu))
     set_float32_precision(device, args.precision)
     model = FlowModel(FlowModelConfig(compute_dtype=args.precision), device=device)
+    iteration = 0
     if args.pretrained_model:
-        load_pretrained(model, args.pretrained_model)
+        iteration = load_pretrained(model, args.pretrained_model)
         print("Model Loaded.")
-    return test_kitti_2015(cfg, make_infer(model), load_kitti_2015(cfg), device)
+
+    if args.task == "export_pth":
+        out = args.output_pth or os.path.join(args.result_dir or ".", "exported_model.pth")
+        export_pth(out, model, iteration)
+        print(f"wrote reference-format checkpoint: {out}")
+        return out
+    infer = make_infer(model)
+    if args.task == "kitti_flow":
+        return test_kitti_2015(cfg, infer, load_kitti_2015(cfg), device)
+    if args.task == "sintel_flow":
+        sintel_dir = args.sintel_dir or getattr(cfg, "sintel_training_dir", None)
+        if not sintel_dir:
+            raise ValueError("--task sintel_flow needs --sintel_dir or a sintel_training_dir "
+                             "yaml key")
+        return test_sintel_flow(cfg, infer, sintel_dir, device)
+    if not (args.image_path and args.image_path2):
+        raise ValueError("--task demo needs --image_path and --image_path2")
+    return test_single_pair(cfg, infer, args.image_path, args.image_path2, device,
+                            save_dir=args.result_dir or "./")
 
 
 if __name__ == "__main__":

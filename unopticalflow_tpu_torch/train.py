@@ -1,7 +1,8 @@
 """Training entry point of the port: unsupervised flow training (``--mode flow``).
 
     python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --mode flow \
-        [--test_interval 2000 | --no_test] --device cuda
+        [--test_interval 2000 | --no_test] [--flow_pretrained_model last.ckpt] \
+        [--resume] [--cache_decoded] --device cuda
 
 Port of the root ``train.py`` for the flags below (same names and
 defaults).  One step is ``training.train_step``: the training forward (5
@@ -11,6 +12,10 @@ correlation-backward kernels, 3 photometric and 3 regularizer backward
 kernels) and Adam.  Batches come from ``data.KITTI_Prepared`` (``dataset``
 kitti_depth or kitti_odo) or ``data.SINTEL_Prepared`` (sintel_raw), uint8
 and cast on the device, through ``BatchLoader`` and ``device_prefetch``.
+When the prepared tree has no ``train.txt``, the raw data under
+``raw_base_dir`` is prepared first (``data/preparers.py``).
+``--cache_decoded`` keeps decoded, resized frames as ``.npy`` under
+``<prepared dir>/decoded_cache_<H>x<W>``, the JAX trainer's directory.
 
 Interleaved evaluation: unless ``--no_test``, KITTI 2012 and 2015 (the
 yaml's ``gt_2012_dir``/``gt_2015_dir``, read once at start) are evaluated
@@ -21,13 +26,19 @@ whose count from the start of the run, plus one, is a multiple of
 
 Checkpoints: ``iter_<n>.pth`` and ``last.pth`` every ``--save_interval``
 iterations, and ``last.pth`` at loop exit when ``num_iterations`` is off that
-grid; ``--resume`` restores model, optimizer and iteration from
-``iter_<iter_start>.pth`` (or ``last.pth``) and restarts at the stored
-iteration.  Log lines are the JAX trainer's ``iter: N, loss_pixel: ...``,
-with ``snippets_per_sec`` between log points.
+grid, written by ``AsyncCheckpointer`` off the loop's thread (no step is
+saved twice).  ``--resume`` restores model, optimizer and iteration from
+``iter_<iter_start>.pth`` (or ``last.pth``), or from the JAX trainer's
+``iter_<iter_start>.ckpt`` (``last.ckpt``) where the model dir holds only
+that, and restarts at the stored iteration.  ``--flow_pretrained_model``
+warm-starts the weights from a ``.pth`` or a JAX ``.ckpt``.  SIGTERM or
+SIGINT: the step in flight finishes, the last finished iteration is saved,
+the saver drains and ``main`` returns 0; a second signal meets the handler
+that was there before.  Log lines are the JAX trainer's ``iter: N,
+loss_pixel: ...``, with ``snippets_per_sec`` between log points.
 
-Not here yet: modes other than ``flow``, several devices, K steps per
-dispatch, asynchronous checkpoints and preemption handling.
+Not here yet: modes other than ``flow`` (``flowposenet``, with
+``--freeze_flow``), several devices, and ``--steps_per_dispatch``.
 """
 
 from __future__ import annotations
@@ -36,8 +47,10 @@ import argparse
 import os
 import pickle
 import shutil
+import signal
 import sys
 import time
+import traceback
 import types
 from typing import NamedTuple
 
@@ -86,6 +99,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_interval", type=int, default=2000)
     p.add_argument("--model_dir", type=str, default=None)
     p.add_argument("--prepared_save_dir", type=str, default="data_s1")
+    p.add_argument("--flow_pretrained_model", type=str, default=None,
+                   help="warm start: a .pth or the JAX package's .ckpt")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--no_test", action="store_true")
     p.add_argument("--precision", type=str, default="float32",
@@ -95,6 +110,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss_precision", type=str, default=None,
                    choices=["float32", "bfloat16"],
                    help="dtype of the image-space loss stack.")
+    p.add_argument("--cache_decoded", action="store_true",
+                   help="cache decoded and resized frames as uint8 .npy under the "
+                        "prepared dir.")
     p.add_argument("--init_scheme", type=str, default="torch", choices=["torch", "pwc"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-g", "--gpu", type=str, default=None,
@@ -142,6 +160,65 @@ def _load_eval_sets(cfg) -> dict:
     return {"2012": load_kitti_2012(cfg), "2015": load_kitti_2015(cfg)}
 
 
+class StopOnSignal:
+    """SIGTERM and SIGINT handlers for a graceful stop (main thread only).
+
+    The first signal sets ``signum`` and puts the handlers that were there
+    before back at once, so a second signal stops the process even in a step
+    that hangs.  ``restore()`` puts them back on every exit path.  Off the
+    main thread nothing is installed and ``signum`` stays None.
+    """
+
+    SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self):
+        self.signum = None
+        self._prev = {}
+        try:
+            for s in self.SIGNALS:
+                self._prev[s] = signal.signal(s, self._on_signal)
+        except ValueError:  # not the main thread
+            self._prev = {}
+
+    def _on_signal(self, signum, frame):
+        self.signum = signum
+        self.restore()
+
+    def restore(self) -> None:
+        prev, self._prev = self._prev, {}
+        for s, h in prev.items():
+            signal.signal(s, h)
+
+
+def resume_path(model_dir: str, iter_start: int) -> str:
+    """``iter_<n>.pth`` (``last.pth`` at n = 0), or the JAX trainer's
+    ``iter_<n>.ckpt`` (``last.ckpt``) where only that exists."""
+    stem = os.path.join(model_dir, f"iter_{iter_start}" if iter_start > 0 else "last")
+    if not os.path.exists(stem + ".pth") and os.path.exists(stem + ".ckpt"):
+        return stem + ".ckpt"
+    return stem + ".pth"
+
+
+def decoded_cache_dir(cfg, data_dir: str) -> str | None:
+    """``--cache_decoded``'s directory, the JAX trainer's name for it."""
+    if not _get(cfg, "cache_decoded"):
+        return None
+    return os.path.join(data_dir, f"decoded_cache_{cfg.img_hw[0]}x{cfg.img_hw[1]}")
+
+
+def prepare_raw_data(cfg, data_dir: str) -> None:
+    """Prepare ``raw_base_dir`` into ``data_dir`` (the trainer's first run)."""
+    from unopticalflow_tpu_torch.data import preparers
+
+    if cfg.dataset == "kitti_depth":
+        preparers.KITTI_RAW(cfg.raw_base_dir, cfg.static_frames_txt,
+                            cfg.test_scenes_txt).prepare_data_mp(data_dir, stride=1)
+    elif cfg.dataset == "sintel_raw":
+        preparers.SINTEL_RAW(cfg.raw_base_dir).prepare_data_mp(data_dir, cfg.stride)
+    elif cfg.dataset == "kitti_odo":
+        preparers.KITTI_Odo(cfg.raw_base_dir).prepare_data_mp(data_dir, stride=1)
+
+
 def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
           eval_sets=None) -> TrainResult:
     """Train by ``cfg`` (the merged YAML + flags; any attribute object).
@@ -178,8 +255,12 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     opt = make_optimizer(model, cfg.lr)
 
     if cfg.resume:
-        name = f"iter_{cfg.iter_start}.pth" if cfg.iter_start > 0 else "last.pth"
-        cfg.iter_start = ckpt.restore_checkpoint(os.path.join(cfg.model_dir, name), model, opt)
+        path = resume_path(cfg.model_dir, cfg.iter_start)
+        cfg.iter_start = ckpt.restore_checkpoint(path, model, opt)
+        print(f"resumed from {path} at iteration {cfg.iter_start}.")
+    elif _get(cfg, "flow_pretrained_model"):
+        ckpt.load_pretrained(model, cfg.flow_pretrained_model)
+        print("Load Flow Pretrained Model from " + cfg.flow_pretrained_model)
 
     weights = loss_weights_from_config(cfg)
     visualizer = Visualizer(weights, _get(cfg, "log_dump_dir"))
@@ -191,12 +272,10 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
                                       f"{', '.join(sorted(PREPARED))}")
         data_dir = os.path.join(cfg.prepared_base_dir, cfg.prepared_save_dir)
         if not os.path.exists(os.path.join(data_dir, "train.txt")):
-            raise FileNotFoundError(
-                f"{data_dir}/train.txt: prepare the raw data first (the raw-data "
-                "preparers are the JAX package's unopticalflow_tpu.data.preparers)"
-            )
+            prepare_raw_data(cfg, data_dir)
         dataset = PREPARED[cfg.dataset](data_dir, num_scales=cfg.num_scales,
                                         img_hw=cfg.img_hw, num_iterations=n_samples,
+                                        cache_dir=decoded_cache_dir(cfg, data_dir),
                                         emit_uint8=True)
     loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
     stream = device_prefetch(iter(loader), device)
@@ -209,37 +288,70 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
         visualizer.dump_log(os.path.join(cfg.model_dir, "log.pkl"))
 
     test_interval = int(_get(cfg, "test_interval", 2000))
+    saver = ckpt.AsyncCheckpointer()
+    last_saved = None
 
     def save(iteration):
-        ckpt.save_checkpoint([os.path.join(cfg.model_dir, f"iter_{iteration}.pth"),
-                              os.path.join(cfg.model_dir, "last.pth")], iteration, model, opt)
+        nonlocal last_saved
+        if last_saved == iteration:  # a preemption right after a grid save
+            return
+        last_saved = iteration
+        saver.save([os.path.join(cfg.model_dir, f"iter_{iteration}.pth"),
+                    os.path.join(cfg.model_dir, "last.pth")], iteration, model, opt)
 
     print(f"starting iteration: {cfg.iter_start}.")
     model.train()
     log_t, log_it = None, 0
     it = cfg.iter_start - 1
-    for i, batch in enumerate(stream):
-        it = cfg.iter_start + i
-        # counted from the start of this run, as the JAX trainer counts
-        if eval_sets is not None and (i + 1) % test_interval == 0:
-            evaluate()
-        metrics = train_step(model, opt, batch, weights, model_cfg)
-        if on_step is not None:
-            on_step(it, metrics)
-        if it % cfg.log_interval == 0:
-            # reading the losses waits for the device, so the interval's
-            # rate covers everything between two log points
-            pack = {k: float(v) for k, v in metrics.items() if k != "loss_total"}
-            now = time.perf_counter()
-            if log_t is not None and now > log_t:
-                pack["snippets_per_sec"] = cfg.batch_size * (it - log_it) / (now - log_t)
-            log_t, log_it = now, it
-            visualizer.print_loss(pack, iter_=it)
-        if (it + 1) % cfg.save_interval == 0:
-            save(it)
-    # the reference saves only on the grid; keep the last iteration's weights too
-    if cfg.num_iterations > cfg.iter_start and cfg.num_iterations % cfg.save_interval != 0:
-        save(cfg.num_iterations - 1)
+    loop_failed = False
+    stop = StopOnSignal()
+    try:
+        for i, batch in enumerate(stream):
+            if stop.signum is not None:  # before an evaluation, too
+                break
+            it = cfg.iter_start + i
+            # counted from the start of this run, as the JAX trainer counts
+            if eval_sets is not None and (i + 1) % test_interval == 0:
+                evaluate()
+            metrics = train_step(model, opt, batch, weights, model_cfg)
+            if on_step is not None:
+                on_step(it, metrics)
+            if it % cfg.log_interval == 0:
+                # reading the losses waits for the device, so the interval's
+                # rate covers everything between two log points
+                pack = {k: float(v) for k, v in metrics.items() if k != "loss_total"}
+                now = time.perf_counter()
+                if log_t is not None and now > log_t:
+                    pack["snippets_per_sec"] = cfg.batch_size * (it - log_it) / (now - log_t)
+                log_t, log_it = now, it
+                visualizer.print_loss(pack, iter_=it)
+            if (it + 1) % cfg.save_interval == 0:
+                save(it)
+            if stop.signum is not None:
+                break
+        if stop.signum is not None:
+            done = it if it >= cfg.iter_start else None
+            print(f"preemption signal {stop.signum}: checkpointing at iteration {done} "
+                  "and exiting.")
+            if done is not None:
+                save(done)
+        # the reference saves only on the grid; keep the last iteration's weights too
+        elif cfg.num_iterations > cfg.iter_start and cfg.num_iterations % cfg.save_interval:
+            save(cfg.num_iterations - 1)
+    except BaseException:
+        loop_failed = True
+        raise
+    finally:
+        # on every exit path: the handlers back, the loader stopped, the
+        # queued checkpoints written (a saver error must not hide the loop's)
+        stop.restore()
+        stream.close()
+        try:
+            saver.close()
+        except Exception:
+            if not loop_failed:
+                raise
+            traceback.print_exc()
     return TrainResult(model, opt, it + 1)
 
 

@@ -1,20 +1,42 @@
-"""Save, restore and load the port's checkpoints.
+"""Save, restore and load the port's checkpoints, and read the JAX package's.
 
-The files are reference-format ``.pth``: ``{"iteration", "model_state_dict",
-"optimizer_state_dict"}``, as the reference's train loop and the JAX
-package's ``export_torch_checkpoint`` write them, so the trainer's files
-load into the serving slice and vice versa.  A write goes to a temporary
-file that ``os.replace`` then renames, so a reader never sees half a file.
-The JAX package's own ``.ckpt`` (flax msgpack) is not read here yet.
+The port's files are reference-format ``.pth``: ``{"iteration",
+"model_state_dict", "optimizer_state_dict"}``, as the reference's train loop
+and the JAX package's ``export_torch_checkpoint`` write them, so the
+trainer's files load into the serving slice and vice versa.  A write goes to
+a temporary file that ``os.replace`` then renames, so a reader never sees
+half a file.
+
+The JAX package's ``.ckpt`` (flax msgpack of ``{"iteration", "params",
+"opt_state"}``, ``opt_state`` optax's ``({"count", "mu", "nu"}, {})`` or
+nil) is read by ``utils/flax_msgpack.py`` and moved across by
+``utils/convert.py``: ``load_pretrained`` and ``restore_checkpoint`` take
+either format by the file's suffix, and ``save_flax_checkpoint`` writes one
+that the JAX package's ``restore_checkpoint`` reads back.
+
+``AsyncCheckpointer`` is the JAX package's asynchronous saver: ``save()``
+copies the state on its device and returns; one worker thread copies it to
+the host, serialises it once and writes every path in order.
 """
 
 from __future__ import annotations
 
+import io
 import os
+import queue
 import re
+import threading
 
 import torch
 from torch import nn
+
+from unopticalflow_tpu_torch.utils import flax_msgpack
+from unopticalflow_tpu_torch.utils.convert import (
+    adam_state_from_torch,
+    adam_state_to_torch,
+    load_jax_params,
+    torch_state_dict_to_params,
+)
 
 
 def strip_prefixes(state_dict) -> dict:
@@ -27,36 +49,98 @@ def strip_prefixes(state_dict) -> dict:
     return out
 
 
-def _atomic_save(obj, path: str) -> None:
+def _is_flax(path: str) -> bool:
+    return path.endswith(".ckpt")
+
+
+def _atomic_write(path: str, blob: bytes) -> None:
     tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(obj, tmp)
+    with open(tmp, "wb") as f:
+        f.write(blob)
     os.replace(tmp, path)
+
+
+def _pth_bytes(state: dict) -> bytes:
+    buf = io.BytesIO()
+    torch.save(state, buf)
+    return buf.getvalue()
+
+
+def _map(fn, obj):
+    """``fn`` on every tensor of a nest of dicts and lists."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map(fn, v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_map(fn, v) for v in obj]
+    return obj
+
+
+def _state(iteration: int, model: nn.Module, opt: torch.optim.Optimizer, copy) -> dict:
+    return {"iteration": int(iteration),
+            "model_state_dict": {k: copy(v.detach()) for k, v in model.state_dict().items()},
+            "optimizer_state_dict": _map(copy, opt.state_dict())}
 
 
 def save_checkpoint(paths: list[str], iteration: int, model: nn.Module,
                     opt: torch.optim.Optimizer) -> None:
     """Write the model, the optimizer and the iteration to each of ``paths``."""
-    state = {
-        "iteration": int(iteration),
-        "model_state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "optimizer_state_dict": opt.state_dict(),
-    }
+    blob = _pth_bytes(_state(iteration, model, opt, lambda t: t.cpu()))
     for path in paths:
-        _atomic_save(state, path)
+        _atomic_write(path, blob)
 
 
-def _refuse_flax(path: str) -> None:
-    if path.endswith(".ckpt"):
-        raise ValueError(
-            f"{path}: flax .ckpt checkpoints wait for the checkpoint port; "
-            "convert it first with unopticalflow_tpu.utils.torch_convert."
-            "export_torch_checkpoint and pass the resulting .pth"
-        )
+# ---------------------------------------------------------------------------
+# the JAX package's .ckpt
+# ---------------------------------------------------------------------------
+
+
+def read_flax_checkpoint(path: str) -> dict:
+    """``{"iteration", "params", "opt_state"}`` of a JAX ``.ckpt`` (numpy leaves)."""
+    with open(path, "rb") as f:
+        tree = flax_msgpack.loads(f.read())
+    if not isinstance(tree, dict) or not {"iteration", "params"} <= set(tree) \
+            or not {"fpyramid", "pwc"} <= set(tree["params"] or {}):
+        raise ValueError(f"{path}: not a flow-mode train state of the JAX package "
+                         "({'iteration', 'params': {'fpyramid', 'pwc'}, 'opt_state'})")
+    return tree
+
+
+def _adam(path: str, opt_state) -> dict:
+    """optax Adam's ``{"count", "mu", "nu"}`` out of ``(adam, {})``."""
+    if not isinstance(opt_state, dict) or set(opt_state) != {"0", "1"} \
+            or opt_state["1"] != {} or set(opt_state["0"]) != {"count", "mu", "nu"}:
+        raise ValueError(f"{path}: the optimizer state is not optax.adam's "
+                         "({'0': {'count', 'mu', 'nu'}, '1': {}}); a --freeze_flow "
+                         "state does not resume here")
+    return opt_state["0"]
+
+
+def save_flax_checkpoint(path: str, iteration: int, model: nn.Module,
+                         opt: torch.optim.Adam | None = None) -> None:
+    """Write a JAX-package ``.ckpt`` of ``model`` (and ``opt``'s Adam state)."""
+    params = torch_state_dict_to_params(strip_prefixes(model.state_dict()))
+    opt_state = None if opt is None else {"0": adam_state_from_torch(model, opt), "1": {}}
+    _atomic_write(path, flax_msgpack.dumps(
+        {"iteration": int(iteration), "params": params, "opt_state": opt_state}))
+
+
+# ---------------------------------------------------------------------------
+# reading either format
+# ---------------------------------------------------------------------------
 
 
 def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) -> int:
     """Load the model (strict) and the optimizer; return the iteration."""
-    _refuse_flax(path)
+    if _is_flax(path):
+        tree = read_flax_checkpoint(path)
+        if tree.get("opt_state") is None:
+            raise ValueError(f"{path} holds no optimizer state to resume from")
+        adam = _adam(path, tree["opt_state"])
+        load_jax_params(model, tree["params"])
+        adam_state_to_torch(model, opt, adam)
+        return int(tree["iteration"])
     data = torch.load(path, map_location="cpu", weights_only=True)
     if "optimizer_state_dict" not in data:
         raise ValueError(f"{path} holds no optimizer state to resume from")
@@ -66,9 +150,102 @@ def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) 
 
 
 def load_pretrained(model: nn.Module, path: str) -> int:
-    """Load ``path`` into ``model`` (strict) and return its iteration."""
-    _refuse_flax(path)
+    """Load ``path`` (``.pth`` or the JAX ``.ckpt``) into ``model`` (strict)
+    and return its iteration."""
+    if _is_flax(path):
+        tree = read_flax_checkpoint(path)
+        load_jax_params(model, tree["params"])
+        return int(tree["iteration"])
     data = torch.load(path, map_location="cpu", weights_only=True)
     state = data.get("model_state_dict", data)
     model.load_state_dict(strip_prefixes(state), strict=True)
     return int(data.get("iteration", 0))
+
+
+# ---------------------------------------------------------------------------
+# asynchronous saves
+# ---------------------------------------------------------------------------
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes off the training loop's thread.
+
+    ``save()`` clones the model's and the optimizer's tensors on their device
+    (queued on the current stream, so the next step's in-place Adam update
+    cannot reach the copy) and returns.  One worker thread waits for the
+    clones, copies them to the host on a stream of its own, serialises the
+    ``.pth`` once and writes every path atomically, in order, so ``last.pth``
+    is always the newest.  At most 2 snapshots wait: a loop that saves faster
+    than the disk writes blocks in ``save()``.  A worker's error is raised
+    by the next ``save()``, ``wait()`` or ``close()``; ``close()`` drains the
+    queue and stops the worker first, whatever happened.
+    """
+
+    def __init__(self):
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._err: BaseException | None = None
+        self._closed = False
+        self._streams: dict = {}
+        self._thread = threading.Thread(target=self._run, name="checkpoint-writer",
+                                         daemon=True)
+        self._thread.start()
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "cuda":
+            return t
+        stream = self._streams.setdefault(t.device, torch.cuda.Stream(t.device))
+        with torch.cuda.stream(stream):
+            return t.cpu()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                paths, snap, ready = item
+                if ready is not None:
+                    ready.synchronize()
+                blob = _pth_bytes(_map(self._host, snap))
+                del snap
+                for path in paths:
+                    _atomic_write(path, blob)
+            except Exception as e:  # raised again by the next save/wait/close
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _check(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError("asynchronous checkpoint write failed") from err
+
+    def save(self, paths, iteration: int, model: nn.Module,
+             opt: torch.optim.Optimizer) -> None:
+        """Snapshot now, write later: every file of ``paths``."""
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointer is closed")
+        self._check()
+        snap = _state(iteration, model, opt, lambda t: t.clone())
+        ready = None
+        devices = {p.device for p in model.parameters() if p.device.type == "cuda"}
+        if devices:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(next(iter(devices))))
+        self._q.put((list(paths), snap, ready))
+
+    def wait(self) -> None:
+        """Block until every queued checkpoint is on disk."""
+        self._q.join()
+        self._check()
+
+    def close(self) -> None:
+        """Drain, stop the worker, then raise a pending write error."""
+        if not self._closed:
+            self._closed = True
+            try:
+                self._q.join()
+            finally:
+                self._q.put(None)
+                self._thread.join(timeout=60)
+        self._check()

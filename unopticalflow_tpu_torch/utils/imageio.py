@@ -14,6 +14,9 @@ without opencv.  Only a JPEG request body to the server goes through
   BGR(A) order, uint8 or uint16, grey as (H, W), a palette expanded to BGR
   (BGRA with a ``tRNS`` chunk).  Colour types 0, 2, 3, 4 and 6 at 8 bits and
   0 and 2 at 16 bits; all five row filters; interlaced (Adam7) files raise.
+  ``IMREAD_GRAYSCALE`` (0) reads grey files only, as (H, W) uint8 (16-bit
+  samples keep their high byte): cv2's conversion of a colour file to grey
+  is not reproduced, and such a file raises.
 * ``encode_png(img)`` as ``cv2.imencode(".png")`` writes it, each row's
   filter chosen as libpng chooses it: (H, W) grey or (H, W, 3) BGR /
   (H, W, 4) BGRA, uint8 or uint16.
@@ -33,6 +36,7 @@ import zlib
 import numpy as np
 
 IMREAD_UNCHANGED = -1
+IMREAD_GRAYSCALE = 0
 IMREAD_COLOR = 1
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -141,8 +145,9 @@ def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     """PNG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
-    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED):
-        raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR or IMREAD_UNCHANGED")
+    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
+        raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR, "
+                         "IMREAD_GRAYSCALE or IMREAD_UNCHANGED")
     head, palette, trns, idat = None, None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -160,6 +165,9 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
         raise ValueError("interlaced (Adam7) PNG files are not supported")
     if ctype not in _CHANNELS or depth not in (8, 16) or (depth == 16 and ctype not in (0, 2)):
         raise ValueError(f"PNG colour type {ctype} at {depth} bits is not supported")
+    if flags == IMREAD_GRAYSCALE and ctype != 0:
+        raise ValueError(f"IMREAD_GRAYSCALE of a PNG of colour type {ctype}: the port "
+                         "reads grey files only in grey")
     ch = _CHANNELS[ctype]
     bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -181,9 +189,11 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
             alpha[: len(trns)] = np.frombuffer(trns, np.uint8)[: len(palette)]
             return _channels(np.dstack([rgb, alpha[idx]]), [2, 1, 0, 3])
         return _channels(rgb, [2, 1, 0])
+    if flags != IMREAD_UNCHANGED and depth == 16:
+        img = (img >> 8).astype(np.uint8)
+    if flags == IMREAD_GRAYSCALE:
+        return np.ascontiguousarray(img[:, :, 0])
     if flags == IMREAD_COLOR:
-        if depth == 16:
-            img = (img >> 8).astype(np.uint8)
         return _channels(img, [0, 0, 0] if ch <= 2 else [2, 1, 0])  # grey repeated
     if ch == 1:
         return np.ascontiguousarray(img[:, :, 0])

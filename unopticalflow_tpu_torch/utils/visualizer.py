@@ -1,16 +1,22 @@
-"""Loss logging of the trainer.
+"""Loss logging of the trainer, and the demo's flow image.
 
 The port's copy of ``Visualizer`` from ``unopticalflow_tpu/utils/visualizer.py``:
 it accumulates log packs (the interleaved evaluation's result strings),
 pickles them to ``log.pkl``, and prints the four flow losses in the
 reference trainer's ``iter: N, loss_pixel: ...`` format.
+``VisualizerDebug.save_flow_img`` writes the colour-wheel PNG of a flow,
+which ``test.py --task demo`` saves.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
+
+from unopticalflow_tpu_torch.evaluation.flowlib import flow_to_image
+from unopticalflow_tpu_torch.utils import imageio
 
 _LOSSES = ("loss_pixel", "loss_ssim", "loss_flow_smooth", "loss_flow_consis")
 
@@ -43,3 +49,18 @@ class Visualizer:
             if k not in _LOSSES:
                 line += f", {k}: {vals[k]:.6f}"
         print(line)
+
+
+class VisualizerDebug:
+    """The JAX package's debug-image dumper, as far as the demo uses it."""
+
+    def __init__(self, dump_dir: str | None = None):
+        self.dump_dir = dump_dir
+        if dump_dir:
+            os.makedirs(dump_dir, exist_ok=True)
+
+    def save_flow_img(self, flow, name: str) -> str:
+        """``<dump_dir>/<name>_flow.png``: the colour wheel of an (H, W, 2) flow."""
+        path = os.path.join(self.dump_dir, name + "_flow.png")
+        imageio.imwrite(path, flow_to_image(np.asarray(flow)))
+        return path
