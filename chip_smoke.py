@@ -215,6 +215,38 @@ Phases (each raises on failure, so the run exits non-zero):
    loop's time blocked in ``AsyncCheckpointer.save()`` against a
    synchronous ``save_checkpoint`` of the same full-width state (model and
    Adam), and the ``.ckpt`` read time (medians of 3).
+16. Flow + pose (``flowpose``): (a) ``train()`` with ``--mode flowposenet``
+   at config/odo.yaml's recipe (batch 8, 256x832, 3 scales) on in-memory
+   snippets with KITTI's intrinsics (scaled, moved 1% from a seed), 10
+   float32 and 8 bfloat16 steps: finite losses, exactly 5+5+5+3+3 launches
+   a step (the pose net and the geometry launch no kernel of the port's),
+   ms/step (median CUDA-event interval) beside phases 6 and 7's flow steps;
+   the five losses with the kernels against ``corr_fn``/``photo_fn`` plain,
+   rtol 1e-4 (float32) and 2e-2 (bfloat16), and the float32 weighted
+   total's gradient over both branches under phase 7's one-ulp rule.  (b)
+   ``--freeze_flow``, 3 steps: every flow tensor bit-identical, every pose
+   tensor moved, 5 + 0 + 0 + 3 + 0 launches a step (the flow branch has
+   ``requires_grad=False``: no backward kernel).  (c) ``train.main --mode
+   flowposenet`` on a raw KITTI odometry sequence (6 frames at 375x1242) that
+   ``KITTI_Odo`` prepares, 4 float32 steps (5+5+5+3+3 launches each), then a
+   ``--resume``: a check of the plumbing, not of a correct odometry sample
+   (``KITTI_Odo`` writes 2-frame stacks and ``dataset: kitti_odo`` reads
+   them as 3-frame snippets, in the JAX package too); ``dataset: nyuv2`` at
+   config/nyu_posenet_192.yaml's 192x256 on a prepared 2-frame tree (8
+   snippets of 640x480 frames, NYU's calibration line), ``--mode
+   flowposenet`` and ``--mode flow``, 4 steps each at 5 + 5 + 5 + 0 + 0
+   launches (the plain 2-frame losses); the NYU loader's snippets/s (numpy
+   undistortion, 4 threads) beside the logged step rates; on one batch of
+   2-frame pairs at 192x256, each decoder level's correlation forward
+   (1e-5 / 1e-6) and backward (phase 4's rule) at the shapes the step gives
+   it, the losses of both modes against ``corr_fn`` plain (rtol 1e-4) and
+   the float32 flowposenet gradient under phase 7's one-ulp rule.  (d)
+   ``test.main --mode flowposenet --task kitti_odo`` with (c)'s
+   ``last.pth`` on 16 frames at 375x1242: 16 finite pose lines, no
+   kernel launch, ms a pose pair, the pose net's ms alone; then
+   ``KittiEvalOdom().eval(plot=False)`` on 240 poses 1 m apart against the
+   same trajectory with translations times 0.5: both errors under 1e-9
+   after the Umeyama alignment.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -314,6 +346,16 @@ RAW_FRAMES = 6
 SINTEL_HW = (436, 1024)
 SINTEL_IMG_HW = (384, 832)
 SAVE_REPS = 3  # phase 15 (e): saves timed, each way
+# phase 16: flowposenet steps timed at config/odo.yaml's recipe (IMG_HW, BATCH),
+# --freeze_flow steps, NYUv2's 640x480 frames and config/nyu_posenet_192.yaml's
+# img_hw, prepared NYU snippets, and a 16-frame odometry sequence at KITTI's size
+FP_STEPS = 10
+FP_BF16_STEPS = 8
+FREEZE_STEPS = 3
+NYU_FRAME_HW = (480, 640)
+NYU_HW = (192, 256)
+NYU_SNIPPETS = 8
+ODO_FRAMES = 16
 # the H100 SXM's published peaks: HBM and float32 outside
 # the tensor cores; every kernel here computes in float32
 HBM_BYTES_PER_S = 3.35e12
@@ -362,6 +404,10 @@ PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
             "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0,
             "row_gather": 0, "lane_gather": 0, "sublane_gather": 0}
 PER_STEP_REG = {**PER_STEP, "regularizer_fwd": 3, "regularizer_bwd": 3}
+# a --freeze_flow step (no backward through the flow branch) and a 2-frame
+# step (the plain photometric losses, as the JAX forward_pair)
+PER_STEP_FROZEN = {**PER_STEP, "corr_bwd_df1": 0, "corr_bwd_df2": 0, "photometric_bwd": 0}
+PER_STEP_PAIR = {**PER_STEP, "photometric_fwd": 0, "photometric_bwd": 0}
 KERNELS = {
     "corr_fwd": ("unopticalflow_tpu_torch/csrc/correlation.cu",
                  "unopticalflow_tpu/ops/pallas_kernels.py:59"),
@@ -532,6 +578,11 @@ def _hold_bwd(torch, got, want, rtol, atol, abs_ref) -> str:
 
 def _values(res: str) -> list[float]:
     return [float(v) for v in res.split("\n")[1].split(",")]
+
+
+def _launched(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def _rel_l2(a, b) -> float:
@@ -880,6 +931,465 @@ def entry_points_complete(c) -> None:
           f"{statistics.median(sync) * 1e3:.1f} ms; .ckpt read into the model "
           f"({mb['ckpt']:.1f} MiB, weights only) {statistics.median(reads) * 1e3:.1f} ms "
           f"(median of {SAVE_REPS}); phase 15 in {time.perf_counter() - t15:.1f} s ({c.smi})")
+
+
+def flowpose(c) -> None:
+    """Phase 16 (see the module): ``c`` as for ``entry_points_complete``, with
+    the step counts (``fp_steps``, ``fp_bf16_steps``, ``freeze_steps``), the
+    NYU and odometry shapes (``nyu_frame_hw``, ``nyu_hw``, ``nyu_snippets``,
+    ``odo_hw``, ``odo_frames``), ``flow_ms`` (phases 6 and 7's ms per flow
+    step by dtype) and ``empty_cache``, so that a CPU rehearsal can shrink
+    them."""
+    import numpy as np
+    import torch
+
+    from unopticalflow_tpu_torch import test as evaluation
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.data import NYU_v2, preparers
+    from unopticalflow_tpu_torch.data.loader import BatchLoader
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.evaluation.eval_odom import KittiEvalOdom
+    from unopticalflow_tpu_torch.models import FlowModelConfig, FlowPoseModel, inference_pose
+    from unopticalflow_tpu_torch.models.layers import set_compute_dtype
+    from unopticalflow_tpu_torch.ops.cost_volume import (
+        corr_df1_reference,
+        corr_df2_reference,
+        cost_volume,
+        cost_volume_reference,
+    )
+    from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
+    from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
+    from unopticalflow_tpu_torch.utils import imageio
+    from unopticalflow_tpu_torch.utils.checkpoint import load_pretrained
+
+    device, (h, w), batch_n = c.device, c.img_hw, c.batch
+    counts, reset_counts = c.counts, c.reset_counts
+    t16 = time.perf_counter()
+    root = c.root
+    os.makedirs(root, exist_ok=True)
+
+    def kitti_k(hw, rng):
+        """KITTI's P_rect_02 at 375x1242, scaled to ``hw``, moved a little."""
+        k = np.array([[721.5377, 0.0, 609.5593], [0.0, 721.5377, 172.854], [0.0, 0.0, 1.0]])
+        k[0] *= hw[1] / KITTI_HW[1]
+        k[1] *= hw[0] / KITTI_HW[0]
+        k[:2, :] *= 1.0 + 0.01 * rng.randn(2, 1)
+        return k.astype(np.float32), np.linalg.inv(k).astype(np.float32)
+
+    class PoseSnippets(SyntheticSnippets):
+        """SyntheticSnippets with per-snippet intrinsics: (img, K, K_inv)."""
+
+        def __init__(self, hw, n, seed):
+            super().__init__(hw, n, seed)
+            rng = np.random.RandomState(seed)
+            self.ks = [kitti_k(hw, rng) for _ in range(len(self.snippets))]
+
+        def __getitem__(self, idx):
+            return (super().__getitem__(idx), *self.ks[idx % len(self.ks)])
+
+    def step_events():
+        events, metrics = [], []
+
+        def on_step(it, m):
+            ev = torch.cuda.Event(enable_timing=True) if device.type == "cuda" else None
+            if ev is not None:
+                ev.record()
+            events.append(ev)
+            metrics.append(m)
+
+        def ms(skip=2):
+            if device.type != "cuda" or len(events) < skip + 2:
+                return float("nan")
+            return statistics.median(events[i].elapsed_time(events[i + 1])
+                                     for i in range(skip, len(events) - 1))
+
+        return on_step, metrics, ms
+
+    fp_weights = loss_weights_from_config(types.SimpleNamespace(mode="flowposenet"))
+    # (a) the flowposenet step at config/odo.yaml's recipe: parity, launches, ms/step
+    rates = {}
+    for dtype, steps in (("float32", c.fp_steps), ("bfloat16", c.fp_bf16_steps)):
+        cfg = train_cli.recipe_config(
+            mode="flowposenet", num_iterations=steps, init_scheme="pwc", seed=SEED + 20,
+            precision=dtype, loss_precision=dtype, log_interval=1000, save_interval=100000,
+            model_dir=os.path.join(root, f"a_{dtype}"), num_workers=4, batch_size=batch_n,
+            img_hw=c.img_hw)
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        on_step, metrics, ms = step_events()
+        reset_counts()
+        res = train_cli.train(cfg, dataset=PoseSnippets(c.img_hw, steps * batch_n, SEED + 20),
+                              device=device, on_step=on_step)
+        c.sync()
+        got = counts()
+        want = {k: steps * v for k, v in c.want(PER_STEP).items()}
+        bad = [k for m in metrics for k, v in m.items() if not bool(torch.isfinite(v))]
+        if got != want or bad or res.step != steps \
+                or sorted(metrics[0]) != sorted([*fp_weights, "loss_total"]):
+            raise AssertionError(f"flowposenet {dtype}: launches {got} (want {want}), "
+                                 f"non-finite {bad}, {res.step} steps")
+        rates[dtype] = ms()
+        del res
+    print(f"flowpose (a): flowposenet steps at {batch_n}x{h}x{w}, 3 scales: ms/step float32 "
+          f"{rates['float32']:.3f} ({c.fp_steps} steps; phase 6's flow step "
+          f"{c.flow_ms['float32']:.3f}), bfloat16 {rates['bfloat16']:.3f} ({c.fp_bf16_steps} "
+          f"steps; phase 7's {c.flow_ms['bfloat16']:.3f}), median CUDA-event intervals; "
+          f"launches per step {_launched(c.want(PER_STEP))} ({c.smi})")
+
+    data = PoseSnippets(c.img_hw, batch_n, SEED + 21)
+    imgs = torch.from_numpy(data.snippets[:batch_n].astype(np.float32) / 255.0).to(device)
+    ks = [torch.from_numpy(np.stack([data.ks[i][j] for i in range(batch_n)])).to(device)
+          for j in range(2)]
+    plain = dict(corr_fn=cost_volume_reference, photo_fn=photometric_pack_reference)
+    model = FlowPoseModel(FlowModelConfig(), device=device, scheme="pwc",
+                          generator=torch.Generator().manual_seed(SEED + 21))
+    for dtype, rtol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        mcfg = FlowModelConfig(compute_dtype=dtype, loss_dtype=dtype)
+        set_compute_dtype(model, getattr(torch, dtype))
+        with torch.no_grad():
+            _, want = loss_fn(model, mcfg, (imgs, *ks), fp_weights, "flowposenet", **plain)
+            reset_counts()
+            _, got = loss_fn(model, mcfg, (imgs, *ks), fp_weights, "flowposenet")
+        fwd_counts = counts()
+        for k in want:
+            if not (torch.isfinite(got[k]) and torch.isfinite(want[k])):
+                raise AssertionError(f"flowposenet parity {dtype}: non-finite {k}")
+            torch.testing.assert_close(got[k], want[k], rtol=rtol, atol=1e-6)
+        if fwd_counts != c.want({**dict.fromkeys(KERNELS, 0), "corr_fwd": 5,
+                                 "photometric_fwd": 3}):
+            raise AssertionError(f"flowposenet forward launches {fwd_counts}")
+        print(f"flowpose (a): losses {dtype} kernels vs plain (rtol {rtol}): "
+              + json.dumps({k: [float(got[k]), float(want[k])] for k in want}))
+    cfg32 = FlowModelConfig()
+
+    def grads(x, **fns):
+        model.zero_grad(set_to_none=True)
+        total, _ = loss_fn(model, cfg32, (x, *ks), fp_weights, "flowposenet", **fns)
+        total.backward()
+        return torch.cat([p.grad.ravel() for _, p in sorted(model.named_parameters())])
+
+    want_g = grads(imgs, **plain)
+    noise = _rel_l2(grads(torch.nextafter(imgs, torch.full_like(imgs, 2.0)), **plain), want_g)
+    err = _rel_l2(grads(imgs), want_g)
+    print(f"flowpose (a): float32 weighted-total gradient (flow and pose, "
+          f"{want_g.numel()} values), kernels vs plain rel L2 {err:.3e}, plain vs plain on "
+          f"snippets one ulp away {noise:.3e}")
+    if err > max(1e-4, noise):
+        raise AssertionError("flowposenet step parity failed: total gradient")
+    del model, want_g
+    c.empty_cache()
+
+    # (b) --freeze_flow: the flow branch bit-identical, every pose tensor moved
+    cfg = train_cli.recipe_config(
+        mode="flowposenet", freeze_flow=True, num_iterations=c.freeze_steps, init_scheme="pwc",
+        seed=SEED + 22, log_interval=1000, save_interval=100000, batch_size=batch_n,
+        model_dir=os.path.join(root, "b"), num_workers=4, img_hw=c.img_hw)
+    os.makedirs(cfg.model_dir, exist_ok=True)
+    start = FlowPoseModel(FlowModelConfig(), device=device, scheme="pwc",
+                          generator=torch.Generator().manual_seed(SEED + 22))
+    on_step, metrics, ms = step_events()
+    reset_counts()
+    res = train_cli.train(cfg, dataset=PoseSnippets(c.img_hw, c.freeze_steps * batch_n,
+                                                    SEED + 22), device=device, on_step=on_step)
+    c.sync()
+    frozen_counts = counts()
+    flow_same = [torch.equal(a, b) for a, b in zip(start.flow.parameters(),
+                                                   res.model.flow.parameters())]
+    pose_moved = [not torch.equal(a, b) for a, b in zip(start.pose.parameters(),
+                                                        res.model.pose.parameters())]
+    want = {k: c.freeze_steps * v for k, v in c.want(PER_STEP_FROZEN).items()}
+    if not all(flow_same) or not all(pose_moved) or frozen_counts != want \
+            or any(p.requires_grad for p in res.model.flow.parameters()):
+        raise AssertionError(f"--freeze_flow: {sum(flow_same)} of {len(flow_same)} flow tensors "
+                             f"unchanged, {sum(pose_moved)} of {len(pose_moved)} pose tensors "
+                             f"moved, launches {frozen_counts} (want {want})")
+    print(f"flowpose (b): --freeze_flow, {c.freeze_steps} float32 steps: {len(flow_same)} flow "
+          f"tensors bit-identical, all {len(pose_moved)} pose tensors moved; launches "
+          f"{_launched(frozen_counts)} ({_launched(c.want(PER_STEP_FROZEN))} a step: no "
+          f"correlation- or photometric-backward kernel, the flow branch has "
+          f"requires_grad=False); ms/step {ms(1):.3f}")
+    del res, start
+    c.empty_cache()
+
+    # (c) train.main: flowposenet on a raw KITTI odometry tree, then NYU 2-frame
+    seqs = os.path.join(root, "odometry", "sequences")
+    frames = SyntheticSnippets(c.kitti_hw, 2, seed=SEED + 23).snippets[:2].reshape(
+        6, c.kitti_hw[0], c.kitti_hw[1], 3)
+    img_dir = os.path.join(seqs, "00", "image_2")
+    os.makedirs(img_dir, exist_ok=True)
+    for i, f in enumerate(frames):
+        imageio.imwrite(os.path.join(img_dir, f"{i:06d}.png"), f)
+    with open(os.path.join(seqs, "00", "calib.txt"), "w") as f:
+        f.write("P2: 721.5 0.0 609.6 44.9 0.0 721.5 172.9 0.2 0.0 0.0 1.0 0.003\n")
+
+    def yaml16(name, **keys):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            f.write("".join(f"{k}: {v}\n" for k, v in {
+                "num_scales": 3, "w_ssim": 0.85, "w_flow_smooth": 10.0, "w_flow_consis": 0.01,
+                "w_pose_epipolar": 1.0, **keys}.items()))
+        return path
+
+    odo = dict(raw_base_dir=f"'{seqs}'", prepared_base_dir=f"'{os.path.join(root, 'odo_prep')}'",
+               dataset="'kitti_odo'", img_hw=f"[{h}, {w}]")
+    dir_c = os.path.join(root, "models_odo")
+    main_args = ["--no_test", "--batch_size", str(batch_n), "--num_workers", "4",
+                 "--log_interval", "1", "--mode", "flowposenet", "--model_dir", dir_c, *c.cli]
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = train_cli.main(["-c", yaml16("odo.yaml", num_iterations=c.steps, **odo),
+                             "--save_interval", "1000", "--init_scheme", "pwc", *main_args])
+    c.sync()
+    t_odo = time.perf_counter() - t0
+    odo_counts = counts()
+    log = out.getvalue()
+    n_odo = sum(1 for _ in open(os.path.join(root, "odo_prep", "data_s1", "train.txt")))
+    last_odo = os.path.join(dir_c, "flowposenet", "last.pth")
+    if rc != 0 or odo_counts != {k: c.steps * v for k, v in c.want(PER_STEP).items()} \
+            or "Data Preparation Finished." not in log or n_odo != len(frames) - 1 \
+            or log.count("loss_pose_epipolar") != c.steps or not os.path.exists(last_odo):
+        raise AssertionError(f"train.main flowposenet kitti_odo: rc {rc}, launches {odo_counts}, "
+                             f"{n_odo} snippets, log:\n{log}")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = train_cli.main(["-c", yaml16("odo_resume.yaml", num_iterations=c.steps + 1, **odo),
+                             "--resume", *main_args])
+    log_r = out.getvalue()
+    resumed = [int(x) for x in re.findall(r"^iter: (\d+),", log_r, flags=re.M)]
+    # last.pth holds the last iteration done, c.steps - 1, where the resume starts
+    if rc != 0 or counts() != {k: 2 * v for k, v in c.want(PER_STEP).items()} \
+            or f"at iteration {c.steps - 1}." not in log_r or resumed != [c.steps - 1, c.steps]:
+        raise AssertionError(f"--resume flowposenet: rc {rc}, log:\n{log_r}")
+    print(f"flowpose (c): train.main --mode flowposenet on a raw KITTI odometry sequence "
+          f"({len(frames)} frames at {c.kitti_hw}) prepared by KITTI_Odo into {n_odo} "
+          f"snippets, {c.steps} float32 steps at batch {batch_n} {h}x{w} in {t_odo:.2f} s, "
+          f"launches {_launched(odo_counts)}; --resume from last.pth ran iterations {resumed}")
+
+    nh, nw = c.nyu_hw
+    nyu = os.path.join(root, "nyu_prep", "data_s1")
+    os.makedirs(os.path.join(nyu, "scene"), exist_ok=True)
+    nyu_frames = SyntheticSnippets(c.nyu_frame_hw, 2, seed=SEED + 24).snippets
+    lines = []
+    for i in range(c.nyu_snippets):
+        snip = nyu_frames[i % 2]
+        pair = snip[:2 * c.nyu_frame_hw[0]] if i % 4 < 2 else snip[c.nyu_frame_hw[0]:]
+        imageio.imwrite(os.path.join(nyu, "scene", f"{i:04d}.png"), np.ascontiguousarray(pair))
+        lines.append(f"scene/{i:04d}.png calib_cam_to_cam.txt\n")
+    with open(os.path.join(nyu, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(preparers._NYU_INTRINSICS_LINE)
+    with open(os.path.join(nyu, "train.txt"), "w") as f:
+        f.writelines(lines)
+    nyu_keys = dict(prepared_base_dir=f"'{os.path.dirname(nyu)}'", dataset="'nyuv2'",
+                    img_hw=f"[{nh}, {nw}]")
+    nyu_rates = {}
+    for mode in ("flowposenet", "flow"):
+        on_step, metrics, ms = step_events()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = train_cli.main(["-c", yaml16(f"nyu_{mode}.yaml", num_iterations=c.steps,
+                                              **nyu_keys),
+                                 "--no_test", "--batch_size", str(batch_n), "--num_workers",
+                                 "4", "--log_interval", "1", "--save_interval", "1000",
+                                 "--init_scheme", "pwc", "--mode", mode, "--model_dir",
+                                 os.path.join(root, "models_nyu"), *c.cli])
+        c.sync()
+        t_nyu = time.perf_counter() - t0
+        nyu_counts = counts()
+        log = out.getvalue()
+        if rc != 0 or nyu_counts != {k: c.steps * v for k, v in c.want(PER_STEP_PAIR).items()} \
+                or log.count("loss_pixel") != c.steps \
+                or (mode == "flowposenet") != ("loss_pose_epipolar" in log):
+            raise AssertionError(f"train.main {mode} nyuv2: rc {rc}, launches {nyu_counts}, "
+                                 f"log:\n{log}")
+        rates_logged = [float(x) for x in re.findall(r"snippets_per_sec: ([0-9.e+-]+)", log)]
+        nyu_rates[mode] = (t_nyu, statistics.median(rates_logged) if rates_logged else
+                           float("nan"))
+    ds = NYU_v2(nyu, num_scales=3, img_hw=c.nyu_hw, num_iterations=c.loader_snippets)
+    ds[0]  # the maps, once
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b[0]) for b in BatchLoader(ds, batch_size=batch_n, num_workers=4))
+    nyu_loader = n_loaded / (time.perf_counter() - t0)
+
+    class PairSnippets:
+        """NYU_v2's samples in memory: (2H, W, 3) float32 pairs, K_ms, K_inv_ms
+        (NYU's intrinsics rescaled as NYU_v2 rescales them)."""
+
+        num_frames = 2
+
+        def __init__(self, n):
+            snips = SyntheticSnippets(c.nyu_hw, n, seed=SEED + 28).snippets
+            self.pairs = snips[:, :2 * nh].astype(np.float32) / 255.0
+            k = np.array(preparers._NYU_INTRINSICS_LINE.split()[1:], float).reshape(3, 4)[:, :3]
+            k[0] *= nh / c.nyu_frame_hw[0]
+            k[1] *= nw / c.nyu_frame_hw[1]
+            ks = [np.diag([0.5**s, 0.5**s, 1.0]) @ k for s in range(3)]
+            self.k = np.stack(ks).astype(np.float32)
+            self.k_inv = np.stack([np.linalg.inv(x) for x in ks]).astype(np.float32)
+            self.n = n
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, idx):
+            if idx >= self.n:
+                raise IndexError(idx)
+            return self.pairs[idx % len(self.pairs)], self.k, self.k_inv
+
+    pair_rates = {}
+    for mode in ("flowposenet", "flow"):
+        cfg = train_cli.recipe_config(
+            mode=mode, dataset="nyuv2", num_iterations=c.fp_steps, init_scheme="pwc",
+            seed=SEED + 28, img_hw=c.nyu_hw, log_interval=1000, save_interval=100000,
+            batch_size=batch_n, model_dir=os.path.join(root, f"pair_{mode}"), num_workers=4)
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        on_step, metrics, ms = step_events()
+        reset_counts()
+        train_cli.train(cfg, dataset=PairSnippets(c.fp_steps * batch_n), device=device,
+                        on_step=on_step)
+        c.sync()
+        got = counts()
+        if got != {k: c.fp_steps * v for k, v in c.want(PER_STEP_PAIR).items()} \
+                or not all(bool(torch.isfinite(v)) for m in metrics for v in m.values()):
+            raise AssertionError(f"2-frame {mode} steps: launches {got}")
+        pair_rates[mode] = ms()
+
+    # the 2-frame step against its plain version on one batch of these pairs:
+    # each decoder level's correlation forward and backward at this step's
+    # shapes, the losses of both modes, the float32 whole-step gradient
+    pairs = PairSnippets(batch_n)
+    x2 = torch.from_numpy(np.stack([pairs[i][0] for i in range(batch_n)])).to(device)
+    k2 = [torch.from_numpy(np.repeat(a[:1], batch_n, 0)).to(device) for a in (pairs.k, pairs.k_inv)]
+    model2 = FlowPoseModel(FlowModelConfig(), device=device, scheme="pwc",
+                           generator=torch.Generator().manual_seed(SEED + 29))
+    levels = []
+
+    def record(f1, f2, md=MD):
+        levels.append((f1.detach(), f2.detach()))
+        return cost_volume(f1, f2, md)
+
+    with torch.no_grad():
+        loss_fn(model2, cfg32, (x2, *k2), fp_weights, "flowposenet", 2, corr_fn=record)
+    gen2 = torch.Generator().manual_seed(SEED + 29)
+    reset_counts()
+    held = []
+    for f1, f2 in levels:
+        a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        got = cost_volume(a, b, MD)
+        g = torch.randn(got.shape, generator=gen2).to(device)
+        d1, d2 = torch.autograd.grad(got, (a, b), g)
+        torch.testing.assert_close(got.detach(), cost_volume_reference(f1, f2, MD),
+                                   rtol=1e-5, atol=1e-6)
+        held.append([_hold_bwd(torch, d1, corr_df1_reference(g, f2, MD), 1e-5, 1e-6,
+                               lambda: corr_df1_reference(g.abs(), f2.abs(), MD)),
+                     _hold_bwd(torch, d2, corr_df2_reference(g, f1, MD), 1e-5, 1e-6,
+                               lambda: corr_df2_reference(g.abs(), f1.abs(), MD))])
+    n_lv = len(levels)
+    level_counts = counts()
+    if n_lv != 5 or level_counts != c.want({**dict.fromkeys(KERNELS, 0), "corr_fwd": n_lv,
+                                            "corr_bwd_df1": n_lv, "corr_bwd_df2": n_lv}):
+        raise AssertionError(f"2-frame decoder levels: {n_lv} levels, launches {level_counts}")
+    pair_losses = {}
+    for mode in ("flowposenet", "flow"):
+        w2 = loss_weights_from_config(types.SimpleNamespace(mode=mode))
+        m2, batch2 = (model2, (x2, *k2)) if mode == "flowposenet" else (model2.flow, x2)
+        with torch.no_grad():
+            _, want = loss_fn(m2, cfg32, batch2, w2, mode, 2, corr_fn=cost_volume_reference)
+            _, got = loss_fn(m2, cfg32, batch2, w2, mode, 2)
+        for k in want:
+            if not (torch.isfinite(got[k]) and torch.isfinite(want[k])):
+                raise AssertionError(f"2-frame {mode} parity: non-finite {k}")
+            torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
+        pair_losses[mode] = {k: [float(got[k]), float(want[k])] for k in want}
+
+    def grads2(x, **fns):
+        model2.zero_grad(set_to_none=True)
+        total, _ = loss_fn(model2, cfg32, (x, *k2), fp_weights, "flowposenet", 2, **fns)
+        total.backward()
+        return torch.cat([p.grad.ravel() for _, p in sorted(model2.named_parameters())])
+
+    want_g2 = grads2(x2, corr_fn=cost_volume_reference)
+    noise2 = _rel_l2(grads2(torch.nextafter(x2, torch.full_like(x2, 2.0)),
+                            corr_fn=cost_volume_reference), want_g2)
+    err2 = _rel_l2(grads2(x2), want_g2)
+    print(f"flowpose (c): the 2-frame step at {batch_n}x{nh}x{nw} against its plain version: "
+          f"the decoder's {n_lv} correlation levels "
+          f"{[tuple(f1.shape) for f1, _ in levels]} forward within 1e-5, backward (df1, df2) "
+          f"held by {held}; losses float32 kernels vs plain (rtol 1e-4): "
+          + json.dumps(pair_losses) + f"; flowposenet weighted-total gradient "
+          f"({want_g2.numel()} values) rel L2 {err2:.3e}, plain vs plain on pairs one ulp "
+          f"away {noise2:.3e}")
+    if err2 > max(1e-4, noise2):
+        raise AssertionError("2-frame step parity failed: total gradient")
+    del model2, want_g2, levels
+    c.empty_cache()
+    print(f"flowpose (c): train.main dataset nyuv2 ({c.nyu_snippets} prepared 2-frame snippets "
+          f"of {c.nyu_frame_hw} frames, NYU's calibration) at {nh}x{nw}, {c.steps} float32 steps "
+          f"at batch {batch_n} each: " + ", ".join(
+              f"{m} {t:.2f} s, {r:.1f} snippets/s logged" for m, (t, r) in nyu_rates.items())
+          + f"; launches per 2-frame step {_launched(c.want(PER_STEP_PAIR))}; the NYU loader "
+          f"(numpy undistortion, decode, resize, 4 threads): {nyu_loader:.1f} snippets/s "
+          f"against the "
+          f"2-frame float32 step from memory ({c.fp_steps} steps, median CUDA-event interval): "
+          + ", ".join(f"{m} {v:.3f} ms/step ({batch_n / v * 1e3:.1f} snippets/s)"
+                      for m, v in pair_rates.items()) + f" ({c.smi})")
+
+    # (d) test.main --task kitti_odo with (c)'s weights, then the odometry metric
+    seq16 = os.path.join(root, "seq16", "image_2")
+    os.makedirs(seq16, exist_ok=True)
+    odo_frames = SyntheticSnippets(c.odo_hw, 1, seed=SEED + 25).snippets
+    odo_frames = odo_frames.reshape(-1, c.odo_hw[0], c.odo_hw[1], 3)[:c.odo_frames]
+    for i, f in enumerate(odo_frames):
+        imageio.imwrite(os.path.join(seq16, f"{i:06d}.png"), np.ascontiguousarray(f))
+    result = os.path.join(root, "seq16_poses.txt")
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        path = evaluation.main(["-c", yaml16("odo_test.yaml", img_hw=f"[{h}, {w}]"), "--mode",
+                                "flowposenet", "--task", "kitti_odo", "--seq_dir",
+                                os.path.dirname(seq16), "--result_txt", result,
+                                "--pretrained_model", last_odo, *c.cli])
+    c.sync()
+    t_test = time.perf_counter() - t0
+    poses = np.loadtxt(path)
+    if path != result or poses.shape != (c.odo_frames, 12) or not np.isfinite(poses).all() \
+            or counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"kitti_odo: {poses.shape} poses from {path}, launches {counts()}")
+    pose_model = FlowPoseModel(FlowModelConfig(), device=device)
+    ckpt_iter = load_pretrained(pose_model, last_odo)
+    pair = torch.rand((2, 1, h, w, 3), generator=torch.Generator().manual_seed(SEED + 26))
+    pair = pair.to(device)
+
+    def pose_call():
+        with torch.inference_mode():
+            inference_pose(pose_model, pair[0], pair[1])
+
+    pose_ms = _time_ms(torch, pose_call, reps=5, inner=5) if device.type == "cuda" \
+        else float("nan")
+    n = 240
+    yaw = np.cumsum(np.random.RandomState(SEED + 27).randn(n) * 0.02)
+    gt = np.zeros((n, 3, 4))
+    pos = np.cumsum(np.stack([np.sin(yaw), np.zeros(n), np.cos(yaw)], 1), 0)
+    for i, (a, p) in enumerate(zip(yaw, pos)):
+        gt[i, :, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        gt[i, :, 3] = p
+    pred = gt.copy()
+    pred[:, :, 3] *= 0.5
+    for name, arr in (("gt.txt", gt), ("pred.txt", pred)):
+        np.savetxt(os.path.join(root, name), arr.reshape(n, 12), fmt="%.12e")
+    with contextlib.redirect_stdout(io.StringIO()):
+        t_err, r_err = KittiEvalOdom().eval(os.path.join(root, "gt.txt"),
+                                            os.path.join(root, "pred.txt"), plot=False)
+    if not (t_err < 1e-9 and r_err < 1e-9):
+        raise AssertionError(f"eval_odom: the 0.5-scaled trajectory aligns to errors "
+                             f"{t_err}, {r_err}")
+    print(f"flowpose (d): test.main --mode flowposenet --task kitti_odo (weights of (c), "
+          f"iteration {ckpt_iter}) on {c.odo_frames} frames at {c.odo_hw}: {len(poses)} pose "
+          f"lines in {t_test:.2f} s ({t_test / (c.odo_frames - 1) * 1e3:.1f} ms a pose pair, "
+          f"reading and resizing included; the pose net alone {pose_ms:.3f} ms a pair at "
+          f"{h}x{w}, CUDA events); KittiEvalOdom on {n} poses 1 m apart against the same "
+          f"trajectory with translations x 0.5: t_err {t_err:.3e}, r_err {r_err:.3e} after "
+          f"Umeyama; phase 16 in {time.perf_counter() - t16:.1f} s ({c.smi})")
 
 
 def main() -> int:
@@ -2233,6 +2743,17 @@ def main() -> int:
         sync=torch.cuda.synchronize, cli=[], smi=smi, loader_rate=loader_rate, need=need))
     torch.cuda.empty_cache()
 
+    # ---- 16. flow + pose: the flowposenet step, --freeze_flow, NYU, odometry --
+    flowpose(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, kitti_hw=KITTI_HW, batch=BATCH, steps=ENTRY_STEPS,
+        fp_steps=FP_STEPS, fp_bf16_steps=FP_BF16_STEPS, freeze_steps=FREEZE_STEPS,
+        nyu_frame_hw=NYU_FRAME_HW, nyu_hw=NYU_HW, nyu_snippets=NYU_SNIPPETS,
+        odo_hw=KITTI_HW, odo_frames=ODO_FRAMES, loader_snippets=LOADER_SNIPPETS,
+        root=os.path.join(model_dir, "flowpose16"), counts=counts, reset_counts=reset_counts,
+        want=lambda d: d, sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache,
+        cli=[], smi=smi, flow_ms={"float32": ms_step, "bfloat16": ms_step_bf16}))
+    torch.cuda.empty_cache()
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
@@ -2257,7 +2778,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 15 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: 16 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,6 +12,13 @@
   rule;
 - ``test.py --task export_pth`` from a ``.ckpt`` equals the JAX
   ``export_torch_checkpoint``;
+- flowposenet trees: a JAX ``.ckpt`` of ``{"flow", "pose"}``, joint and
+  ``--freeze_flow`` (optax's ``multi_transform`` state), read into a
+  ``FlowPoseModel`` with weights and Adam state bit-equal; the port's
+  ``save_flax_checkpoint`` of one restored by the JAX ``restore_checkpoint``
+  under the same ``freeze_flow``; a resume under the other ``freeze_flow``
+  refused with ``ValueError`` (``.ckpt`` and ``.pth``); a flow ``.pth``
+  warm-starting ``model.flow`` only;
 - ``AsyncCheckpointer``: ordered writes with ``last.pth`` the newest, a
   snapshot that an in-place update after ``save()`` does not reach, a queue
   that blocks at 2, and a failing write raised by the next call while
@@ -33,13 +40,14 @@ import jax.numpy as jnp
 from flax import serialization
 
 from unopticalflow_tpu.models import FlowModelConfig as JaxFlowModelConfig
-from unopticalflow_tpu.models import init_flow_model
+from unopticalflow_tpu.models import init_flow_model, init_flowpose_model
 from unopticalflow_tpu.training import create_train_state, make_train_step
+from unopticalflow_tpu.training.train_step import make_optimizer as jax_make_optimizer
 from unopticalflow_tpu.utils import checkpoint as jax_ckpt
 from unopticalflow_tpu.utils.torch_convert import export_torch_checkpoint
 from unopticalflow_tpu_torch import test as port_test
 from unopticalflow_tpu_torch.benchmarks import sanity_train
-from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
+from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, FlowPoseModel
 from unopticalflow_tpu_torch.training import make_optimizer, train_step
 from unopticalflow_tpu_torch.utils import checkpoint as ckpt
 from unopticalflow_tpu_torch.utils import flax_msgpack
@@ -389,3 +397,127 @@ def test_async_write_error_surfaces_and_close_still_joins(tmp_path, monkeypatch)
     saver.close()  # closed: nothing left to raise
     with pytest.raises(RuntimeError, match="closed"):
         saver.save([str(tmp_path / "e.pth")], 4, model, opt)
+
+
+# ---------------------------------------------------------------------------
+# flowposenet trees
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def flowpose_states():
+    """JAX flowposenet train states after 2 Adam updates of random gradients
+    (numpy leaves), joint and ``freeze_flow``."""
+    params = jax.jit(init_flowpose_model, static_argnames="scheme")(
+        jax.random.PRNGKey(1), scheme="pwc")
+    rng = np.random.RandomState(2)
+    states = {}
+    for frozen in (False, True):
+        state = create_train_state(params, lr=LR, freeze_flow=frozen)
+        tx = jax_make_optimizer(LR, frozen)
+        p, opt_state = state.params, state.opt_state
+        for _ in range(2):
+            g = jax.tree.map(lambda x: jnp.asarray(rng.randn(*x.shape).astype(np.float32)), p)
+            upd, opt_state = tx.update(g, opt_state, p)
+            p = jax.tree.map(lambda a, u: a + u, p, upd)
+        states[frozen] = (_host(p), _host(opt_state))
+    return states
+
+
+def _adam_of(opt_state, frozen):
+    return opt_state.inner_states["train"].inner_state[0] if frozen else opt_state[0]
+
+
+def _flowpose_port(frozen):
+    """A port model and its optimizer, set up as the trainer sets them up."""
+    model = FlowPoseModel(FlowModelConfig(num_scales=3), device="cpu")
+    if frozen:
+        model.flow.requires_grad_(False)
+    return model, make_optimizer(model, LR, freeze_flow=frozen)
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["joint", "freeze_flow"])
+def test_jax_flowpose_ckpt_restores_bit_equal(flowpose_states, frozen, tmp_path):
+    params, opt_state = flowpose_states[frozen]
+    path = str(tmp_path / "fp.ckpt")
+    jax_ckpt.save_checkpoint(path, 5, params, opt_state)
+    model, opt = _flowpose_port(frozen)
+    assert ckpt.restore_checkpoint(path, model, opt) == 5
+    want = params_to_torch_state_dict(params)
+    sd = model.state_dict()
+    assert set(sd) == set(want) and any(k.startswith("pose.") for k in sd)
+    assert all(np.array_equal(sd[k].numpy(), want[k]) for k in want)
+    adam = _adam_of(opt_state, frozen)
+    mu, nu = (params_to_torch_state_dict(t) for t in (adam.mu, adam.nu))
+    held = {n for n, p in model.named_parameters() if p in opt.state}
+    assert held == set(mu) == set(nu)
+    assert all(n.startswith("pose.") for n in held) if frozen else len(held) == len(sd)
+    for n, p in model.named_parameters():
+        if n in held:
+            s_ = opt.state[p]
+            assert np.array_equal(s_["exp_avg"].numpy(), mu[n]), n
+            assert np.array_equal(s_["exp_avg_sq"].numpy(), nu[n]), n
+            assert float(s_["step"]) == float(adam.count) == 2.0
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["joint", "freeze_flow"])
+def test_port_flowpose_ckpt_is_read_by_jax(flowpose_states, frozen, tmp_path):
+    """2 port steps of random gradients, ``save_flax_checkpoint``, then the
+    JAX ``restore_checkpoint`` into the same ``freeze_flow``'s templates."""
+    params, opt_state = flowpose_states[frozen]
+    model, opt = _flowpose_port(frozen)
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(2):
+        for p in model.parameters():
+            if p.requires_grad:
+                p.grad = torch.randn(p.shape, generator=gen)
+        opt.step()
+    path = str(tmp_path / "port_fp.ckpt")
+    ckpt.save_flax_checkpoint(path, 4, model, opt)
+    it, got_params, got_opt = jax_ckpt.restore_checkpoint(path, params, opt_state)
+    assert it == 4
+    sd = model.state_dict()
+    got = params_to_torch_state_dict(_host(got_params))
+    assert set(got) == set(sd) and all(np.array_equal(got[k], sd[k].numpy()) for k in sd)
+    adam = _adam_of(got_opt, frozen)
+    assert int(adam.count) == 2
+    by_name = dict(model.named_parameters())
+    for tree, key in ((adam.mu, "exp_avg"), (adam.nu, "exp_avg_sq")):
+        got = params_to_torch_state_dict(_host(tree))
+        assert set(got) == {n for n, p in by_name.items() if p.requires_grad}
+        for n, v in got.items():
+            assert np.array_equal(v, opt.state[by_name[n]][key].numpy()), n
+
+
+def test_a_resume_under_the_other_freeze_flow_is_refused(flowpose_states, tmp_path):
+    for frozen in (False, True):
+        params, opt_state = flowpose_states[frozen]
+        path = str(tmp_path / f"fp_{frozen}.ckpt")
+        jax_ckpt.save_checkpoint(path, 5, params, opt_state)
+        with pytest.raises(ValueError, match="--freeze_flow"):
+            ckpt.restore_checkpoint(path, *_flowpose_port(not frozen))
+        model, opt = _flowpose_port(frozen)
+        pth = str(tmp_path / f"fp_{frozen}.pth")
+        ckpt.save_checkpoint([pth], 5, model, opt)
+        with pytest.raises(ValueError, match="--freeze_flow"):
+            ckpt.restore_checkpoint(pth, *_flowpose_port(not frozen))
+        assert ckpt.restore_checkpoint(pth, *_flowpose_port(frozen)) == 5
+    # a flowposenet .ckpt is no flow-mode state, and a flow one no flowposenet state
+    with pytest.raises(ValueError, match="not a flow-mode train state"):
+        ckpt.load_pretrained(FlowModel(device="cpu"), path)
+    flow_ckpt = str(tmp_path / "flow.ckpt")
+    jax_ckpt.save_checkpoint(flow_ckpt, 1, flowpose_states[False][0]["flow"])
+    with pytest.raises(ValueError, match="not a flowposenet train state"):
+        ckpt.load_pretrained(FlowPoseModel(device="cpu"), flow_ckpt)
+
+
+def test_a_flow_pth_warm_starts_the_flow_branch_only(tmp_path):
+    flow = FlowModel(FlowModelConfig(num_scales=3), device="cpu", scheme="pwc",
+                     generator=torch.Generator().manual_seed(4))
+    pth = port_test.export_pth(str(tmp_path / "flow.pth"), flow, 7)
+    model = FlowPoseModel(FlowModelConfig(num_scales=3), device="cpu")
+    pose0 = {k: v.clone() for k, v in model.pose.state_dict().items()}
+    assert ckpt.load_pretrained(model.flow, pth) == 7
+    assert all(torch.equal(a, b) for a, b in zip(model.flow.state_dict().values(),
+                                                 flow.state_dict().values()))
+    assert all(torch.equal(v, model.pose.state_dict()[k]) for k, v in pose0.items())

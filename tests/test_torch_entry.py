@@ -232,8 +232,28 @@ def test_sintel_raw_trains(tmp_path):
     cfg.no_test, cfg.gt_2012_dir, cfg.gt_2015_dir = False, str(tmp_path / "no"), None
     with pytest.raises(FileNotFoundError, match="gt_2012_dir"):
         train_mod.train(cfg)
-    cfg.dataset = "nyuv2"
-    with pytest.raises(NotImplementedError, match="sintel_raw"):
+    # dataset nyuv2 now trains (2-frame snippets, undistorted, intrinsics per
+    # scale); an unknown dataset is refused
+    nyu = tmp_path / "nyu" / "data_s1"
+    (nyu / "s").mkdir(parents=True)
+    rng = np.random.RandomState(5)
+    with open(nyu / "train.txt", "w") as f:
+        for i in range(2):
+            imageio.imwrite(str(nyu / "s" / f"{i}.png"),
+                            rng.randint(0, 256, (2 * 96, 128, 3)).astype(np.uint8))
+            f.write(f"s/{i}.png calib_cam_to_cam.txt\n")
+    (nyu / "calib_cam_to_cam.txt").write_text(
+        "P_rect: 5.1885790117450188e+02 0.0 3.2558244941119034e+02 0.0 "
+        "0.0 5.1946961112127485e+02 2.5373616633400465e+02 0.0 0.0 0.0 1.0 0.0")
+    cfg.no_test, cfg.dataset, cfg.mode = True, "nyuv2", "flowposenet"
+    cfg.prepared_base_dir, cfg.model_dir = str(tmp_path / "nyu"), str(tmp_path / "m_nyu")
+    os.makedirs(cfg.model_dir)
+    losses = []
+    res = train_mod.train(cfg, on_step=lambda it, m: losses.append(
+        [float(m[k]) for k in ("loss_pixel", "loss_pose_epipolar")]))
+    assert res.step == 2 and len(losses) == 2 and np.isfinite(losses).all()
+    cfg.dataset = "kitti_2012"
+    with pytest.raises(NotImplementedError, match="nyuv2, sintel_raw"):
         train_mod.train(cfg)
 
 

@@ -190,9 +190,11 @@ def test_kitti_2015_end_to_end(kitti_tree, tmp_path, monkeypatch):
     want = jax_eval_flow_avg(gts, nocs, [f.numpy() for f in flows], cfg, moving_masks=masks)
     np.testing.assert_allclose(values, _values(want)[1], rtol=0, atol=1e-4 + 1e-9)
 
-    for task in port_test.LATER_TASKS:
-        with pytest.raises(ValueError, match="waits for"):
-            port_test.main(argv[:5] + [task] + argv[6:])
+    # kitti_odo runs the pose net: it needs --mode flowposenet (and --seq_dir)
+    with pytest.raises(ValueError, match="kitti_odo needs --mode flowposenet"):
+        port_test.main(argv[:5] + ["kitti_odo"] + argv[6:])
+    with pytest.raises(ValueError, match="kitti_odo needs --seq_dir"):
+        port_test.main(argv[:3] + ["flowposenet", "--task", "kitti_odo"] + argv[6:])
 
 
 def test_train_evaluates_between_steps(tmp_path, monkeypatch, capsys):

@@ -125,5 +125,10 @@ print(json.dumps({{"names": names, "named": named, "by_path": by_path,
             "unopticalflow_tpu_torch.benchmarks.block_gather_probe",
             "unopticalflow_tpu_torch.benchmarks.sanity_train",
             "unopticalflow_tpu_torch.benchmarks.synthetic_epe",
-            "unopticalflow_tpu_torch.data.datasets"} <= set(got["names"])
+            "unopticalflow_tpu_torch.data.datasets",
+            "unopticalflow_tpu_torch.data.undistort",
+            "unopticalflow_tpu_torch.ops.geometry",
+            "unopticalflow_tpu_torch.models.pose_net",
+            "unopticalflow_tpu_torch.models.flowpose_model",
+            "unopticalflow_tpu_torch.evaluation.eval_odom"} <= set(got["names"])
     assert got["named"] == [] and got["by_path"] == [] and got["jax"] == []

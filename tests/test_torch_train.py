@@ -265,8 +265,20 @@ def test_trainer_refuses_what_this_slice_does_not_run(workspace):
     with pytest.raises(FileNotFoundError, match="gt_2012_dir.*--no_test"):
         train(_cfg(workspace, no_test=False, gt_2012_dir=str(workspace / "missing"),
                    gt_2015_dir=str(workspace / "missing")))
-    with pytest.raises(ValueError, match="flow only"):
-        train(_cfg(workspace, mode="flowposenet"))
+    # --mode flowposenet now trains (the intrinsics from the prepared calib
+    # files); an unknown mode is refused
+    fp_dir = workspace / "models_flowposenet"
+    fp_dir.mkdir(exist_ok=True)
+    losses = []
+    res = train(_cfg(workspace, mode="flowposenet", num_iterations=2, model_dir=str(fp_dir)),
+                on_step=lambda it, m: losses.append({k: float(v) for k, v in m.items()}))
+    assert res.step == 2 and len(losses) == 2
+    assert all(np.isfinite(list(m.values())).all() and "loss_pose_epipolar" in m
+               for m in losses)
+    assert (fp_dir / "last.pth").exists()
+    with pytest.raises(ValueError, match="--mode depth: the port trains --mode flow or "
+                                         "flowposenet"):
+        train(_cfg(workspace, mode="depth"))
     with pytest.raises(ValueError, match="config file needed"):
         main([])
     args = build_arg_parser().parse_args(["-c", "x.yaml", "--no_test"])

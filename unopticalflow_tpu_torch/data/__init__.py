@@ -10,9 +10,10 @@ from unopticalflow_tpu_torch.data.datasets import (
     KITTI_2012,
     KITTI_2015,
     KITTI_Prepared,
+    NYU_v2,
     SINTEL_Prepared,
 )
 from unopticalflow_tpu_torch.data.loader import BatchLoader, device_prefetch
 
-__all__ = ["BatchLoader", "KITTI_2012", "KITTI_2015", "KITTI_Prepared", "SINTEL_Prepared",
-           "device_prefetch"]
+__all__ = ["BatchLoader", "KITTI_2012", "KITTI_2015", "KITTI_Prepared", "NYU_v2",
+           "SINTEL_Prepared", "device_prefetch"]

@@ -211,6 +211,72 @@ class SINTEL_Prepared(StackedFrameDataset):
     has_intrinsics = False
 
 
+class NYU_v2(StackedFrameDataset):
+    """NYUv2 prepared 2-frame dataset with lens undistortion.
+
+    Returns (img, K_ms, K_inv_ms): the (2H, W, 3) float32 stack in [0, 1],
+    undistorted (``data/undistort.py``: cv2's optimal new camera at alpha 1,
+    its maps and bilinear remap, then the valid ROI), no flip; the
+    (num_scales, 3, 3) float32 intrinsics and inverses at each scale.  As in
+    the JAX package, the intrinsics are rescaled from the source size by the
+    height ratio in x and the width ratio in y (the reference's
+    ``rescale_intrinsics``), and the maps of the first sample serve all.
+    """
+
+    num_frames = 2
+    UNDIST_COEFF = np.array(
+        [2.07966153e-01, -5.8613825e-01, 7.223136313e-04, 1.047962719e-03, 4.98569866e-01]
+    )
+
+    def __init__(self, data_dir, num_scales=3, img_hw=(448, 576), num_iterations=None):
+        super().__init__(data_dir, num_scales, img_hw, num_iterations)
+        self._maps = None  # (LinearRemap, roi), built at the first sample
+
+    def rescale_intrinsics(self, K, img_hw_orig, img_hw_new):
+        K = K.copy()
+        K[0, :] *= img_hw_new[0] / img_hw_orig[0]
+        K[1, :] *= img_hw_new[1] / img_hw_orig[1]
+        return K
+
+    def get_multiscale_intrinsics(self, K, num_scales):
+        ks = []
+        for s in range(num_scales):
+            k = K.copy()
+            k[0, :] /= 2**s
+            k[1, :] /= 2**s
+            ks.append(k)
+        return np.stack(ks, 0), np.stack([np.linalg.inv(k) for k in ks], 0)
+
+    def undistort_img(self, img, K):
+        from unopticalflow_tpu_torch.data import undistort
+
+        h2 = img.shape[0] // 2
+        h, w = h2, img.shape[1]
+        if self._maps is None:
+            new_k, roi = undistort.optimal_new_camera_matrix(K, self.UNDIST_COEFF, (w, h))
+            mapx, mapy = undistort.init_undistort_rectify_map(K, self.UNDIST_COEFF, new_k,
+                                                              (w, h))
+            self._maps = (undistort.LinearRemap(mapx, mapy, (h, w)), roi)
+        remap, (x, y, rw, rh) = self._maps
+        out = [remap(i)[y:y + rh, x:x + rw] for i in (img[:h2], img[h2:])]
+        return np.concatenate(out, 0)
+
+    def __getitem__(self, idx):
+        if self.num_iterations is not None:
+            if idx >= self.num_iterations:
+                raise IndexError(idx)
+            idx, _ = self.rand_num(idx)
+        data = self.data_list[idx]
+        img = _imread(data["image_file"])
+        img_hw_orig = (img.shape[0] // 2, img.shape[1])
+        K_orig = self.read_cam_intrinsic(data["cam_intrinsic_file"])
+        K = self.rescale_intrinsics(K_orig, img_hw_orig, self.img_hw)
+        K_ms, K_inv_ms = self.get_multiscale_intrinsics(K, self.num_scales)
+        img = self.undistort_img(img, K_orig)
+        img = self.resize_img(img, self.img_hw).astype(np.float32) / 255.0
+        return img, K_ms.astype(np.float32), K_inv_ms.astype(np.float32)
+
+
 class KITTI_2012(StackedFrameDataset):
     """KITTI 2012 evaluation pairs: ``image_2/%06d_10|_11.png``."""
 

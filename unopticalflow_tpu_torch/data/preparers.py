@@ -11,7 +11,9 @@ interchangeable:
 * ``KITTI_Odo``: 2-frame stacks of odometry sequences 00-08 with their
   ``calib.txt``;
 * ``SINTEL_RAW``: 3-frame stacks of each scene's sorted files, with a
-  stride, no calibration.
+  stride, no calibration;
+* ``NYU_Prepare``: 2-frame stacks of NYUv2's raw ``.ppm`` scene directories
+  in the official train split, with NYU's intrinsics line.
 
 Frames are read and written by ``utils/imageio.py`` (cv2's ``imread``
 exactly; the writer filters rows as libpng does), so the preparers run
@@ -30,6 +32,12 @@ import shutil
 import numpy as np
 
 from unopticalflow_tpu_torch.utils import imageio
+
+# NYUv2's colour camera (the JAX package's calibration line)
+_NYU_INTRINSICS_LINE = (
+    "P_rect: 5.1885790117450188e+02 0.0 3.2558244941119034e+02 0.0 "
+    "0.0 5.1946961112127485e+02 2.5373616633400465e+02 0.0 0.0 0.0 1.0 0.0"
+)
 
 
 def _stack(paths):
@@ -223,5 +231,101 @@ class SINTEL_RAW:
         manifests = [os.path.join(output_dir, d, "train.txt")
                      for d in sorted(os.listdir(output_dir))
                      if os.path.isdir(os.path.join(output_dir, d))]
+        _concat_manifests(output_dir, manifests)
+        print("Data Preparation Finished.")
+
+
+# ---------------------------------------------------------------------------
+# NYUv2
+# ---------------------------------------------------------------------------
+
+
+def _nyu_worker(folder, data_dir, output_dir, stride, train_scenes):
+    scene_name = folder.split("/")[-1]
+    parts = scene_name.split("_")
+    scene_full = "_".join(parts[:-1]) + "_" + parts[-1][:4]
+    if scene_full not in train_scenes:
+        return
+    image_path = os.path.join(data_dir, folder)
+    dump = os.path.join(output_dir, folder)
+    os.makedirs(dump, exist_ok=True)
+    names = sorted(n for n in os.listdir(image_path) if n.endswith(".ppm"))
+    names = names[:-1]  # a scene's last .ppm is often truncated
+    lines = []
+    for n in range(len(names) - stride):
+        try:
+            a = imageio.read_ppm(os.path.join(image_path, names[n]))
+            b = imageio.read_ppm(os.path.join(image_path, names[n + stride]))
+        except ValueError:
+            continue
+        out = os.path.splitext(names[n])[0] + ".png"
+        # the JAX worker's imageio writes the RGB array as it is, so the file
+        # holds RGB; the port's writer takes BGR as cv2's does
+        rgb = np.concatenate([a, b], 0)
+        imageio.imwrite(os.path.join(dump, out), np.ascontiguousarray(rgb[:, :, ::-1]))
+        lines.append(f"{os.path.join(folder, out)} calib_cam_to_cam.txt\n")
+    with open(os.path.join(dump, "train.txt"), "w") as f:
+        f.writelines(lines)
+
+
+class NYU_Prepare:
+    """NYUv2 raw ``.ppm`` 2-frame snippets of the official train split.
+
+    ``data_dir`` holds ``<dir>/<scene>/*.ppm``; ``test_dir`` the labeled set
+    ``nyu_depth_v2_labeled.mat`` (HDF5: its ``scenes`` names each labeled
+    frame's scene) and ``splits.mat`` (``trainNdxs``/``testNdxs``, read with
+    scipy).  Reading the scene names needs ``h5py``.
+    """
+
+    def __init__(self, data_dir, test_dir):
+        self.data_dir = data_dir
+        self.test_data = os.path.join(test_dir, "nyu_depth_v2_labeled.mat")
+        self.splits = os.path.join(test_dir, "splits.mat")
+
+    def _split_scenes(self, key: str) -> list:
+        import scipy.io as sio
+
+        try:
+            import h5py
+        except ImportError:
+            raise ImportError(f"NYU_Prepare reads the scene names of {self.test_data} (HDF5) "
+                              "with h5py, which is not installed") from None
+        data = h5py.File(self.test_data, "r")
+        split = np.array(sio.loadmat(self.splits)[key]).squeeze(1)
+        scene_refs = data["scenes"][0][split - 1]
+        names = []
+        for ref in scene_refs:
+            name = "".join(chr(j) for j in data[ref][:])
+            if name not in names:
+                names.append(name)
+        return names
+
+    def get_test_scenes(self):
+        return self._split_scenes("testNdxs")
+
+    def get_train_scenes(self):
+        return self._split_scenes("trainNdxs")
+
+    def prepare_data_mp(self, output_dir, stride=10, num_processes=32):
+        if not os.path.isfile(os.path.join(output_dir, "train.txt")):
+            os.makedirs(output_dir, exist_ok=True)
+            folders = [os.path.join(d, s)
+                       for d in sorted(os.listdir(self.data_dir))
+                       if os.path.isdir(os.path.join(self.data_dir, d))
+                       for s in sorted(os.listdir(os.path.join(self.data_dir, d)))
+                       if os.path.isdir(os.path.join(self.data_dir, d, s))]
+            _run_pool(functools.partial(_nyu_worker, data_dir=self.data_dir,
+                                        output_dir=output_dir, stride=stride,
+                                        train_scenes=self.get_train_scenes()),
+                      folders, num_processes)
+
+        manifests = []
+        for d in sorted(os.listdir(output_dir)):
+            dd = os.path.join(output_dir, d)
+            if os.path.isdir(dd):
+                manifests += [os.path.join(dd, s, "train.txt") for s in sorted(os.listdir(dd))]
+        # the intrinsics first: the global train.txt is the completion sentinel
+        with open(os.path.join(output_dir, "calib_cam_to_cam.txt"), "w") as f:
+            f.write(_NYU_INTRINSICS_LINE)
         _concat_manifests(output_dir, manifests)
         print("Data Preparation Finished.")

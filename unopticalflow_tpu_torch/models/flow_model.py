@@ -72,7 +72,8 @@ def inference_flow(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
 
 
 def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
-            corr_fn=cost_volume, photo_fn=photometric_pack, reg_fn=regularizer_pack) -> dict:
+            corr_fn=cost_volume, photo_fn=photometric_pack, reg_fn=regularizer_pack,
+            return_aux: bool = False):
     """Training forward pass -> the four per-sample (B,) float32 losses.
 
     images: (B, 3H, W, 3) vertically stacked (prev, center, next) frames in
@@ -82,7 +83,10 @@ def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
     ``cfg.use_pallas_reg``, ``reg_fn`` (the fused smoothness and consistency
     sums); the occlusion ablation takes the unfused plain path instead.
     ``corr_fn``, ``photo_fn`` and ``reg_fn`` let a check run the plain
-    versions on the card.
+    versions on the card.  With ``return_aux``: (pack, {"flows": the packed
+    [bwd; fwd] (2B, 2, h, w) float32 flows of every level, finest first,
+    "weights": the detached (2B, 1, h, w) occlusion weights of each loss
+    scale}), for the flow+pose branch.
     """
     b, h3, w = images.shape[:3]
     h = h3 // 3
@@ -132,9 +136,72 @@ def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
         # the B-sized center pyramid: both packed halves share its edge weights
         smooth = losses.flow_smooth_loss(flows, pyr_c[:ns], ns)
         consis = losses.flow_consistency_loss(flows_fwd, flows_bwd, [w[b:] for w in weights], ns)
-    return {
+    pack = {
         "loss_pixel": loss_pixel[:b] + loss_pixel[b:],
         "loss_ssim": loss_ssim[:b] + loss_ssim[b:],
         "loss_flow_smooth": smooth[:b] + smooth[b:],
         "loss_flow_consis": consis,
     }
+    if return_aux:
+        return pack, {"flows": flows, "weights": [w.detach() for w in weights]}
+    return pack
+
+
+def forward_pair(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
+                 corr_fn=cost_volume, return_aux: bool = False):
+    """2-frame training forward pass (the JAX ``forward_pair``).
+
+    images: (B, 2H, W, 3) stacked (frame1, frame2) in [0, 1].  One encoder
+    pass at 2B and one decoder pass at 2B, packed ``[1->2; 2->1]``; the
+    photometric terms are weighted by the warp validity times a soft
+    forward-backward weight ``exp(-|f_ab + back|^2 / (|f_ab|^2 + |back|^2 +
+    1))``, ``back`` the backward flow resampled at ``x + f_ab(x)``, and go
+    through the plain ``losses`` (no photometric kernel, as in JAX).  The
+    consistency term compares f_ab against ``back``.  Returns the four (B,)
+    losses; with ``return_aux`` also {"flows", "weights"} as ``forward``
+    gives them.
+    """
+    b, h2, w = images.shape[:3]
+    h = h2 // 2
+    x = images.permute(0, 3, 1, 2)
+    img1, img2 = (x[:, :, i * h:(i + 1) * h].contiguous() for i in range(2))
+
+    feats = model.fpyramid(torch.cat([img1, img2], 0))
+    feats_src = list(feats)
+    feats_tgt = [torch.cat([f[b:], f[:b]], 0) for f in feats]
+    flows = [f.float() for f in model.pwc_model(feats_src, feats_tgt, (h, w), corr_fn=corr_fn)]
+
+    ld = getattr(torch, cfg.loss_dtype)
+    ns = cfg.num_scales
+    pyr1 = avg_pool_pyramid(img1.to(ld), len(flows))
+    pyr2 = avg_pool_pyramid(img2.to(ld), len(flows))
+    pyr_tgt = [torch.cat([p2, p1], 0) for p1, p2 in zip(pyr1[:ns], pyr2[:ns])]
+    pyr_src = [torch.cat([p1, p2], 0) for p1, p2 in zip(pyr1[:ns], pyr2[:ns])]
+    warped = [bilinear_warp(t, f, use_mask=True) for t, f in zip(pyr_tgt, flows)]
+
+    weights, backs = [], []
+    for s in range(ns):
+        f_ab = flows[s]
+        f_ba = torch.cat([f_ab[b:], f_ab[:b]], 0)
+        back = bilinear_warp(f_ba, f_ab, use_mask=False)
+        backs.append(back)
+        sq = ((f_ab + back) ** 2).sum(1, keepdim=True)
+        mag = (f_ab ** 2 + back ** 2).sum(1, keepdim=True)
+        soft = torch.exp(-sq / (mag + 1.0))
+        valid = 1.0 - (warped[s] == 0).all(1, keepdim=True).to(f_ab.dtype)
+        weights.append((soft * valid).detach().to(ld))
+    diffs = [(p - wp).abs().mean(1, keepdim=True) for p, wp in zip(pyr_src, warped)]
+
+    def halves(v):
+        return v[:b] + v[b:]
+
+    pack = {
+        "loss_pixel": halves(losses.masked_diff_loss(diffs, weights, ns)),
+        "loss_ssim": halves(losses.masked_ssim_loss(pyr_src, warped, weights, ns)),
+        "loss_flow_smooth": halves(losses.flow_smooth_loss(flows, pyr_src, ns)),
+        "loss_flow_consis": losses.flow_consistency_loss(
+            [f[:b] for f in flows[:ns]], [bk[:b] for bk in backs], [w[:b] for w in weights], ns),
+    }
+    if return_aux:
+        return pack, {"flows": flows, "weights": weights}
+    return pack

@@ -27,16 +27,17 @@ LEAKY_SLOPE = 0.1
 
 
 class Conv2d(nn.Conv2d):
-    """3x3 conv, padding = dilation, with the compute-dtype policy above."""
+    """``ksize`` x ``ksize`` conv (3 by default), padding = dilation * (ksize //
+    2) as the JAX ``raw_conv`` pads, with the compute-dtype policy above."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, dilation: int = 1,
-                 device=None):
-        super().__init__(in_ch, out_ch, 3, stride=stride, padding=dilation,
+                 device=None, ksize: int = 3):
+        super().__init__(in_ch, out_ch, ksize, stride=stride, padding=dilation * (ksize // 2),
                          dilation=dilation, device=device)
         self.compute_dtype: torch.dtype | None = None
 
     def reset_parameters(self, scheme: str = "torch", generator: torch.Generator | None = None):
-        fan_in = self.in_channels * 9
+        fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
         with torch.no_grad():
             if scheme == "pwc":
                 std = math.sqrt(2.0 / (1.0 + LEAKY_SLOPE**2)) / math.sqrt(fan_in)

@@ -1,5 +1,5 @@
 """Evaluation entry point of the port: KITTI and Sintel flow metrics, the
-flow demo, and the export to a reference ``.pth``.
+flow demo, the export to a reference ``.pth``, and KITTI odometry poses.
 
     python -m unopticalflow_tpu_torch.test -c config/kitti.yaml --mode flow \
         --task kitti_flow --pretrained_model model.pth [--precision float32] \
@@ -7,8 +7,13 @@ flow demo, and the export to a reference ``.pth``.
     ... --task sintel_flow [--sintel_dir <MPI-Sintel training/>]
     ... --task demo --image_path a.png --image_path2 b.png [--result_dir DIR]
     ... --task export_pth --pretrained_model last.ckpt [--output_pth out.pth]
+    ... --mode flowposenet --task kitti_odo --seq_dir <sequence with image_2/> \
+        [--result_txt poses.txt]
 
-Port of the root ``test.py`` for ``--mode flow`` (same flags).
+Port of the root ``test.py`` (same flags).  ``--mode flowposenet`` reads a
+flow + pose checkpoint: the flow tasks run its flow branch, ``export_pth``
+writes the flow branch, and ``kitti_odo`` runs its pose net over a
+sequence's consecutive frames (``test_kitti_odo``).
 ``--pretrained_model`` takes a ``.pth`` or the JAX package's ``.ckpt``.
 Pairs go through ``inference_flow`` in fixed batches of 8 on the device (5
 correlation kernels per batch); the metrics are
@@ -21,9 +26,6 @@ reference's ``{"iteration", "model_state_dict"}``.  Frames are read and
 resized by ``utils/imageio.py`` (PNG, as cv2 reads and resizes them).
 ``test_kitti_2012``/``test_kitti_2015`` are also the trainer's interleaved
 evaluation.
-
-Not here yet: ``--task kitti_odo`` (and ``--mode flowposenet``), which waits
-for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -35,12 +37,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
+from unopticalflow_tpu_torch.models import (
+    FlowModel,
+    FlowModelConfig,
+    FlowPoseModel,
+    inference_flow,
+    inference_pose,
+)
 from unopticalflow_tpu_torch.utils import imageio
 from unopticalflow_tpu_torch.utils.device import gpu_device, resolve_device, set_float32_precision
 
-TASKS = ("kitti_flow", "sintel_flow", "demo", "export_pth")
-LATER_TASKS = {"kitti_odo": "the flowposenet slice"}
+TASKS = ("kitti_flow", "sintel_flow", "demo", "export_pth", "kitti_odo")
+MODES = ("flow", "flowposenet")
 
 
 class EvalSet(NamedTuple):
@@ -163,6 +171,64 @@ def test_sintel_flow(cfg, infer_fn, sintel_dir, device, passes=("clean", "final"
     return results
 
 
+def make_pose_fn(model: FlowPoseModel):
+    """(B, H, W, 3) x 2 device tensors -> (B, 6) pose, without autograd."""
+
+    def pose_fn(img1, img2):
+        with torch.inference_mode():
+            return inference_pose(model, img1, img2)
+
+    return pose_fn
+
+
+def test_kitti_odo(cfg, pose_fn, seq_dir, result_txt, device) -> str:
+    """Pose-net odometry over an image sequence -> a KITTI pose file.
+
+    Consecutive frames (``image_2/`` of ``seq_dir``, else ``seq_dir``;
+    sorted ``.png``) are read and resized to ``img_hw`` as cv2 does; each
+    pair's pose (frame t+1's camera into frame t's) becomes [R | t] in
+    float32 (``ops/geometry.py::pose_vec2mat``) and is chained in float64
+    into camera-to-world matrices, written as 12 numbers a line (the first
+    the identity).  Translations are written raw: the monocular scale is one
+    global unknown, which ``eval_odom``'s Sim(3) alignment recovers.
+    """
+    from unopticalflow_tpu_torch.ops.geometry import pose_vec2mat
+
+    img_dir = os.path.join(seq_dir, "image_2")
+    if not os.path.isdir(img_dir):
+        img_dir = seq_dir
+    names = sorted(n for n in os.listdir(img_dir) if n.endswith((".png", ".jpg")))
+    if len(names) < 2:
+        raise ValueError(f"need >= 2 frames in {img_dir}")
+    h, w = cfg.img_hw
+
+    def load(n):
+        img = imageio.imread(os.path.join(img_dir, n))
+        if img is None:
+            raise FileNotFoundError(os.path.join(img_dir, n))
+        frame = imageio.resize(img, (w, h)).astype(np.float32)[None] / 255.0
+        return torch.from_numpy(frame).to(device)
+
+    t_wc = np.eye(4)
+    lines = [" ".join(f"{v:.6e}" for v in t_wc[:3].reshape(-1))]
+    prev = load(names[0])
+    for n in names[1:]:
+        cur = load(n)
+        pose = pose_fn(prev, cur).float().cpu()  # (1, 6), cam_cur -> cam_prev
+        rel = np.eye(4)
+        rel[:3] = pose_vec2mat(pose).numpy()[0]
+        t_wc = t_wc @ rel
+        lines.append(" ".join(f"{v:.6e}" for v in t_wc[:3].reshape(-1)))
+        prev = cur
+    os.makedirs(os.path.dirname(os.path.abspath(result_txt)), exist_ok=True)
+    with open(result_txt, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"odometry: {len(lines)} poses -> {result_txt}")
+    print("evaluate with: python -m unopticalflow_tpu_torch.evaluation.eval_odom "
+          f"--gt_txt <gt poses> --result_txt {result_txt}")
+    return result_txt
+
+
 def test_single_pair(cfg, infer_fn, img1_path, img2_path, device, save_dir="./") -> np.ndarray:
     """The flow demo on one pair: saves ``<save_dir>/demo_flow.png`` and
     returns the (H, W, 2) float32 flow."""
@@ -186,15 +252,19 @@ def export_pth(path: str, model: FlowModel, iteration: int = 0) -> str:
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="flow evaluation (PyTorch/CUDA port)")
     p.add_argument("-c", "--config_file", default=None)
-    p.add_argument("--mode", type=str, default="flow")
+    p.add_argument("--mode", type=str, default="flow", help="flow | flowposenet")
     p.add_argument("--task", type=str, default="kitti_flow",
                    help="kitti_flow | sintel_flow | demo (one pair) | export_pth "
-                        "(write a reference-loadable .pth)")
+                        "(write a reference-loadable .pth) | kitti_odo (flowposenet)")
     p.add_argument("--output_pth", type=str, default=None,
                    help="output path for --task export_pth")
     p.add_argument("--sintel_dir", type=str, default=None,
                    help="MPI-Sintel training/ dir for --task sintel_flow (defaults to "
                         "the yaml's sintel_training_dir)")
+    p.add_argument("--seq_dir", type=str, default=None,
+                   help="odometry sequence dir (with image_2/) for --task kitti_odo")
+    p.add_argument("--result_txt", type=str, default=None,
+                   help="output pose file for --task kitti_odo")
     p.add_argument("--image_path", type=str, default=None)
     p.add_argument("--image_path2", type=str, default=None)
     p.add_argument("--result_dir", type=str, default=None)
@@ -212,24 +282,28 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run ``--task``; returns its result: the metric string (``kitti_flow``),
     {pass: metric string} (``sintel_flow``), the flow (``demo``) or the
-    written path (``export_pth``)."""
+    written path (``export_pth``, ``kitti_odo``)."""
     args = build_arg_parser().parse_args(argv)
     if not args.config_file or not os.path.exists(args.config_file):
         raise ValueError("config file not found.")
-    if args.mode != "flow":
-        raise ValueError(f"--mode {args.mode}: the port evaluates --mode flow only; "
-                         "flowposenet is a later slice of the port")
-    if args.task in LATER_TASKS:
-        raise ValueError(f"--task {args.task} waits for {LATER_TASKS[args.task]} of the port")
+    if args.mode not in MODES:
+        raise ValueError(f"--mode {args.mode}: the port evaluates --mode {' or '.join(MODES)}")
     if args.task not in TASKS:
         raise ValueError(f"unknown task {args.task!r}")
+    if args.task == "kitti_odo" and args.mode != "flowposenet":
+        raise ValueError("--task kitti_odo needs --mode flowposenet")
+    if args.task == "kitti_odo" and not args.seq_dir:
+        raise ValueError("--task kitti_odo needs --seq_dir")
     from unopticalflow_tpu_torch.utils.checkpoint import load_pretrained
     from unopticalflow_tpu_torch.utils.config import load_yaml_config, merge_cli_args
 
     cfg = merge_cli_args(load_yaml_config(args.config_file), args)
     device = resolve_device(gpu_device(args.device, args.gpu))
     set_float32_precision(device, args.precision)
-    model = FlowModel(FlowModelConfig(compute_dtype=args.precision), device=device)
+    flowpose = args.mode == "flowposenet"
+    model = (FlowPoseModel if flowpose else FlowModel)(
+        FlowModelConfig(compute_dtype=args.precision), device=device)
+    flow_model = model.flow if flowpose else model
     iteration = 0
     if args.pretrained_model:
         iteration = load_pretrained(model, args.pretrained_model)
@@ -237,10 +311,13 @@ def main(argv=None):
 
     if args.task == "export_pth":
         out = args.output_pth or os.path.join(args.result_dir or ".", "exported_model.pth")
-        export_pth(out, model, iteration)
+        export_pth(out, flow_model, iteration)
         print(f"wrote reference-format checkpoint: {out}")
         return out
-    infer = make_infer(model)
+    if args.task == "kitti_odo":
+        out = args.result_txt or os.path.join(args.result_dir or ".", "odometry_result.txt")
+        return test_kitti_odo(cfg, make_pose_fn(model), args.seq_dir, out, device)
+    infer = make_infer(flow_model)
     if args.task == "kitti_flow":
         return test_kitti_2015(cfg, infer, load_kitti_2015(cfg), device)
     if args.task == "sintel_flow":

@@ -1,26 +1,42 @@
-"""Training entry point of the port: unsupervised flow training (``--mode flow``).
+"""Training entry point of the port: unsupervised flow training (``--mode
+flow``) and flow + pose training (``--mode flowposenet``).
 
     python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --mode flow \
         [--test_interval 2000 | --no_test] [--flow_pretrained_model last.ckpt] \
         [--resume] [--cache_decoded] --device cuda
+    python -m unopticalflow_tpu_torch.train -c config/odo.yaml --mode flowposenet \
+        [--freeze_flow] ...
+    python -m unopticalflow_tpu_torch.train -c config/nyu_posenet_192.yaml \
+        --mode flowposenet ...
 
 Port of the root ``train.py`` for the flags below (same names and
 defaults).  One step is ``training.train_step``: the training forward (5
 correlation kernels in the decoder, 3 photometric kernels over the loss
 scales, and 3 regularizer kernels with ``use_pallas_reg``), autograd (5 + 5
 correlation-backward kernels, 3 photometric and 3 regularizer backward
-kernels) and Adam.  Batches come from ``data.KITTI_Prepared`` (``dataset``
-kitti_depth or kitti_odo) or ``data.SINTEL_Prepared`` (sintel_raw), uint8
-and cast on the device, through ``BatchLoader`` and ``device_prefetch``.
-When the prepared tree has no ``train.txt``, the raw data under
-``raw_base_dir`` is prepared first (``data/preparers.py``).
+kernels) and Adam.  ``--mode flowposenet`` trains ``FlowPoseModel``: the
+same flow step plus the pose net and ``loss_pose_epipolar`` (plain
+convolutions and geometry, no kernel of their own); ``--freeze_flow`` keeps
+the flow branch as loaded and skips its backward (5 correlation forwards and
+3 photometric forwards a step, no backward kernel).  The 2-frame NYU
+snippets (``dataset: nyuv2``) take the 2-frame forward: 5 + 5 + 5
+correlation kernels a step and no photometric kernel (the plain losses, as
+in the JAX package).  Batches come from ``data.KITTI_Prepared`` (``dataset``
+kitti_depth or kitti_odo; with the intrinsics in flowposenet mode) or
+``data.SINTEL_Prepared`` (sintel_raw), uint8 and cast on the device, or
+``data.NYU_v2`` (nyuv2: undistorted float32 stacks and per-scale
+intrinsics, of which the pose branch takes scale 0), through
+``BatchLoader`` and ``device_prefetch``.  When the prepared tree has no
+``train.txt``, the raw data under ``raw_base_dir`` is prepared first
+(``data/preparers.py``; NYU with ``nyu_test_dir``'s split, stride 10).
 ``--cache_decoded`` keeps decoded, resized frames as ``.npy`` under
 ``<prepared dir>/decoded_cache_<H>x<W>``, the JAX trainer's directory.
 
-Interleaved evaluation: unless ``--no_test``, KITTI 2012 and 2015 (the
-yaml's ``gt_2012_dir``/``gt_2015_dir``, read once at start) are evaluated
-with ``test.test_kitti_2012``/``test_kitti_2015`` at the top of every step
-whose count from the start of the run, plus one, is a multiple of
+Interleaved evaluation (of the flow branch in flowposenet mode): unless
+``--no_test``, KITTI 2012 and 2015 (the yaml's ``gt_2012_dir``/
+``gt_2015_dir``, read once at start) are evaluated with
+``test.test_kitti_2012``/``test_kitti_2015`` at the top of every step whose
+count from the start of the run, plus one, is a multiple of
 ``--test_interval``; the result strings go to ``log.pkl`` as
 ``eval_2012_res``/``eval_2015_res``.
 
@@ -30,15 +46,17 @@ grid, written by ``AsyncCheckpointer`` off the loop's thread (no step is
 saved twice).  ``--resume`` restores model, optimizer and iteration from
 ``iter_<iter_start>.pth`` (or ``last.pth``), or from the JAX trainer's
 ``iter_<iter_start>.ckpt`` (``last.ckpt``) where the model dir holds only
-that, and restarts at the stored iteration.  ``--flow_pretrained_model``
-warm-starts the weights from a ``.pth`` or a JAX ``.ckpt``.  SIGTERM or
-SIGINT: the step in flight finishes, the last finished iteration is saved,
-the saver drains and ``main`` returns 0; a second signal meets the handler
-that was there before.  Log lines are the JAX trainer's ``iter: N,
+that, and restarts at the stored iteration; a checkpoint saved under the
+other ``--freeze_flow`` is refused.  ``--flow_pretrained_model``
+warm-starts the flow weights from a ``.pth`` or a JAX ``.ckpt`` (in
+flowposenet mode the flow branch only; the pose net keeps its init).
+SIGTERM or SIGINT: the step in flight finishes, the last finished iteration
+is saved, the saver drains and ``main`` returns 0; a second signal meets the
+handler that was there before.  Log lines are the JAX trainer's ``iter: N,
 loss_pixel: ...``, with ``snippets_per_sec`` between log points.
 
-Not here yet: modes other than ``flow`` (``flowposenet``, with
-``--freeze_flow``), several devices, and ``--steps_per_dispatch``.
+The port runs one device and one step a dispatch: the JAX trainer's
+``--multi_gpu``, ``--multi_host`` and ``--steps_per_dispatch`` are not taken.
 """
 
 from __future__ import annotations
@@ -59,10 +77,12 @@ import torch
 from unopticalflow_tpu_torch.data import (
     BatchLoader,
     KITTI_Prepared,
+    NYU_v2,
     SINTEL_Prepared,
     device_prefetch,
 )
 from unopticalflow_tpu_torch.models.flow_model import FlowModel, FlowModelConfig
+from unopticalflow_tpu_torch.models.flowpose_model import FlowPoseModel
 from unopticalflow_tpu_torch.test import (
     load_kitti_2012,
     load_kitti_2015,
@@ -80,16 +100,18 @@ from unopticalflow_tpu_torch.utils.device import gpu_device, resolve_device, set
 from unopticalflow_tpu_torch.utils.visualizer import Visualizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the prepared 3-frame datasets by the yaml's ``dataset`` (the JAX trainer's
-# choice; sintel_raw is evaluated on KITTI while it trains, as there)
+# the prepared datasets by the yaml's ``dataset`` (the JAX trainer's choice;
+# sintel_raw is evaluated on KITTI while it trains, as there; nyuv2 is the
+# 2-frame one)
 PREPARED = {"kitti_depth": KITTI_Prepared, "kitti_odo": KITTI_Prepared,
-            "sintel_raw": SINTEL_Prepared}
+            "sintel_raw": SINTEL_Prepared, "nyuv2": NYU_v2}
+MODES = ("flow", "flowposenet")
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="unsupervised flow training (PyTorch/CUDA port)")
     p.add_argument("-c", "--config_file", default=None, help="config file.")
-    p.add_argument("--mode", type=str, default="flow")
+    p.add_argument("--mode", type=str, default="flow", help="flow | flowposenet")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--iter_start", type=int, default=0)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -102,6 +124,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--flow_pretrained_model", type=str, default=None,
                    help="warm start: a .pth or the JAX package's .ckpt")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--freeze_flow", action="store_true",
+                   help="flowposenet: train only the pose branch (the flow branch stays "
+                        "as loaded, e.g. from --flow_pretrained_model).")
     p.add_argument("--no_test", action="store_true")
     p.add_argument("--precision", type=str, default="float32",
                    choices=["float32", "bfloat16"],
@@ -139,7 +164,7 @@ def recipe_config(**over) -> types.SimpleNamespace:
 
 
 class TrainResult(NamedTuple):
-    model: FlowModel
+    model: FlowModel | FlowPoseModel
     optimizer: torch.optim.Optimizer
     step: int  # iterations done, counting those before a resume
 
@@ -217,15 +242,43 @@ def prepare_raw_data(cfg, data_dir: str) -> None:
         preparers.SINTEL_RAW(cfg.raw_base_dir).prepare_data_mp(data_dir, cfg.stride)
     elif cfg.dataset == "kitti_odo":
         preparers.KITTI_Odo(cfg.raw_base_dir).prepare_data_mp(data_dir, stride=1)
+    elif cfg.dataset == "nyuv2":
+        preparers.NYU_Prepare(cfg.raw_base_dir, cfg.nyu_test_dir).prepare_data_mp(
+            data_dir, stride=10)
+
+
+def make_dataset(cfg, data_dir: str, n_samples: int):
+    """The prepared dataset of ``cfg.dataset`` as the JAX trainer builds it
+    (sintel_raw, which has no calibration, refuses flowposenet mode)."""
+    if cfg.dataset == "nyuv2":
+        return NYU_v2(data_dir, num_scales=cfg.num_scales, img_hw=cfg.img_hw,
+                      num_iterations=n_samples)
+    return PREPARED[cfg.dataset](data_dir, num_scales=cfg.num_scales, img_hw=cfg.img_hw,
+                                 num_iterations=n_samples,
+                                 cache_dir=decoded_cache_dir(cfg, data_dir), emit_uint8=True,
+                                 return_intrinsics=cfg.mode == "flowposenet")
+
+
+def model_inputs(cfg, batch):
+    """A loader batch -> the step's: NYU's ``(img, K_ms, K_inv_ms)`` becomes
+    the images (flow mode) or ``(img, K_ms[:, 0], K_inv_ms[:, 0])``."""
+    if cfg.dataset != "nyuv2":
+        return batch
+    imgs, k_ms, k_inv_ms = batch
+    if cfg.mode != "flowposenet":
+        return imgs
+    return imgs, k_ms[:, 0], k_inv_ms[:, 0]
 
 
 def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
           eval_sets=None) -> TrainResult:
     """Train by ``cfg`` (the merged YAML + flags; any attribute object).
 
-    ``dataset`` replaces the prepared KITTI directory (anything with
-    ``__len__`` and ``__getitem__`` giving (3H, W, 3) uint8 or [0, 1] float
-    snippets); ``device`` overrides ``cfg.device``.  ``on_step(iteration,
+    ``dataset`` replaces the prepared directory (anything with ``__len__``
+    and ``__getitem__`` giving what the prepared dataset of ``cfg.dataset``
+    gives in ``cfg.mode``: (3H, W, 3) uint8 or [0, 1] float snippets, with
+    (K, K_inv) in flowposenet mode, and ``num_frames`` where it is not 3);
+    ``device`` overrides ``cfg.device``.  ``on_step(iteration,
     metrics)`` is called after each step with its device-tensor metrics.
     ``model_overrides`` replaces fields of the ``FlowModelConfig`` built from
     ``cfg`` (e.g. ``{"use_pallas_reg": True}``).  ``eval_sets`` ({"2012",
@@ -233,11 +286,13 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     interleaved evaluation.
     """
     device = resolve_device(device or gpu_device(_get(cfg, "device", "cuda"), _get(cfg, "gpu")))
-    if cfg.mode != "flow":
-        raise ValueError(
-            f"--mode {cfg.mode}: the port trains --mode flow only; flowposenet "
-            "and the 2-frame modes are a later slice of the port"
-        )
+    if cfg.mode not in MODES:
+        raise ValueError(f"--mode {cfg.mode}: the port trains --mode {' or '.join(MODES)}")
+    if dataset is None and cfg.dataset not in PREPARED:
+        raise NotImplementedError(f"dataset {cfg.dataset!r}: the port trains on "
+                                  f"{', '.join(sorted(PREPARED))}")
+    flowpose = cfg.mode == "flowposenet"
+    freeze_flow = bool(_get(cfg, "freeze_flow")) and flowpose
     # the JAX trainer's rule: evaluate while training on the raw-video datasets
     if cfg.no_test or cfg.dataset not in ("kitti_depth", "kitti_odo", "sintel_raw"):
         eval_sets = None
@@ -250,16 +305,21 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
         compute_dtype=precision,
         loss_dtype=_get(cfg, "loss_precision") or precision,
     )._replace(**(model_overrides or {}))
-    model = FlowModel(model_cfg, device=device, scheme=_get(cfg, "init_scheme", "torch"),
-                      generator=torch.Generator().manual_seed(int(_get(cfg, "seed", 0))))
-    opt = make_optimizer(model, cfg.lr)
+    model = (FlowPoseModel if flowpose else FlowModel)(
+        model_cfg, device=device, scheme=_get(cfg, "init_scheme", "torch"),
+        generator=torch.Generator().manual_seed(int(_get(cfg, "seed", 0))))
+    flow_model = model.flow if flowpose else model
+    if freeze_flow:
+        # autograd skips the frozen branch: no correlation- or photometric-backward kernel
+        model.flow.requires_grad_(False)
+    opt = make_optimizer(model, cfg.lr, freeze_flow=freeze_flow)
 
     if cfg.resume:
         path = resume_path(cfg.model_dir, cfg.iter_start)
         cfg.iter_start = ckpt.restore_checkpoint(path, model, opt)
         print(f"resumed from {path} at iteration {cfg.iter_start}.")
     elif _get(cfg, "flow_pretrained_model"):
-        ckpt.load_pretrained(model, cfg.flow_pretrained_model)
+        ckpt.load_pretrained(flow_model, cfg.flow_pretrained_model)
         print("Load Flow Pretrained Model from " + cfg.flow_pretrained_model)
 
     weights = loss_weights_from_config(cfg)
@@ -267,21 +327,16 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
 
     n_samples = (cfg.num_iterations - cfg.iter_start) * cfg.batch_size
     if dataset is None:
-        if cfg.dataset not in PREPARED:
-            raise NotImplementedError(f"dataset {cfg.dataset!r}: the port trains on "
-                                      f"{', '.join(sorted(PREPARED))}")
         data_dir = os.path.join(cfg.prepared_base_dir, cfg.prepared_save_dir)
         if not os.path.exists(os.path.join(data_dir, "train.txt")):
             prepare_raw_data(cfg, data_dir)
-        dataset = PREPARED[cfg.dataset](data_dir, num_scales=cfg.num_scales,
-                                        img_hw=cfg.img_hw, num_iterations=n_samples,
-                                        cache_dir=decoded_cache_dir(cfg, data_dir),
-                                        emit_uint8=True)
+        dataset = make_dataset(cfg, data_dir, n_samples)
+    snippet_frames = getattr(dataset, "num_frames", 3)
     loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
     stream = device_prefetch(iter(loader), device)
 
     def evaluate():
-        infer = make_infer(model)
+        infer = make_infer(flow_model)
         res_2012 = test_kitti_2012(cfg, infer, eval_sets["2012"], device)
         res_2015 = test_kitti_2015(cfg, infer, eval_sets["2015"], device)
         visualizer.add_log_pack({"eval_2012_res": res_2012, "eval_2015_res": res_2015})
@@ -313,7 +368,8 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
             # counted from the start of this run, as the JAX trainer counts
             if eval_sets is not None and (i + 1) % test_interval == 0:
                 evaluate()
-            metrics = train_step(model, opt, batch, weights, model_cfg)
+            metrics = train_step(model, opt, model_inputs(cfg, batch), weights, model_cfg,
+                                 cfg.mode, snippet_frames)
             if on_step is not None:
                 on_step(it, metrics)
             if it % cfg.log_interval == 0:

@@ -8,11 +8,13 @@ a temporary file that ``os.replace`` then renames, so a reader never sees
 half a file.
 
 The JAX package's ``.ckpt`` (flax msgpack of ``{"iteration", "params",
-"opt_state"}``, ``opt_state`` optax's ``({"count", "mu", "nu"}, {})`` or
-nil) is read by ``utils/flax_msgpack.py`` and moved across by
-``utils/convert.py``: ``load_pretrained`` and ``restore_checkpoint`` take
-either format by the file's suffix, and ``save_flax_checkpoint`` writes one
-that the JAX package's ``restore_checkpoint`` reads back.
+"opt_state"}``, ``opt_state`` optax's ``({"count", "mu", "nu"}, {})``, the
+``multi_transform`` of it under ``--freeze_flow``, or nil) is read by
+``utils/flax_msgpack.py`` and moved across by ``utils/convert.py``:
+``load_pretrained`` and ``restore_checkpoint`` take either format by the
+file's suffix, for a ``FlowModel`` (``params`` ``{"fpyramid", "pwc"}``) or a
+``FlowPoseModel`` (``{"flow", "pose"}``), and ``save_flax_checkpoint``
+writes one that the JAX package's ``restore_checkpoint`` reads back.
 
 ``AsyncCheckpointer`` is the JAX package's asynchronous saver: ``save()``
 copies the state on its device and returns; one worker thread copies it to
@@ -96,32 +98,71 @@ def save_checkpoint(paths: list[str], iteration: int, model: nn.Module,
 # ---------------------------------------------------------------------------
 
 
-def read_flax_checkpoint(path: str) -> dict:
-    """``{"iteration", "params", "opt_state"}`` of a JAX ``.ckpt`` (numpy leaves)."""
+def _flowpose(model: nn.Module) -> bool:
+    return hasattr(model, "flow") and hasattr(model, "pose")
+
+
+def read_flax_checkpoint(path: str, flowpose: bool = False) -> dict:
+    """``{"iteration", "params", "opt_state"}`` of a JAX ``.ckpt`` (numpy
+    leaves): a flow-mode train state, or with ``flowpose`` a flowposenet one
+    (``params`` ``{"flow": {"fpyramid", "pwc"}, "pose"}``)."""
     with open(path, "rb") as f:
         tree = flax_msgpack.loads(f.read())
-    if not isinstance(tree, dict) or not {"iteration", "params"} <= set(tree) \
-            or not {"fpyramid", "pwc"} <= set(tree["params"] or {}):
-        raise ValueError(f"{path}: not a flow-mode train state of the JAX package "
-                         "({'iteration', 'params': {'fpyramid', 'pwc'}, 'opt_state'})")
+    params = tree.get("params") if isinstance(tree, dict) else None
+    if flowpose:
+        ok = isinstance(params, dict) and set(params) == {"flow", "pose"} \
+            and {"fpyramid", "pwc"} <= set(params["flow"] or {})
+        kind = "flowposenet train state ({'iteration', 'params': {'flow', 'pose'}, 'opt_state'})"
+    else:
+        ok = isinstance(params, dict) and {"fpyramid", "pwc"} <= set(params)
+        kind = "flow-mode train state ({'iteration', 'params': {'fpyramid', 'pwc'}, 'opt_state'})"
+    if not ok or "iteration" not in tree:
+        raise ValueError(f"{path}: not a {kind} of the JAX package")
     return tree
 
 
-def _adam(path: str, opt_state) -> dict:
-    """optax Adam's ``{"count", "mu", "nu"}`` out of ``(adam, {})``."""
-    if not isinstance(opt_state, dict) or set(opt_state) != {"0", "1"} \
-            or opt_state["1"] != {} or set(opt_state["0"]) != {"count", "mu", "nu"}:
-        raise ValueError(f"{path}: the optimizer state is not optax.adam's "
-                         "({'0': {'count', 'mu', 'nu'}, '1': {}}); a --freeze_flow "
-                         "state does not resume here")
-    return opt_state["0"]
+def _adam(path: str, opt_state, frozen: bool) -> dict:
+    """optax Adam's ``{"count", "mu", "nu"}`` out of ``(adam, {})``, or out
+    of the ``multi_transform`` state of a ``--freeze_flow`` run
+    (``{"inner_states": {"frozen": {"inner_state": {}}, "train":
+    {"inner_state": (adam, {})}}}``); the other layout raises ``ValueError``
+    naming ``--freeze_flow``."""
+    def plain(state):
+        return isinstance(state, dict) and set(state) == {"0", "1"} and state["1"] == {} \
+            and isinstance(state["0"], dict) and set(state["0"]) == {"count", "mu", "nu"}
+
+    inner = (opt_state or {}).get("inner_states") if isinstance(opt_state, dict) else None
+    saved_frozen = isinstance(inner, dict) and set(inner) == {"frozen", "train"} \
+        and plain(inner["train"].get("inner_state"))
+    if not (saved_frozen or plain(opt_state)):
+        raise ValueError(f"{path}: the optimizer state is neither optax.adam's "
+                         "({'0': {'count', 'mu', 'nu'}, '1': {}}) nor a --freeze_flow "
+                         "multi_transform of it")
+    if saved_frozen != frozen:
+        raise ValueError(f"{path}: saved {'with' if saved_frozen else 'without'} "
+                         f"--freeze_flow, resumed {'with' if frozen else 'without'} it: "
+                         "resume with the --freeze_flow setting the checkpoint was saved "
+                         "under")
+    return inner["train"]["inner_state"]["0"] if frozen else opt_state["0"]
+
+
+def _frozen(model: nn.Module, opt: torch.optim.Optimizer) -> bool:
+    """Whether ``opt`` leaves a ``FlowPoseModel``'s flow branch out (``--freeze_flow``)."""
+    held = {id(p) for g in opt.param_groups for p in g["params"]}
+    return _flowpose(model) and not any(id(p) in held for p in model.flow.parameters())
 
 
 def save_flax_checkpoint(path: str, iteration: int, model: nn.Module,
                          opt: torch.optim.Adam | None = None) -> None:
-    """Write a JAX-package ``.ckpt`` of ``model`` (and ``opt``'s Adam state)."""
+    """Write a JAX-package ``.ckpt`` of ``model`` (and ``opt``'s Adam state,
+    as the ``multi_transform`` state when ``opt`` leaves the flow branch out)."""
     params = torch_state_dict_to_params(strip_prefixes(model.state_dict()))
-    opt_state = None if opt is None else {"0": adam_state_from_torch(model, opt), "1": {}}
+    opt_state = None
+    if opt is not None:
+        opt_state = {"0": adam_state_from_torch(model, opt), "1": {}}
+        if _frozen(model, opt):
+            opt_state = {"inner_states": {"frozen": {"inner_state": {}},
+                                          "train": {"inner_state": opt_state}}}
     _atomic_write(path, flax_msgpack.dumps(
         {"iteration": int(iteration), "params": params, "opt_state": opt_state}))
 
@@ -132,18 +173,28 @@ def save_flax_checkpoint(path: str, iteration: int, model: nn.Module,
 
 
 def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) -> int:
-    """Load the model (strict) and the optimizer; return the iteration."""
+    """Load the model (strict) and the optimizer; return the iteration.  A
+    checkpoint whose optimizer holds another set of parameters than ``opt``
+    (saved with or without ``--freeze_flow``, resumed the other way) raises
+    ``ValueError``."""
+    frozen = _frozen(model, opt)
     if _is_flax(path):
-        tree = read_flax_checkpoint(path)
+        tree = read_flax_checkpoint(path, _flowpose(model))
         if tree.get("opt_state") is None:
             raise ValueError(f"{path} holds no optimizer state to resume from")
-        adam = _adam(path, tree["opt_state"])
+        adam = _adam(path, tree["opt_state"], frozen)
         load_jax_params(model, tree["params"])
         adam_state_to_torch(model, opt, adam)
         return int(tree["iteration"])
     data = torch.load(path, map_location="cpu", weights_only=True)
     if "optimizer_state_dict" not in data:
         raise ValueError(f"{path} holds no optimizer state to resume from")
+    saved = sum(len(g["params"]) for g in data["optimizer_state_dict"]["param_groups"])
+    held = sum(len(g["params"]) for g in opt.param_groups)
+    if saved != held:
+        raise ValueError(f"{path}: its optimizer holds {saved} parameter tensors and this one "
+                         f"{held} (--freeze_flow={frozen}): resume with the --freeze_flow "
+                         "setting the checkpoint was saved under")
     model.load_state_dict(strip_prefixes(data["model_state_dict"]), strict=True)
     opt.load_state_dict(data["optimizer_state_dict"])
     return int(data["iteration"])
@@ -151,9 +202,10 @@ def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) 
 
 def load_pretrained(model: nn.Module, path: str) -> int:
     """Load ``path`` (``.pth`` or the JAX ``.ckpt``) into ``model`` (strict)
-    and return its iteration."""
+    and return its iteration.  A ``FlowModel`` takes flow-mode weights only;
+    a flow warm start of a ``FlowPoseModel`` loads into its ``flow``."""
     if _is_flax(path):
-        tree = read_flax_checkpoint(path)
+        tree = read_flax_checkpoint(path, _flowpose(model))
         load_jax_params(model, tree["params"])
         return int(tree["iteration"])
     data = torch.load(path, map_location="cpu", weights_only=True)

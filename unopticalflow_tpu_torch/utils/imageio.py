@@ -20,6 +20,7 @@ without opencv.  Only a JPEG request body to the server goes through
 * ``encode_png(img)`` as ``cv2.imencode(".png")`` writes it, each row's
   filter chosen as libpng chooses it: (H, W) grey or (H, W, 3) BGR /
   (H, W, 4) BGRA, uint8 or uint16.
+* ``read_ppm(path)``: a binary (P6, 8-bit) PPM as RGB (NYUv2's raw frames).
 * ``resize(img, (w, h))`` as ``cv2.resize(img, (w, h))`` on uint8:
   weights with 11 fractional bits from single-precision source positions
   (borders clamped), an integer horizontal pass, then the vertical pass as
@@ -86,6 +87,37 @@ def imwrite(path: str, img: np.ndarray) -> None:
         raise ValueError(f"{path}: the port writes PNG only")
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """A binary PPM (P6, maxval 255: NYUv2's raw Kinect frames) -> (H, W, 3)
+    uint8 in the file's RGB order, as ``imageio.v2.imread`` gives it.  A
+    truncated or other file raises ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:  # magic, width, height, maxval; '#' comments between
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.find(b"\n", pos) + 1 or len(data)
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        if end == pos:
+            raise ValueError(f"{path}: truncated PPM header")
+        fields.append(data[pos:end])
+        pos = end
+    if fields[0] != b"P6" or not all(f.isdigit() for f in fields[1:]):
+        raise ValueError(f"{path}: not a binary PPM (P6)")
+    w, h, maxval = (int(f) for f in fields[1:])
+    if maxval != 255:
+        raise ValueError(f"{path}: PPM maxval {maxval}; the port reads 8-bit PPM only")
+    pos += 1  # the single whitespace byte after maxval
+    if len(data) - pos < w * h * 3:
+        raise ValueError(f"{path}: truncated PPM ({len(data) - pos} of {w * h * 3} bytes)")
+    return np.frombuffer(data, np.uint8, w * h * 3, pos).reshape(h, w, 3).copy()
 
 
 # ---------------------------------------------------------------------------
