@@ -247,6 +247,26 @@ Phases (each raises on failure, so the run exits non-zero):
    ``KittiEvalOdom().eval(plot=False)`` on 240 poses 1 m apart against the
    same trajectory with translations times 0.5: both errors under 1e-9
    after the Umeyama alignment.
+17. The host modules without opencv, h5py or matplotlib
+   (``host_modules``; fixtures of ``tests/torch_fixtures/``, written by its
+   ``make_fixtures.py`` with cv2 and h5py).  (a) Every committed JPEG
+   (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, grey, qualities 10 to 100, a restart
+   interval, optimised tables, an odd size, an Exif orientation, a 512x832
+   stacked pair) decodes to cv2's decode beside it, bit for bit; the
+   progressive one raises; the host ms of decoding the pair (median of 20,
+   this machine's CPU).  (b) ``FlowServer`` and its HTTP handler on the
+   card at 256x832, bfloat16, ``max_batch`` 8: the JPEG pair and a PNG of
+   its decoded pixels get equal ``.flo`` replies (5 + 5 launches), a
+   progressive body a 400 naming the mode; the median ms of 8 requests with
+   each body.  (c) ``test.main --task demo`` on two JPEG frames equals the
+   demo on PNGs of their decoded pixels (5 launches each).  (d) NYUv2
+   without h5py: ``NYU_Prepare`` on raw ``.ppm`` scenes this phase writes
+   and the MATLAB-layout labeled set (``train.txt`` names the train scenes
+   only), ``load_nyu_test_data`` equal to the JAX package's arrays (by
+   SHA-256; the ``.mat`` read's ms), ``test_nyu`` with an oracle whose
+   disparities are resized on the card (near-zero error, as the JAX test's
+   oracle), ``eval_depth`` (both protocols) and ``eval_mask`` on seeded
+   inputs equal to the JAX package's numbers (rtol 1e-6) and PNG pixels.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -588,6 +608,258 @@ def _launched(counts: dict) -> dict:
 def _rel_l2(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def depth_mask_inputs(seed: int):
+    """Seeded inputs of phase 17 (d)'s ``eval_depth`` and ``eval_mask`` (and
+    of ``tests/torch_fixtures/make_fixtures.py``, which stores the JAX
+    package's results on them): two ground-truth depth maps and predictions,
+    and two float32 mask predictions with their binary ground truths."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:96, 0:160].astype(np.float64)
+    gts = [12.0 + 4.0 * np.sin(xx / 17.0 + k) + 3.0 * np.cos(yy / 13.0 - k) for k in range(2)]
+    for g in gts:
+        g[rng.rand(*g.shape) < 0.1] = 0.0  # pixels without ground truth
+    preds = [(g + 2.0 * rng.rand(*g.shape) + 0.5) * (1.0 + k) for k, g in enumerate(gts)]
+    masks = [rng.rand(24, 40).astype(np.float32) for _ in range(2)]
+    gt_masks = [(rng.rand(48, 80) > 0.6).astype(np.uint8) for _ in range(2)]
+    return gts, preds, masks, gt_masks
+
+
+def host_modules(c) -> None:
+    """Phase 17 (see the module): ``c`` holds the device, the precision and
+    size the server runs at, the launch counters (``want`` maps an expected
+    count to what this device launches), ``sync``, the entry points' device
+    flags ``cli``, ``smi`` and a work directory ``root``."""
+    import glob
+    import hashlib
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from unopticalflow_tpu_torch import test as evaluation
+    from unopticalflow_tpu_torch.data import preparers
+    from unopticalflow_tpu_torch.evaluation import depth_harness, eval_depth, eval_mask
+    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
+    from unopticalflow_tpu_torch.serve import FlowServer, make_handler
+    from unopticalflow_tpu_torch.utils import imageio
+
+    t17 = time.perf_counter()
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                            "torch_fixtures")
+    jpeg_dir, nyu_dir = os.path.join(fixtures, "jpeg"), os.path.join(fixtures, "nyu")
+    zero_counts = dict.fromkeys(KERNELS, 0)
+    counts, reset_counts = c.counts, c.reset_counts
+    os.makedirs(c.root, exist_ok=True)
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    # (a) the committed JPEGs against cv2's decodes
+    checked = []
+    for path in sorted(glob.glob(os.path.join(jpeg_dir, "*.jpg"))):
+        name = os.path.basename(path)[:-4]
+        if name == "progressive":
+            try:
+                imageio.decode_jpeg(read(path))
+            except ValueError as e:
+                if "progressive" not in str(e):
+                    raise
+            else:
+                raise AssertionError("a progressive JPEG decoded")
+            continue
+        got = imageio.decode_jpeg(read(path))
+        want = imageio.decode_png(read(path[:-4] + ".png"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"JPEG {name}: differs from cv2's decode")
+        checked.append(name)
+    pair_jpg = read(os.path.join(jpeg_dir, "pair_512x832.jpg"))
+    t_dec = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        pair_px = imageio.decode_jpeg(pair_jpg)
+        t_dec.append((time.perf_counter() - t0) * 1e3)
+    print(f"host modules (a): {len(checked)} JPEGs decode bit-equal to cv2's decodes "
+          f"({', '.join(checked)}), the progressive one raises; decoding the {pair_px.shape[0]}x"
+          f"{pair_px.shape[1]} stacked pair: {statistics.median(t_dec):.3f} ms on the host "
+          f"(median of 20, one thread; {c.smi})")
+
+    # (b) serving JPEG bodies on the card
+    h, w = c.img_hw
+    cfg = types.SimpleNamespace(img_hw=c.img_hw)
+    model = FlowModel(FlowModelConfig(compute_dtype=c.precision), device=c.device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(SEED + 17))
+    server = FlowServer(cfg, model, max_batch=c.batch, max_wait_ms=5.0)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server, cfg))
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    pair_png = imageio.encode_png(pair_px)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/flow"
+
+    def post(body):
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    try:
+        reset_counts()
+        replies = [post(pair_jpg), post(pair_png)]
+        served = counts()
+        try:
+            post(read(os.path.join(jpeg_dir, "progressive.jpg")))
+        except urllib.error.HTTPError as e:
+            refusal = (e.code, json.loads(e.read())["error"])
+        else:
+            refusal = (200, "")
+        lat = {}
+        for kind, body in (("jpeg", pair_jpg), ("png", pair_png)):
+            lat[kind] = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                post(body)
+                lat[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serving.join(timeout=10)
+        server.close()
+    flow = np.frombuffer(replies[0][12:], np.float32).reshape(-1)
+    if replies[0] != replies[1] or flow.size != h * w * 2 or not np.isfinite(flow).all() \
+            or served != c.want({**zero_counts, "corr_fwd": 10}) or refusal[0] != 400 \
+            or "progressive JPEG" not in refusal[1]:
+        raise AssertionError(f"serving JPEG: replies equal {replies[0] == replies[1]}, "
+                             f"{flow.size} values, launches {served}, refusal {refusal}")
+    print(f"host modules (b): FlowServer + HTTP on {c.device} at {h}x{w}, {c.precision}, "
+          f"max_batch {c.batch}: the JPEG pair and a PNG of its decoded pixels get equal .flo "
+          f"replies ({len(replies[0])} bytes), {served['corr_fwd']} corr_fwd launches; a "
+          f"progressive body: {refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, "
+          f"decode + resize + inference + reply): JPEG {statistics.median(lat['jpeg']):.2f}, "
+          f"PNG {statistics.median(lat['png']):.2f} ({c.smi})")
+
+    # (c) the demo on JPEG frames against the demo on PNGs of their pixels
+    pth = evaluation.export_pth(os.path.join(c.root, "demo.pth"), model)
+    del model
+    yaml = os.path.join(c.root, "demo.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"img_hw: [{h}, {w}]\nnum_scales: 3\n")
+    frames = {}
+    for k in ("a", "b"):
+        jpg = os.path.join(jpeg_dir, f"frame_{k}.jpg")
+        png = os.path.join(c.root, f"frame_{k}.png")
+        imageio.imwrite(png, imageio.decode_jpeg(read(jpg)))
+        frames[k] = (jpg, png)
+    demo, demo_counts = {}, {}
+    for kind, idx in (("jpeg", 0), ("png", 1)):
+        reset_counts()
+        demo[kind] = evaluation.main([
+            "-c", yaml, "--task", "demo", "--pretrained_model", pth, "--image_path",
+            frames["a"][idx], "--image_path2", frames["b"][idx], "--result_dir",
+            os.path.join(c.root, f"demo_{kind}"), *c.cli])
+        demo_counts[kind] = counts()
+    if not np.array_equal(demo["jpeg"], demo["png"]) or demo["jpeg"].shape != (h, w, 2) \
+            or any(v != c.want({**zero_counts, "corr_fwd": 5}) for v in demo_counts.values()):
+        raise AssertionError(f"demo on JPEG frames: equal to PNG "
+                             f"{np.array_equal(demo['jpeg'], demo['png'])}, launches {demo_counts}")
+    print(f"host modules (c): test.main --task demo on two JPEG frames equals the demo on PNGs "
+          f"of their decoded pixels ({h}x{w} flow, mean |flow| "
+          f"{float(np.abs(demo['jpeg']).mean()):.4f} px), "
+          f"{demo_counts['jpeg']['corr_fwd']} corr_fwd launches each")
+
+    # (d) NYUv2 without h5py: the preparer, the test split, the metrics
+    with open(os.path.join(nyu_dir, "expected.json")) as f:
+        expected = json.load(f)
+
+    def digest(*arrays):
+        hd = hashlib.sha256()
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            hd.update(str(a.dtype.str).encode() + str(a.shape).encode() + a.tobytes())
+        return hd.hexdigest()
+
+    blocked = {m: sys.modules.get(m) for m in ("h5py", "cv2", "matplotlib", "PIL")}
+    try:
+        for m in blocked:
+            sys.modules[m] = None  # as on a machine without them
+        raw = os.path.join(c.root, "nyu_raw")
+        rng = np.random.RandomState(SEED + 17)
+        for k, scene in enumerate(expected["train_scenes"] + expected["test_scenes"]):
+            folder = os.path.join(raw, f"d{k % 2}", scene)
+            os.makedirs(folder, exist_ok=True)
+            for i in range(12):
+                img = rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
+                with open(os.path.join(folder, f"r-{1000 + i:06d}.ppm"), "wb") as f:
+                    f.write(b"P6\n64 48\n255\n" + img.tobytes())
+        prepared = os.path.join(c.root, "nyu_prepared")
+        prep = preparers.NYU_Prepare(raw, nyu_dir)
+        scenes = (prep.get_train_scenes(), prep.get_test_scenes())
+        prep.prepare_data_mp(prepared, stride=5, num_processes=2)
+        with open(os.path.join(prepared, "train.txt")) as f:
+            lines = f.read().splitlines()
+        named = sorted({ln.split()[0].split("/")[1] for ln in lines})
+        t0 = time.perf_counter()
+        test_images, test_depths = depth_harness.load_nyu_test_data(nyu_dir)
+        t_mat = (time.perf_counter() - t0) * 1e3
+        gt_crop = test_depths[0][45:472, 41:602]
+
+        def oracle(images):  # the ground truth's disparity, resized on the card
+            disp = torch.from_numpy(1.0 / gt_crop).to(c.device, torch.float32)[None, None]
+            return torch.nn.functional.interpolate(disp, size=images.shape[1:3],
+                                                   mode="bilinear", align_corners=False)[0]
+
+        nyu_res = depth_harness.test_nyu(types.SimpleNamespace(img_hw=(192, 256)), oracle,
+                                         test_images, test_depths, file=io.StringIO())
+        gts, preds, masks, gt_masks = depth_mask_inputs(17)
+        depth_res = eval_depth(gts, preds)
+        depth_res_nyu = eval_depth(gts, preds, nyu=True)
+        trace = os.path.join(c.root, "mask_trace")
+        mask_res = eval_mask(masks, gt_masks, types.SimpleNamespace(trace=trace))
+        pngs = {n: digest(imageio.imread(os.path.join(trace, "pred_mask", n),
+                                         imageio.IMREAD_UNCHANGED))
+                for n in sorted(os.listdir(os.path.join(trace, "pred_mask")))}
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+    def close(got, want):
+        return np.allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
+                           rtol=1e-6, atol=0)
+
+    faults = []
+    if [list(x) for x in scenes] != [expected["train_scenes"], expected["test_scenes"]] \
+            or named != sorted(expected["train_scenes"]) or not lines:
+        faults.append(f"NYU_Prepare: scenes {scenes}, train.txt names {named}")
+    if digest(test_images) != expected["test_images_sha256"] \
+            or digest(test_depths) != expected["test_depths_sha256"]:
+        faults.append(f"load_nyu_test_data: {test_images.shape}, {test_depths.shape} differ")
+    if not (nyu_res[0] < 0.05 and nyu_res[4] > 0.95):
+        faults.append(f"test_nyu oracle: {nyu_res}")
+    if not close(depth_res, expected["eval_depth"]) \
+            or not close(depth_res_nyu, expected["eval_depth_nyu"]):
+        faults.append(f"eval_depth: {depth_res}, {depth_res_nyu}")
+    if not close(mask_res[:4], expected["eval_mask"][:4]) \
+            or not close(mask_res[4], expected["eval_mask"][4]) \
+            or pngs != expected["eval_mask_png_pixels_sha256"]:
+        faults.append(f"eval_mask: {mask_res}, PNGs equal "
+                      f"{pngs == expected['eval_mask_png_pixels_sha256']}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    print(f"host modules (d), h5py, cv2, matplotlib and PIL blocked: NYU_Prepare's train.txt "
+          f"({len(lines)} snippets) names {named}; load_nyu_test_data equals the JAX "
+          f"package's arrays {list(test_images.shape)} uint8 and {list(test_depths.shape)} "
+          f"float32, the .mat read (3 frames of 640x480, test split 1) in {t_mat:.1f} ms on "
+          f"the host; test_nyu with an oracle on {c.device}: abs_rel {nyu_res[0]:.5f}, a1 "
+          f"{nyu_res[4]:.5f}; eval_depth and eval_mask equal the JAX package's numbers "
+          f"(rtol 1e-6) and PNG pixels")
+    print(f"host modules: phase 17 took {time.perf_counter() - t17:.1f} s")
 
 
 def entry_points_complete(c) -> None:
@@ -2778,7 +3050,14 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 16 phases passed in {time.perf_counter() - t_start:.1f} s")
+    # ---- 17. the host modules: JPEG, the NYU .mat, depth and mask evaluation --
+    host_modules(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, precision="bfloat16", batch=BATCH,
+        root=os.path.join(model_dir, "host17"), counts=counts, reset_counts=reset_counts,
+        want=lambda d: d, cli=[], smi=smi))
+    torch.cuda.empty_cache()
+
+    print(f"chip_smoke: 17 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

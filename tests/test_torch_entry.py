@@ -290,7 +290,8 @@ def test_serve_decodes_png_without_cv2(monkeypatch):
     with monkeypatch.context() as m:
         _block(m)
         got = _decode_pair(body, (64, 64))
-        with pytest.raises(ValueError, match="JPEG needs opencv"):
+        # a JPEG body goes to the port's own decoder, which names its fault
+        with pytest.raises(ValueError, match="corrupt JPEG"):
             _decode_pair(b"\xff\xd8\xff\xe0" + bytes(16), (64, 64))
     assert got.dtype == np.float32 and np.array_equal(got, want)
 

@@ -231,3 +231,116 @@ def test_train_evaluates_between_steps(tmp_path, monkeypatch, capsys):
         assert len(_values(pack["eval_2012_res"])[1]) == 4
     out = capsys.readouterr().out
     assert out.count("[EVAL] [KITTI 2012]") == 2 and out.count("[EVAL] [KITTI 2015]") == 2
+
+
+# ---- the rest of flowlib, and the calibration helpers -------------------------
+
+
+def _flows(rng, h=12, w=17):
+    f = rng.randn(h, w, 2) * 3
+    f[2:4, 3:6] = 0.0  # zero flow: class 0, and no ground truth for the EPE
+    f[0, 0] = (2e8, 0.0)  # beyond LARGEFLOW
+    f[5, :, 1] = 0.0
+    f[6, :, 0] = 0.0
+    return f
+
+
+def test_flowlib_functions_equal_jax(tmp_path):
+    from unopticalflow_tpu.evaluation import flowlib as jfl
+    from unopticalflow_tpu_torch.evaluation import flowlib as fl
+
+    rng = np.random.RandomState(5)
+    flow = _flows(rng)
+    np.testing.assert_array_equal(fl.segment_flow(flow), jfl.segment_flow(flow))
+    gt, pred = _flows(rng).astype(np.float32), _flows(rng).astype(np.float32)
+    assert fl.flow_error(gt[..., 0], gt[..., 1], pred[..., 0], pred[..., 1]) == \
+        jfl.flow_error(gt[..., 0], gt[..., 1], pred[..., 0], pred[..., 1])
+    assert fl.evaluate_flow(gt, pred) == jfl.evaluate_flow(gt, pred)
+    # written files byte for byte: .flo and the disparity PNG
+    for mod, d in ((fl, "p"), (jfl, "j")):
+        (tmp_path / d).mkdir()
+        mod.write_flow(gt, str(tmp_path / d / "g.flo"))
+        mod.write_flow(pred, str(tmp_path / d / "p.flo"))
+        mod.disp_to_flowfile(np.abs(gt[..., 0]) * 7, str(tmp_path / d / "disp.flo"))
+        mod.write_disp_png(np.abs(gt[..., 0]) * 40, str(tmp_path / d / "disp.png"))
+    for name in ("g.flo", "p.flo", "disp.flo"):
+        assert (tmp_path / "p" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    a = cv2.imread(str(tmp_path / "p" / "disp.png"), cv2.IMREAD_UNCHANGED)
+    b = cv2.imread(str(tmp_path / "j" / "disp.png"), cv2.IMREAD_UNCHANGED)
+    assert a.dtype == b.dtype == np.uint16 and np.array_equal(a, b)
+    for path in (tmp_path / "p" / "disp.png", tmp_path / "j" / "disp.png"):
+        np.testing.assert_array_equal(fl.read_disp_png(str(path)), jfl.read_disp_png(str(path)))
+    assert fl.evaluate_flow_file(str(tmp_path / "p" / "g.flo"), str(tmp_path / "p" / "p.flo")) \
+        == jfl.evaluate_flow_file(str(tmp_path / "j" / "g.flo"), str(tmp_path / "j" / "p.flo"))
+
+    im = rng.randint(0, 256, (12, 17, 3)).astype(np.uint8)
+    warp = rng.randn(12, 17, 2) * 4
+    np.testing.assert_array_equal(fl.warp_image(im, warp), jfl.warp_image(im, warp))
+    np.testing.assert_array_equal(fl.warp_image(im[..., 0], warp), jfl.warp_image(im[..., 0], warp))
+    for rng_ in ((0, 255), (10, 90)):
+        x = rng.randn(9, 8) * 50
+        np.testing.assert_array_equal(fl.scale_image(x, rng_), jfl.scale_image(x, rng_))
+    valid = np.dstack([flow, (rng.rand(12, 17) > 0.3).astype(np.float64)])
+    for f in (flow[1:], valid[1:], np.abs(flow[1:])):
+        for mode in ("Y", "RGB"):
+            np.testing.assert_array_equal(fl.visualize_flow(f, mode), jfl.visualize_flow(f, mode))
+    hsv = rng.rand(5, 6, 3)
+    hsv[0, :, 1] = 0.0
+    import matplotlib.colors as mcolors
+
+    np.testing.assert_array_equal(fl.hsv_to_rgb(hsv), mcolors.hsv_to_rgb(hsv))
+    np.testing.assert_array_equal(fl.hsv_to_rgb(hsv.astype(np.float32)),
+                                  mcolors.hsv_to_rgb(hsv.astype(np.float32)))
+
+
+def test_read_image_equals_pil(tmp_path):
+    from unopticalflow_tpu.evaluation import flowlib as jfl
+    from unopticalflow_tpu_torch.evaluation import flowlib as fl
+
+    rng = np.random.RandomState(6)
+    img = cv2.GaussianBlur(rng.randint(0, 256, (21, 34, 3)).astype(np.uint8), (0, 0), 2)
+    cv2.imwrite(str(tmp_path / "c.png"), img)
+    cv2.imwrite(str(tmp_path / "g.png"), img[:, :, 0])
+    cv2.imwrite(str(tmp_path / "a.png"), np.dstack([img, img[:, :, :1]]))
+    cv2.imwrite(str(tmp_path / "c.jpg"), img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    cv2.imwrite(str(tmp_path / "g.jpg"), img[:, :, 1])
+    for name in ("c.png", "g.png", "a.png", "c.jpg", "g.jpg"):
+        got, want = fl.read_image(str(tmp_path / name)), jfl.read_image(str(tmp_path / name))
+        assert got.shape == want.shape and np.array_equal(got, want), name
+
+
+def test_calibration_helpers_equal_jax(tmp_path):
+    from unopticalflow_tpu.evaluation import evaluate_flow as jef
+    from unopticalflow_tpu_torch.evaluation import evaluate_flow as ef
+    from unopticalflow_tpu_torch.evaluation import get_scaled_intrinsic_matrix
+
+    cam = tmp_path / "calib_cam_to_cam.txt"
+    cam.write_text("calib_time: 09-Jan-2012 13:57:47\ncorner_dist: 9.950000e-02\n"
+                   "P_rect_02: 7.215377e+02 0.1 6.095593e+02 4.485728e+01 0.2 7.215377e+02 "
+                   "1.728540e+02 2.163791e-01 0.3 0.4 1.0 2.745884e-03\n")
+    odo = tmp_path / "calib.txt"
+    odo.write_text("P0: 1 0 0 0 0 1 0 0 0 0 1 0\n"
+                   "P2: 718.856 0.5 607.1928 45.38225 0.25 718.856 185.2157 -0.1130887 "
+                   "0.1 0.2 1 0.003779761\n")
+    for path in (cam, odo):
+        got, want = ef.read_raw_calib_file(str(path)), jef.read_raw_calib_file(str(path))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+        np.testing.assert_array_equal(ef.load_intrinsics_raw(str(path)),
+                                      jef.load_intrinsics_raw(str(path)))
+        for zoom in ((832 / 1242, 256 / 375), (0.5, 2.0)):
+            k = ef.load_intrinsics_raw(str(path))
+            np.testing.assert_array_equal(ef.scale_intrinsics(k, *zoom),
+                                          jef.scale_intrinsics(k, *zoom))
+            np.testing.assert_array_equal(get_scaled_intrinsic_matrix(str(path), *zoom),
+                                          jef.get_scaled_intrinsic_matrix(str(path), *zoom))
+
+
+def test_the_export_list_equals_jax():
+    import unopticalflow_tpu.evaluation as jev
+    import unopticalflow_tpu_torch.evaluation as ev
+
+    assert set(jev.__all__) <= set(ev.__all__)
+    for name in ev.__all__:
+        assert callable(getattr(ev, name))

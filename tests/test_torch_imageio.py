@@ -177,8 +177,11 @@ def test_cv2_reads_back_what_the_port_writes(shape, dtype, tmp_path, monkeypatch
         assert np.array_equal(imageio.imread(path, imageio.IMREAD_UNCHANGED), img)
         assert imageio.imread(str(tmp_path / "missing.png")) is None
         (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
-        with pytest.raises(ValueError, match="reads PNG only"):
+        with pytest.raises(ValueError, match="corrupt JPEG"):  # a JPEG, broken
             imageio.imread(str(tmp_path / "x.jpg"))
+        (tmp_path / "x.gif").write_bytes(b"GIF89a" + bytes(16))
+        with pytest.raises(ValueError, match="neither PNG nor JPEG"):
+            imageio.imread(str(tmp_path / "x.gif"))
     assert np.array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED), img)
     assert np.array_equal(cv2.imread(path, cv2.IMREAD_COLOR),
                           imageio.decode_png(imageio.encode_png(img)))
@@ -204,9 +207,9 @@ def test_png_reader_refuses_what_it_does_not_read(monkeypatch):
     with pytest.raises(ValueError, match="row filter 5 does not exist"):
         imageio.decode_png(bad_filter)
     ok, jpg = cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ValueError, match="JPEG needs opencv"):
-        imageio.imdecode(jpg.tobytes())
+    want = cv2.imdecode(jpg, cv2.IMREAD_COLOR)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # a JPEG body needs no opencv
+    assert np.array_equal(imageio.imdecode(jpg.tobytes()), want)
     assert np.array_equal(imageio.imdecode(imageio.encode_png(px)), np.zeros((2, 3, 3)))
     assert imageio.imdecode(b"GIF89a") is None
 

@@ -5,7 +5,12 @@ port reads flax's ``.ckpt`` with its own codec), of the repo's root
 ``benchmarks/`` (the JAX probes), nor a root module of the repo
 (``serve.py``, ``train.py``, ... import the JAX package), and importing every
 module of the port loads neither JAX nor any file under
-``unopticalflow_tpu/``."""
+``unopticalflow_tpu/``.  Nor does the port import opencv, h5py, matplotlib
+or PIL, which the card's machine lacks: not at module level, not inside a
+function (a source scan), and not at import (every module imports with the
+four blocked and loads none of them).  The one exception is
+``eval_odom.KittiEvalOdom.plot_path``'s matplotlib, which a later slice
+replaces."""
 
 import ast
 import glob
@@ -132,3 +137,71 @@ print(json.dumps({{"names": names, "named": named, "by_path": by_path,
             "unopticalflow_tpu_torch.models.flowpose_model",
             "unopticalflow_tpu_torch.evaluation.eval_odom"} <= set(got["names"])
     assert got["named"] == [] and got["by_path"] == [] and got["jax"] == []
+
+
+HOST_LIBS = {"cv2", "h5py", "matplotlib", "PIL"}
+# the one import of the four that the port still makes: eval_odom's plot
+HOST_LIB_ALLOWED = {("unopticalflow_tpu_torch/evaluation/eval_odom.py", "matplotlib")}
+
+
+def _host_lib_imports(path: str) -> list[str]:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__"):
+                names = [a.value for a in node.args
+                         if isinstance(a, ast.Constant) and isinstance(a.value, str)]
+        for n in names:
+            top = n.split(".")[0]
+            if top in HOST_LIBS and (os.path.relpath(path, REPO), top) not in HOST_LIB_ALLOWED:
+                found.append(f"{node.lineno}: {n}")
+    return found
+
+
+def test_the_host_library_scan_catches_imports_inside_functions(tmp_path):
+    src = tmp_path / "x.py"
+    src.write_text("def f():\n    import cv2\n    from h5py import File\n"
+                   "    import matplotlib.pyplot as plt\n    from PIL import Image\n"
+                   "    importlib.import_module('cv2')\n    import numpy\n")
+    assert [v.split(":")[0] for v in _host_lib_imports(str(src))] == ["2", "3", "4", "5", "6"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_of_the_port_imports_opencv_h5py_matplotlib_or_pil(path):
+    assert _host_lib_imports(path) == []
+
+
+def test_every_module_imports_with_the_host_libraries_blocked():
+    code = f"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {REPO!r})
+for m in {sorted(HOST_LIBS)!r}:
+    sys.modules[m] = None
+import unopticalflow_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(unopticalflow_tpu_torch.__path__,
+                                               "unopticalflow_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m, mod in sys.modules.items()
+                if m.split(".")[0] in {sorted(HOST_LIBS)!r} and mod is not None)
+print(json.dumps({{"names": names, "loaded": loaded}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"unopticalflow_tpu_torch.utils.hdf5", "unopticalflow_tpu_torch.utils.profiler",
+            "unopticalflow_tpu_torch.evaluation.depth_harness",
+            "unopticalflow_tpu_torch.evaluation.evaluate_depth",
+            "unopticalflow_tpu_torch.evaluation.evaluate_mask"} <= set(got["names"])
+    assert got["loaded"] == []

@@ -176,12 +176,3 @@ def test_read_ppm_refuses_what_it_does_not_read(tmp_path):
         p.write_bytes(bad)
         with pytest.raises(ValueError, match=match):
             imageio.read_ppm(str(p))
-
-
-def test_a_missing_h5py_is_named(tmp_path, monkeypatch):
-    import sys
-
-    raw, test = _raw_nyu_tree(tmp_path)
-    monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="nyu_depth_v2_labeled.mat.*h5py"):
-        preparers.NYU_Prepare(raw, test).get_train_scenes()

@@ -31,7 +31,7 @@ import shutil
 
 import numpy as np
 
-from unopticalflow_tpu_torch.utils import imageio
+from unopticalflow_tpu_torch.utils import hdf5, imageio
 
 # NYUv2's colour camera (the JAX package's calibration line)
 _NYU_INTRINSICS_LINE = (
@@ -272,9 +272,9 @@ class NYU_Prepare:
     """NYUv2 raw ``.ppm`` 2-frame snippets of the official train split.
 
     ``data_dir`` holds ``<dir>/<scene>/*.ppm``; ``test_dir`` the labeled set
-    ``nyu_depth_v2_labeled.mat`` (HDF5: its ``scenes`` names each labeled
-    frame's scene) and ``splits.mat`` (``trainNdxs``/``testNdxs``, read with
-    scipy).  Reading the scene names needs ``h5py``.
+    ``nyu_depth_v2_labeled.mat`` (MATLAB v7.3, that is HDF5: its ``scenes``
+    names each labeled frame's scene, read with ``utils/hdf5.py``) and
+    ``splits.mat`` (MATLAB v5: ``trainNdxs``/``testNdxs``, read with scipy).
     """
 
     def __init__(self, data_dir, test_dir):
@@ -285,19 +285,14 @@ class NYU_Prepare:
     def _split_scenes(self, key: str) -> list:
         import scipy.io as sio
 
-        try:
-            import h5py
-        except ImportError:
-            raise ImportError(f"NYU_Prepare reads the scene names of {self.test_data} (HDF5) "
-                              "with h5py, which is not installed") from None
-        data = h5py.File(self.test_data, "r")
         split = np.array(sio.loadmat(self.splits)[key]).squeeze(1)
-        scene_refs = data["scenes"][0][split - 1]
         names = []
-        for ref in scene_refs:
-            name = "".join(chr(j) for j in data[ref][:])
-            if name not in names:
-                names.append(name)
+        with hdf5.File(self.test_data) as data:
+            for ref in data["scenes"][0][split - 1]:
+                # a MATLAB char array: (L, 1) as MATLAB writes it, (L,) from h5py
+                name = "".join(chr(j) for j in data[ref][:].ravel())
+                if name not in names:
+                    names.append(name)
         return names
 
     def get_test_scenes(self):

@@ -1,11 +1,12 @@
 """Flow evaluation: KITTI and Sintel ground truth and the EPE/outlier metrics.
 
 Port of ``unopticalflow_tpu/evaluation/evaluate_flow.py`` (and of
-``load_gt_mask`` from ``evaluate_mask.py``): the MPI-Sintel ``.flo`` ground
-truth with its occlusion PNGs, the KITTI flow_occ/flow_noc PNGs and
-the object maps read in a pool of threads (the PNG reader's zlib and row
-unfiltering release the interpreter lock), each prediction vector-rescaled from network to
-ground-truth resolution and resized bilinearly, average EPE over valid /
+``load_gt_mask`` from ``evaluate_mask.py``): the KITTI calibration readers,
+the MPI-Sintel ``.flo`` ground truth with its occlusion PNGs, the KITTI
+flow_occ/flow_noc PNGs and the object maps read in a pool of threads (the
+PNG reader's zlib and row unfiltering release the interpreter lock), each
+prediction vector-rescaled from network to ground-truth resolution and
+resized bilinearly, average EPE over valid /
 non-occluded / occluded pixels, the KITTI outlier rate (> 3 px and > 5% of
 the ground-truth magnitude), the moving/static splits, and the same
 formatted result string.
@@ -29,6 +30,42 @@ from unopticalflow_tpu_torch.evaluation.flowlib import read_flow, read_flow_png
 from unopticalflow_tpu_torch.utils import imageio
 
 KITTI_NUM_GT = {"kitti_2012": 194, "kitti_2015": 200}
+
+
+def read_raw_calib_file(filepath: str) -> dict:
+    """KITTI calib file -> dict of float arrays (lines that are not numbers skipped)."""
+    data = {}
+    with open(filepath, "r") as f:
+        for line in f.readlines():
+            key, value = line.split(":", 1)
+            try:
+                data[key] = np.array([float(x) for x in value.split()])
+            except ValueError:
+                pass
+    return data
+
+
+def load_intrinsics_raw(calib_file: str) -> np.ndarray:
+    """The 3x3 intrinsics of ``P_rect_02`` (or ``P2``) in a KITTI calib file."""
+    filedata = read_raw_calib_file(calib_file)
+    p_rect = filedata["P_rect_02"] if "P_rect_02" in filedata else filedata["P2"]
+    return np.reshape(p_rect, (3, 4))[:3, :3]
+
+
+def scale_intrinsics(mat: np.ndarray, sx: float, sy: float) -> np.ndarray:
+    out = np.copy(mat)
+    out[0, 0] *= sx
+    out[0, 2] *= sx
+    out[1, 1] *= sy
+    out[1, 2] *= sy
+    return out
+
+
+def get_scaled_intrinsic_matrix(calib_file, zoom_x, zoom_y) -> np.ndarray:
+    """The intrinsics scaled by (zoom_x, zoom_y), skew and last row's zeros exact."""
+    intr = scale_intrinsics(load_intrinsics_raw(calib_file), zoom_x, zoom_y)
+    intr[0, 1] = intr[1, 0] = intr[2, 0] = intr[2, 1] = 0.0
+    return intr
 
 
 def _read_flow_gt(dir_gt: str, i: int):

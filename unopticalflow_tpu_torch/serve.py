@@ -16,9 +16,10 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
 /flow`` with a PNG/JPEG of the vertically stacked pair, answered with
 Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it
-decodes a PNG body with the port's own reader and a JPEG body with ``cv2``
-(a 400 where opencv is missing), and ``main`` reads the yaml, so
-``FlowServer`` itself needs only torch and numpy.
+decodes PNG and baseline JPEG bodies with the port's own readers (no
+opencv; a JPEG mode they refuse, such as progressive, gets a 400 that
+names it), and ``main`` reads the yaml, so ``FlowServer`` itself needs only
+torch and numpy.
 
 Usage:
     python -m unopticalflow_tpu_torch.serve -c config/kitti.yaml \
@@ -182,7 +183,9 @@ class FlowServer:
 def _decode_pair(body: bytes, img_hw) -> np.ndarray:
     """PNG/JPEG bytes of a vertically stacked pair -> (2H, W, 3) float32.
 
-    JPEG needs opencv; without it a JPEG body is refused (a 400 that says so).
+    Decoded by ``utils/imageio.py`` as ``cv2.imdecode`` decodes it; a body it
+    cannot decode (another format, a progressive or truncated JPEG) raises
+    ``ValueError`` with the reason, which the handler sends back in a 400.
     """
     arr = imageio.imdecode(body, imageio.IMREAD_COLOR)
     if arr is None:

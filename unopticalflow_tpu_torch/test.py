@@ -23,7 +23,7 @@ correlation kernels per batch); the metrics are
 ``--sintel_dir``).  ``demo`` writes ``<result_dir>/demo_flow.png``, the
 colour wheel of one pair's flow; ``export_pth`` writes the weights as the
 reference's ``{"iteration", "model_state_dict"}``.  Frames are read and
-resized by ``utils/imageio.py`` (PNG, as cv2 reads and resizes them).
+resized by ``utils/imageio.py`` (PNG or JPEG, as cv2 reads and resizes them).
 ``test_kitti_2012``/``test_kitti_2015`` are also the trainer's interleaved
 evaluation.
 """
@@ -185,7 +185,7 @@ def test_kitti_odo(cfg, pose_fn, seq_dir, result_txt, device) -> str:
     """Pose-net odometry over an image sequence -> a KITTI pose file.
 
     Consecutive frames (``image_2/`` of ``seq_dir``, else ``seq_dir``;
-    sorted ``.png``) are read and resized to ``img_hw`` as cv2 does; each
+    sorted ``.png``/``.jpg``) are read and resized to ``img_hw`` as cv2 does; each
     pair's pose (frame t+1's camera into frame t's) becomes [R | t] in
     float32 (``ops/geometry.py::pose_vec2mat``) and is chained in float64
     into camera-to-world matrices, written as 12 numbers a line (the first

@@ -1,12 +1,12 @@
 """Image reading, writing and resizing for the port's entry points.
 
-The port reads frames and KITTI ground truth as PNG with its own codec
-(``zlib``, numpy, and the row unfiltering of ``csrc/imageio.c``) and resizes
-frames with its own copy of OpenCV's ``INTER_LINEAR`` (the taps in numpy,
-the sums in ``csrc/imageio.c``), both written to give what cv2 gives bit for
-bit, so the entry points read the same data on every machine, with or
-without opencv.  Only a JPEG request body to the server goes through
-``cv2``, where it imports.
+The port reads frames, request bodies and KITTI ground truth as PNG or JPEG
+with its own codecs (PNG: ``zlib``, numpy, and the row unfiltering of
+``csrc/imageio.c``; JPEG: the baseline decoder of ``csrc/jpeg.c``) and
+resizes with its own copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in
+numpy, the sums in ``csrc/imageio.c``; float32: numpy), each written to give
+what cv2 gives, so the entry points read the same data on every machine,
+with or without opencv.  Nothing here imports cv2.
 
 * ``decode_png(data, flags)`` as ``cv2.imdecode``: ``IMREAD_COLOR`` gives BGR
   uint8 (H, W, 3) (16-bit samples keep their high byte, alpha is dropped,
@@ -17,15 +17,24 @@ without opencv.  Only a JPEG request body to the server goes through
   ``IMREAD_GRAYSCALE`` (0) reads grey files only, as (H, W) uint8 (16-bit
   samples keep their high byte): cv2's conversion of a colour file to grey
   is not reproduced, and such a file raises.
+* ``decode_jpeg(data, flags)`` as ``cv2.imdecode`` with libjpeg-turbo, bit
+  for bit: baseline (sequential, Huffman, 8-bit) grey or YCbCr files of any
+  size and sampling, with restart intervals.  ``IMREAD_COLOR`` gives BGR
+  (a grey file repeated), ``IMREAD_GRAYSCALE`` libjpeg's Y plane,
+  ``IMREAD_UNCHANGED`` the file's own channels; the first two apply an
+  Exif ``Orientation`` tag, as cv2 does.  Progressive, lossless,
+  arithmetic-coded, 12-bit, CMYK and truncated files raise ``ValueError``,
+  naming the mode or the fault.
 * ``encode_png(img)`` as ``cv2.imencode(".png")`` writes it, each row's
   filter chosen as libpng chooses it: (H, W) grey or (H, W, 3) BGR /
   (H, W, 4) BGRA, uint8 or uint16.
 * ``read_ppm(path)``: a binary (P6, 8-bit) PPM as RGB (NYUv2's raw frames).
-* ``resize(img, (w, h))`` as ``cv2.resize(img, (w, h))`` on uint8:
+* ``resize(img, (w, h))`` as ``cv2.resize(img, (w, h))``.  On uint8:
   weights with 11 fractional bits from single-precision source positions
   (borders clamped), an integer horizontal pass, then the vertical pass as
   cv2's vector code rounds it: ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16),
-  plus 2, shifted right by 2.
+  plus 2, shifted right by 2.  On float32: as cv2's Intel IPP path computes
+  it, to within 2 float32 ulps (see ``_resize_f32``).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ IMREAD_GRAYSCALE = 0
 IMREAD_COLOR = 1
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_JPEG_MAGIC = b"\xff\xd8"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
 _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
 
@@ -51,34 +61,31 @@ _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
 
 
 def imread(path: str, flags: int = IMREAD_COLOR):
-    """``cv2.imread`` of a PNG: the image, or None when the file is missing.
+    """The image in a PNG or JPEG file, or None when the file is missing.
 
-    The port reads PNG only; another format raises, saying so.
+    The format is read from the file's first bytes; another format raises,
+    saying so.
     """
     if not os.path.isfile(path):
         return None
     with open(path, "rb") as f:
         data = f.read()
-    if not data.startswith(_PNG_MAGIC):
-        raise ValueError(f"{path}: not a PNG file; the port reads PNG only")
-    return decode_png(data, flags)
+    img = imdecode(data, flags)
+    if img is None:
+        raise ValueError(f"{path}: neither PNG nor JPEG; the port reads those two")
+    return img
 
 
 def imdecode(data: bytes, flags: int = IMREAD_COLOR):
-    """``cv2.imdecode`` of a request body: None when it is no image.
+    """The image in a request body: None when it is neither PNG nor JPEG.
 
-    PNG goes through ``decode_png``; JPEG through ``cv2``, and where that
-    cannot be imported, a JPEG body raises, saying so.
+    A PNG or JPEG body that the port cannot decode raises ``ValueError``.
     """
     if data.startswith(_PNG_MAGIC):
         return decode_png(data, flags)
-    if not data.startswith(b"\xff\xd8"):
-        return None
-    try:
-        import cv2
-    except ImportError:
-        raise ValueError("JPEG needs opencv (cv2), which is not installed; send PNG") from None
-    return cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+    if data.startswith(_JPEG_MAGIC):
+        return decode_jpeg(data, flags)
+    return None
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
@@ -87,6 +94,13 @@ def imwrite(path: str, img: np.ndarray) -> None:
         raise ValueError(f"{path}: the port writes PNG only")
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+def saturate_u8(img: np.ndarray) -> np.ndarray:
+    """A float array as ``cv2.imwrite`` stores it in an 8-bit PNG: each value
+    rounded half to even and saturated to 0..255 (NaN to 0)."""
+    a = np.rint(np.nan_to_num(np.asarray(img, np.float64), nan=0.0))
+    return np.clip(a, 0, 255).astype(np.uint8)
 
 
 def read_ppm(path: str) -> np.ndarray:
@@ -289,6 +303,87 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# JPEG
+# ---------------------------------------------------------------------------
+
+
+def _jpeg_lib():
+    """``csrc/jpeg.c``, built with the host's C compiler at first use."""
+    import ctypes
+
+    from unopticalflow_tpu_torch.ops import _build
+
+    i64, p = ctypes.c_int64, _build.P
+    return _build.load("jpeg", {
+        "jpeg_info": [p, i64, p, p, _build.I],
+        "jpeg_decode": [p, i64, _build.I, p, p, _build.I],
+    })
+
+
+def _exif_orientation(data: bytes) -> int:
+    """The ``Orientation`` tag (1-8) of the first Exif APP1 segment, else 1."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        kind, n = data[pos + 1], int.from_bytes(data[pos + 2:pos + 4], "big")
+        if kind == 0xDA or kind == 0xD9:  # the image data: no more header segments
+            break
+        body = data[pos + 4:pos + 2 + n]
+        pos += 2 + n
+        if kind != 0xE1 or not body.startswith(b"Exif\0\0"):
+            continue
+        tiff = body[6:]
+        order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
+        if order is None or len(tiff) < 8:
+            return 1
+        ifd = struct.unpack(order + "I", tiff[4:8])[0]
+        if ifd + 2 > len(tiff):
+            return 1
+        count = struct.unpack(order + "H", tiff[ifd:ifd + 2])[0]
+        for k in range(count):
+            e = ifd + 2 + 12 * k
+            if e + 12 > len(tiff):
+                break
+            tag, kind_, _ = struct.unpack(order + "HHI", tiff[e:e + 8])
+            if tag == 0x0112 and kind_ == 3:  # Orientation, SHORT
+                return struct.unpack(order + "H", tiff[e + 8:e + 10])[0]
+        return 1
+    return 1
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """cv2's ``ApplyExifOrientation``: the flips and transposes of tags 2-8."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    for axis in flip:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
+def decode_jpeg(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """JPEG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
+    import ctypes
+
+    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
+        raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR, "
+                         "IMREAD_GRAYSCALE or IMREAD_UNCHANGED")
+    lib = _jpeg_lib()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(buf.ctypes.data, buf.size, info.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    w, h, ncomp = (int(v) for v in info)
+    grey = flags == IMREAD_GRAYSCALE or (flags == IMREAD_UNCHANGED and ncomp == 1)
+    out = np.empty((h, w) if grey else (h, w, 3), np.uint8)
+    if lib.jpeg_decode(buf.ctypes.data, buf.size, int(grey), out.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    if flags == IMREAD_UNCHANGED:
+        return out
+    return _orient(out, _exif_orientation(data))
+
+
+# ---------------------------------------------------------------------------
 # cv2's INTER_LINEAR resize of uint8 images: the taps here, the sums in C
 # ---------------------------------------------------------------------------
 
@@ -308,11 +403,39 @@ def _coef(f: np.ndarray):
             np.rint(f * one).astype(np.int64))
 
 
+def _resize_f32(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """float32 (H, W[, C]) -> (dh, dw[, C]) as ``cv2.resize`` with Intel IPP
+    (the default where cv2 is built with it): source positions in double
+    precision, borders clamped, a horizontal then a vertical pass, each a sum
+    of two products in double precision rounded to float32.  IPP's own order
+    of operations is not public: on [0, 255] images this lands within 2
+    float32 ulps of the image's largest magnitude of what cv2 5.0 gives
+    (tests/test_torch_depth.py holds it there)."""
+    sh, sw = img.shape[:2]
+
+    def taps(src, dst):
+        f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+        s = np.floor(f).astype(np.int64)
+        return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), (f - s)
+
+    x0, x1, fx = taps(sw, dw)
+    y0, y1, fy = taps(sh, dh)
+    src = img.astype(np.float64)
+    ex = (slice(None),) + (None,) * (img.ndim - 2)  # weights broadcast over channels
+    hx = (src[:, x0] * (1.0 - fx)[ex] + src[:, x1] * fx[ex]).astype(np.float32)
+    hx = hx.astype(np.float64)
+    ey = (slice(None), None) + (None,) * (img.ndim - 2)
+    return (hx[y0] * (1.0 - fy)[ey] + hx[y1] * fy[ey]).astype(np.float32)
+
+
 def resize(img: np.ndarray, wh) -> np.ndarray:
-    """uint8 (H, W) or (H, W, C) -> (h, w[, C]), as ``cv2.resize(img, (w, h))``."""
-    if img.dtype != np.uint8:
-        raise TypeError(f"the port resizes uint8 images, got {img.dtype}")
+    """uint8 or float32 (H, W) or (H, W, C) -> (h, w[, C]), as
+    ``cv2.resize(img, (w, h))`` (``INTER_LINEAR``; see the module)."""
     dw, dh = int(wh[0]), int(wh[1])
+    if img.dtype == np.float32:
+        return _resize_f32(img, dw, dh)
+    if img.dtype != np.uint8:
+        raise TypeError(f"the port resizes uint8 and float32 images, got {img.dtype}")
     sh, sw = img.shape[:2]
     src = np.ascontiguousarray(img).reshape(sh, sw, -1)
     sx, fx = _linear_taps(sw, dw)
