@@ -267,6 +267,51 @@ Phases (each raises on failure, so the run exits non-zero):
    disparities are resized on the card (near-zero error, as the JAX test's
    oracle), ``eval_depth`` (both protocols) and ``eval_mask`` on seeded
    inputs equal to the JAX package's numbers (rtol 1e-6) and PNG pixels.
+18. K training steps a dispatch (``dispatch_graph``): the KITTI recipe
+   (256x832, batch 8, 3 scales, regularizer off), K = 8, float32 and
+   bfloat16, 8 seeded in-memory batches.  (b) A capturable Adam against
+   ``make_optimizer``'s, one step from the same state (step 2) on the same
+   float32 gradients: every parameter within 2 ulps plus the update's
+   rounding.  (c) ``make_multi_train_step``'s eager first dispatch and its
+   capture each launch 8 x (5, 5, 5, 3, 3) training kernels, and replays
+   none (the counters count host launches).  (a) From one state, one graph
+   dispatch against 8 eager capturable-Adam steps: the 8 losses and the
+   parameters' change within 3 times the eager steps' own distance on
+   snippets moved by one ulp (phase 7's rule, floor 1e-4), and in float32
+   the first sub-step's loss bit-equal; the eager steps' distance from a
+   second eager run on the same snippets is printed beside (the backward's
+   atomic sums differ run to run).  (d) ms/step of the graph (median of
+   3 dispatches over 8) against the trainer's K = 1 eager step (median of 8,
+   ``make_optimizer``'s Adam) in the same process, each with the idle share
+   of a profiled window (2 dispatches, or 4 eager steps: 1 - the profiler's
+   busy device time over the window's CUDA-event time, which holds the
+   profiler's own overhead, and beside it 1 - the busy time over the
+   unprofiled ms/step), its device operations a step and its peak memory, in
+   both dtypes.  (e) ``python -m
+   unopticalflow_tpu_torch.train --steps_per_dispatch auto`` (a subprocess;
+   log and save every 8, 16
+   iterations, bfloat16, batch 8, 256x832) on a warm ``--cache_decoded``
+   tree of 8 prepared snippets at 375x1242: it prints ``auto -> 8``, logs
+   iterations 0 and 8, writes ``iter_7.pth``, ``iter_15.pth`` and
+   ``last.pth``; a ``--resume`` from ``iter_7.pth`` runs 16 more at K = 8
+   (2 x 8 x (5, 5, 5, 3, 3) launches: the eager dispatch and the capture),
+   ``last.pth`` at 22; the loader's cold and warm snippets/s beside the
+   graph's bfloat16 step rate say which bound the run.  (f) The other
+   training modes at the K that ``auto`` picks at the yamls' intervals (log
+   100, save 2000, test 2000: K = 4), float32, batch 8: flowposenet and
+   ``--freeze_flow`` at 256x832 (odo.yaml), the 2-frame nyuv2 flowposenet
+   and flow steps at 192x256 (nyu_posenet_192.yaml).  ``train()`` on
+   in-memory snippets for 12 iterations prints ``auto -> 4`` and launches
+   4 x the mode's per-step kernels in its eager dispatch and in its capture,
+   none in its replay; then a new step function from the state it left,
+   after its own eager dispatch and capture, holds one graph dispatch to 4
+   eager capturable-Adam steps as (a) does (first sub-step's loss
+   bit-equal, parameters the optimizer does not hold unchanged).  (g)
+   ``synthetic_epe.run`` with ``--lr-schedule cosine``, 64 iterations,
+   batch 4, 128x256, bfloat16, at K = 8 (a graph) and K = 1: every step's
+   learning rate, read back from the graph, within one float32 ulp of
+   ``cosine_decay_lr``, evaluation points labelled 7 and 39, finite EPEs
+   printed side by side.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -282,7 +327,11 @@ rows that this run's indices touch, each once; ``library_ms``: the time of
 ``torch.gather`` on the expanded int64 index for ``row_gather``, null for
 the others: no single PyTorch call computes any of them); the last line is
 ``{"ok": true, "device": {...}}``.  Only the CUDA path is driven: with no
-GPU the script exits non-zero before printing any result.
+GPU the script exits non-zero before printing any result.  The trainer runs
+of phases 6-16 take K = 1 (their intervals make ``--steps_per_dispatch
+auto`` pick 1, or they set it, so that their per-step launch counts and
+step times keep their meaning); phase 18 drives K = 8 in flow mode and
+K = 4, the default intervals' ``auto``, in the other modes.
 """
 
 from __future__ import annotations
@@ -369,6 +418,19 @@ SAVE_REPS = 3  # phase 15 (e): saves timed, each way
 # phase 16: flowposenet steps timed at config/odo.yaml's recipe (IMG_HW, BATCH),
 # --freeze_flow steps, NYUv2's 640x480 frames and config/nyu_posenet_192.yaml's
 # img_hw, prepared NYU snippets, and a 16-frame odometry sequence at KITTI's size
+# phase 18: K steps a dispatch (the JAX trainer's auto K at log and save
+# intervals of 8), dispatches timed and profiled, eager steps profiled, and the
+# prepared snippets of its trainer run
+DISPATCH_K = 8
+DISPATCH_TIMED = 3
+DISPATCH_PROFILED = 2
+EAGER_PROFILED = 4
+DISPATCH_SNIPPETS = 8
+# phase 18 (f): what --steps_per_dispatch auto picks at the flags' default
+# intervals (log 100, save 2000, test 2000); (g): synthetic_epe's iterations
+DISPATCH_AUTO_K = 4
+EPE_ITERS = 64
+EPE_HW = (128, 256)
 FP_STEPS = 10
 FP_BF16_STEPS = 8
 FREEZE_STEPS = 3
@@ -1205,6 +1267,66 @@ def entry_points_complete(c) -> None:
           f"(median of {SAVE_REPS}); phase 15 in {time.perf_counter() - t15:.1f} s ({c.smi})")
 
 
+def pose_snippets(hw, n: int, seed: int):
+    """``SyntheticSnippets`` with per-snippet intrinsics, (img, K, K_inv)
+    samples: KITTI's P_rect_02 at 375x1242, scaled to ``hw``, moved a little."""
+    import numpy as np
+
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+
+    def kitti_k(rng):
+        k = np.array([[721.5377, 0.0, 609.5593], [0.0, 721.5377, 172.854], [0.0, 0.0, 1.0]])
+        k[0] *= hw[1] / KITTI_HW[1]
+        k[1] *= hw[0] / KITTI_HW[0]
+        k[:2, :] *= 1.0 + 0.01 * rng.randn(2, 1)
+        return k.astype(np.float32), np.linalg.inv(k).astype(np.float32)
+
+    class PoseSnippets(SyntheticSnippets):
+        def __init__(self):
+            super().__init__(hw, n, seed)
+            rng = np.random.RandomState(seed)
+            self.ks = [kitti_k(rng) for _ in range(len(self.snippets))]
+
+        def __getitem__(self, idx):
+            return (super().__getitem__(idx), *self.ks[idx % len(self.ks)])
+
+    return PoseSnippets()
+
+
+def pair_snippets(hw, frame_hw, n: int, seed: int):
+    """NYU_v2's samples in memory: (2H, W, 3) float32 pairs at ``hw``, K_ms,
+    K_inv_ms (NYU's intrinsics at ``frame_hw`` rescaled as NYU_v2 rescales
+    them)."""
+    import numpy as np
+
+    from unopticalflow_tpu_torch.data import preparers
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+
+    class PairSnippets:
+        num_frames = 2
+
+        def __init__(self):
+            nh, nw = hw
+            snips = SyntheticSnippets(hw, n, seed=seed).snippets
+            self.pairs = snips[:, :2 * nh].astype(np.float32) / 255.0
+            k = np.array(preparers._NYU_INTRINSICS_LINE.split()[1:], float).reshape(3, 4)[:, :3]
+            k[0] *= nh / frame_hw[0]
+            k[1] *= nw / frame_hw[1]
+            ks = [np.diag([0.5**s, 0.5**s, 1.0]) @ k for s in range(3)]
+            self.k = np.stack(ks).astype(np.float32)
+            self.k_inv = np.stack([np.linalg.inv(x) for x in ks]).astype(np.float32)
+
+        def __len__(self):
+            return n
+
+        def __getitem__(self, idx):
+            if idx >= n:
+                raise IndexError(idx)
+            return self.pairs[idx % len(self.pairs)], self.k, self.k_inv
+
+    return PairSnippets()
+
+
 def flowpose(c) -> None:
     """Phase 16 (see the module): ``c`` as for ``entry_points_complete``, with
     the step counts (``fp_steps``, ``fp_bf16_steps``, ``freeze_steps``), the
@@ -1240,25 +1362,6 @@ def flowpose(c) -> None:
     root = c.root
     os.makedirs(root, exist_ok=True)
 
-    def kitti_k(hw, rng):
-        """KITTI's P_rect_02 at 375x1242, scaled to ``hw``, moved a little."""
-        k = np.array([[721.5377, 0.0, 609.5593], [0.0, 721.5377, 172.854], [0.0, 0.0, 1.0]])
-        k[0] *= hw[1] / KITTI_HW[1]
-        k[1] *= hw[0] / KITTI_HW[0]
-        k[:2, :] *= 1.0 + 0.01 * rng.randn(2, 1)
-        return k.astype(np.float32), np.linalg.inv(k).astype(np.float32)
-
-    class PoseSnippets(SyntheticSnippets):
-        """SyntheticSnippets with per-snippet intrinsics: (img, K, K_inv)."""
-
-        def __init__(self, hw, n, seed):
-            super().__init__(hw, n, seed)
-            rng = np.random.RandomState(seed)
-            self.ks = [kitti_k(hw, rng) for _ in range(len(self.snippets))]
-
-        def __getitem__(self, idx):
-            return (super().__getitem__(idx), *self.ks[idx % len(self.ks)])
-
     def step_events():
         events, metrics = [], []
 
@@ -1285,11 +1388,11 @@ def flowpose(c) -> None:
             mode="flowposenet", num_iterations=steps, init_scheme="pwc", seed=SEED + 20,
             precision=dtype, loss_precision=dtype, log_interval=1000, save_interval=100000,
             model_dir=os.path.join(root, f"a_{dtype}"), num_workers=4, batch_size=batch_n,
-            img_hw=c.img_hw)
+            img_hw=c.img_hw, steps_per_dispatch=1)
         os.makedirs(cfg.model_dir, exist_ok=True)
         on_step, metrics, ms = step_events()
         reset_counts()
-        res = train_cli.train(cfg, dataset=PoseSnippets(c.img_hw, steps * batch_n, SEED + 20),
+        res = train_cli.train(cfg, dataset=pose_snippets(c.img_hw, steps * batch_n, SEED + 20),
                               device=device, on_step=on_step)
         c.sync()
         got = counts()
@@ -1307,7 +1410,7 @@ def flowpose(c) -> None:
           f"steps; phase 7's {c.flow_ms['bfloat16']:.3f}), median CUDA-event intervals; "
           f"launches per step {_launched(c.want(PER_STEP))} ({c.smi})")
 
-    data = PoseSnippets(c.img_hw, batch_n, SEED + 21)
+    data = pose_snippets(c.img_hw, batch_n, SEED + 21)
     imgs = torch.from_numpy(data.snippets[:batch_n].astype(np.float32) / 255.0).to(device)
     ks = [torch.from_numpy(np.stack([data.ks[i][j] for i in range(batch_n)])).to(device)
           for j in range(2)]
@@ -1354,13 +1457,13 @@ def flowpose(c) -> None:
     cfg = train_cli.recipe_config(
         mode="flowposenet", freeze_flow=True, num_iterations=c.freeze_steps, init_scheme="pwc",
         seed=SEED + 22, log_interval=1000, save_interval=100000, batch_size=batch_n,
-        model_dir=os.path.join(root, "b"), num_workers=4, img_hw=c.img_hw)
+        model_dir=os.path.join(root, "b"), num_workers=4, img_hw=c.img_hw, steps_per_dispatch=1)
     os.makedirs(cfg.model_dir, exist_ok=True)
     start = FlowPoseModel(FlowModelConfig(), device=device, scheme="pwc",
                           generator=torch.Generator().manual_seed(SEED + 22))
     on_step, metrics, ms = step_events()
     reset_counts()
-    res = train_cli.train(cfg, dataset=PoseSnippets(c.img_hw, c.freeze_steps * batch_n,
+    res = train_cli.train(cfg, dataset=pose_snippets(c.img_hw, c.freeze_steps * batch_n,
                                                     SEED + 22), device=device, on_step=on_step)
     c.sync()
     frozen_counts = counts()
@@ -1483,42 +1586,18 @@ def flowpose(c) -> None:
     n_loaded = sum(len(b[0]) for b in BatchLoader(ds, batch_size=batch_n, num_workers=4))
     nyu_loader = n_loaded / (time.perf_counter() - t0)
 
-    class PairSnippets:
-        """NYU_v2's samples in memory: (2H, W, 3) float32 pairs, K_ms, K_inv_ms
-        (NYU's intrinsics rescaled as NYU_v2 rescales them)."""
-
-        num_frames = 2
-
-        def __init__(self, n):
-            snips = SyntheticSnippets(c.nyu_hw, n, seed=SEED + 28).snippets
-            self.pairs = snips[:, :2 * nh].astype(np.float32) / 255.0
-            k = np.array(preparers._NYU_INTRINSICS_LINE.split()[1:], float).reshape(3, 4)[:, :3]
-            k[0] *= nh / c.nyu_frame_hw[0]
-            k[1] *= nw / c.nyu_frame_hw[1]
-            ks = [np.diag([0.5**s, 0.5**s, 1.0]) @ k for s in range(3)]
-            self.k = np.stack(ks).astype(np.float32)
-            self.k_inv = np.stack([np.linalg.inv(x) for x in ks]).astype(np.float32)
-            self.n = n
-
-        def __len__(self):
-            return self.n
-
-        def __getitem__(self, idx):
-            if idx >= self.n:
-                raise IndexError(idx)
-            return self.pairs[idx % len(self.pairs)], self.k, self.k_inv
-
     pair_rates = {}
     for mode in ("flowposenet", "flow"):
         cfg = train_cli.recipe_config(
             mode=mode, dataset="nyuv2", num_iterations=c.fp_steps, init_scheme="pwc",
             seed=SEED + 28, img_hw=c.nyu_hw, log_interval=1000, save_interval=100000,
-            batch_size=batch_n, model_dir=os.path.join(root, f"pair_{mode}"), num_workers=4)
+            batch_size=batch_n, model_dir=os.path.join(root, f"pair_{mode}"), num_workers=4,
+            steps_per_dispatch=1)
         os.makedirs(cfg.model_dir, exist_ok=True)
         on_step, metrics, ms = step_events()
         reset_counts()
-        train_cli.train(cfg, dataset=PairSnippets(c.fp_steps * batch_n), device=device,
-                        on_step=on_step)
+        pairs = pair_snippets(c.nyu_hw, c.nyu_frame_hw, c.fp_steps * batch_n, SEED + 28)
+        train_cli.train(cfg, dataset=pairs, device=device, on_step=on_step)
         c.sync()
         got = counts()
         if got != {k: c.fp_steps * v for k, v in c.want(PER_STEP_PAIR).items()} \
@@ -1529,7 +1608,7 @@ def flowpose(c) -> None:
     # the 2-frame step against its plain version on one batch of these pairs:
     # each decoder level's correlation forward and backward at this step's
     # shapes, the losses of both modes, the float32 whole-step gradient
-    pairs = PairSnippets(batch_n)
+    pairs = pair_snippets(c.nyu_hw, c.nyu_frame_hw, batch_n, SEED + 28)
     x2 = torch.from_numpy(np.stack([pairs[i][0] for i in range(batch_n)])).to(device)
     k2 = [torch.from_numpy(np.repeat(a[:1], batch_n, 0)).to(device) for a in (pairs.k, pairs.k_inv)]
     model2 = FlowPoseModel(FlowModelConfig(), device=device, scheme="pwc",
@@ -1662,6 +1741,517 @@ def flowpose(c) -> None:
           f"{h}x{w}, CUDA events); KittiEvalOdom on {n} poses 1 m apart against the same "
           f"trajectory with translations x 0.5: t_err {t_err:.3e}, r_err {r_err:.3e} after "
           f"Umeyama; phase 16 in {time.perf_counter() - t16:.1f} s ({c.smi})")
+
+
+def graph_vs_eager(c, multi, model, opt, batch, cfg, weights, label, dtype, mode="flow",
+                   frames=3) -> dict:
+    """From one state (weights and Adam's): one graph dispatch of ``multi``
+    (warmed up and captured) on ``batch``, a tuple of (K, ...) leaves,
+    against K eager capturable-Adam ``train_step`` calls on its slots, a
+    second eager run, and eager steps on images moved by one ulp: the K
+    losses and the parameters' change within 3 times the eager steps' own
+    distance on the moved images (phase 7's rule, floor 1e-4); in float32
+    the first sub-step's loss bit-equal.  Restores the state after each.
+    ``c``: the launch counters."""
+    import warnings
+
+    import torch
+
+    from unopticalflow_tpu_torch.training import train_step
+
+    params = list(model.parameters())
+    snap_p = [p.detach().clone() for p in params]
+    # opt.state is a defaultdict: a parameter it does not hold stays out of it
+    snap_s = [{n: t.clone() for n, t in opt.state[p].items()} if p in opt.state else {}
+              for p in params]
+    held = {id(p) for g in opt.param_groups for p in g["params"]}
+
+    def restore():
+        with torch.no_grad():
+            for p, sp, ss in zip(params, snap_p, snap_s):
+                p.copy_(sp)
+                for n, t in ss.items():
+                    opt.state[p][n].copy_(t)
+
+    def change():
+        return torch.cat([(p.detach() - sp).double().ravel()
+                          for p, sp in zip(params, snap_p)])
+
+    def slot(b, j):
+        return b[0][j] if len(b) == 1 else tuple(x[j] for x in b)
+
+    c.reset_counts()
+    loss_graph = multi(batch)["loss_total"].double()
+    replay_launches = {n: v for n, v in c.counts().items() if v}
+    d_graph = change()
+    others_same = all(torch.equal(p.detach(), sp) for p, sp in zip(params, snap_p)
+                      if id(p) not in held)
+    restore()
+
+    def eager(b):
+        with warnings.catch_warnings():
+            # capturable Adam warns when it steps outside a capture
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            losses = [train_step(model, opt, slot(b, j), weights, cfg, mode,
+                                 frames)["loss_total"] for j in range(multi.steps)]
+        out = torch.stack(losses).double(), change()
+        restore()
+        return out
+
+    loss_eager, d_eager = eager(batch)
+    # the eager steps again on the same batches: the backward's atomic
+    # sums (the warps' scatter-adds) make two runs differ after step one
+    loss_again, d_again = eager(batch)
+    imgs = batch[0].float() / 255.0 if batch[0].dtype == torch.uint8 else batch[0]
+    loss_noise, d_noise = eager((torch.nextafter(imgs, torch.full_like(imgs, 2.0)),
+                                 *batch[1:]))
+    del imgs
+    loss_err, loss_tol = _rel_l2(loss_graph, loss_eager), _rel_l2(loss_noise, loss_eager)
+    d_err, d_tol = _rel_l2(d_graph, d_eager), _rel_l2(d_noise, d_eager)
+    first_equal = bool(loss_graph[0] == loss_eager[0])
+    print(f"steps per dispatch {label}: one graph dispatch of {multi.steps} steps against "
+          f"{multi.steps} eager capturable-Adam steps from the same weights and Adam "
+          f"state: losses rel L2 {loss_err:.3e} (eager vs eager on images one ulp away "
+          f"{loss_tol:.3e}), the parameters' change rel L2 {d_err:.3e} ({d_tol:.3e}); "
+          f"eager vs eager on the same batches {_rel_l2(loss_again, loss_eager):.3e} and "
+          f"{_rel_l2(d_again, d_eager):.3e}; first sub-step's loss "
+          f"{'bit-equal' if first_equal else 'differs'} ({float(loss_graph[0])!r}, "
+          f"{float(loss_eager[0])!r}); the replay launched {replay_launches or 'nothing'}; "
+          f"graph losses " + json.dumps([round(float(v), 6) for v in loss_graph]))
+    if loss_err > max(1e-4, 3 * loss_tol) or d_err > max(1e-4, 3 * d_tol):
+        raise AssertionError(f"{label}: the graph's {multi.steps} steps depart from the "
+                             "eager steps")
+    if dtype == "float32" and not first_equal:
+        raise AssertionError(f"{label}: the graph's first sub-step's loss is not the eager "
+                             "step's, bit for bit")
+    if not others_same:
+        raise AssertionError(f"{label}: the graph moved a parameter the optimizer does "
+                             "not hold")
+    return {"loss_err": loss_err, "loss_tol": loss_tol, "d_err": d_err, "d_tol": d_tol,
+            "first_equal": first_equal, "replay_launches": replay_launches}
+
+
+def dispatch_graph(c) -> None:
+    """Phase 18 (see the module): K training steps a dispatch, one CUDA graph.
+    ``c`` holds the device, the shapes, K, the launch counters, the card's
+    nvidia-smi line and the trainer's device flags ``cli``."""
+    import copy
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.data.loader import BatchLoader
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
+    from unopticalflow_tpu_torch.probe import _busy_us, device_ops_per_step
+    from unopticalflow_tpu_torch.training import (
+        loss_fn,
+        loss_weights_from_config,
+        make_multi_train_step,
+        make_optimizer,
+        set_capturable,
+        train_step,
+    )
+    from unopticalflow_tpu_torch.utils import imageio
+
+    device, k, batch_n = c.device, c.k, c.batch
+    h, w = c.img_hw
+    t18 = time.perf_counter()
+    weights = loss_weights_from_config(train_cli.recipe_config())
+    data = SyntheticSnippets(c.img_hw, k * batch_n, seed=SEED + 18)
+    xs = torch.from_numpy(np.stack([data[i] for i in range(k * batch_n)])).to(device)
+    xs = xs.reshape(k, batch_n, 3 * h, w, 3)  # the dispatch's K batches, uint8
+
+    @contextlib.contextmanager
+    def quiet():
+        # capturable Adam warns when it steps outside a capture
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            yield
+
+    def fresh(cfg):
+        return FlowModel(cfg, device=device, scheme="pwc",
+                         generator=torch.Generator().manual_seed(SEED + 18))
+
+    def profiled(fn):
+        """(device busy ms, the window's CUDA-event ms, device operations) of
+        one call of ``fn`` under the profiler: the idle share is the window's."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        return (_busy_us(prof.events()) / 1e3, start.elapsed_time(end),
+                device_ops_per_step(prof.key_averages(), 1))
+
+    # (b) capturable Adam against make_optimizer's, one step from one state
+    cfg32 = FlowModelConfig()
+    model_a = fresh(cfg32)
+    opt_a = make_optimizer(model_a)
+    train_step(model_a, opt_a, xs[0], weights, cfg32)  # Adam's state at step 1
+    model_b = FlowModel(cfg32, device=device)
+    model_b.load_state_dict(model_a.state_dict())
+    opt_b = make_optimizer(model_b)
+    # a deep copy: load_state_dict keeps the tensors it is given where their
+    # device and dtype fit, so the two optimizers would share their moments
+    opt_b.load_state_dict(copy.deepcopy(opt_a.state_dict()))
+    set_capturable(opt_b)
+    opt_a.zero_grad(set_to_none=True)
+    total, _ = loss_fn(model_a, cfg32, xs[1], weights)
+    total.backward()
+    for p, q in zip(model_a.parameters(), model_b.parameters()):
+        q.grad = p.grad.clone()
+    before = [p.detach().clone() for p in model_a.parameters()]
+    opt_a.step()
+    with quiet():
+        opt_b.step()
+    # capturable Adam computes the bias corrections 1 - beta**t in float32 on
+    # the device (as optax does), the eager one in float64 on the host: at t =
+    # 2 sqrt(1 - beta2**2) differs by ~1e-5, so each update may move by that
+    # share of itself, beside its own float32 roundings and p + update's one
+    t = torch.tensor(2.0, device=device)
+    d1 = abs(float(1 - torch.tensor(0.9, device=device) ** t) / (1 - 0.9 ** 2) - 1)
+    d2 = abs(float((1 - torch.tensor(0.999, device=device) ** t).sqrt())
+             / math.sqrt(1 - 0.999 ** 2) - 1)
+    worst, n_diff, n_all, moments_equal, bad = 0.0, 0, 0, True, []
+    for (name, p), q, p0 in zip(model_a.named_parameters(), model_b.parameters(), before):
+        pa, pb = p.detach(), q.detach()
+        ulp = torch.nextafter(pa.abs(), torch.full_like(pa, math.inf)) - pa.abs()
+        diff = (pa - pb).abs()
+        tol = 2 * ulp + (pa - p0).abs() * (d1 + d2 + 16 * 2.0 ** -24)
+        if bool((diff > tol).any()):
+            bad.append(name)
+        worst = max(worst, float((diff / tol).max()))
+        n_diff += int((diff > 0).sum())
+        n_all += pa.numel()
+        sa, sb = opt_a.state[p], opt_b.state[q]
+        moments_equal &= torch.equal(sa["exp_avg"], sb["exp_avg"]) and \
+            torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+        if float(sb["step"]) != 2 or sb["step"].device != pb.device:
+            bad.append(f"{name} step")
+    print(f"steps per dispatch (b): capturable Adam against make_optimizer's, one step from "
+          f"the same state (step 2, float32 gradients at the KITTI recipe): {n_diff} of {n_all} "
+          f"parameters differ, at most {worst:.3f} of the bound (2 ulps + the update times "
+          f"the float32 bias corrections' relative error {d1:.2e} + {d2:.2e} + 16 x 2**-24); "
+          f"exp_avg, exp_avg_sq {'bit-equal' if moments_equal else 'differ'}")
+    if bad:
+        raise AssertionError(f"capturable Adam departs from make_optimizer's: {bad[:8]}")
+    del model_a, model_b, opt_a, opt_b, total, before
+    torch.cuda.empty_cache()
+
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = FlowModelConfig(compute_dtype=dtype, loss_dtype=dtype)
+        # (c) launches, (d) the graph's time, idle share and memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        model = fresh(cfg)
+        opt = make_optimizer(model)
+        set_capturable(opt)
+        multi = make_multi_train_step(model, opt, cfg, weights, k)
+        c.reset_counts()
+        t0 = time.perf_counter()
+        multi(xs)
+        torch.cuda.synchronize()
+        t_warm, counts_warm = time.perf_counter() - t0, c.counts()
+        c.reset_counts()
+        t0 = time.perf_counter()
+        multi(xs)
+        torch.cuda.synchronize()
+        t_capture, counts_capture = time.perf_counter() - t0, c.counts()
+        c.reset_counts()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(DISPATCH_TIMED + 1)]
+        events[0].record()
+        for i in range(DISPATCH_TIMED):
+            m = multi(xs)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        counts_replay = c.counts()
+        per_dispatch = [events[i].elapsed_time(events[i + 1]) for i in range(DISPATCH_TIMED)]
+        ms_graph = statistics.median(per_dispatch) / k
+        peak_graph = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        want = {n: k * v for n, v in PER_STEP.items()}
+        if counts_warm != want or counts_capture != want or any(counts_replay.values()):
+            raise AssertionError(f"{dtype}: launches of the eager dispatch {counts_warm}, of "
+                                 f"the capture {counts_capture}, of {DISPATCH_TIMED} replays "
+                                 f"{counts_replay}; want {want}, {want}, none")
+        if not all(bool(torch.isfinite(v).all()) for v in m.values()):
+            raise AssertionError(f"{dtype}: a replay's losses are not finite: {m}")
+        busy_graph, window_graph, ops_graph = (v / (DISPATCH_PROFILED * k) for v in profiled(
+            lambda: [multi(xs) for _ in range(DISPATCH_PROFILED)]))
+        print(f"steps per dispatch (c) {dtype}: the eager first dispatch launched {counts_warm} "
+              f"in {t_warm:.2f} s, the capture {_launched(counts_capture)} ({k} x {PER_STEP}) "
+              f"with its replay in {t_capture:.2f} s, {DISPATCH_TIMED} replays none")
+
+        # (a) from one state: one replay against 8 eager capturable-Adam steps,
+        # and against eager steps on batches moved by one ulp
+        held = graph_vs_eager(c, multi, model, opt, (xs,), cfg, weights, f"(a) {dtype}",
+                              dtype)
+        if held["replay_launches"]:
+            raise AssertionError(f"{dtype}: a replay launched {held['replay_launches']}")
+        del multi, model, opt, m
+        torch.cuda.empty_cache()
+
+        # (d) K = 1 eager, the trainer's step at K = 1 (make_optimizer's Adam)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        model = fresh(cfg)
+        opt = make_optimizer(model)
+        for j in range(2):
+            train_step(model, opt, xs[j], weights, cfg)
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(k + 1)]
+        events[0].record()
+        for j in range(k):
+            train_step(model, opt, xs[j], weights, cfg)
+            events[j + 1].record()
+        torch.cuda.synchronize()
+        ms_eager = statistics.median(events[j].elapsed_time(events[j + 1]) for j in range(k))
+        peak_eager = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        busy_eager, window_eager, ops_eager = (v / EAGER_PROFILED for v in profiled(
+            lambda: [train_step(model, opt, xs[j], weights, cfg) for j in range(EAGER_PROFILED)]))
+        del model, opt
+        torch.cuda.empty_cache()
+
+        def idle(busy, window):
+            return f"{1 - busy / window:.2%}" if busy > 0 else "not measured"
+
+        # the idle share two ways: against the profiled window's own CUDA-event
+        # time (which holds the profiler's overhead on every launch and
+        # replay), and against the unprofiled ms/step of the timed runs
+        rec = {"dtype": dtype, "k": k, "ms_step_eager_k1": ms_eager, "ms_step_graph": ms_graph,
+               "ms_dispatch_graph": per_dispatch, "idle_eager": idle(busy_eager, window_eager),
+               "idle_graph": idle(busy_graph, window_graph),
+               "idle_eager_vs_ms_step": idle(busy_eager, ms_eager),
+               "idle_graph_vs_ms_step": idle(busy_graph, ms_graph), "busy_ms_eager": busy_eager,
+               "busy_ms_graph": busy_graph, "profiled_ms_eager": window_eager,
+               "profiled_ms_graph": window_graph, "device_ops_per_step_eager": ops_eager,
+               "device_ops_per_step_graph": ops_graph, "peak_gib_eager": peak_eager,
+               "peak_gib_graph": peak_graph, "capture_s": t_capture, "warm_up_s": t_warm}
+        records.append(rec)
+        print(f"steps per dispatch (d) {dtype}: K = 1 eager {ms_eager:.3f} ms/step (idle "
+              f"{rec['idle_eager']} of the profiled window, {rec['idle_eager_vs_ms_step']} of "
+              f"the unprofiled step, {ops_eager:.1f} device operations a step, peak "
+              f"{peak_eager:.3f} GiB) against K = {k} graph {ms_graph:.3f} ms/step (idle "
+              f"{rec['idle_graph']}, {rec['idle_graph_vs_ms_step']} of the unprofiled step, "
+              f"{ops_graph:.1f} operations a step, peak "
+              f"{peak_graph:.3f} GiB); {BATCH / ms_graph * 1e3:.1f} against "
+              f"{BATCH / ms_eager * 1e3:.1f} snippets/s ({c.smi})")
+    print(json.dumps({"steps_per_dispatch": records}))
+
+    # (e) the trainer as a user runs it: --steps_per_dispatch auto on a warm cache
+    prep = os.path.join(c.root, "prepared", "data_s1")
+    os.makedirs(os.path.join(prep, "d", "r"), exist_ok=True)
+    lines = []
+    for i, snip in enumerate(SyntheticSnippets(c.kitti_hw, c.snippets, seed=SEED + 18).snippets):
+        with open(os.path.join(prep, "d", "r", f"{i:010d}.png"), "wb") as f:
+            f.write(imageio.encode_png(snip, level=1))
+        lines.append(f"d/r/{i:010d}.png d/calib.txt\n")
+    with open(os.path.join(prep, "d", "calib.txt"), "w") as f:
+        f.write("P_rect_02: 721.5 0.0 609.6 44.9 0.0 721.5 172.9 0.2 0.0 0.0 1.0 0.003\n")
+    with open(os.path.join(prep, "train.txt"), "w") as f:
+        f.writelines(lines)
+
+    def yaml18(name, num_iterations):
+        path = os.path.join(c.root, name)
+        with open(path, "w") as f:
+            f.write(f"prepared_base_dir: '{os.path.join(c.root, 'prepared')}'\n"
+                    f"dataset: 'kitti_depth'\nnum_scales: 3\nnum_iterations: {num_iterations}\n"
+                    "w_ssim: 0.85\nw_flow_smooth: 10.0\nw_flow_consis: 0.01\n"
+                    f"img_hw: [{h}, {w}]\n")
+        return path
+
+    cache = os.path.join(prep, f"decoded_cache_{h}x{w}")
+    rates = {}
+    for name in ("cache (cold)", "cache (warm)"):
+        ds = train_cli.PREPARED["kitti_depth"](prep, num_scales=3, img_hw=c.img_hw,
+                                               num_iterations=c.loader_snippets, cache_dir=cache,
+                                               emit_uint8=True)
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b) for b in BatchLoader(ds, batch_size=batch_n, num_workers=4))
+        rates[name] = n_loaded / (time.perf_counter() - t0)
+    dir_e = os.path.join(c.root, "models")
+    args = ["--no_test", "--batch_size", str(batch_n), "--num_workers", "4", "--log_interval",
+            str(k), "--save_interval", str(k), "--cache_decoded", "--init_scheme", "pwc",
+            "--precision", "bfloat16", "--steps_per_dispatch", "auto", "--model_dir", dir_e,
+            *c.cli]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", "-m", "unopticalflow_tpu_torch.train", "-c",
+                           yaml18("train.yaml", 2 * k), *args], capture_output=True, text=True,
+                          cwd=repo, env=env, timeout=600)
+    t_proc = time.perf_counter() - t0
+    out = proc.stdout
+    logged = [int(x) for x in re.findall(r"^iter: (\d+),", out, flags=re.M)]
+    rate = re.findall(r"snippets_per_sec: ([0-9.]+)", out)
+    files = set(os.listdir(os.path.join(dir_e, "flow"))) if os.path.isdir(
+        os.path.join(dir_e, "flow")) else set()
+    if proc.returncode != 0 or f"steps_per_dispatch auto -> {k}" not in out \
+            or logged != [0, k] or not {f"iter_{k - 1}.pth", f"iter_{2 * k - 1}.pth",
+                                        "last.pth"} <= files:
+        raise AssertionError(f"trainer --steps_per_dispatch auto: rc {proc.returncode}, "
+                             f"logged {logged}, files {sorted(files)}:\n{out[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    # resume from iter_<k-1>.pth: 2k more iterations, K = 8 again, captured after the load
+    c.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as resumed:
+        rc = train_cli.main(["-c", yaml18("resume.yaml", 3 * k - 1), "--resume", "--iter_start",
+                             str(k - 1), *args])
+    torch.cuda.synchronize()
+    t_resume, counts_resume = time.perf_counter() - t0, c.counts()
+    log_r = resumed.getvalue()
+    last = torch.load(os.path.join(dir_e, "flow", "last.pth"), map_location="cpu",
+                      weights_only=True)
+    want = {n: 2 * k * v for n, v in PER_STEP.items()}
+    if rc != 0 or f"at iteration {k - 1}." not in log_r \
+            or f"steps_per_dispatch auto -> {k}" not in log_r or counts_resume != want \
+            or last["iteration"] != 3 * k - 2:
+        raise AssertionError(f"--resume at K = {k}: rc {rc}, launches {counts_resume} (want "
+                             f"{want}), last.pth at {last['iteration']}:\n{log_r[-3000:]}")
+    step_rate = BATCH / records[1]["ms_step_graph"] * 1e3
+    print(f"steps per dispatch (e): python -m unopticalflow_tpu_torch.train --steps_per_dispatch "
+          f"auto (log and save every {k}, {2 * k} iterations, bfloat16, batch {batch_n}, "
+          f"{h}x{w}, --cache_decoded) printed 'auto -> {k}', logged {logged} "
+          f"(snippets_per_sec at {k}: {rate[-1] if rate else 'none'}, over the eager and the "
+          f"capturing dispatch), wrote {sorted(files)} in {t_proc:.2f} s; --resume from "
+          f"iter_{k - 1}.pth ran {2 * k} more at K = {k} in {t_resume:.2f} s with launches "
+          f"{_launched(counts_resume)} (the eager dispatch and the capture), last.pth at "
+          f"{last['iteration']}; loader snippets/s (4 threads) "
+          + ", ".join(f"{n} {v:.1f}" for n, v in rates.items())
+          + f" against the graph's bf16 step {step_rate:.1f}: the run is bound by the "
+          + ("loader" if rates["cache (warm)"] < step_rate else "step")
+          + f" ({c.smi})")
+    dispatch_modes(c)
+    print(f"steps per dispatch: phase 18 in {time.perf_counter() - t18:.1f} s")
+
+
+def dispatch_modes(c) -> None:
+    """Phase 18 (f) and (g) (see the module): ``c`` as for ``dispatch_graph``
+    with ``want``, ``sync``, ``empty_cache``, the NYU shapes and
+    ``synthetic_epe``'s ``epe_iters`` and ``epe_hw``, so that a CPU rehearsal
+    (K eager steps a dispatch, no launches) can shrink them."""
+    import numpy as np
+    import torch
+
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.benchmarks import synthetic_epe
+    from unopticalflow_tpu_torch.models import FlowModelConfig
+    from unopticalflow_tpu_torch.training import loss_weights_from_config, make_multi_train_step
+
+    device, k, batch_n = c.device, c.k, c.batch
+    # (f) the other training modes at the K that auto picks at the yamls'
+    # intervals (log 100, save 2000, test 2000): the trainer on in-memory
+    # snippets, float32, three dispatches (the eager one, the capture, a
+    # replay) with each dispatch's launches, then (a)'s check from the state
+    # it left, through a new step function (its own eager dispatch and capture)
+    kk = DISPATCH_AUTO_K
+    cases = (
+        ("flowposenet", dict(mode="flowposenet", img_hw=c.img_hw), PER_STEP,
+         lambda n: pose_snippets(c.img_hw, n, SEED + 19)),
+        ("flowposenet --freeze_flow", dict(mode="flowposenet", freeze_flow=True,
+                                           img_hw=c.img_hw),
+         PER_STEP_FROZEN, lambda n: pose_snippets(c.img_hw, n, SEED + 19)),
+        ("nyuv2 flowposenet (2-frame)", dict(mode="flowposenet", dataset="nyuv2",
+                                             img_hw=c.nyu_hw), PER_STEP_PAIR,
+         lambda n: pair_snippets(c.nyu_hw, c.nyu_frame_hw, n, SEED + 19)),
+        ("nyuv2 flow (2-frame)", dict(mode="flow", dataset="nyuv2", img_hw=c.nyu_hw),
+         PER_STEP_PAIR, lambda n: pair_snippets(c.nyu_hw, c.nyu_frame_hw, n, SEED + 19)),
+    )
+    for i, (label, over, per_step, make_data) in enumerate(cases):
+        cfg = train_cli.recipe_config(num_iterations=3 * kk, init_scheme="pwc", seed=SEED + 19,
+                                      batch_size=batch_n, num_workers=4,
+                                      model_dir=os.path.join(c.root, f"f{i}"), **over)
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        data = make_data(3 * kk * batch_n)
+        marks, metrics = [], []
+
+        def on_step(it, m):
+            if it % kk == 0:  # after each dispatch: the launches so far
+                marks.append(c.counts())
+            metrics.append(m)
+
+        c.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = train_cli.train(cfg, dataset=data, device=device, on_step=on_step)
+        c.sync()
+        t_train = time.perf_counter() - t0
+        per_dispatch = [{n: v - (marks[j - 1][n] if j else 0) for n, v in mark.items()}
+                        for j, mark in enumerate(marks)]
+        want = [{n: kk * v for n, v in c.want(per_step).items()}] * 2 \
+            + [dict.fromkeys(per_step, 0)]
+        if f"steps_per_dispatch auto -> {kk}" not in out.getvalue() or res.step != 3 * kk \
+                or per_dispatch != want or len(metrics) != 3 * kk \
+                or not all(bool(torch.isfinite(v)) for m in metrics for v in m.values()):
+            raise AssertionError(f"(f) {label}: {res.step} steps, launches by dispatch "
+                                 f"{per_dispatch} (want {want}):\n{out.getvalue()[-3000:]}")
+        model, opt = res.model, res.optimizer
+        mcfg = FlowModelConfig()
+        mode, frames = cfg.mode, data.num_frames
+        w_case = loss_weights_from_config(cfg)
+        multi = make_multi_train_step(model, opt, mcfg, w_case, kk, mode, frames,
+                                      bool(getattr(cfg, "freeze_flow", False)))
+        samples = [data[j] for j in range(kk * batch_n)]
+        leaves = [torch.from_numpy(np.stack([smp[j] for smp in samples])).to(device)
+                  for j in range(len(samples[0]))]
+        batch = train_cli.model_inputs(
+            cfg, tuple(x.reshape(kk, batch_n, *x.shape[1:]) for x in leaves), stacked=True)
+        batch = batch if isinstance(batch, tuple) else (batch,)
+        launches = []
+        for _ in range(2):  # the eager dispatch, then the capture and its replay
+            c.reset_counts()
+            multi(batch)
+            launches.append(c.counts())
+        capturable = all(g["capturable"] for g in opt.param_groups)
+        if launches != want[:2] or capturable != (device.type == "cuda"):
+            raise AssertionError(f"(f) {label}: launches of the eager dispatch and the capture "
+                                 f"{launches} (want {want[:2]}), capturable Adam {capturable}")
+        held = graph_vs_eager(c, multi, model, opt, batch, mcfg, w_case, f"(f) {label}",
+                              "float32", mode, frames)
+        if held["replay_launches"]:
+            raise AssertionError(f"(f) {label}: a replay launched {held['replay_launches']}")
+        print(f"steps per dispatch (f) {label}: train() with --steps_per_dispatch auto at the "
+              f"yamls' intervals printed 'auto -> {kk}', {res.step} float32 steps at batch "
+              f"{batch_n} {tuple(cfg.img_hw)} in {t_train:.2f} s, launches by dispatch "
+              f"{[_launched(d) for d in per_dispatch]} (eager, capture, replay); a new step "
+              f"function's eager dispatch and capture {_launched(launches[1])} each")
+        del res, model, opt, multi, batch, leaves, metrics
+        c.empty_cache()
+
+    # (g) synthetic_epe's graph path: the cosine rate computed inside the
+    # graph, read back a step at a time, and the EPE against K = 1
+    epe = {}
+    for kd in (1, k):
+        argv = ["--device", device.type, "--iters", str(c.epe_iters), "--batch", "4", "--hw",
+                *map(str, c.epe_hw), "--lr-schedule", "cosine", "--eval-snippets", "16",
+                "--eval-every", str(c.epe_iters // 2), "--steps-per-dispatch", str(kd)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            epe[kd] = synthetic_epe.run(synthetic_epe.build_arg_parser().parse_args(argv))
+    r1, rk = epe[1], epe[k]
+    # one float32 rounding of the float64 schedule, at most an ulp of the rate
+    if rk["lr_max_rel_err"] > 2.0 ** -23 or r1["lr_max_rel_err"] != 0.0 \
+            or not all(math.isfinite(r["epe_all"]) for r in (r1, rk)) \
+            or [p["iter"] for p in rk["eval_points"]] != [k - 1, c.epe_iters // 2 + k - 1]:
+        raise AssertionError(f"(g) synthetic_epe: K = 1 {json.dumps(r1)}, K = {k} "
+                             f"{json.dumps(rk)}")
+    print(f"steps per dispatch (g): synthetic_epe --iters {c.epe_iters} --batch 4 --hw "
+          f"{c.epe_hw[0]} {c.epe_hw[1]} --lr-schedule cosine (bfloat16), K = {k} graph against "
+          f"K = 1: each step's learning "
+          f"rate read back from the graph within {rk['lr_max_rel_err']:.3e} of cosine_decay_lr "
+          f"(relative; the last {rk['lr_last']!r}, K = 1 {r1['lr_last']!r}); EPE all "
+          f"{rk['epe_all']} against {r1['epe_all']} (zero flow {r1['zero_flow']['epe_all']}), "
+          f"eval points " + json.dumps({kd: [(p['iter'], p['epe_all']) for p in r['eval_points']]
+                                        for kd, r in epe.items()})
+          + f", ms/step {rk['ms_per_step']} against {r1['ms_per_step']} ({c.smi})")
 
 
 def main() -> int:
@@ -3057,7 +3647,17 @@ def main() -> int:
         want=lambda d: d, cli=[], smi=smi))
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: 17 phases passed in {time.perf_counter() - t_start:.1f} s")
+    # ---- 18. K steps a dispatch: one CUDA graph of the whole step -----------
+    dispatch_graph(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, kitti_hw=KITTI_HW, batch=BATCH, k=DISPATCH_K,
+        nyu_hw=NYU_HW, nyu_frame_hw=NYU_FRAME_HW, snippets=DISPATCH_SNIPPETS,
+        loader_snippets=LOADER_SNIPPETS, epe_iters=EPE_ITERS, epe_hw=EPE_HW,
+        want=lambda d: d, sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache,
+        root=os.path.join(model_dir, "dispatch18"), counts=counts, reset_counts=reset_counts,
+        cli=[], smi=smi))
+    torch.cuda.empty_cache()
+
+    print(f"chip_smoke: 18 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

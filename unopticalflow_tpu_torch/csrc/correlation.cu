@@ -63,6 +63,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 namespace {
 
@@ -322,7 +323,8 @@ corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restric
 // Each output's sum runs over k = 0..80 in order with fmaf; a zero-filled tap
 // adds fmaf(a, 0, acc) == acc, so the float32 result does not depend on the
 // tiling.  The 103 KB of shared memory per block is dynamic (above the 48 KB
-// static limit; two blocks fit on an SM), allowed with cudaFuncSetAttribute.
+// static limit; two blocks fit on an SM), allowed with cudaFuncSetAttribute
+// once a device.
 // With HPAD the staged rows move by PRE: df1 reads f2 with H + 2md rows, df2
 // reads both g and f1 with H + 2md rows; the output has H rows.
 
@@ -506,13 +508,20 @@ cudaError_t launch_bwd(int which, const void* g, const void* src, void* out, int
   groups = (chunks + per_group - 1) / per_group;  // no empty group
   const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, B * groups);
   const float inv_c = 1.f / (float)C;
-  // above 48 KB of dynamic shared memory a kernel must be allowed it, on the
-  // current device: set before every launch (the attribute call is cheap
-  // beside the wrapper's own cost per call)
+  // above 48 KB of dynamic shared memory a kernel must be allowed it; the
+  // attribute is per device, so it is set once a device and kernel (as
+  // gather.cu's allow_smem), and a CUDA graph's capture sees launches only
   const auto kernel = which == 0 ? corr_df1_kernel<T, HPAD> : corr_df2_kernel<T, HPAD>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  static std::atomic<bool> allowed[64][2];  // by device and df1/df2, per <T, HPAD>
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  std::atomic<bool>& done = allowed[dev & 63][which];
+  if (!done.load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (err != cudaSuccess) return err;
+    done.store(true, std::memory_order_relaxed);
+  }
   kernel<<<grid, kBThreads, kBwdSmem, stream>>>(gg, s, o, C, H, W, groups, per_group, inv_c,
                                                 vec);
   return cudaGetLastError();

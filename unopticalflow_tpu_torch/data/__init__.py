@@ -13,7 +13,7 @@ from unopticalflow_tpu_torch.data.datasets import (
     NYU_v2,
     SINTEL_Prepared,
 )
-from unopticalflow_tpu_torch.data.loader import BatchLoader, device_prefetch
+from unopticalflow_tpu_torch.data.loader import BatchLoader, device_prefetch, stack_batches
 
 __all__ = ["BatchLoader", "KITTI_2012", "KITTI_2015", "KITTI_Prepared", "NYU_v2",
-           "SINTEL_Prepared", "device_prefetch"]
+           "SINTEL_Prepared", "device_prefetch", "stack_batches"]

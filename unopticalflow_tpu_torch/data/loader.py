@@ -6,12 +6,14 @@ pool decodes batches ahead of the step, in the JAX loader's index schedule:
 batch k holds indices [k*B, (k+1)*B).  ``background`` is that producer
 thread for any iterable (the learning harness draws its snippets with it).
 ``device_prefetch`` keeps the next batches' host-to-device copies in flight
-while the current step runs.
+while the current step runs; ``stack_batches`` groups K host batches into
+one (K, B, ...) stack for a K-step dispatch before it.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -110,6 +112,23 @@ def background(items, depth: int = 2):
             yield item
     finally:
         stop.set()
+
+
+def stack_batches(iterator, k: int):
+    """Yield ``k`` consecutive host batches of ``iterator`` as one stack: a
+    (k, B, ...) array, or a tuple of them for tuple batches (the JAX trainer's
+    ``_stack_host_stream``).  Stacked on the host, so one copy of the whole
+    stack goes to the device (``device_prefetch``).  A trailing group of
+    fewer than ``k`` batches is dropped: the trainer asks for a multiple."""
+    iterator = iter(iterator)
+    while True:
+        group = list(itertools.islice(iterator, k))
+        if len(group) < k:
+            return
+        if isinstance(group[0], tuple):
+            yield tuple(np.stack(parts) for parts in zip(*group))
+        else:
+            yield np.stack(group)
 
 
 def _map(fn, batch):

@@ -11,7 +11,10 @@ TPU's ``unopticalflow_tpu/ops/pallas_spmd.py`` ``_fwd_hpad``/``_df1_hpad``/
 there.  ``ops/_build.py`` compiles the source with nvcc at first use.
 
 ``launches`` counts kernel launches by kernel (one per wrapper call on
-CUDA), so a run can show that its path went through the kernels.
+CUDA), so a run can show that its path went through the kernels.  It
+counts host launches: under a CUDA graph (``training.make_multi_train_step``)
+the launches that the capture records; a replay launches them again
+without the wrapper and adds none.
 """
 
 from __future__ import annotations

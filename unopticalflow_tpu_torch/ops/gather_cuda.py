@@ -8,7 +8,10 @@ versions are in ``ops/gather.py``.  ``ops/_build.py`` compiles the source
 with nvcc at first use.
 
 ``launches`` counts kernel launches by kernel (one per wrapper call on
-CUDA), so a run can show that its path went through the kernels.
+CUDA), so a run can show that its path went through the kernels.  It
+counts host launches: under a CUDA graph (``training.make_multi_train_step``)
+the launches that the capture records; a replay launches them again
+without the wrapper and adds none.
 ``block_gather_plan`` says which of csrc/gather.cu's block-gather kernels a
 shape takes and how it launches, without launching.
 """

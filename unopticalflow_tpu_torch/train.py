@@ -3,7 +3,7 @@ flow``) and flow + pose training (``--mode flowposenet``).
 
     python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --mode flow \
         [--test_interval 2000 | --no_test] [--flow_pretrained_model last.ckpt] \
-        [--resume] [--cache_decoded] --device cuda
+        [--resume] [--cache_decoded] [--steps_per_dispatch auto] --device cuda
     python -m unopticalflow_tpu_torch.train -c config/odo.yaml --mode flowposenet \
         [--freeze_flow] ...
     python -m unopticalflow_tpu_torch.train -c config/nyu_posenet_192.yaml \
@@ -32,11 +32,27 @@ intrinsics, of which the pose branch takes scale 0), through
 ``--cache_decoded`` keeps decoded, resized frames as ``.npy`` under
 ``<prepared dir>/decoded_cache_<H>x<W>``, the JAX trainer's directory.
 
+``--steps_per_dispatch K`` (default ``auto``: the largest K in {8, 4, 2, 1}
+that divides ``--log_interval``, ``--save_interval``, ``--test_interval``
+and ``num_iterations - iter_start``, the JAX trainer's rule; 4 at the
+defaults, 100 = 4 x 25) runs K steps a dispatch through
+``training.make_multi_train_step`` on K batches stacked on the host
+(``data.stack_batches``): on CUDA one
+replay of a CUDA graph of the K whole steps (the first dispatch runs them
+eagerly, the second captures the graph), Adam in its capturable form; on
+the CPU K eager steps.  With K > 1 the three intervals and the iteration
+count must be multiples of K, and the loop works a dispatch at a time, as
+the JAX trainer's: the evaluation runs at the top of the dispatch whose last
+sub-step reaches the test grid (so it sees parameters K - 1 steps staler
+than a K = 1 run at the same grid point), the log line shows the first
+sub-step, saves and the preemption check fall on dispatch boundaries, and a
+save names the dispatch's last sub-step.
+
 Interleaved evaluation (of the flow branch in flowposenet mode): unless
 ``--no_test``, KITTI 2012 and 2015 (the yaml's ``gt_2012_dir``/
 ``gt_2015_dir``, read once at start) are evaluated with
-``test.test_kitti_2012``/``test_kitti_2015`` at the top of every step whose
-count from the start of the run, plus one, is a multiple of
+``test.test_kitti_2012``/``test_kitti_2015`` at the top of every dispatch
+whose count of steps from the start of the run, at its end, is a multiple of
 ``--test_interval``; the result strings go to ``log.pkl`` as
 ``eval_2012_res``/``eval_2015_res``.
 
@@ -50,13 +66,13 @@ that, and restarts at the stored iteration; a checkpoint saved under the
 other ``--freeze_flow`` is refused.  ``--flow_pretrained_model``
 warm-starts the flow weights from a ``.pth`` or a JAX ``.ckpt`` (in
 flowposenet mode the flow branch only; the pose net keeps its init).
-SIGTERM or SIGINT: the step in flight finishes, the last finished iteration
-is saved, the saver drains and ``main`` returns 0; a second signal meets the
+SIGTERM or SIGINT: the step (the dispatch) in flight finishes, the last
+finished iteration is saved, the saver drains and ``main`` returns 0; a second signal meets the
 handler that was there before.  Log lines are the JAX trainer's ``iter: N,
 loss_pixel: ...``, with ``snippets_per_sec`` between log points.
 
-The port runs one device and one step a dispatch: the JAX trainer's
-``--multi_gpu``, ``--multi_host`` and ``--steps_per_dispatch`` are not taken.
+The port runs one device: the JAX trainer's ``--multi_gpu`` and
+``--multi_host`` are not taken.
 """
 
 from __future__ import annotations
@@ -80,6 +96,7 @@ from unopticalflow_tpu_torch.data import (
     NYU_v2,
     SINTEL_Prepared,
     device_prefetch,
+    stack_batches,
 )
 from unopticalflow_tpu_torch.models.flow_model import FlowModel, FlowModelConfig
 from unopticalflow_tpu_torch.models.flowpose_model import FlowPoseModel
@@ -92,7 +109,9 @@ from unopticalflow_tpu_torch.test import (
 )
 from unopticalflow_tpu_torch.training import (
     loss_weights_from_config,
+    make_multi_train_step,
     make_optimizer,
+    set_capturable,
     train_step,
 )
 from unopticalflow_tpu_torch.utils import checkpoint as ckpt
@@ -135,6 +154,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss_precision", type=str, default=None,
                    choices=["float32", "bfloat16"],
                    help="dtype of the image-space loss stack.")
+    p.add_argument("--steps_per_dispatch", default="auto",
+                   help="K optimizer steps per dispatch (on CUDA one replay of a CUDA graph "
+                        "of the K steps): the log, save and test intervals and the "
+                        "iteration count must be multiples of K.  'auto' picks the "
+                        "largest K in {8,4,2,1} dividing every one.  Interleaved eval "
+                        "at K>1 sees params K-1 steps staler than a K=1 run at the "
+                        "same grid point.")
     p.add_argument("--cache_decoded", action="store_true",
                    help="cache decoded and resized frames as uint8 .npy under the "
                         "prepared dir.")
@@ -259,15 +285,44 @@ def make_dataset(cfg, data_dir: str, n_samples: int):
                                  return_intrinsics=cfg.mode == "flowposenet")
 
 
-def model_inputs(cfg, batch):
+def model_inputs(cfg, batch, stacked: bool = False):
     """A loader batch -> the step's: NYU's ``(img, K_ms, K_inv_ms)`` becomes
-    the images (flow mode) or ``(img, K_ms[:, 0], K_inv_ms[:, 0])``."""
+    the images (flow mode) or ``(img, K_ms[:, 0], K_inv_ms[:, 0])``, the
+    scale axis one deeper in a ``stacked`` (K, B, ...) batch."""
     if cfg.dataset != "nyuv2":
         return batch
     imgs, k_ms, k_inv_ms = batch
     if cfg.mode != "flowposenet":
         return imgs
-    return imgs, k_ms[:, 0], k_inv_ms[:, 0]
+    scale0 = (slice(None), slice(None), 0) if stacked else (slice(None), 0)
+    return imgs, k_ms[scale0], k_inv_ms[scale0]
+
+
+def steps_per_dispatch(cfg) -> int:
+    """``--steps_per_dispatch`` as the JAX trainer reads it: ``auto`` is the
+    largest K in {8, 4, 2, 1} dividing the log, save and test intervals and
+    ``num_iterations - iter_start`` (printed), and a K > 1 that one of them
+    is no multiple of raises ``ValueError``."""
+    spd = _get(cfg, "steps_per_dispatch", 1) or 1
+    remaining = int(cfg.num_iterations - cfg.iter_start)
+    if isinstance(spd, str) and spd.strip().lower() == "auto":
+        grids = [int(cfg.log_interval), int(cfg.save_interval),
+                 int(_get(cfg, "test_interval", 2000)), remaining]
+        spd = next(k for k in (8, 4, 2, 1) if all(g % k == 0 for g in grids))
+        print(f"steps_per_dispatch auto -> {spd}")
+    spd = int(spd)
+    if spd < 1:
+        raise ValueError(f"--steps_per_dispatch must be >= 1, got {spd}")
+    if spd > 1:
+        for name in ("log_interval", "save_interval", "test_interval"):
+            interval = int(_get(cfg, name, 2000))
+            if interval % spd:
+                raise ValueError(f"--{name}={interval} must be a multiple of "
+                                 f"--steps_per_dispatch={spd}")
+        if remaining % spd:
+            raise ValueError(f"num_iterations - iter_start = {remaining} must be a multiple "
+                             f"of --steps_per_dispatch={spd}")
+    return spd
 
 
 def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
@@ -279,7 +334,9 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     gives in ``cfg.mode``: (3H, W, 3) uint8 or [0, 1] float snippets, with
     (K, K_inv) in flowposenet mode, and ``num_frames`` where it is not 3);
     ``device`` overrides ``cfg.device``.  ``on_step(iteration,
-    metrics)`` is called after each step with its device-tensor metrics.
+    metrics)`` is called once for each step, in order, with its device-tensor
+    metrics (with K > 1 steps a dispatch, after the dispatch, each sub-step's
+    own, out of a copy of the graph's buffer).
     ``model_overrides`` replaces fields of the ``FlowModelConfig`` built from
     ``cfg`` (e.g. ``{"use_pallas_reg": True}``).  ``eval_sets`` ({"2012",
     "2015"}: ``test.EvalSet``) replaces the ground-truth directories of the
@@ -322,6 +379,7 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
         ckpt.load_pretrained(flow_model, cfg.flow_pretrained_model)
         print("Load Flow Pretrained Model from " + cfg.flow_pretrained_model)
 
+    spd = steps_per_dispatch(cfg)
     weights = loss_weights_from_config(cfg)
     visualizer = Visualizer(weights, _get(cfg, "log_dump_dir"))
 
@@ -333,7 +391,20 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
         dataset = make_dataset(cfg, data_dir, n_samples)
     snippet_frames = getattr(dataset, "num_frames", 3)
     loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
-    stream = device_prefetch(iter(loader), device)
+    stream = device_prefetch(stack_batches(loader, spd) if spd > 1 else iter(loader), device)
+    if spd > 1:
+        if device.type == "cuda":
+            set_capturable(opt)  # after a resume's load: the graph captures its state
+        multi_step = make_multi_train_step(model, opt, model_cfg, weights, spd, cfg.mode,
+                                           snippet_frames, freeze_flow)
+
+    def dispatch(batch) -> list[dict]:
+        """One dispatch's steps; each sub-step's metrics."""
+        if spd == 1:
+            return [train_step(model, opt, model_inputs(cfg, batch), weights, model_cfg,
+                               cfg.mode, snippet_frames)]
+        stacked = multi_step(model_inputs(cfg, batch, stacked=True))
+        return [{k: v[j] for k, v in stacked.items()} for j in range(spd)]
 
     def evaluate():
         infer = make_infer(flow_model)
@@ -357,40 +428,44 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     print(f"starting iteration: {cfg.iter_start}.")
     model.train()
     log_t, log_it = None, 0
-    it = cfg.iter_start - 1
+    done = cfg.iter_start - 1  # the last finished iteration
     loop_failed = False
     stop = StopOnSignal()
     try:
-        for i, batch in enumerate(stream):
+        for d, batch in enumerate(stream):
             if stop.signum is not None:  # before an evaluation, too
                 break
+            # the dispatch covers iterations [it, it + spd); every interval is a
+            # multiple of spd, so the K = 1 conditions hold at its last sub-step
+            i = d * spd
             it = cfg.iter_start + i
             # counted from the start of this run, as the JAX trainer counts
-            if eval_sets is not None and (i + 1) % test_interval == 0:
+            if eval_sets is not None and (i + spd) % test_interval == 0:
                 evaluate()
-            metrics = train_step(model, opt, model_inputs(cfg, batch), weights, model_cfg,
-                                 cfg.mode, snippet_frames)
+            steps = dispatch(batch)
+            done = it + spd - 1
             if on_step is not None:
-                on_step(it, metrics)
+                for j, metrics in enumerate(steps):
+                    on_step(it + j, metrics)
             if it % cfg.log_interval == 0:
                 # reading the losses waits for the device, so the interval's
                 # rate covers everything between two log points
-                pack = {k: float(v) for k, v in metrics.items() if k != "loss_total"}
+                pack = {k: float(v) for k, v in steps[0].items() if k != "loss_total"}
                 now = time.perf_counter()
                 if log_t is not None and now > log_t:
                     pack["snippets_per_sec"] = cfg.batch_size * (it - log_it) / (now - log_t)
                 log_t, log_it = now, it
                 visualizer.print_loss(pack, iter_=it)
-            if (it + 1) % cfg.save_interval == 0:
-                save(it)
+            if (done + 1) % cfg.save_interval == 0:
+                save(done)
             if stop.signum is not None:
                 break
         if stop.signum is not None:
-            done = it if it >= cfg.iter_start else None
-            print(f"preemption signal {stop.signum}: checkpointing at iteration {done} "
+            last = done if done >= cfg.iter_start else None
+            print(f"preemption signal {stop.signum}: checkpointing at iteration {last} "
                   "and exiting.")
-            if done is not None:
-                save(done)
+            if last is not None:
+                save(last)
         # the reference saves only on the grid; keep the last iteration's weights too
         elif cfg.num_iterations > cfg.iter_start and cfg.num_iterations % cfg.save_interval:
             save(cfg.num_iterations - 1)
@@ -408,7 +483,7 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
             if not loop_failed:
                 raise
             traceback.print_exc()
-    return TrainResult(model, opt, it + 1)
+    return TrainResult(model, opt, done + 1)
 
 
 def main(argv=None) -> int:

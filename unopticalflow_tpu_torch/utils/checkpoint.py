@@ -16,6 +16,9 @@ file's suffix, for a ``FlowModel`` (``params`` ``{"fpyramid", "pwc"}``) or a
 ``FlowPoseModel`` (``{"flow", "pose"}``), and ``save_flax_checkpoint``
 writes one that the JAX package's ``restore_checkpoint`` reads back.
 
+An Adam of either form saves and restores into either (``restore_checkpoint``
+keeps the running optimizer's ``capturable``).
+
 ``AsyncCheckpointer`` is the JAX package's asynchronous saver: ``save()``
 copies the state on its device and returns; one worker thread copies it to
 the host, serialises it once and writes every path in order.
@@ -79,10 +82,30 @@ def _map(fn, obj):
     return obj
 
 
+def _opt_state(opt: torch.optim.Optimizer) -> dict:
+    """``opt.state_dict()`` with a learning rate held as a tensor (a schedule
+    computed on the device) stored as its float, so every ``.pth`` holds one."""
+    state = opt.state_dict()
+    for group in state["param_groups"]:
+        if isinstance(group.get("lr"), torch.Tensor):
+            group["lr"] = float(group["lr"])
+    return state
+
+
+def _in_form_of(state: dict, opt: torch.optim.Optimizer) -> dict:
+    """A saved optimizer state dict with ``opt``'s ``capturable`` flag, so that
+    ``load_state_dict`` places each ``step`` as ``opt`` needs it.  The flag
+    says how an optimizer runs, not what it has learned: a capturable Adam's
+    checkpoint resumes an eager one, and back."""
+    groups = [{**saved, "capturable": cur.get("capturable", False)}
+              for saved, cur in zip(state["param_groups"], opt.param_groups)]
+    return {**state, "param_groups": groups}
+
+
 def _state(iteration: int, model: nn.Module, opt: torch.optim.Optimizer, copy) -> dict:
     return {"iteration": int(iteration),
             "model_state_dict": {k: copy(v.detach()) for k, v in model.state_dict().items()},
-            "optimizer_state_dict": _map(copy, opt.state_dict())}
+            "optimizer_state_dict": _map(copy, _opt_state(opt))}
 
 
 def save_checkpoint(paths: list[str], iteration: int, model: nn.Module,
@@ -176,7 +199,9 @@ def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) 
     """Load the model (strict) and the optimizer; return the iteration.  A
     checkpoint whose optimizer holds another set of parameters than ``opt``
     (saved with or without ``--freeze_flow``, resumed the other way) raises
-    ``ValueError``."""
+    ``ValueError``.  ``opt`` keeps its own ``capturable`` flag: a capturable
+    Adam gets each ``step`` on its parameter's device,
+    an eager one on the host, whichever wrote the file."""
     frozen = _frozen(model, opt)
     if _is_flax(path):
         tree = read_flax_checkpoint(path, _flowpose(model))
@@ -196,7 +221,7 @@ def restore_checkpoint(path: str, model: nn.Module, opt: torch.optim.Optimizer) 
                          f"{held} (--freeze_flow={frozen}): resume with the --freeze_flow "
                          "setting the checkpoint was saved under")
     model.load_state_dict(strip_prefixes(data["model_state_dict"]), strict=True)
-    opt.load_state_dict(data["optimizer_state_dict"])
+    opt.load_state_dict(_in_form_of(data["optimizer_state_dict"], opt))
     return int(data["iteration"])
 
 

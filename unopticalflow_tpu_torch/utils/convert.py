@@ -121,7 +121,11 @@ def _opt_names(model: nn.Module, opt: torch.optim.Optimizer) -> list[str]:
 
 
 def adam_state_to_torch(model: nn.Module, opt: torch.optim.Adam, adam: dict) -> None:
-    """Load optax's ``{"count", "mu", "nu"}`` into ``opt`` for ``model``'s params."""
+    """Load optax's ``{"count", "mu", "nu"}`` into ``opt`` for ``model``'s params.
+
+    ``count`` becomes every ``step``: on the host for an eager Adam, on the
+    parameter's device for a capturable one (``load_state_dict``'s placement
+    by ``opt``'s own groups)."""
     mu, nu = _tensors(adam["mu"]), _tensors(adam["nu"])
     names = _opt_names(model, opt)
     if set(mu) != set(names) or set(nu) != set(names):
@@ -134,8 +138,9 @@ def adam_state_to_torch(model: nn.Module, opt: torch.optim.Adam, adam: dict) -> 
 
 
 def adam_state_from_torch(model: nn.Module, opt: torch.optim.Adam) -> dict:
-    """optax's ``{"count", "mu", "nu"}`` of ``opt`` (zeros before its first step);
-    a frozen flow branch (not in ``opt``) is an empty ``flow`` subtree."""
+    """optax's ``{"count", "mu", "nu"}`` of ``opt`` (zeros before its first step),
+    a capturable Adam's device ``step`` read back to the host; a frozen flow
+    branch (not in ``opt``) is an empty ``flow`` subtree."""
     state = opt.state_dict()["state"]
     params = dict(model.named_parameters())
     mu, nu, count = {}, {}, 0
