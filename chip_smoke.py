@@ -312,6 +312,36 @@ Phases (each raises on failure, so the run exits non-zero):
    learning rate, read back from the graph, within one float32 ulp of
    ``cosine_decay_lr``, evaluation points labelled 7 and 39, finite EPEs
    printed side by side.
+19. The measuring and learning tools (``tools``; rehearsable on the CPU), at
+   256x832, batch 8, K = 8 where a step runs.  (a) The device generator
+   (``benchmarks/synth_device_gen.py``, max_bg 16, max_fg 32, tex_power 1)
+   on the card: shapes and range, integer motions within their bounds and
+   the rectangle in frame at every t, the exact-warp invariant (1e-6), the
+   moments within 0.05 / 0.04 of the host generator's; its ms a batch (CUDA
+   events) against the host generator's ms a snippet.  (b)
+   ``synthetic_epe.run --device-gen``, bfloat16, 64 iterations at K = 8:
+   launches by dispatch 8 x (5, 5, 5, 3, 3) eager, the same in the capture,
+   none in the replays; the EPE beside zero flow's, ms/step beside the
+   generator's.  (c) ``make_prepared_synth`` writes 16 snippets, ``train()``
+   runs 16 bfloat16 steps from the tree at K = 8 (2 x 8 x (5, 5, 5, 3, 3)
+   launches), the loader's snippets/s from it; ``loader_bench`` at 4
+   snippets and 4 batches, its device rate measured in the call (2 x 8 x
+   (5, 5, 5, 3, 3) launches).  (d) ``profile_step``: 2 interleaved trials of
+   ``use_pallas_reg`` off and on in float32 and bfloat16 at K = 8, each
+   setup's launches a step (5, 5, 5, 3, 3, and 3, 3 with the regularizer).
+   (e) ``ablate``'s seven variants, bfloat16, K = 8, 3 replays: ``full`` and
+   ``no-ssim`` launch (5, 5, 5, 3, 3) a step, ``no-corr`` none of rows 1-3,
+   ``convs-only`` no photometric kernel.  (f) ``probe.trace_run``: the K = 8
+   graph step by kind in float32 and bfloat16, idle share against the
+   unprofiled step, launches of the eager dispatch and the capture.  (g)
+   ``loss_landscape_probe.run`` through the kernels against the plain
+   photometric pack on the card, float32 (rtol 1e-4) and bfloat16 (2e-2),
+   3 photometric launches a point.  (h) PERF.md's q14: 48 bfloat16 steps on
+   phase 18's 8 repeated batches, three times as K = 8 graph dispatches and
+   three times as eager capturable-Adam steps, from one seed: each run's
+   8-step block means, whether it rose (a block above 1.2 x the lowest
+   before it), the runs' distances, and one float32 eager run of the same
+   steps beside them; it fails on a loss that is not finite.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -331,7 +361,7 @@ GPU the script exits non-zero before printing any result.  The trainer runs
 of phases 6-16 take K = 1 (their intervals make ``--steps_per_dispatch
 auto`` pick 1, or they set it, so that their per-step launch counts and
 step times keep their meaning); phase 18 drives K = 8 in flow mode and
-K = 4, the default intervals' ``auto``, in the other modes.
+K = 4, the default intervals' ``auto``, in the other modes; phase 19 K = 8.
 """
 
 from __future__ import annotations
@@ -431,6 +461,22 @@ DISPATCH_SNIPPETS = 8
 DISPATCH_AUTO_K = 4
 EPE_ITERS = 64
 EPE_HW = (128, 256)
+# phase 19: the tools at the recipe's shape; the generator's motions as
+# make_pool's and make_prepared_synth's defaults (the 256x832 campaign's);
+# synthetic_epe --device-gen's iterations, make_prepared_synth's snippets and
+# train()'s steps on them, loader_bench's snippets and batches, profile_step's
+# dispatches a trial and trials, ablate's and the trace's timed replays, and
+# q14's runs of each kind and steps a run; a run "rose" when a block of K
+# steps' mean loss exceeds Q14_RISE times the lowest block mean before it
+TOOLS_MAX_BG, TOOLS_MAX_FG = 16, 32
+TOOLS_EPE_ITERS = 64
+PREP_SNIPPETS = 16
+PREP_STEPS = 16
+LB_SNIPPETS, LB_BATCHES = 4, 4
+PS_ITERS, PS_TRIALS = 2, 2
+TOOLS_REPLAYS = 3
+Q14_RUNS, Q14_STEPS = 3, 48
+Q14_RISE = 1.2
 FP_STEPS = 10
 FP_BF16_STEPS = 8
 FREEZE_STEPS = 3
@@ -2254,6 +2300,355 @@ def dispatch_modes(c) -> None:
           + f", ms/step {rk['ms_per_step']} against {r1['ms_per_step']} ({c.smi})")
 
 
+def q14_runs(c, cfg, weights, xs, runs: int, steps: int, kinds=("graph", "eager")) -> dict:
+    """Phase 19 (h): ``runs`` runs of ``steps`` steps on the K repeated
+    batches ``xs`` of each of ``kinds``: K-step graph dispatches, eager
+    capturable-Adam steps; each from the same seeded weights.  Each run's
+    losses, a step at a time, by kind."""
+    import warnings
+
+    import torch
+
+    from unopticalflow_tpu_torch.models import FlowModel
+    from unopticalflow_tpu_torch.training import (
+        make_multi_train_step,
+        make_optimizer,
+        set_capturable,
+        train_step,
+    )
+
+    k = xs.shape[0]
+    out = {kind: [] for kind in kinds}
+    for kind in kinds * runs:
+        model = FlowModel(cfg, device=c.device, scheme="pwc",
+                          generator=torch.Generator().manual_seed(SEED + 18))
+        opt = make_optimizer(model)
+        if c.device.type == "cuda":
+            set_capturable(opt)
+        losses = []
+        with warnings.catch_warnings():
+            # capturable Adam warns when it steps outside a capture
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            if kind == "graph":
+                multi = make_multi_train_step(model, opt, cfg, weights, k)
+                for _ in range(steps // k):
+                    losses.append(multi(xs)["loss_total"].float())
+            else:
+                for j in range(steps):
+                    losses.append(train_step(model, opt, xs[j % k], weights, cfg)
+                                  ["loss_total"].float().reshape(1))
+        out[kind].append(torch.cat(losses).cpu().double())
+        del model, opt, losses
+        c.empty_cache()
+    return out
+
+
+def _rose(losses, k: int, factor: float = Q14_RISE) -> tuple[bool, list[float]]:
+    """(whether a block of ``k`` steps' mean loss exceeds ``factor`` times the
+    lowest block mean before it, the block means)."""
+    means = [float(b.mean()) for b in losses.split(k)]
+    return any(m > factor * min(means[:i]) for i, m in enumerate(means) if i), means
+
+
+def tools(c) -> None:
+    """Phase 19 (see the module): the measuring and learning tools on the
+    main path.  ``c`` holds the device, the shapes and counts of each part,
+    the launch counters, ``want`` (the card's launch counts; a CPU rehearsal
+    gives zeros), ``device_rate`` (None: measured on the card), ``trace``
+    (the profiler phase, card only) and the card's nvidia-smi line."""
+    import numpy as np
+    import torch
+
+    from unopticalflow_tpu_torch import probe
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.benchmarks import (
+        ablate,
+        loader_bench,
+        loss_landscape_probe,
+        make_prepared_synth,
+        profile_step,
+        synthetic_epe,
+        time_ms,
+    )
+    from unopticalflow_tpu_torch.benchmarks.synth_device_gen import make_device_batch
+    from unopticalflow_tpu_torch.data.datasets import KITTI_Prepared
+    from unopticalflow_tpu_torch.data.loader import BatchLoader
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.models import FlowModelConfig
+    from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
+    from unopticalflow_tpu_torch.training import loss_weights_from_config
+
+    device, k, batch_n = c.device, c.k, c.batch
+    h, w = c.img_hw
+    t19 = time.perf_counter()
+    dev = device.type
+    gen_kw = dict(max_bg=TOOLS_MAX_BG, max_fg=TOOLS_MAX_FG, tex_power=1.0)
+
+    # (a) the device generator: the four checks on the card, and its time
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    stacked, flow, nonocc, d = make_device_batch(gen, batch_n, h, w, return_draws=True, **gen_kw)
+    m_fg = min(TOOLS_MAX_FG, h // 8, w // 8)
+    bg = flow[:, :1, :1]
+    fg_frac = ((flow - bg).abs().amax(-1) > 0).float().mean((1, 2))
+    ys = torch.arange(h, device=device)[None, :, None]
+    xs_ = torch.arange(w, device=device)[None, None, :]
+    b_ix = torch.arange(batch_n, device=device)[:, None, None]
+    dy, dx = ys + flow[..., 1].long(), xs_ + flow[..., 0].long()
+    f_t, f_n = stacked[:, h:2 * h], stacked[:, 2 * h:]
+    warped = f_n[b_ix, dy.clamp(0, h - 1), dx.clamp(0, w - 1)]
+    warp_err = float((warped - f_t).abs().amax(-1)[nonocc].max())
+    host = synthetic_epe.make_batch(np.random.RandomState(SEED + 19), batch_n, h, w, **gen_kw)[0]
+    moments = (abs(float(stacked.mean()) - host.mean()), abs(float(stacked.std()) - host.std()))
+    checks = {
+        "shapes": stacked.shape == (batch_n, 3 * h, w, 3) and flow.shape == (batch_n, h, w, 2)
+        and nonocc.shape == (batch_n, h, w) and stacked.dtype == torch.float32,
+        "range": 0.0 <= float(stacked.min()) and float(stacked.max()) <= 1.0
+        and float(stacked.std()) > 0.05,
+        "motions": bool((flow == flow.round()).all()) and float(bg.abs().max()) <= TOOLS_MAX_BG
+        and float(flow.abs().max()) <= max(TOOLS_MAX_BG, m_fg)
+        and float(fg_frac.max()) <= 1 / 6 + 1e-6,
+        "rectangle in frame": all(
+            bool((d[r] + t * d[m] >= 0).all()) and bool((d[r] + t * d[m] + d[s] <= e).all())
+            for r, m, s, e in (("ry", "v_f", "rh", h), ("rx", "u_f", "rw", w))
+            for t in (-1, 0, 1)),
+        "exact warp": warp_err <= 1e-6,
+        "moments": moments[0] < 0.05 and moments[1] < 0.04,
+    }
+    dev_ms = time_ms(lambda: make_device_batch(gen, batch_n, h, w, **gen_kw), (), device,
+                     iters=5, warmup=1)
+    rng = np.random.RandomState(SEED + 19)
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        synthetic_epe.make_snippet(rng, h, w, **gen_kw)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(host_ms)
+    print(f"tools (a) the device generator at {h}x{w}, batch {batch_n} (max_bg {TOOLS_MAX_BG}, "
+          f"max_fg {TOOLS_MAX_FG}, tex_power 1.0): " + ", ".join(
+              f"{n} {'ok' if v else 'FAILED'}" for n, v in checks.items())
+          + f" (warp error {warp_err:.1e}, mean and std {moments[0]:.4f}, {moments[1]:.4f} "
+          f"from the host generator's); {dev_ms:.3f} ms a batch of {batch_n} on the device "
+          f"against the host's {host_ms:.1f} ms a snippet ({c.smi})")
+    if not all(checks.values()):
+        raise AssertionError(f"the device generator fails {checks}")
+    del stacked, flow, nonocc, warped, f_t, f_n
+    c.empty_cache()
+
+    # (b) synthetic_epe --device-gen at the recipe's shape, bf16, K graph
+    marks = []
+    real_multi = synthetic_epe.make_multi_train_step
+
+    def counting(*a, **kw):
+        step = real_multi(*a, **kw)
+
+        def dispatch(batch):
+            c.reset_counts()
+            out = step(batch)
+            marks.append(c.counts())
+            return out
+        return dispatch
+
+    argv = ["--device", dev, "--iters", str(c.epe_iters), "--batch", str(batch_n), "--hw",
+            str(h), str(w), "--device-gen", "--steps-per-dispatch", str(k), "--eval-snippets",
+            str(batch_n), "--max-bg", str(TOOLS_MAX_BG), "--max-fg", str(TOOLS_MAX_FG),
+            "--tex-power", "1.0"]
+    synthetic_epe.make_multi_train_step = counting
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = synthetic_epe.run(synthetic_epe.build_arg_parser().parse_args(argv))
+    finally:
+        synthetic_epe.make_multi_train_step = real_multi
+    want = [{n: k * v for n, v in c.want(PER_STEP).items()}] * 2 \
+        + [dict.fromkeys(PER_STEP, 0)] * (c.epe_iters // k - 2)
+    if marks != want or not math.isfinite(res["epe_all"]) or not res["device_gen"]:
+        raise AssertionError(f"synthetic_epe --device-gen: launches by dispatch {marks} (want "
+                             f"{want}): {json.dumps(res)}")
+    print(f"tools (b) synthetic_epe {' '.join(argv)} (bfloat16): launches by dispatch "
+          f"{[_launched(m) for m in marks]} (eager, capture, replays); EPE all "
+          f"{res['epe_all']} against zero flow's {res['zero_flow']['epe_all']} after "
+          f"{c.epe_iters} iterations; {res['ms_per_step']} ms/step against the generator's "
+          f"{dev_ms / batch_n:.3f} ms a snippet, {dev_ms:.3f} ms a batch, on the device "
+          f"({c.smi})")
+
+    # (c) from disk: a make_prepared_synth tree, train() on it, the loader bench
+    prep = os.path.join(c.root, "prep")
+    t0 = time.perf_counter()
+    make_prepared_synth.write_tree(prep, c.prep_snippets, c.img_hw)
+    t_tree = time.perf_counter() - t0
+    cfg = train_cli.recipe_config(
+        num_iterations=c.prep_steps, init_scheme="pwc", seed=SEED + 19, batch_size=batch_n,
+        num_workers=4, log_interval=k, save_interval=c.prep_steps, steps_per_dispatch=k,
+        precision="bfloat16", prepared_base_dir=c.root, prepared_save_dir="prep",
+        model_dir=os.path.join(c.root, "m"), img_hw=c.img_hw)
+    os.makedirs(cfg.model_dir, exist_ok=True)
+    metrics = []
+    c.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        res_t = train_cli.train(cfg, device=device, on_step=lambda it, m: metrics.append(m))
+    c.sync()
+    t_train, counts_train = time.perf_counter() - t0, c.counts()
+    want = {n: 2 * k * v for n, v in c.want(PER_STEP).items()}
+    if res_t.step != c.prep_steps or counts_train != want or len(metrics) != c.prep_steps \
+            or not all(bool(torch.isfinite(v)) for m in metrics for v in m.values()):
+        raise AssertionError(f"train() from the make_prepared_synth tree: {res_t.step} steps, "
+                             f"launches {counts_train} (want {want}):\n{log.getvalue()[-2000:]}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ds = KITTI_Prepared(prep, img_hw=c.img_hw, num_iterations=4 * batch_n, emit_uint8=True)
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b) for b in BatchLoader(ds, batch_size=batch_n, num_workers=4))
+    tree_rate = n_loaded / (time.perf_counter() - t0)
+    logged = re.findall(r"snippets_per_sec: ([0-9.]+)", log.getvalue())
+    args_lb = ["--snippets", str(c.loader_snippets), "--batch", str(batch_n), "--batches",
+               str(c.loader_batches), "--dir", os.path.join(c.root, "loader_bench"),
+               "--device", dev]
+    if c.device_rate is not None:
+        args_lb += ["--device-rate", str(c.device_rate)]
+    c.reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lb = loader_bench.run(loader_bench.build_arg_parser().parse_args(args_lb))
+    c.sync()
+    counts_lb = c.counts()
+    want_lb = {n: 2 * loader_bench.RATE_K * v for n, v in c.want(PER_STEP).items()}
+    if c.device_rate is None and counts_lb != want_lb:
+        raise AssertionError(f"loader_bench's device rate: launches {counts_lb} (want "
+                             f"{want_lb})")
+    print(f"tools (c) make_prepared_synth: {c.prep_snippets} snippets at {h}x{w} in "
+          f"{t_tree:.1f} s; train() on them, bfloat16, K = {k}, {c.prep_steps} steps in "
+          f"{t_train:.1f} s, launches {_launched(counts_train)} (the eager dispatch and the "
+          f"capture), logged snippets/s {logged}; the loader (4 threads, PNG decode) "
+          f"{tree_rate:.1f} snippets/s from the tree ({c.smi})")
+    print("tools (c) loader_bench " + " ".join(args_lb) + ": " + json.dumps(lb))
+
+    # (d) profile_step: interleaved trials, use_pallas_reg off/on, both dtypes, K graph
+    args_ps = ["--device", dev, "--batch", str(batch_n), "--hw", str(h), str(w), "--iters",
+               str(c.ps_iters), "--trials", str(c.trials), "--precisions", "float32",
+               "bfloat16", "--steps-per-dispatch", str(k)]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        ps = profile_step.run(profile_step.build_arg_parser().parse_args(args_ps))
+    for rec in ps["setups"]:
+        per = PER_STEP_REG if "reg-on" in rec["setup"] else PER_STEP
+        if rec["launches_per_step"] != {n: float(v) for n, v in c.want(per).items()
+                                        if n in rec["launches_per_step"]}:
+            raise AssertionError(f"profile_step {rec['setup']}: launches a step "
+                                 f"{rec['launches_per_step']}")
+    print("tools (d) profile_step " + " ".join(args_ps) + ":\n  " + "\n  ".join(
+        ln for ln in out.getvalue().splitlines() if ln.startswith(("trial", "float32",
+                                                                     "bfloat16")))
+        + f"\n  ({c.smi})")
+    c.empty_cache()
+
+    # (e) ablate: the seven variants, bf16, K graph, with their launches
+    args_ab = ["--device", dev, "--batch", str(batch_n), "--hw", str(h), str(w),
+               "--steps-per-dispatch", str(k), "--replays", str(c.replays), "--eager-steps",
+               str(c.replays)]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        ab = ablate.run(ablate.build_arg_parser().parse_args(args_ab))
+    launch = {r["variant"]: r["launches_per_step"] for r in ab}
+    corr = ("corr_fwd", "corr_bwd_df1", "corr_bwd_df2")
+    photo = ("photometric_fwd", "photometric_bwd")
+    expect = {"full": c.want(PER_STEP),
+              "no-corr": {**c.want(PER_STEP), **dict.fromkeys(corr, 0)},
+              "no-ssim": c.want(PER_STEP),
+              "convs-only": {**c.want(PER_STEP), **dict.fromkeys(photo, 0)}}
+    for name, per in expect.items():
+        got = {n: v for n, v in launch[name].items() if n in per}
+        if got != {n: float(v) for n, v in per.items() if n in got}:
+            raise AssertionError(f"ablate {name}: launches a step {launch[name]}")
+    print("tools (e) ablate " + " ".join(args_ab) + ":\n  " + "\n  ".join(
+        ln.strip() for ln in out.getvalue().splitlines() if ":" in ln and "ms/step" in ln)
+        + f"\n  ({c.smi})")
+    print(json.dumps({"ablations": ab}))
+    c.empty_cache()
+
+    # (f) probe.py's trace: the K graph step by kind, both dtypes
+    if c.trace:
+        os.makedirs(os.path.join(c.root, "trace"), exist_ok=True)
+        for precision in ("float32", "bfloat16"):
+            rec = probe.trace_run(device, precision, os.path.join(c.root, "trace"), SEED,
+                                  k=k, timed=c.replays)
+            if rec["launches_per_step"] != {n: float(v) for n, v in c.want(PER_STEP).items()
+                                            if n in rec["launches_per_step"]}:
+                raise AssertionError(f"trace {precision}: launches {rec['launches_per_step']}")
+            print(f"tools (f) trace {precision}: {rec['ms_step']:.3f} ms/step at K = {k} "
+                  f"(graph), busy {rec['busy_ms_step']:.3f} ms, idle "
+                  f"{rec['idle_share']:.2%} of the unprofiled step, "
+                  f"{rec['device_ops_per_step']:.1f} device ops a step, peak "
+                  f"{rec['peak_allocated_gib']:.3f} GiB allocated and "
+                  f"{rec['reserved_gib']:.3f} GiB reserved after the capture; ms a step by kind "
+                  + json.dumps({n: round(v, 3) for n, v in rec["device_ms_by_kind"].items()})
+                  + f" ({c.smi})")
+            print(json.dumps(rec))
+            c.empty_cache()
+
+    # (g) the loss landscape through the kernels and through the plain versions
+    for dtype, rtol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        c.reset_counts()
+        got = loss_landscape_probe.run(c.img_hw, batch_n, 5, device, dtype, verbose=False)
+        c.sync()
+        counts_ls = c.counts()
+        plain = loss_landscape_probe.run(c.img_hw, batch_n, 5, device, dtype,
+                                         photo_fn=photometric_pack_reference, verbose=False)
+        points = got["alpha"] + got["constant"]
+        want_ls = {n: v * len(points) for n, v in c.want(
+            {**dict.fromkeys(PER_STEP, 0), "photometric_fwd": 3}).items()}
+        worst = max(abs(g[t] - p[t]) / max(abs(p[t]), 1e-12)
+                    for g, p in zip(points, plain["alpha"] + plain["constant"])
+                    for t in ("pixel", "ssim", "smooth", "total"))
+        totals = [r["total"] for r in got["alpha"]]
+        print(f"tools (g) loss landscape {dtype} at {h}x{w}, batch {batch_n}: the kernels "
+              f"against the plain versions on the card, largest relative gap {worst:.2e} "
+              f"(rtol {rtol:g}); launches {_launched(counts_ls)}; least total at alpha "
+              f"{loss_landscape_probe.ALPHAS[int(np.argmin(totals))]}: "
+              + json.dumps([(r["a"], round(r["total"], 4)) for r in got["alpha"]]))
+        if worst > rtol or counts_ls != want_ls:
+            raise AssertionError(f"loss landscape {dtype}: gap {worst}, launches {counts_ls} "
+                                 f"(want {want_ls})")
+
+    # (h) q14: does bf16's loss on repeated batches rise in the graph alone?
+    cfg16 = FlowModelConfig(compute_dtype="bfloat16", loss_dtype="bfloat16")
+    weights = loss_weights_from_config(train_cli.recipe_config())
+    data = SyntheticSnippets(c.img_hw, k * batch_n, seed=SEED + 18)
+    xs = torch.from_numpy(np.stack([data[i] for i in range(k * batch_n)])).to(device)
+    xs = xs.reshape(k, batch_n, 3 * h, w, 3)
+    t0 = time.perf_counter()
+    runs = q14_runs(c, cfg16, weights, xs, c.q14_runs, c.q14_steps)
+    verdict = {}
+    for kind, losses in runs.items():
+        rose = [_rose(x, k) for x in losses]
+        verdict[kind] = sum(r for r, _ in rose)
+        print(f"tools (h) q14 {kind}: {c.q14_steps} bfloat16 steps on {k} repeated batches at "
+              f"{h}x{w}, batch {batch_n}, {c.q14_runs} runs from one seed: means of "
+              f"{k}-step blocks " + json.dumps([[round(m, 4) for m in ms] for _, ms in rose])
+              + f"; rose (a block above {Q14_RISE} x the lowest before it) in "
+              f"{verdict[kind]} of {c.q14_runs}")
+        if not all(bool(torch.isfinite(x).all()) for x in losses):
+            raise AssertionError(f"q14 {kind}: a loss is not finite")
+    first = {float(x[0]) for xs_ in runs.values() for x in xs_}
+    spread = {kind: max(_rel_l2(x, losses[0]) for x in losses[1:]) if len(losses) > 1 else 0.0
+              for kind, losses in runs.items()}
+    across = _rel_l2(torch.stack(runs["graph"]).mean(0), torch.stack(runs["eager"]).mean(0))
+    print(f"tools (h) q14: first step's loss {'one value' if len(first) == 1 else first} "
+          f"over the {2 * c.q14_runs} runs; the runs' largest distance from their kind's first "
+          f"run (rel L2 over the {c.q14_steps} losses) graph {spread['graph']:.3e}, eager "
+          f"{spread['eager']:.3e}; graph mean against eager mean {across:.3e}; "
+          + ("only the graph rose: a fault of the capture"
+             if verdict["graph"] and not verdict["eager"]
+             else "eager rose too: not the capture" if verdict["eager"]
+             else "no run rose")
+          + f" ({time.perf_counter() - t0:.1f} s, {c.smi})")
+    # the same eager steps in float32: is the rise bfloat16's?
+    cfg32 = FlowModelConfig()
+    f32 = q14_runs(c, cfg32, weights, xs, 1, c.q14_steps, kinds=("eager",))["eager"][0]
+    rose32, means32 = _rose(f32, k)
+    print(f"tools (h) q14 float32 eager, one run of the same {c.q14_steps} steps: means of "
+          f"{k}-step blocks {json.dumps([round(m, 4) for m in means32])}; "
+          f"{'rose' if rose32 else 'did not rise'}")
+    if not bool(torch.isfinite(f32).all()):
+        raise AssertionError("q14 float32: a loss is not finite")
+    print(f"tools: phase 19 in {time.perf_counter() - t19:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3657,7 +4052,18 @@ def main() -> int:
         cli=[], smi=smi))
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: 18 phases passed in {time.perf_counter() - t_start:.1f} s")
+    # ---- 19. the measuring and learning tools on the main path ----------------
+    tools(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, batch=BATCH, k=DISPATCH_K, epe_iters=TOOLS_EPE_ITERS,
+        prep_snippets=PREP_SNIPPETS, prep_steps=PREP_STEPS, loader_snippets=LB_SNIPPETS,
+        loader_batches=LB_BATCHES, device_rate=None, ps_iters=PS_ITERS, trials=PS_TRIALS,
+        replays=TOOLS_REPLAYS, trace=True, q14_runs=Q14_RUNS, q14_steps=Q14_STEPS,
+        want=lambda d: d, sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache,
+        root=os.path.join(model_dir, "tools19"), counts=counts, reset_counts=reset_counts,
+        smi=smi))
+    torch.cuda.empty_cache()
+
+    print(f"chip_smoke: 19 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

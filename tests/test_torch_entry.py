@@ -257,6 +257,22 @@ def test_sintel_raw_trains(tmp_path):
         train_mod.train(cfg)
 
 
+def test_depth_pretrained_model_is_accepted_and_ignored(tree, tmp_path, capsys):
+    """The JAX trainer takes ``--depth_pretrained_model`` and ignores it; so
+    does the port: a run given a path that does not exist trains as one
+    without the flag."""
+    import train as jax_train
+
+    for parser in (train_mod.build_arg_parser(), jax_train.build_arg_parser()):
+        assert parser.parse_args([]).depth_pretrained_model is None
+        assert parser.parse_args(["--depth_pretrained_model", "d.pth"]).depth_pretrained_model \
+            == "d.pth"
+    want = _train(tree, tmp_path / "plain", capsys)
+    got = _train(tree, tmp_path / "depth", capsys, "--depth_pretrained_model",
+                 str(tmp_path / "no_such_depth_net.pth"))
+    assert len(want) == 2 and got == want
+
+
 def test_gpu_flag_is_accepted():
     for parser in (train_mod.build_arg_parser(), port_test.build_arg_parser()):
         args = parser.parse_args(["-c", "x.yaml", "-g", "0"])

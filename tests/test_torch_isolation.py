@@ -130,6 +130,16 @@ print(json.dumps({{"names": names, "named": named, "by_path": by_path,
             "unopticalflow_tpu_torch.benchmarks.block_gather_probe",
             "unopticalflow_tpu_torch.benchmarks.sanity_train",
             "unopticalflow_tpu_torch.benchmarks.synthetic_epe",
+            "unopticalflow_tpu_torch.benchmarks.synth_device_gen",
+            "unopticalflow_tpu_torch.benchmarks.make_pool",
+            "unopticalflow_tpu_torch.benchmarks.make_prepared_synth",
+            "unopticalflow_tpu_torch.benchmarks.loader_bench",
+            "unopticalflow_tpu_torch.benchmarks.profile_step",
+            "unopticalflow_tpu_torch.benchmarks.ablate",
+            "unopticalflow_tpu_torch.benchmarks.loss_landscape_probe",
+            "unopticalflow_tpu_torch.benchmarks.fg_probe",
+            "unopticalflow_tpu_torch.benchmarks.synth_epe_summarize",
+            "unopticalflow_tpu_torch.benchmarks.real_kitti_eval",
             "unopticalflow_tpu_torch.data.datasets",
             "unopticalflow_tpu_torch.data.undistort",
             "unopticalflow_tpu_torch.ops.geometry",

@@ -74,18 +74,21 @@ def _read_flow_gt(dir_gt: str, i: int):
     return occ, noc[:, :, 2]
 
 
-def load_gt_flow_kitti(gt_dataset_dir: str, mode: str, num_workers: int = 5):
-    """KITTI 2012 (194) / 2015 (200) ground-truth flows and noc masks."""
+def load_gt_flow_kitti(gt_dataset_dir: str, mode: str, num_workers: int = 5,
+                       num_gt: int | None = None):
+    """KITTI 2012 (194) / 2015 (200) ground-truth flows and noc masks; ``num_gt``
+    reads the first ``num_gt`` frames instead (a small test tree)."""
     if mode not in KITTI_NUM_GT:
         raise ValueError(f"Mode {mode} not found.")
     with ThreadPoolExecutor(num_workers) as pool:
         results = list(pool.map(lambda i: _read_flow_gt(gt_dataset_dir, i),
-                                range(KITTI_NUM_GT[mode])))
+                                range(num_gt or KITTI_NUM_GT[mode])))
     return [r[0] for r in results], [r[1] for r in results]
 
 
-def load_gt_mask(gt_dataset_dir: str, num_workers: int = 5):
-    """KITTI 2015 moving-object masks (``obj_map``), binarised at > 0."""
+def load_gt_mask(gt_dataset_dir: str, num_workers: int = 5, num_gt: int | None = None):
+    """KITTI 2015 moving-object masks (``obj_map``), binarised at > 0, of the
+    200 frames or the first ``num_gt``."""
 
     def read(i):
         path = os.path.join(gt_dataset_dir, "obj_map", f"{i:06d}_10.png")
@@ -95,7 +98,7 @@ def load_gt_mask(gt_dataset_dir: str, num_workers: int = 5):
         return (m > 0.0).astype(m.dtype)
 
     with ThreadPoolExecutor(num_workers) as pool:
-        return list(pool.map(read, range(KITTI_NUM_GT["kitti_2015"])))
+        return list(pool.map(read, range(num_gt or KITTI_NUM_GT["kitti_2015"])))
 
 
 def load_gt_flow_sintel(training_dir: str, pass_name: str = "clean"):

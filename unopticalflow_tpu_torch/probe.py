@@ -1,7 +1,8 @@
 """Measure the port's serving and training slices on one CUDA device.
 
     python -m unopticalflow_tpu_torch.probe [--out build/probe] \
-        [--requests 512] [--seed 0] [--phases profile,serve,train,spatial,spatial_gap]
+        [--requests 512] [--seed 0] \
+        [--phases profile,serve,train,trace,spatial,spatial_gap]
 
 Everything runs at the KITTI shape (``config/kitti.yaml``: img_hw 256x832)
 with random "pwc" weights from ``--seed``; serving at ``max_batch`` 8 in
@@ -40,14 +41,32 @@ phase prints JSON lines:
    * ``launches_per_step``: the hand-written kernels' launch counts;
      ``device_ops_per_step``: every kernel, copy and set the device ran per
      profiled step (what the host had to launch).
-4. ``spatial``: one full batch of ``inference_flow`` (``n_spatial`` 0) against
+4. ``trace`` (the JAX ``benchmarks/trace_step.py``, folded in here): the
+   KITTI-recipe step at K = 8 steps a dispatch, one CUDA graph of the 8
+   whole steps (``make_multi_train_step``), in float32 (TF32 off) and in
+   bfloat16, ``use_pallas_reg`` off, on 8 device-resident uint8 batches.
+   * ``ms_step``: the median CUDA-event interval of ``TRACE_TIMED``
+     replays over 8, with no profiler running;
+   * over ``TRACE_PROFILED`` profiled replays: ``device_ms_by_kind`` per
+     step by ``TRACE_KINDS`` (``KINDS`` with transposes and layout
+     conversions, and copies and sets, as kinds of their own), the top
+     device ops, ``device_ops_per_step``, ``busy_ms_step`` and the
+     ``idle_share`` against the unprofiled ``ms_step``;
+   * ``launches_per_step``: the hand-written kernels' launches of the
+     eager first dispatch and of the capture, over 8 (replays launch
+     none through the wrappers);
+   * ``peak_allocated_gib`` and ``reserved_gib``: the peak of allocated
+     memory and the growth of reserved memory (the graph's private pool
+     included) over the run's start, after the capture.
+   The table goes to ``<out>/trace_<dtype>.txt``.
+5. ``spatial``: one full batch of ``inference_flow`` (``n_spatial`` 0) against
    ``make_spatial_infer`` with 1, 2 and 4 row-shards, all on this card, in
    float32 (TF32 off) and bfloat16, in the order 0, 1, 2, 4, 4, 2, 1, 0 per
    dtype: ``ms_batch`` (CUDA events, median of ``REPS``, no profiler),
    ``busy_ms_batch``, ``idle_share``, ``device_ops_per_batch`` and
    ``device_ms_by_kind`` over 5 profiled batches, and the hand-written
    kernels' launches per batch (tables in ``<out>/spatial_<dtype>_n<n>.txt``).
-5. ``spatial_gap``: where the sharded bfloat16 flow departs from the
+6. ``spatial_gap``: where the sharded bfloat16 flow departs from the
    unsharded one.  The same random "pwc" weights in float32 (TF32 off) and
    bfloat16, the same images; every operation of the encoder and decoder
    (convolutions, cost volumes, warps, upsamplings, additions) recorded on
@@ -74,9 +93,9 @@ import types
 import numpy as np
 import torch
 
+from unopticalflow_tpu_torch.benchmarks import launch_counts
 from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
 from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
-from unopticalflow_tpu_torch.ops import correlation_cuda, photometric_cuda, regularizer_cuda
 from unopticalflow_tpu_torch.serve import FlowServer
 from unopticalflow_tpu_torch.training import loss_weights_from_config, make_optimizer, train_step
 from unopticalflow_tpu_torch.utils.device import resolve_device
@@ -92,6 +111,9 @@ REPS = 30  # timed batches per measurement of the profile phase
 PROFILED = 5  # batches (or steps) under torch.profiler
 TRAIN_REPS = 20  # timed steps per dtype of the train phase
 TOP_OPS = 12
+TRACE_K = 8  # the trace phase's steps a dispatch
+TRACE_TIMED = 5  # replays timed without the profiler
+TRACE_PROFILED = 2  # replays under torch.profiler
 
 
 class ConstructorWarmServer(FlowServer):
@@ -261,27 +283,38 @@ KINDS = (
 )
 
 
+# the trace phase's kinds: KINDS with layout conversions split out of the
+# convolutions and copies and sets out of the elementwise work (first match wins)
+TRACE_KINDS = (
+    KINDS[0],
+    ("transposes/layout", ("nchwToNhwc", "nhwcToNchw", "transpose", "Transpose", "permute")),
+    ("convolution (cuDNN/cuBLAS)", ("cudnn", "xmma", "fft", "winograd", "dgrad", "wgrad",
+                                    "gemm", "DSE::", "region_transform", "scalePackedTensor",
+                                    "pointwise_mult_and_sum_complex")),
+    KINDS[2],
+    KINDS[3],
+    ("copies and sets", ("Memcpy", "Memset", "copy", "fill", "Fill", "CatArray")),
+    ("elementwise/reduction", ("elementwise", "reduce", "Reduce", "pool", "upsample",
+                               "softmax")),
+)
+
+
 def device_ops_per_step(averages, steps: int) -> float:
     """Kernels, copies and sets the device ran per step (``prof.key_averages()``)."""
     return sum(e.count for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in _NOT_DEVICE_WORK) / steps
 
 
-def device_time_by_kind(averages, steps: int) -> dict:
-    """Device kernel time per step (ms), summed by ``KINDS``; the rest is "other"."""
-    out = {name: 0.0 for name, _ in KINDS}
+def device_time_by_kind(averages, steps: int, kinds=KINDS) -> dict:
+    """Device kernel time per step (ms), summed by ``kinds``; the rest is "other"."""
+    out = {name: 0.0 for name, _ in kinds}
     out["other"] = 0.0
     for e in averages:
         if e.device_type != torch.autograd.DeviceType.CUDA or e.key in _NOT_DEVICE_WORK:
             continue
-        kind = next((name for name, pats in KINDS if any(p in e.key for p in pats)), "other")
+        kind = next((name for name, pats in kinds if any(p in e.key for p in pats)), "other")
         out[kind] += e.self_device_time_total / 1e3 / steps
     return out
-
-
-def _launch_counts() -> dict:
-    return {**correlation_cuda.launches, **photometric_cuda.launches,
-            **regularizer_cuda.launches}
 
 
 def train_run(device, precision: str, out_dir: str, seed: int, use_pallas_reg: bool = False,
@@ -300,14 +333,14 @@ def train_run(device, precision: str, out_dir: str, seed: int, use_pallas_reg: b
     for _ in range(3):
         train_step(model, opt, batch, weights, cfg)
     torch.cuda.synchronize()
-    before = _launch_counts()
+    before = launch_counts()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     events[0].record()
     for i in range(reps):
         train_step(model, opt, batch, weights, cfg)
         events[i + 1].record()
     torch.cuda.synchronize()
-    launches = {k: (v - before[k]) / reps for k, v in _launch_counts().items()}
+    launches = {k: (v - before[k]) / reps for k, v in launch_counts().items()}
     times = [events[i].elapsed_time(events[i + 1]) for i in range(reps)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(profiled):
@@ -335,6 +368,68 @@ def train_run(device, precision: str, out_dir: str, seed: int, use_pallas_reg: b
     }
 
 
+def trace_run(device, precision: str, out_dir: str, seed: int, k: int = TRACE_K,
+              timed: int = TRACE_TIMED, profiled: int = TRACE_PROFILED) -> dict:
+    """One run of the trace phase (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unopticalflow_tpu_torch.training import make_multi_train_step, set_capturable
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base_alloc = torch.cuda.memory_allocated(device)
+    base_reserved = torch.cuda.memory_reserved(device)
+    cfg = FlowModelConfig(compute_dtype=precision, loss_dtype=precision)
+    model = FlowModel(cfg, device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(seed))
+    opt = make_optimizer(model, 1e-4)
+    set_capturable(opt)
+    weights = loss_weights_from_config(types.SimpleNamespace())  # config/kitti.yaml's
+    multi = make_multi_train_step(model, opt, cfg, weights, k)
+    h, w = IMG_HW
+    snippets = SyntheticSnippets(IMG_HW, k * MAX_BATCH, seed=seed).snippets
+    xs = torch.from_numpy(np.stack([snippets[i % len(snippets)] for i in range(k * MAX_BATCH)])
+                          ).to(device).reshape(k, MAX_BATCH, 3 * h, w, 3)
+    before = launch_counts()
+    multi(xs)  # the eager dispatch
+    multi(xs)  # the capture and its replay
+    torch.cuda.synchronize()
+    launches = {n: (v - before[n]) / (2 * k) for n, v in launch_counts().items()}
+    peak_gib = (torch.cuda.max_memory_allocated(device) - base_alloc) / 2**30
+    reserved_gib = (torch.cuda.memory_reserved(device) - base_reserved) / 2**30
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    events[0].record()
+    for i in range(timed):
+        multi(xs)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms_step = statistics.median(events[i].elapsed_time(events[i + 1])
+                                for i in range(timed)) / k
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            m = multi(xs)
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(m["loss_total"]).all()):
+        raise RuntimeError(f"trace {precision}: a replay's losses are not finite")
+    steps = profiled * k
+    busy = _busy_us(prof.events()) / 1e3 / steps
+    averages = prof.key_averages()
+    with open(os.path.join(out_dir, f"trace_{precision}.txt"), "w") as f:
+        f.write(f"{profiled} replays of a CUDA graph of {k} train steps, {precision}, "
+                f"{MAX_BATCH}x{h}x{w}, 3 scales\n"
+                + averages.table(sort_by="self_device_time_total", row_limit=60) + "\n")
+    return {
+        "phase": "trace", "precision": precision, "steps_per_dispatch": k,
+        "ms_step": ms_step, "snippets_per_s": MAX_BATCH / ms_step * 1e3,
+        "busy_ms_step": busy, "idle_share": 1.0 - busy / ms_step, "profiled_steps": steps,
+        "launches_per_step": launches, "peak_allocated_gib": peak_gib,
+        "reserved_gib": reserved_gib,
+        "device_ops_per_step": device_ops_per_step(averages, steps),
+        "device_ms_by_kind": device_time_by_kind(averages, steps, TRACE_KINDS),
+        "top_ops": top_device_ops(averages, steps),
+    }
+
+
 def spatial_run(model: FlowModel, n_spatial: int, out_dir: str, seed: int) -> dict:
     """One run of the spatial phase; ``n_spatial`` 0 is the unsharded path."""
     from torch.profiler import ProfilerActivity, profile
@@ -353,14 +448,14 @@ def spatial_run(model: FlowModel, n_spatial: int, out_dir: str, seed: int) -> di
         for _ in range(3):
             fn(i1, i2)
         torch.cuda.synchronize()
-        before = _launch_counts()
+        before = launch_counts()
         events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
         events[0].record()
         for i in range(reps):
             fn(i1, i2)
             events[i + 1].record()
         torch.cuda.synchronize()
-        launches = {k: (v - before[k]) / reps for k, v in _launch_counts().items() if v > before[k]}
+        launches = {k: (v - before[k]) / reps for k, v in launch_counts().items() if v > before[k]}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(profiled):
                 fn(i1, i2)
@@ -506,7 +601,8 @@ def main(argv=None) -> int:
     p.add_argument("--serve_one", choices=WARM_UPS, default=None,
                    help="run one serve measurement in this process and exit")
     p.add_argument("--phases", default="profile,serve,train",
-                   help="comma-separated subset of profile,serve,train,spatial,spatial_gap")
+                   help="comma-separated subset of "
+                        "profile,serve,train,trace,spatial,spatial_gap")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -536,6 +632,12 @@ def main(argv=None) -> int:
                 print(json.dumps(train_run(device, precision, args.out, args.seed, reg)),
                       flush=True)
                 torch.cuda.empty_cache()
+    if "trace" in phases:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for precision in ("float32", "bfloat16"):
+            print(json.dumps(trace_run(device, precision, args.out, args.seed)), flush=True)
+            torch.cuda.empty_cache()
     if "spatial" in phases:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

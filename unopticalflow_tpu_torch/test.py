@@ -112,21 +112,31 @@ def _evaluate(name, cfg, infer_fn, data: EvalSet, device) -> str:
     return res
 
 
-def load_kitti_2012(cfg) -> EvalSet:
+def _first(pairs, limit: int | None):
+    """The pair dataset cut to its first ``limit`` frames (all with None)."""
+    if limit is not None:
+        pairs.data_list = pairs.data_list[:limit]
+    return pairs
+
+
+def load_kitti_2012(cfg, limit: int | None = None) -> EvalSet:
+    """KITTI 2012's 194 frames, or the first ``limit`` (a small test tree)."""
     from unopticalflow_tpu_torch.data import KITTI_2012
     from unopticalflow_tpu_torch.evaluation import load_gt_flow_kitti
 
-    gt_flows, noc_masks = load_gt_flow_kitti(cfg.gt_2012_dir, "kitti_2012")
-    return EvalSet(KITTI_2012(cfg.gt_2012_dir, img_hw=cfg.img_hw), gt_flows, noc_masks)
+    gt_flows, noc_masks = load_gt_flow_kitti(cfg.gt_2012_dir, "kitti_2012", num_gt=limit)
+    return EvalSet(_first(KITTI_2012(cfg.gt_2012_dir, img_hw=cfg.img_hw), limit), gt_flows,
+                   noc_masks)
 
 
-def load_kitti_2015(cfg) -> EvalSet:
+def load_kitti_2015(cfg, limit: int | None = None) -> EvalSet:
+    """KITTI 2015's 200 frames, or the first ``limit``."""
     from unopticalflow_tpu_torch.data import KITTI_2015
     from unopticalflow_tpu_torch.evaluation import load_gt_flow_kitti, load_gt_mask
 
-    gt_flows, noc_masks = load_gt_flow_kitti(cfg.gt_2015_dir, "kitti_2015")
-    return EvalSet(KITTI_2015(cfg.gt_2015_dir, img_hw=cfg.img_hw), gt_flows, noc_masks,
-                   load_gt_mask(cfg.gt_2015_dir))
+    gt_flows, noc_masks = load_gt_flow_kitti(cfg.gt_2015_dir, "kitti_2015", num_gt=limit)
+    return EvalSet(_first(KITTI_2015(cfg.gt_2015_dir, img_hw=cfg.img_hw), limit), gt_flows,
+                   noc_masks, load_gt_mask(cfg.gt_2015_dir, num_gt=limit))
 
 
 def test_kitti_2012(cfg, infer_fn, data: EvalSet, device) -> str:

@@ -142,6 +142,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--prepared_save_dir", type=str, default="data_s1")
     p.add_argument("--flow_pretrained_model", type=str, default=None,
                    help="warm start: a .pth or the JAX package's .ckpt")
+    p.add_argument("--depth_pretrained_model", type=str, default=None,
+                   help="accepted and ignored, as the JAX trainer does: no mode of "
+                        "either package trains or loads a depth net")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--freeze_flow", action="store_true",
                    help="flowposenet: train only the pose branch (the flow branch stays "
