@@ -337,11 +337,41 @@ Phases (each raises on failure, so the run exits non-zero):
    ``loss_landscape_probe.run`` through the kernels against the plain
    photometric pack on the card, float32 (rtol 1e-4) and bfloat16 (2e-2),
    3 photometric launches a point.  (h) PERF.md's q14: 48 bfloat16 steps on
-   phase 18's 8 repeated batches, three times as K = 8 graph dispatches and
-   three times as eager capturable-Adam steps, from one seed: each run's
+   phase 18's 8 repeated batches, twice as K = 8 graph dispatches and
+   twice as eager capturable-Adam steps, from one seed: each run's
    8-step block means, whether it rose (a block above 1.2 x the lowest
    before it), the runs' distances, and one float32 eager run of the same
    steps beside them; it fails on a loss that is not finite.
+20. Data parallelism on one card (``data_parallel``; rehearsable on the
+   CPU).  (a) The card's compute mode (``nvidia-smi --query-gpu=name,
+   power.limit,compute_mode``); ``Exclusive_Process`` fails (c).  (b) The
+   trainer's CLI (``train.main`` with a shell's argv, in this process so
+   that its launches are counted) at 256x832, batch 8, ``--steps_per_dispatch
+   auto`` (K = 4), 20 iterations from a prepared tree with ``--cache_decoded``,
+   in float32 and bfloat16: ``--multi_host --coordinator_address
+   127.0.0.1:<free> --num_processes 1 --process_id 0`` (NCCL, world size 1,
+   the all-reduce inside the K-step graph) against the same recipe without
+   it: the weights after the eager dispatch, after the capturing dispatch
+   and at the end (checkpoints every K iterations), each bit-equal, or else
+   their change from the initial weights no further from the plain run's
+   than max(1e-4, 3 x) a second plain run's and at least half as long;
+   each run launches 2K x the flow row (eager dispatch and capture, replays
+   none); ms/step of the replay dispatches from the trainer's
+   snippets_per_sec; then ``--multi_gpu`` in bfloat16 (one spawned process a
+   card) under the same rule.  (c) A K = 4 dispatch under a gloo group on
+   the card raises; two gloo ranks on the card (spawned, each joining with
+   ``initialize_multi_host(backend="gloo")`` before ``train()``), batch 4
+   each of a global 8, float32, K = 1, 3 steps, against one process on the
+   global batch: the first step's loss to rtol 1e-4, the losses and the
+   weights' change within max(1e-4, 3 x) those of one process on images one
+   ulp away (phase 7's rule), a bound that must reject one process on rank
+   0's blocks alone (every rank applying rank 0's gradient), every weight within
+   JAX's DP tolerances (rtol 5e-3, atol 3e-4 a step: Adam's +-lr sign
+   slack), the two ranks bit-equal, each launching 3 x the flow row;
+   their ms a step beside one process's.  (d) ``FlowServer(data_devices=
+   ["cuda:0", "cuda:0"])`` against one-device serving on phase 10's 37
+   pairs from 8 clients at max_batch 8: flows within 1e-4 x (1 + peak), 10
+   ``corr_fwd`` launches a split batch.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -361,7 +391,8 @@ GPU the script exits non-zero before printing any result.  The trainer runs
 of phases 6-16 take K = 1 (their intervals make ``--steps_per_dispatch
 auto`` pick 1, or they set it, so that their per-step launch counts and
 step times keep their meaning); phase 18 drives K = 8 in flow mode and
-K = 4, the default intervals' ``auto``, in the other modes; phase 19 K = 8.
+K = 4, the default intervals' ``auto``, in the other modes; phase 19 K = 8;
+phase 20 K = 4 through the CLI and K = 1 for the gloo ranks.
 """
 
 from __future__ import annotations
@@ -475,11 +506,16 @@ PREP_STEPS = 16
 LB_SNIPPETS, LB_BATCHES = 4, 4
 PS_ITERS, PS_TRIALS = 2, 2
 TOOLS_REPLAYS = 3
-Q14_RUNS, Q14_STEPS = 3, 48
+Q14_RUNS, Q14_STEPS = 2, 48  # two runs a kind show whether eager rises as the graph does
 Q14_RISE = 1.2
 FP_STEPS = 10
 FP_BF16_STEPS = 8
 FREEZE_STEPS = 3
+# phase 20: the trainer's CLI at K = 4 (auto at log interval 4) for 5 dispatches
+# (eager, capture, 3 replays), and two gloo ranks of K = 1 for 3 steps
+DP_K = 4
+DP_ITERS = 20
+DP_STEPS = 3
 NYU_FRAME_HW = (480, 640)
 NYU_HW = (192, 256)
 NYU_SNIPPETS = 8
@@ -2649,6 +2685,393 @@ def tools(c) -> None:
     print(f"tools: phase 19 in {time.perf_counter() - t19:.1f} s")
 
 
+def _dp_rank(rank: int, world: int, address: str, out: str, img_hw, batch: int, steps: int,
+             device: str, backend: str) -> None:
+    """Phase 20 (c): one rank of a data-parallel job through ``train()``, its
+    losses, weights and launch counts written to ``out/rank<r>.pt``."""
+    import torch
+
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.ops import (
+        correlation_cuda,
+        gather_cuda,
+        photometric_cuda,
+        regularizer_cuda,
+    )
+    from unopticalflow_tpu_torch.parallel import initialize_multi_host
+    from unopticalflow_tpu_torch.train import recipe_config, train
+
+    tables = (correlation_cuda.launches, photometric_cuda.launches, regularizer_cuda.launches,
+              gather_cuda.launches)
+    for t in tables:
+        t.update(dict.fromkeys(t, 0))
+    cfg = recipe_config(num_iterations=steps, batch_size=batch, img_hw=tuple(img_hw),
+                        init_scheme="pwc", seed=SEED, log_interval=1, save_interval=1000,
+                        model_dir=os.path.join(out, f"rank{rank}"), num_workers=2,
+                        steps_per_dispatch=1, multi_host=True)
+    os.makedirs(cfg.model_dir, exist_ok=True)
+    losses, stamps = [], []
+
+    def on_step(it, m):
+        losses.append(float(m["loss_total"]))  # waits for the step, all-reduce included
+        stamps.append(time.perf_counter())
+
+    device = initialize_multi_host(address, world, rank, backend=backend, device=device)
+    try:
+        res = train(cfg, dataset=SyntheticSnippets(img_hw, steps * batch, seed=SEED + 20),
+                    device=device, on_step=on_step)
+    finally:
+        torch.distributed.destroy_process_group()
+    counts = {k: v for t in tables for k, v in t.items()}
+    torch.save({"state": {k: v.cpu() for k, v in res.model.state_dict().items()},
+                "losses": losses, "counts": counts,
+                "ms": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]},
+               os.path.join(out, f"rank{rank}.pt"))
+
+
+def data_parallel(c) -> None:
+    """Phase 20 (see the module): data-parallel training and serving on one
+    card.  ``c`` holds the device, the shapes, the launch counters, ``want``
+    (the card's launch counts; a CPU rehearsal gives zeros), the card's
+    compute mode (``compute_mode``; None on the CPU), the trainer's device
+    flags ``cli`` and the card's nvidia-smi line."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
+    from unopticalflow_tpu_torch.parallel import initialize_multi_host
+    from unopticalflow_tpu_torch.serve import FlowServer
+    from unopticalflow_tpu_torch.utils import imageio
+
+    device, batch_n, k = c.device, c.batch, c.k
+    # the card by its index, as a user lists it
+    dev_name = f"cuda:{device.index or 0}" if device.type == "cuda" else str(device)
+    h, w = c.img_hw
+    t20 = time.perf_counter()
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def init_state(dtype):
+        """The trainer's initial weights (seed, "pwc"), on the CPU."""
+        m = FlowModel(FlowModelConfig(compute_dtype=dtype), device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(SEED))
+        return {n: v.detach().cpu() for n, v in m.state_dict().items()}
+
+    def change(state, init):
+        return torch.cat([(state[n].double() - init[n].double()).ravel() for n in sorted(init)])
+
+    # (a) whether the card takes two processes
+    print(f"data parallel (a): compute mode {c.compute_mode} ({c.smi})")
+
+    # (b) world size 1 over NCCL through the trainer's CLI, against the plain recipe
+    prep = os.path.join(c.root, "prepared", "data_s1")
+    os.makedirs(os.path.join(prep, "d", "r"), exist_ok=True)
+    lines = []
+    for i, snip in enumerate(SyntheticSnippets(c.img_hw, batch_n, seed=SEED + 20).snippets):
+        with open(os.path.join(prep, "d", "r", f"{i:010d}.png"), "wb") as f:
+            f.write(imageio.encode_png(snip, level=1))
+        lines.append(f"d/r/{i:010d}.png d/calib.txt\n")
+    with open(os.path.join(prep, "d", "calib.txt"), "w") as f:
+        f.write("P_rect_02: 721.5 0.0 609.6 44.9 0.0 721.5 172.9 0.2 0.0 0.0 1.0 0.003\n")
+    with open(os.path.join(prep, "train.txt"), "w") as f:
+        f.writelines(lines)
+    yaml_path = os.path.join(c.root, "train.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(f"prepared_base_dir: '{os.path.join(c.root, 'prepared')}'\n"
+                f"dataset: 'kitti_depth'\nnum_scales: 3\nnum_iterations: {c.dp_iters}\n"
+                "w_ssim: 0.85\nw_flow_smooth: 10.0\nw_flow_consis: 0.01\n"
+                f"img_hw: [{h}, {w}]\n")
+
+    # the weights are compared after the eager dispatch, after the capturing
+    # one (the all-reduce's first run in the graph), where runs have barely
+    # separated, and at the end
+    marks = (k - 1, 2 * k - 1, c.dp_iters - 1)
+
+    def cli_run(name, dtype, extra=()):
+        """``train.main`` with a shell's argv: ({iteration: weights} at
+        ``marks``, launches, ms/step of the replay dispatches, log)."""
+        model_dir = os.path.join(c.root, name)
+        argv = ["-c", yaml_path, "--no_test", "--batch_size", str(batch_n), "--num_workers",
+                "4", "--log_interval", str(k), "--save_interval", str(k),
+                "--cache_decoded", "--init_scheme", "pwc", "--precision", dtype,
+                "--steps_per_dispatch", "auto", "--model_dir", model_dir, *c.cli, *extra]
+        c.reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = train_cli.main(argv)
+        c.sync()
+        counts, out = c.counts(), log.getvalue()
+        rates = [float(r) for r in re.findall(r"snippets_per_sec: ([0-9.]+)", out)]
+        if rc != 0 or f"steps_per_dispatch auto -> {k}" not in out \
+                or len(rates) != c.dp_iters // k - 1:
+            raise AssertionError(f"{name}: rc {rc}, log:\n{out[-3000:]}")
+        states = {i: torch.load(os.path.join(model_dir, "flow", f"iter_{i}.pth"),
+                                map_location="cpu", weights_only=True)["model_state_dict"]
+                  for i in marks}
+        if not all(bool(torch.isfinite(v).all()) for st in states.values() for v in st.values()):
+            raise AssertionError(f"{name}: weights not finite")
+        c.empty_cache()
+        # a rate at each log point after the first: the first closes the
+        # capturing dispatch, each later one a replay dispatch
+        return states, counts, [1e3 * batch_n / r for r in rates[1:]], out
+
+    def held(got, plain, again, init, what):
+        """The weights' change from ``init`` at each mark: bit-equal to the
+        plain run's, or within max(1e-4, 3x) of it a second plain run's
+        distance (``again``; None where every mark was bit-equal), and at
+        least half as long as the plain run's (a run that never updated
+        reads 1.0 against a distance the chaotic later steps can push past
+        that)."""
+        parts = []
+        for i in marks:
+            d_plain = change(plain[i], init)
+            err = _rel_l2(change(got[i], init), d_plain)
+            moved = float(change(got[i], init).norm() / d_plain.norm())
+            if all(torch.equal(got[i][n], plain[i][n]) for n in plain[i]):
+                parts.append(f"iteration {i}: bit-equal")
+                continue
+            tol = _rel_l2(change(again[i], init), d_plain)
+            parts.append(f"iteration {i}: rel L2 {err:.3e} against two plain runs' {tol:.3e}, "
+                         f"length {moved:.3f} of the plain run's")
+            if not err <= max(1e-4, 3 * tol) or not moved > 0.5:
+                raise AssertionError(f"{what}: the weights depart from the plain recipe's "
+                                     f"({'; '.join(parts)}; bound max(1e-4, 3x), length > 0.5)")
+        return "; ".join(parts)
+
+    want_run = c.want({n: 2 * k * v for n, v in PER_STEP.items()})
+    records, spread = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        init = init_state(dtype)
+        plain, plain_counts, plain_ms, _ = cli_run(f"plain_{dtype}", dtype)
+        multi, multi_counts, multi_ms, log = cli_run(
+            f"nccl_{dtype}", dtype, ["--multi_host", "--coordinator_address",
+                                     f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                                     "--process_id", "0"])
+        if "data parallel over 1 processes" not in log:
+            raise AssertionError(f"--multi_host {dtype}: no process group:\n{log[-3000:]}")
+        if plain_counts != want_run or multi_counts != want_run:
+            raise AssertionError(f"{dtype}: launches plain {plain_counts}, --multi_host "
+                                 f"{multi_counts}, want {want_run} (2K x the flow row)")
+        bit_equal = all(torch.equal(multi[i][n], plain[i][n]) for i in marks for n in plain[i])
+        again = None
+        if not bit_equal:
+            # the plain recipe again: where two plain runs differ (the
+            # backward's atomic sums, cuDNN's choice by the process's history)
+            again, _, again_ms, _ = cli_run(f"plain2_{dtype}", dtype)
+            plain_ms += again_ms
+        rule = held(multi, plain, again, init, f"--multi_host {dtype}")
+        spread[dtype] = (plain, again, init)
+        records[dtype] = {"plain_ms": plain_ms, "nccl_ms": multi_ms, "bit_equal": bit_equal,
+                          "rel_l2": {i: _rel_l2(change(multi[i], init), change(plain[i], init))
+                                     for i in marks}}
+        print(f"data parallel (b) {dtype}: train.main --multi_host --num_processes 1 (NCCL, "
+              f"its all-reduce in the K = {k} graph) against the plain recipe, {c.dp_iters} "
+              f"iterations at batch {batch_n}, {h}x{w}: weights {rule}; launches a run "
+              f"{_launched(multi_counts)} (2K x the flow row, eager dispatch and capture, "
+              f"replays none); ms/step of the replay dispatches (the trainer's "
+              f"snippets_per_sec) plain " + ", ".join(f"{v:.3f}" for v in plain_ms)
+              + ", --multi_host " + ", ".join(f"{v:.3f}" for v in multi_ms) + f" ({c.smi})")
+    print(json.dumps({"data_parallel_b": records}))
+    if device.type == "cuda":
+        # --multi_gpu: one spawned --multi_host process a visible card (world
+        # size 1 here), whose launches its own process counts
+        plain, again, init = spread["bfloat16"]
+        if again is None:
+            again = cli_run("plain2_bfloat16", "bfloat16")[0]
+        model_dir = os.path.join(c.root, "multi_gpu_bfloat16")
+        t0 = time.perf_counter()
+        rc = train_cli.main(["-c", yaml_path, "--no_test", "--batch_size", str(batch_n),
+                             "--num_workers", "4", "--log_interval", str(k), "--save_interval",
+                             str(k), "--cache_decoded", "--init_scheme", "pwc",
+                             "--precision", "bfloat16", "--model_dir", model_dir, "--multi_gpu"])
+        t_spawn = time.perf_counter() - t0
+        got = {i: torch.load(os.path.join(model_dir, "flow", f"iter_{i}.pth"),
+                             map_location="cpu", weights_only=True)["model_state_dict"]
+               for i in marks}
+        if rc != 0:
+            raise AssertionError(f"--multi_gpu on one card: rc {rc}")
+        rule = held(got, plain, again, init, "--multi_gpu bfloat16")
+        print(f"data parallel (b) --multi_gpu bfloat16: {torch.cuda.device_count()} spawned "
+              f"process(es) in {t_spawn:.1f} s; the weights' change against the plain run's: "
+              f"{rule}")
+
+    # (c) two gloo ranks on one card against one process on the global batch
+    if c.compute_mode is not None and "exclusive" in c.compute_mode.lower():
+        raise AssertionError(f"the card's compute mode is {c.compute_mode}: two processes "
+                             "cannot share it, so (c) cannot run")
+    out = os.path.join(c.root, "gloo")
+    os.makedirs(out, exist_ok=True)
+    if device.type == "cuda":
+        # no fallback: a gloo group cannot be captured in the K-step graph
+        gcfg = train_cli.recipe_config(
+            num_iterations=2 * k, batch_size=batch_n, img_hw=c.img_hw, init_scheme="pwc",
+            log_interval=k, save_interval=1000, num_workers=2, steps_per_dispatch=k,
+            model_dir=os.path.join(out, "gloo_k"), multi_host=True)
+        os.makedirs(gcfg.model_dir, exist_ok=True)
+        c.reset_counts()
+        gdev = initialize_multi_host(f"127.0.0.1:{free_port()}", 1, 0, backend="gloo",
+                                     device=dev_name)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.train(gcfg, dataset=SyntheticSnippets(c.img_hw, 2 * k * batch_n,
+                                                                seed=SEED + 20), device=gdev)
+        except RuntimeError as e:
+            if "cannot be captured in a CUDA graph" not in str(e):
+                raise
+            print(f"data parallel (c): a K = {k} dispatch under gloo on the card raised "
+                  f"({e}); launches {_launched(c.counts()) or 'none'}")
+        else:
+            raise AssertionError(f"a gloo group ran a K = {k} dispatch on the card")
+        finally:
+            torch.distributed.destroy_process_group()
+    t0 = time.perf_counter()
+    mp.start_processes(_dp_rank, args=(2, f"127.0.0.1:{free_port()}", out, c.img_hw,
+                                       batch_n, c.dp_steps, dev_name, "gloo"),
+                       nprocs=2, join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
+    data = SyntheticSnippets(c.img_hw, c.dp_steps * batch_n, seed=SEED + 20)
+    one_cfg = dict(num_iterations=c.dp_steps, batch_size=batch_n, img_hw=c.img_hw,
+                   init_scheme="pwc", seed=SEED, log_interval=1, save_interval=1000,
+                   num_workers=2, steps_per_dispatch=1)
+
+    def one_process(name, dataset, batch=batch_n):
+        cfg = train_cli.recipe_config(model_dir=os.path.join(out, name),
+                                      **{**one_cfg, "batch_size": batch})
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        losses, stamps = [], []
+
+        def on_step(it, m):
+            losses.append(float(m["loss_total"]))
+            stamps.append(time.perf_counter())
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = train_cli.train(cfg, dataset=dataset, device=device, on_step=on_step)
+        return ({n: v.detach().cpu() for n, v in res.model.state_dict().items()},
+                torch.tensor(losses), [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])])
+
+    class Nudged:
+        """The snippets moved by one ulp: float [0, 1] images (the loss casts
+        uint8 by / 255, the same values)."""
+
+        def __len__(self):
+            return len(data)
+
+        def __getitem__(self, i):
+            x = data[i].astype(np.float32) / np.float32(255.0)
+            return np.nextafter(x, np.float32(2.0))
+
+    class RankZero:
+        """Rank 0's blocks of the global batches: where every rank applied
+        rank 0's gradient instead of the mean, the weights would follow one
+        process on these (the fault the weights' bound must reject)."""
+
+        def __len__(self):
+            return len(data) // 2
+
+        def __getitem__(self, i):
+            half = batch_n // 2
+            return data[(i // half) * batch_n + i % half]
+
+    init = init_state("float32")
+    single, single_loss, single_ms = one_process("single", data)
+    nudged, nudged_loss, _ = one_process("nudged", Nudged())
+    fault_state = one_process("rank0_only", RankZero(), batch_n // 2)[0]
+    d_single = change(single, init)
+    tol = _rel_l2(change(nudged, init), d_single)
+    fault = _rel_l2(change(fault_state, init), d_single)
+    print(f"data parallel (c): one process on rank 0's blocks alone (every rank applying rank "
+          f"0's gradient) sits {fault:.3e} from one process on the global batch, the bound "
+          f"max(1e-4, 3 x {tol:.3e})")
+    if not fault > max(1e-4, 3 * tol):
+        raise AssertionError("(c): the weights' bound does not reject the rank-0-gradient fault")
+    loss_tol = _rel_l2(nudged_loss, single_loss)
+    # Adam's sign slack: JAX's DP test allows 3e-4 (3 x lr) after one step
+    # (tests/test_training.py); each further step may flip as many signs
+    atol = 3e-4 * c.dp_steps
+    want_rank = c.want({n: c.dp_steps * v for n, v in PER_STEP.items()})
+    for r, got in enumerate(ranks):
+        loss = torch.tensor(got["losses"])
+        err = _rel_l2(change(got["state"], init), d_single)
+        gap = torch.cat([(got["state"][n] - single[n]).abs().ravel() for n in single])
+        close = all(torch.allclose(got["state"][n], single[n], rtol=5e-3, atol=atol)
+                    for n in single)
+        loss_err = _rel_l2(loss, single_loss)
+        print(f"data parallel (c) rank {r} of 2 (gloo, {dev_name}, batch {batch_n // 2} of "
+              f"{batch_n}, float32, K = 1, {c.dp_steps} steps) against one process on the "
+              f"global batch: losses {[round(float(v), 6) for v in loss]} against "
+              f"{[round(float(v), 6) for v in single_loss]} (rel L2 {loss_err:.3e}, one "
+              f"process on images one ulp away {loss_tol:.3e}), the weights' change rel L2 "
+              f"{err:.3e} ({tol:.3e}), {int((gap > 1e-4).sum())} parameters more than lr "
+              f"apart, at most {float(gap.max()):.3e} (Adam's sign slack; allowed rtol 5e-3, "
+              f"atol {atol:.1e}), launches {_launched(got['counts'])}; ms a step after the "
+              f"first (host clock, both ranks on the card at once) "
+              + ", ".join(f"{v:.3f}" for v in got["ms"]) + " against one process's "
+              + ", ".join(f"{v:.3f}" for v in single_ms) + f" ({c.smi})")
+        # the first step starts from the same state: rtol 1e-4; the later
+        # ones by phase 7's one-ulp rule, the reference's own noise
+        if not torch.allclose(loss[:1], single_loss[:1], rtol=1e-4) \
+                or not loss_err <= max(1e-4, 3 * loss_tol) or not err <= max(1e-4, 3 * tol) \
+                or not close:
+            raise AssertionError(f"(c) rank {r}: the data-parallel step departs from one "
+                                 "process on the global batch")
+        if got["counts"] != want_rank:
+            raise AssertionError(f"(c) rank {r}: launches {got['counts']}, want {want_rank}")
+    if not all(torch.equal(ranks[0]["state"][n], ranks[1]["state"][n]) for n in single):
+        raise AssertionError("(c): the two ranks' weights differ")
+    print(f"data parallel (c): the two ranks' weights bit-equal; spawned, ran and joined in "
+          f"{t_ranks:.1f} s")
+
+    # (d) served batches split over two entries of one card
+    model = FlowModel(FlowModelConfig(), device=device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(SEED))
+    snips = SyntheticSnippets(c.img_hw, c.eval_pairs, seed=SEED + 6).snippets
+    pairs = [snips[i % len(snips), :2 * h].astype(np.float32) / 255.0
+             for i in range(c.eval_pairs)]
+    scfg = types.SimpleNamespace(img_hw=c.img_hw)
+    served = {}
+    for name, devices in (("one", None), ("split", [dev_name] * 2)):
+        server = FlowServer(scfg, model, max_batch=batch_n, max_wait_ms=20.0,
+                            data_devices=devices)
+        flows = [None] * len(pairs)
+
+        def client(i0):
+            for i in range(i0, len(pairs), batch_n):
+                flows[i] = server.infer(pairs[i], timeout=300.0)
+
+        c.reset_counts()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(batch_n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        stats, counts = dict(server.stats), c.counts()
+        server.close()
+        if any(t.is_alive() for t in threads) or any(f is None for f in flows):
+            raise AssertionError(f"(d) {name}: not every request was answered")
+        served[name] = (np.stack(flows), stats, counts)
+    got, want_f = served["split"][0], served["one"][0]
+    peak = float(np.abs(want_f).max())
+    gap = float(np.abs(got - want_f).max())
+    launches = served["split"][2].get("corr_fwd", 0)
+    print(f"data parallel (d): FlowServer(data_devices=[{dev_name}, {dev_name}]) against one "
+          f"device, {len(pairs)} requests from {batch_n} clients at max_batch {batch_n}: "
+          f"max |flow gap| {gap:.3e} (bound 1e-4 x (1 + {peak:.2f})), batches "
+          f"{served['split'][1]['batches']} and {served['one'][1]['batches']}, corr_fwd "
+          f"launches {launches} (10 a split batch) and {served['one'][2].get('corr_fwd', 0)}")
+    if not gap <= 1e-4 * (1 + peak) \
+            or launches != c.want({"n": 10 * served["split"][1]["batches"]})["n"]:
+        raise AssertionError("(d): split serving departs from one device")
+    print(f"data parallel: phase 20 in {time.perf_counter() - t20:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4063,7 +4486,21 @@ def main() -> int:
         smi=smi))
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: 19 phases passed in {time.perf_counter() - t_start:.1f} s")
+    # ---- 20. data parallel: training over a process group, split serving --------
+    smi_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi_mode)
+    data_parallel(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, batch=BATCH, k=DP_K, dp_iters=DP_ITERS,
+        dp_steps=DP_STEPS, eval_pairs=EVAL_PAIRS, compute_mode=smi_mode.split(",")[-1].strip(),
+        want=lambda d: d, sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache,
+        root=os.path.join(model_dir, "parallel20"), counts=counts, reset_counts=reset_counts,
+        cli=[], smi=smi))
+    torch.cuda.empty_cache()
+
+    print(f"chip_smoke: 20 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -162,3 +162,116 @@ def test_resolve_device():
         pytest.skip("this check is for a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# served batches split over devices (the JAX server's data mesh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    import jax
+
+    from unopticalflow_tpu.models import init_flow_model
+
+    init = jax.jit(init_flow_model, static_argnames="scheme")
+    return jax.tree.map(np.asarray, init(jax.random.PRNGKey(1), scheme="pwc"))
+
+
+@pytest.fixture(scope="module")
+def split(jax_params):
+    """The JAX package's weights on the CPU: one device, and every batch
+    split over two entries (``data_devices=["cpu", "cpu"]``), max_batch 3
+    (padded to 4 for the split)."""
+    from unopticalflow_tpu_torch.utils.convert import load_jax_params
+
+    model = load_jax_params(FlowModel(FlowModelConfig(), device="cpu"), jax_params)
+    cfg = types.SimpleNamespace(img_hw=(H, W))
+    one = FlowServer(cfg, model, max_batch=3, max_wait_ms=50)
+    two = FlowServer(cfg, model, max_batch=3, max_wait_ms=50, data_devices=["cpu", "cpu"])
+    yield one, two
+    for srv in (one, two):
+        srv.close()
+        assert not srv._thread.is_alive()
+
+
+def _serve_all(server, pairs):
+    """Every pair's flow, the requests sent at once from one thread each."""
+    out = [None] * len(pairs)
+
+    def worker(i):
+        out[i] = server.infer(pairs[i])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(pairs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    return out
+
+
+def test_split_serving_layout():
+    model = FlowModel(FlowModelConfig(), device="cpu")
+    srv = FlowServer(types.SimpleNamespace(img_hw=(H, W)), model, max_batch=5,
+                     data_devices=["cpu", "cpu", "cpu"])
+    try:
+        # padded up to a multiple of the entries; the first replica is the model
+        assert srv._pad_batch == 6 and len(srv._replicas) == 3
+        assert srv._replicas[0][0] is model and srv._replicas[1][0] is not model
+        assert all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                     srv._replicas[2][0].parameters()))
+    finally:
+        srv.close()
+    single = FlowServer(types.SimpleNamespace(img_hw=(H, W)), model, max_batch=5)
+    try:
+        # one device: one block, the model itself on the current stream
+        assert single._pad_batch == 5 and single._replicas == [(model, torch.device("cpu"), None)]
+    finally:
+        single.close()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9])
+def test_split_serving_returns_the_one_device_flows(split, n):
+    """1-9 requests at once at max_batch 3: full, ragged and padded batches,
+    each split in two blocks; the flows of one device (rtol 1e-5 as padding
+    leaves them) and the batch statistics."""
+    one, two = split
+    rng = np.random.RandomState(100 + n)
+    pairs = [rng.rand(2 * H, W, 3).astype(np.float32) for _ in range(n)]
+    before = dict(two.stats, occupancy=list(two.stats["occupancy"]))
+    got = _serve_all(two, pairs)
+    assert two.stats["served"] - before["served"] == n
+    assert sum(two.stats["occupancy"]) - sum(before["occupancy"]) == \
+        two.stats["batches"] - before["batches"] >= -(-n // 3)
+    for pair, flow in zip(pairs, got):
+        assert flow.shape == (H, W, 2) and flow.dtype == np.float32
+        np.testing.assert_allclose(flow, one.infer(pair), rtol=1e-5, atol=1e-5)
+
+
+def test_split_serving_matches_the_jax_server_over_eight_devices(split, jax_params):
+    """The JAX ``FlowServer`` shards its batch (padded to 8) over conftest's 8
+    virtual CPU devices; the port splits its own over two entries: the same
+    weights give the same flows, to the inference tolerance of
+    ``test_torch_inference.py`` (1e-4 x (1 + peak), float32)."""
+    import jax
+
+    import serve as jax_serve
+    from unopticalflow_tpu.models import FlowModelConfig as JaxFlowModelConfig
+
+    assert len(jax.devices()) == 8
+    _, two = split
+    rng = np.random.RandomState(7)
+    pairs = [rng.rand(2 * H, W, 3).astype(np.float32) for _ in range(5)]
+    srv = jax_serve.FlowServer(types.SimpleNamespace(img_hw=(H, W), num_scales=3), jax_params,
+                               JaxFlowModelConfig(num_scales=3), max_batch=3, max_wait_ms=50)
+    try:
+        assert srv._pad_batch == 8
+        want = _serve_all(srv, pairs)
+    finally:
+        srv.close()
+    got = _serve_all(two, pairs)
+    for g, w in zip(got, want):
+        peak = float(np.abs(w).max())
+        assert np.abs(g - w).max() <= 1e-4 * (1 + peak)

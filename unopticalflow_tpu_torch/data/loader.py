@@ -1,9 +1,10 @@
 """Threaded batch loading and prefetch to the device.
 
-Port of ``unopticalflow_tpu/data/loader.py`` (one process).  Samples are pure
-functions of their index (the datasets seed their draw from it), so a thread
-pool decodes batches ahead of the step, in the JAX loader's index schedule:
-batch k holds indices [k*B, (k+1)*B).  ``background`` is that producer
+Port of ``unopticalflow_tpu/data/loader.py``.  Samples are pure functions of
+their index (the datasets seed their draw from it), so a thread pool decodes
+batches ahead of the step, in the JAX loader's index schedule: batch k holds
+indices [k*B, (k+1)*B).  Under data parallelism every process builds that
+global schedule and loads its own contiguous block of each batch.  ``background`` is that producer
 thread for any iterable (the learning harness draws its snippets with it).
 ``device_prefetch`` keeps the next batches' host-to-device copies in flight
 while the current step runs; ``stack_batches`` groups K host batches into
@@ -21,17 +22,31 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from unopticalflow_tpu_torch.parallel.mesh import shard_batch
+
 
 class BatchLoader:
     """Iterate stacked numpy batches of ``dataset`` with background workers."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 prefetch_batches: int = 2, drop_last: bool = False):
+                 prefetch_batches: int = 2, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1):
+        """``batch_size`` is the global batch.  With ``process_count > 1``
+        every process builds the same global index schedule and loads only
+        block ``process_index`` of ``batch_size // process_count`` of each
+        batch (contiguous, as JAX's data mesh holds the rows); a global batch
+        that does not divide raises, and a trailing batch that cannot fill
+        the global batch is dropped."""
+        if batch_size % max(1, process_count):
+            raise ValueError(f"global batch {batch_size} must divide over "
+                             f"{process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch_batches = max(1, prefetch_batches)
-        self.drop_last = drop_last
+        self.drop_last = drop_last or process_count > 1
+        self.process_index = process_index
+        self.process_count = process_count
 
     def __len__(self):
         n = len(self.dataset)
@@ -49,6 +64,8 @@ class BatchLoader:
                    for s in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.process_count > 1:
+            batches = [shard_batch(b, self.process_index, self.process_count) for b in batches]
 
         def load():
             with ThreadPoolExecutor(self.num_workers) as pool:

@@ -1,4 +1,4 @@
-"""Flow inference server of the port: dynamic batching on one CUDA device.
+"""Flow inference server of the port: dynamic batching over the CUDA cards.
 
 Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 
@@ -8,6 +8,12 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
   ``max_wait_ms``, whichever comes first;
 * requests whose waiter has timed out are shed;
 * ``served`` / ``batches`` / ``shed`` / ``errors`` / ``occupancy`` stats;
+* with more than one card (``data_devices``, default every visible card
+  when the model is on CUDA), each batch is split over them as the JAX
+  server shards it over its data mesh: the batch is padded up to a multiple
+  of the card count, each card runs its contiguous block through
+  ``inference_flow`` on its own model replica and stream, and the blocks
+  are concatenated in order;
 * ``spatial=N`` splits each batch's rows over N devices (``--spatial N``,
   ``parallel/spatial.py``): for frames too large for one card.  The batch
   stays whole, H must be divisible by N * 64 (checked at construction), and
@@ -31,6 +37,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import queue
 import threading
@@ -62,20 +70,45 @@ class _Request:
 
 
 class FlowServer:
-    """Dynamic-batching inference engine over one model on one device."""
+    """Dynamic-batching inference engine over one model, split over cards."""
 
     def __init__(self, cfg, model: FlowModel, max_batch: int = 8,
-                 max_wait_ms: float = 5.0, spatial: int = 1, devices=None):
+                 max_wait_ms: float = 5.0, spatial: int = 1, devices=None,
+                 data_devices=None):
+        """``data_devices``: the devices that each take a block of every
+        batch (``["cuda:0", "cuda:0"]`` puts two on one card; ``["cpu",
+        "cpu"]`` on the CPU); None is every visible card when ``model`` is
+        on CUDA, else ``model``'s device.  ``spatial > 1`` splits each
+        frame's rows over ``devices`` instead, as the JAX server's spatial
+        mode replaces its data mesh."""
         self.h, self.w = cfg.img_hw
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self._spatial = None
+        self._pad_batch = max_batch
+        self._replicas = []  # (model, device, stream) of each block of a batch
         if spatial > 1:
             # height-sharded serving: ``devices`` (default: the first
             # ``spatial`` CUDA devices) hold the row-shards of every batch
             check_height(self.h, spatial)
             self._spatial = make_spatial_infer(
                 self.model, spatial_mesh(spatial, devices=devices))
+        else:
+            if data_devices is None:
+                data_devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                                if self.device.type == "cuda" else [self.device])
+            data_devices = [torch.device(d) for d in data_devices]
+            n = len(data_devices)
+            self._pad_batch = -(-max_batch // n) * n
+            for i, dev in enumerate(data_devices):
+                replica = self.model if i == 0 and dev == self.device else \
+                    copy.deepcopy(self.model).to(dev)
+                # one device runs on the current stream; with more, each block
+                # has a stream of its own, which first waits for the clones
+                stream = torch.cuda.Stream(dev) if n > 1 and dev.type == "cuda" else None
+                if stream is not None:
+                    stream.wait_stream(torch.cuda.current_stream(dev))
+                self._replicas.append((replica, dev, stream))
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
         self.queue: "queue.Queue[_Request]" = queue.Queue()
@@ -95,9 +128,25 @@ class FlowServer:
         with torch.inference_mode():
             if self._spatial is not None:
                 return gather_rows(self._spatial(img1, img2), "cpu").numpy()
-            i1 = torch.from_numpy(img1).to(self.device)
-            i2 = torch.from_numpy(img2).to(self.device)
-            return inference_flow(self.model, i1, i2).cpu().numpy()
+            return self._run_split(img1, img2)
+
+    def _run_split(self, img1: np.ndarray, img2: np.ndarray) -> np.ndarray:
+        """Each replica's contiguous block of the batch on its device and
+        stream, all launched before any is read back; the flows in order
+        (one device: the whole batch on the current stream)."""
+        b = img1.shape[0] // len(self._replicas)
+        flows = []
+        for j, (model, dev, stream) in enumerate(self._replicas):
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                i1 = torch.from_numpy(img1[j * b:(j + 1) * b]).to(dev)
+                i2 = torch.from_numpy(img2[j * b:(j + 1) * b]).to(dev)
+                flows.append(inference_flow(model, i1, i2))
+        out = []
+        for flow, (_, _, stream) in zip(flows, self._replicas):
+            # read back on the stream that computed it
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                out.append(flow.cpu().numpy())
+        return np.concatenate(out)
 
     def _shed_expired(self, req) -> bool:
         """Load shedding: skip requests whose waiter has already timed out."""
@@ -113,7 +162,7 @@ class FlowServer:
         (PyTorch keeps cuDNN/cuBLAS handles per thread; the correlation
         kernel is built and loaded here too)."""
         try:
-            z = np.zeros((self.max_batch, self.h, self.w, 3), np.float32)
+            z = np.zeros((self._pad_batch, self.h, self.w, 3), np.float32)
             self._run(z, z)
         except Exception as e:  # reported by __init__, which re-raises
             self._warmup_error = e
@@ -144,7 +193,7 @@ class FlowServer:
                     batch.append(nxt)
             n = len(batch)
             try:
-                img1 = np.zeros((self.max_batch, self.h, self.w, 3), np.float32)
+                img1 = np.zeros((self._pad_batch, self.h, self.w, 3), np.float32)
                 img2 = np.zeros_like(img1)
                 for i, r in enumerate(batch):
                     img1[i] = r.pair[: self.h]
@@ -288,7 +337,8 @@ def main(argv=None):
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server, cfg))
     print(f"serving flow on http://{args.host}:{args.port} "
           f"(device={args.device}, max_batch={args.max_batch}, "
-          f"wait={args.max_wait_ms}ms, precision={args.precision}, spatial={args.spatial})")
+          f"wait={args.max_wait_ms}ms, precision={args.precision}, spatial={args.spatial}, "
+          f"cards a batch={max(1, len(server._replicas))})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

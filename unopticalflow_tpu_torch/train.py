@@ -4,6 +4,9 @@ flow``) and flow + pose training (``--mode flowposenet``).
     python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --mode flow \
         [--test_interval 2000 | --no_test] [--flow_pretrained_model last.ckpt] \
         [--resume] [--cache_decoded] [--steps_per_dispatch auto] --device cuda
+    python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --multi_gpu ...
+    python -m unopticalflow_tpu_torch.train -c config/kitti.yaml --multi_host \
+        --coordinator_address host0:29500 --num_processes N --process_id P ...
     python -m unopticalflow_tpu_torch.train -c config/odo.yaml --mode flowposenet \
         [--freeze_flow] ...
     python -m unopticalflow_tpu_torch.train -c config/nyu_posenet_192.yaml \
@@ -71,8 +74,26 @@ finished iteration is saved, the saver drains and ``main`` returns 0; a second s
 handler that was there before.  Log lines are the JAX trainer's ``iter: N,
 loss_pixel: ...``, with ``snippets_per_sec`` between log points.
 
-The port runs one device: the JAX trainer's ``--multi_gpu`` and
-``--multi_host`` are not taken.
+Data parallelism (``parallel/mesh.py``; one process drives one card).
+``--multi_host`` joins a ``torch.distributed`` job: ``--coordinator_address``
+(host:port of process 0), ``--num_processes`` and ``--process_id``, or
+torchrun's ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``;
+NCCL on the card ``LOCAL_RANK`` (else ``process_id % device_count``), gloo
+with ``--device cpu``.  ``--multi_gpu`` on one host starts one such process a
+visible card (``torch.multiprocessing``, spawn, a free localhost port) and
+raises without a CUDA card.  Both apply the reference's rule: batch x N and
+``int(num_iterations / N)`` over the N processes, so ``--batch_size`` stays
+the batch of one card.  Every rank builds the same global schedule and
+loads its block of each global batch (``BatchLoader(process_index,
+process_count)``), starts from rank 0's state (broadcast after the weights
+are built, warm-started or resumed), and pmean-reduces the gradients and the
+losses in each step (``train_step(group=...)``; under NCCL inside the K-step
+graph).  Rank 0 alone prepares the raw data (the others wait for
+``train.txt`` up to the yaml's ``prep_timeout_s``, 3600 s by default, then
+raise), copies the yaml and writes ``config.pkl``, saves checkpoints, prints
+the log and evaluates, while the others wait at a barrier.  A stop signal is
+agreed at iteration-deterministic points (every 20 iterations, and before
+an evaluation): all ranks stop at the same dispatch and rank 0 saves.
 """
 
 from __future__ import annotations
@@ -82,6 +103,7 @@ import os
 import pickle
 import shutil
 import signal
+import socket
 import sys
 import time
 import traceback
@@ -89,6 +111,7 @@ import types
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from unopticalflow_tpu_torch.data import (
     BatchLoader,
@@ -100,6 +123,11 @@ from unopticalflow_tpu_torch.data import (
 )
 from unopticalflow_tpu_torch.models.flow_model import FlowModel, FlowModelConfig
 from unopticalflow_tpu_torch.models.flowpose_model import FlowPoseModel
+from unopticalflow_tpu_torch.parallel.mesh import (
+    data_parallel_world,
+    initialize_multi_host,
+    replicate,
+)
 from unopticalflow_tpu_torch.test import (
     load_kitti_2012,
     load_kitti_2015,
@@ -125,6 +153,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREPARED = {"kitti_depth": KITTI_Prepared, "kitti_odo": KITTI_Prepared,
             "sintel_raw": SINTEL_Prepared, "nyuv2": NYU_v2}
 MODES = ("flow", "flowposenet")
+# data parallel: agree on a stop every this many iterations (the JAX trainer's)
+PREEMPT_CHECK_EVERY = 20
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -146,6 +176,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="accepted and ignored, as the JAX trainer does: no mode of "
                         "either package trains or loads a depth net")
     p.add_argument("--resume", action="store_true")
+    # the JAX trainer's help texts, with torch.distributed for jax.distributed
+    p.add_argument("--multi_gpu", action="store_true",
+                   help="data-parallel over all devices (one process a CUDA card).")
+    p.add_argument("--multi_host", action="store_true",
+                   help="multi-host data parallelism: torch.distributed over "
+                        "all hosts, DP over the GLOBAL device set (one process a "
+                        "card); implies --multi_gpu semantics (batch x N_dev, "
+                        "iterations / N_dev). Run the same command on every "
+                        "host, or under torchrun.")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 for --multi_host (omit under "
+                        "torchrun: MASTER_ADDR and MASTER_PORT).")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total process count for --multi_host (WORLD_SIZE under torchrun).")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's id for --multi_host (RANK under torchrun).")
     p.add_argument("--freeze_flow", action="store_true",
                    help="flowposenet: train only the pose branch (the flow branch stays "
                         "as loaded, e.g. from --flow_pretrained_model).")
@@ -301,18 +347,19 @@ def model_inputs(cfg, batch, stacked: bool = False):
     return imgs, k_ms[scale0], k_inv_ms[scale0]
 
 
-def steps_per_dispatch(cfg) -> int:
+def steps_per_dispatch(cfg, announce: bool = True) -> int:
     """``--steps_per_dispatch`` as the JAX trainer reads it: ``auto`` is the
     largest K in {8, 4, 2, 1} dividing the log, save and test intervals and
-    ``num_iterations - iter_start`` (printed), and a K > 1 that one of them
-    is no multiple of raises ``ValueError``."""
+    ``num_iterations - iter_start`` (printed where ``announce``), and a K > 1
+    that one of them is no multiple of raises ``ValueError``."""
     spd = _get(cfg, "steps_per_dispatch", 1) or 1
     remaining = int(cfg.num_iterations - cfg.iter_start)
     if isinstance(spd, str) and spd.strip().lower() == "auto":
         grids = [int(cfg.log_interval), int(cfg.save_interval),
                  int(_get(cfg, "test_interval", 2000)), remaining]
         spd = next(k for k in (8, 4, 2, 1) if all(g % k == 0 for g in grids))
-        print(f"steps_per_dispatch auto -> {spd}")
+        if announce:
+            print(f"steps_per_dispatch auto -> {spd}")
     spd = int(spd)
     if spd < 1:
         raise ValueError(f"--steps_per_dispatch must be >= 1, got {spd}")
@@ -326,6 +373,26 @@ def steps_per_dispatch(cfg) -> int:
             raise ValueError(f"num_iterations - iter_start = {remaining} must be a multiple "
                              f"of --steps_per_dispatch={spd}")
     return spd
+
+
+def wait_for_prepared(data_dir: str, timeout_s: float, poll_s: float = 2.0) -> None:
+    """A rank other than 0 waits for rank 0 to prepare ``data_dir``: bounded,
+    so that a rank 0 that failed fails the job instead of hanging it."""
+    deadline = time.monotonic() + float(timeout_s)
+    while not os.path.exists(os.path.join(data_dir, "train.txt")):
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"timed out waiting for {data_dir}/train.txt — process 0 "
+                "likely failed during data preparation; check its log"
+            )
+        time.sleep(poll_s)
+
+
+def _barrier(group, device: torch.device) -> None:
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[device.index])
+    else:
+        dist.barrier(group=group)
 
 
 def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
@@ -344,6 +411,14 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     ``cfg`` (e.g. ``{"use_pallas_reg": True}``).  ``eval_sets`` ({"2012",
     "2015"}: ``test.EvalSet``) replaces the ground-truth directories of the
     interleaved evaluation.
+
+    ``cfg.multi_host``: this process is one rank of a data-parallel job over
+    the default process group, which the caller has joined
+    (``parallel.initialize_multi_host``, as ``main`` does; with
+    ``backend="gloo"`` two ranks can share one card), and
+    ``cfg.batch_size`` and ``cfg.num_iterations`` are the global batch and
+    the job's iterations (``main`` applies the batch x N rule before this).
+    ``on_step`` sees the pmean-reduced, global metrics.
     """
     device = resolve_device(device or gpu_device(_get(cfg, "device", "cuda"), _get(cfg, "gpu")))
     if cfg.mode not in MODES:
@@ -351,10 +426,18 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     if dataset is None and cfg.dataset not in PREPARED:
         raise NotImplementedError(f"dataset {cfg.dataset!r}: the port trains on "
                                   f"{', '.join(sorted(PREPARED))}")
+    if _get(cfg, "multi_host") and not dist.is_initialized():
+        raise RuntimeError("multi_host: no process group; join one first "
+                           "(parallel.initialize_multi_host)")
+    group = dist.group.WORLD if _get(cfg, "multi_host") else None
+    rank, world = data_parallel_world(group) if group is not None else (0, 1)
+    is_main = rank == 0
     flowpose = cfg.mode == "flowposenet"
     freeze_flow = bool(_get(cfg, "freeze_flow")) and flowpose
-    # the JAX trainer's rule: evaluate while training on the raw-video datasets
-    if cfg.no_test or cfg.dataset not in ("kitti_depth", "kitti_odo", "sintel_raw"):
+    # the JAX trainer's rule: evaluate while training on the raw-video
+    # datasets; rank 0 evaluates, the other ranks wait for it
+    evaluating = not cfg.no_test and cfg.dataset in ("kitti_depth", "kitti_odo", "sintel_raw")
+    if not (evaluating and is_main):
         eval_sets = None
     elif eval_sets is None:
         eval_sets = _load_eval_sets(cfg)
@@ -377,35 +460,51 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     if cfg.resume:
         path = resume_path(cfg.model_dir, cfg.iter_start)
         cfg.iter_start = ckpt.restore_checkpoint(path, model, opt)
-        print(f"resumed from {path} at iteration {cfg.iter_start}.")
+        if is_main:
+            print(f"resumed from {path} at iteration {cfg.iter_start}.")
     elif _get(cfg, "flow_pretrained_model"):
         ckpt.load_pretrained(flow_model, cfg.flow_pretrained_model)
-        print("Load Flow Pretrained Model from " + cfg.flow_pretrained_model)
+        if is_main:
+            print("Load Flow Pretrained Model from " + cfg.flow_pretrained_model)
+    if group is not None:
+        # every rank starts from rank 0's weights and Adam state
+        replicate(model, group=group)
+        replicate(opt, group=group)
+        if is_main:
+            print(f"data parallel over {world} processes ({dist.get_backend(group)}), "
+                  f"global batch {cfg.batch_size}")
 
-    spd = steps_per_dispatch(cfg)
+    spd = steps_per_dispatch(cfg, announce=is_main)
     weights = loss_weights_from_config(cfg)
     visualizer = Visualizer(weights, _get(cfg, "log_dump_dir"))
 
     n_samples = (cfg.num_iterations - cfg.iter_start) * cfg.batch_size
     if dataset is None:
         data_dir = os.path.join(cfg.prepared_base_dir, cfg.prepared_save_dir)
-        if not os.path.exists(os.path.join(data_dir, "train.txt")):
+        if not is_main:
+            wait_for_prepared(data_dir, _get(cfg, "prep_timeout_s", 3600))
+        elif not os.path.exists(os.path.join(data_dir, "train.txt")):
             prepare_raw_data(cfg, data_dir)
         dataset = make_dataset(cfg, data_dir, n_samples)
     snippet_frames = getattr(dataset, "num_frames", 3)
-    loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers)
+    loader = BatchLoader(dataset, batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+                         process_index=rank, process_count=world)
     stream = device_prefetch(stack_batches(loader, spd) if spd > 1 else iter(loader), device)
     if spd > 1:
         if device.type == "cuda":
             set_capturable(opt)  # after a resume's load: the graph captures its state
         multi_step = make_multi_train_step(model, opt, model_cfg, weights, spd, cfg.mode,
-                                           snippet_frames, freeze_flow)
+                                           snippet_frames, freeze_flow, group=group)
 
     def dispatch(batch) -> list[dict]:
         """One dispatch's steps; each sub-step's metrics."""
         if spd == 1:
             return [train_step(model, opt, model_inputs(cfg, batch), weights, model_cfg,
-                               cfg.mode, snippet_frames)]
+                               cfg.mode, snippet_frames, group)]
+        if saver is not None and multi_step.captures_next:
+            # the writer copies to the host on a pool stream, which can be the
+            # capture's: no copy may run while the graph is recorded
+            saver.wait()
         stacked = multi_step(model_inputs(cfg, batch, stacked=True))
         return [{k: v[j] for k, v in stacked.items()} for j in range(spd)]
 
@@ -417,56 +516,81 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
         visualizer.dump_log(os.path.join(cfg.model_dir, "log.pkl"))
 
     test_interval = int(_get(cfg, "test_interval", 2000))
-    saver = ckpt.AsyncCheckpointer()
+    saver = ckpt.AsyncCheckpointer() if is_main else None
     last_saved = None
 
     def save(iteration):
         nonlocal last_saved
-        if last_saved == iteration:  # a preemption right after a grid save
+        if not is_main or last_saved == iteration:  # a preemption right after a grid save
             return
         last_saved = iteration
         saver.save([os.path.join(cfg.model_dir, f"iter_{iteration}.pth"),
                     os.path.join(cfg.model_dir, "last.pth")], iteration, model, opt)
 
-    print(f"starting iteration: {cfg.iter_start}.")
+    def stop_agreed(check: bool) -> bool:
+        """Whether to stop here.  Data parallel, every rank's flag is
+        gathered (a max) where ``check`` holds, a condition that is the same
+        on every rank, so that all stop at the same dispatch or none does."""
+        flag = stop.signum is not None
+        if world == 1:
+            return flag
+        if not check:
+            return False
+        t = torch.tensor([float(flag)],
+                         device=device if dist.get_backend(group) == "nccl" else "cpu")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return bool(t.item())
+
+    if is_main:
+        print(f"starting iteration: {cfg.iter_start}.")
     model.train()
     log_t, log_it = None, 0
     done = cfg.iter_start - 1  # the last finished iteration
+    stopped = False
     loop_failed = False
     stop = StopOnSignal()
     try:
         for d, batch in enumerate(stream):
-            if stop.signum is not None:  # before an evaluation, too
-                break
             # the dispatch covers iterations [it, it + spd); every interval is a
             # multiple of spd, so the K = 1 conditions hold at its last sub-step
             i = d * spd
             it = cfg.iter_start + i
             # counted from the start of this run, as the JAX trainer counts
-            if eval_sets is not None and (i + spd) % test_interval == 0:
-                evaluate()
+            will_eval = evaluating and (i + spd) % test_interval == 0
+            if stop_agreed(i % PREEMPT_CHECK_EVERY == 0 or will_eval):  # before an evaluation
+                stopped = True
+                break
+            if will_eval:
+                if is_main:
+                    evaluate()
+                if world > 1:
+                    _barrier(group, device)
             steps = dispatch(batch)
             done = it + spd - 1
             if on_step is not None:
                 for j, metrics in enumerate(steps):
                     on_step(it + j, metrics)
-            if it % cfg.log_interval == 0:
+            if is_main and it % cfg.log_interval == 0:
                 # reading the losses waits for the device, so the interval's
                 # rate covers everything between two log points
                 pack = {k: float(v) for k, v in steps[0].items() if k != "loss_total"}
                 now = time.perf_counter()
                 if log_t is not None and now > log_t:
+                    # cfg.batch_size is the global batch
                     pack["snippets_per_sec"] = cfg.batch_size * (it - log_it) / (now - log_t)
                 log_t, log_it = now, it
                 visualizer.print_loss(pack, iter_=it)
             if (done + 1) % cfg.save_interval == 0:
                 save(done)
-            if stop.signum is not None:
+            if stop_agreed((it + spd) % PREEMPT_CHECK_EVERY == 0):
+                stopped = True
                 break
-        if stop.signum is not None:
+        if stopped:
             last = done if done >= cfg.iter_start else None
-            print(f"preemption signal {stop.signum}: checkpointing at iteration {last} "
-                  "and exiting.")
+            if is_main:
+                sig = "on another process" if stop.signum is None else stop.signum
+                print(f"preemption signal {sig}: checkpointing at iteration {last} "
+                      "and exiting.")
             if last is not None:
                 save(last)
         # the reference saves only on the grid; keep the last iteration's weights too
@@ -481,7 +605,8 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
         stop.restore()
         stream.close()
         try:
-            saver.close()
+            if saver is not None:
+                saver.close()
         except Exception:
             if not loop_failed:
                 raise
@@ -489,26 +614,80 @@ def train(cfg, dataset=None, device=None, on_step=None, model_overrides=None,
     return TrainResult(model, opt, done + 1)
 
 
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multi_gpu_worker(rank: int, argv: list[str], world: int, address: str) -> None:
+    """Process ``rank`` of ``--multi_gpu``: ``--multi_host`` on this host."""
+    main([*argv, "--multi_host", "--coordinator_address", address, "--num_processes",
+          str(world), "--process_id", str(rank)])
+
+
+def launch_multi_gpu(argv: list[str]) -> int:
+    """``--multi_gpu``: one ``--multi_host`` process a visible CUDA card, on a
+    free localhost port, each on card ``cuda:<rank>``; raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("--multi_gpu runs one process a CUDA card, and CUDA is not "
+                           "available")
+    # the worker by its module's name, also when this module runs as __main__
+    from unopticalflow_tpu_torch.train import _multi_gpu_worker as worker
+
+    world = torch.cuda.device_count()
+    print(f"--multi_gpu: {world} process(es), one a card")
+    torch.multiprocessing.spawn(worker,
+                                args=(list(argv), world, f"127.0.0.1:{_free_port()}"),
+                                nprocs=world, join=True, start_method="spawn")
+    return 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_arg_parser().parse_args(argv)
     if args.config_file is None:
         raise ValueError("config file needed. -c --config_file.")
     if not os.path.exists(args.config_file):
         raise ValueError("config file not found.")
+    if args.multi_gpu and not args.multi_host:
+        if torch.device(args.device).type != "cuda":
+            raise RuntimeError(f"--multi_gpu runs one process a CUDA card, not on "
+                               f"--device {args.device}")
+        return launch_multi_gpu(argv)
     from unopticalflow_tpu_torch.utils.config import load_yaml_config, merge_cli_args
 
-    if args.model_dir is None:
-        args.model_dir = os.path.join(
-            "models", os.path.splitext(os.path.basename(args.config_file))[0])
-    args.model_dir = os.path.join(REPO, args.model_dir, args.mode)
-    os.makedirs(args.model_dir, exist_ok=True)
-    cfg_dict = load_yaml_config(args.config_file)
-    cfg_dict["log_dump_dir"] = os.path.join(args.model_dir, "log.pkl")
-    shutil.copy(args.config_file, args.model_dir)
-    cfg = merge_cli_args(cfg_dict, args)
-    with open(os.path.join(args.model_dir, "config.pkl"), "wb") as f:
-        pickle.dump(cfg.to_dict(), f)
-    train(cfg)
+    device = None
+    if args.multi_host:
+        # before anything else touches a device, on every process
+        device = initialize_multi_host(args.coordinator_address, args.num_processes,
+                                       args.process_id,
+                                       device=gpu_device(args.device, args.gpu))
+        args.multi_gpu = True  # data parallel over the global process set
+    try:
+        is_main = data_parallel_world()[0] == 0
+        if args.model_dir is None:
+            args.model_dir = os.path.join(
+                "models", os.path.splitext(os.path.basename(args.config_file))[0])
+        args.model_dir = os.path.join(REPO, args.model_dir, args.mode)
+        os.makedirs(args.model_dir, exist_ok=True)
+        cfg_dict = load_yaml_config(args.config_file)
+        cfg_dict["log_dump_dir"] = os.path.join(args.model_dir, "log.pkl")
+        if is_main:
+            shutil.copy(args.config_file, args.model_dir)
+        cfg = merge_cli_args(cfg_dict, args)
+        if cfg.multi_gpu:
+            # the reference's rule over the global process (card) count
+            n = data_parallel_world()[1]
+            cfg.batch_size = cfg.batch_size * n
+            cfg.num_iterations = int(cfg.num_iterations / n)
+        if is_main:
+            with open(os.path.join(args.model_dir, "config.pkl"), "wb") as f:
+                pickle.dump(cfg.to_dict(), f)
+        train(cfg, device=device)
+    finally:
+        if args.multi_host:
+            dist.destroy_process_group()
     return 0
 
 

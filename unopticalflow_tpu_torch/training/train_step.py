@@ -10,6 +10,15 @@ parameters.  ``make_multi_train_step`` is JAX's ``lax.scan`` of K steps over
 K stacked batches: on CUDA one replay of a CUDA graph that holds the K
 whole steps, on the CPU K eager steps.
 
+Data parallelism (``group``: a ``torch.distributed`` process group, JAX's
+``mesh``): every rank runs the step on its block of the global batch, and
+between the backward and Adam the gradients, the weighted total and the
+per-loss means are pmean-reduced (``parallel.all_reduce_mean``: one
+all-reduce of one flat buffer), so every rank applies the update of the
+global batch and logs its losses.  Under NCCL the all-reduce is recorded in
+the K-step CUDA graph with the rest of the step; a gloo group cannot be
+captured.
+
 The forward by ``mode`` and the snippet's frame count, as JAX ``_loss_fn``:
 ``flow`` takes a (B, 3H, W, 3) batch through ``forward`` (2H:
 ``forward_pair``), ``flowposenet`` an ``(images, K, K_inv)`` tuple through
@@ -26,9 +35,11 @@ from __future__ import annotations
 import warnings
 
 import torch
+import torch.distributed as dist
 
 from unopticalflow_tpu_torch.models.flow_model import FlowModelConfig, forward, forward_pair
 from unopticalflow_tpu_torch.models.flowpose_model import forward_flowpose, forward_flowpose_pair
+from unopticalflow_tpu_torch.parallel.mesh import all_reduce_mean
 
 FORWARDS = {("flow", 3): forward, ("flow", 2): forward_pair,
             ("flowposenet", 3): forward_flowpose, ("flowposenet", 2): forward_flowpose_pair}
@@ -93,17 +104,29 @@ def loss_fn(model, cfg: FlowModelConfig, batch, weights: dict, mode: str = "flow
 
 
 def train_step(model, opt: torch.optim.Optimizer, batch, weights: dict,
-               cfg: FlowModelConfig, mode: str = "flow", snippet_frames: int = 3) -> dict:
+               cfg: FlowModelConfig, mode: str = "flow", snippet_frames: int = 3,
+               group=None) -> dict:
     """One optimizer step; returns the detached per-loss means and ``loss_total``.
 
-    Nothing here waits for the device: the returned values are device
-    tensors, read when the caller logs them.
+    ``group``: this rank's ``batch`` is its block of the global batch, and
+    the gradients and the metrics are pmean-reduced over the group before
+    Adam steps (JAX ``train_step.py``'s pmean of grads, loss and pack).  The
+    parameters without a gradient (a frozen flow branch) are left out, on
+    every rank alike.  Nothing here waits for the device: the returned
+    values are device tensors, read when the caller logs them.
     """
     opt.zero_grad(set_to_none=True)
     total, means = loss_fn(model, cfg, batch, weights, mode, snippet_frames)
     total.backward()
+    metrics = {**{k: v.detach() for k, v in means.items()}, "loss_total": total.detach()}
+    if group is not None:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        # float32, so that the metrics share the gradients' buffer: one collective
+        stats = torch.stack([v.float() for v in metrics.values()])
+        all_reduce_mean(grads + [stats], group)
+        metrics = {k: s.to(v.dtype) for (k, v), s in zip(metrics.items(), stats.unbind())}
     opt.step()
-    return {**{k: v.detach() for k, v in means.items()}, "loss_total": total.detach()}
+    return metrics
 
 
 def _slot(batch: tuple, k: int):
@@ -115,15 +138,24 @@ def _slot(batch: tuple, k: int):
 class MultiTrainStep:
     """``make_multi_train_step``'s step function (see there)."""
 
-    def __init__(self, model, opt, cfg, weights, steps, mode, snippet_frames, pre_step):
+    def __init__(self, model, opt, cfg, weights, steps, mode, snippet_frames, pre_step,
+                 group):
         self.model, self.opt, self.cfg, self.weights = model, opt, cfg, weights
         self.steps, self.mode, self.snippet_frames = steps, mode, snippet_frames
-        self.pre_step = pre_step
+        self.pre_step, self.group = pre_step, group
         self._warmed_up = False  # CUDA: the first dispatch ran eagerly
         self._graph = None  # the captured K steps (CUDA, from the second dispatch)
         self._slots = None  # the graph's input slots, (K, ...) per leaf
         self._static_metrics = None  # (metrics, K), written by every replay
         self._names = None
+
+    @property
+    def captures_next(self) -> bool:
+        """Whether the next CUDA dispatch captures the graph.  A caller's
+        other threads must then leave the card's pool streams alone (PyTorch
+        hands its 32 streams a card round-robin, so any of them can be the
+        capture's): the trainer drains its checkpoint writer first."""
+        return self._warmed_up and self._graph is None
 
     def _run(self, batch: tuple) -> dict:
         """K steps on ``batch``'s slots; metrics stacked to (K,)."""
@@ -132,13 +164,14 @@ class MultiTrainStep:
             if self.pre_step is not None:
                 self.pre_step()
             out.append(train_step(self.model, self.opt, _slot(batch, k), self.weights,
-                                  self.cfg, self.mode, self.snippet_frames))
+                                  self.cfg, self.mode, self.snippet_frames, self.group))
         return {name: torch.stack([m[name] for m in out]) for name in out[0]}
 
     def _warm_up(self, batch: tuple) -> dict:
         """The first dispatch: K real steps, eagerly, on a side stream (PyTorch's
         recipe before a capture).  It builds and loads the kernels, creates the
-        library handles and Adam's state; nothing is thrown away."""
+        library handles and Adam's state, and runs the group's all-reduce on
+        this stream before the capture records it; nothing is thrown away."""
         device = batch[0].device
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -163,8 +196,8 @@ class MultiTrainStep:
         # backward, so sub-step k never adds into sub-step k - 1's .grad
         self.opt.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
-        # thread_local: the checkpoint writer's host copies may run in their own
-        # thread meanwhile; this thread's calls are still checked
+        # thread_local: this thread's calls are checked, not other threads'
+        # (see captures_next for the streams they may use meanwhile)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             metrics = self._run(self._slots)
             self._static_metrics = torch.stack(list(metrics.values()))
@@ -181,6 +214,10 @@ class MultiTrainStep:
         if not all(g["capturable"] for g in self.opt.param_groups):
             raise ValueError("a CUDA graph of the step needs a capturable Adam "
                              "(set_capturable)")
+        if self.group is not None and dist.get_backend(self.group) != "nccl":
+            raise RuntimeError(f"a {dist.get_backend(self.group)} process group cannot be "
+                               f"captured in a CUDA graph: a K = {self.steps} dispatch on "
+                               "CUDA needs NCCL (or --steps_per_dispatch 1)")
         if not self._warmed_up:
             self._warmed_up = True
             return self._warm_up(batch)
@@ -196,7 +233,7 @@ class MultiTrainStep:
 def make_multi_train_step(model, opt: torch.optim.Optimizer, cfg: FlowModelConfig,
                           weights: dict, steps_per_dispatch: int, mode: str = "flow",
                           snippet_frames: int = 3, freeze_flow: bool = False,
-                          pre_step=None) -> MultiTrainStep:
+                          pre_step=None, group=None) -> MultiTrainStep:
     """K optimizer steps a call: the JAX ``make_multi_train_step``.
 
     Returns ``step_fn(batch) -> metrics``.  Every leaf of ``batch`` carries a
@@ -219,7 +256,10 @@ def make_multi_train_step(model, opt: torch.optim.Optimizer, cfg: FlowModelConfi
     branch of a ``FlowPoseModel`` gets no gradient and ``opt`` must not hold
     it.  ``pre_step()``, when given, runs before each sub-step, and on CUDA
     is captured with it (device operations only: a learning-rate schedule
-    computed on the device from a step count).
+    computed on the device from a step count).  ``group``: each sub-step is
+    ``train_step(..., group=group)``; on CUDA the group must be NCCL's,
+    whose all-reduce the graph records (a gloo group raises at the first
+    call).
     """
     if steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
@@ -229,4 +269,4 @@ def make_multi_train_step(model, opt: torch.optim.Optimizer, cfg: FlowModelConfi
             raise ValueError("freeze_flow: the optimizer holds the flow branch")
         model.flow.requires_grad_(False)
     return MultiTrainStep(model, opt, cfg, weights, steps_per_dispatch, mode, snippet_frames,
-                          pre_step)
+                          pre_step, group)

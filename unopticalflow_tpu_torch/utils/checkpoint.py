@@ -270,7 +270,9 @@ class AsyncCheckpointer:
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         if t.device.type != "cuda":
             return t
-        stream = self._streams.setdefault(t.device, torch.cuda.Stream(t.device))
+        stream = self._streams.get(t.device)
+        if stream is None:  # one pool stream a device, taken once
+            stream = self._streams[t.device] = torch.cuda.Stream(t.device)
         with torch.cuda.stream(stream):
             return t.cpu()
 
