@@ -274,7 +274,10 @@ Phases (each raises on failure, so the run exits non-zero):
    float32 gradients: every parameter within 2 ulps plus the update's
    rounding.  (c) ``make_multi_train_step``'s eager first dispatch and its
    capture each launch 8 x (5, 5, 5, 3, 3) training kernels, and replays
-   none (the counters count host launches).  (a) From one state, one graph
+   none (the counters count host launches).  (a) From the fresh state (the
+   weights at their init, Adam's moments and step at zero, set in place
+   after the timed dispatches: 56 steps on these repeated batches take the
+   bf16 step past its rise, where it is chaotic, PERF.md q14), one graph
    dispatch against 8 eager capturable-Adam steps: the 8 losses and the
    parameters' change within 3 times the eager steps' own distance on
    snippets moved by one ulp (phase 7's rule, floor 1e-4), and in float32
@@ -372,13 +375,65 @@ Phases (each raises on failure, so the run exits non-zero):
    ["cuda:0", "cuda:0"])`` against one-device serving on phase 10's 37
    pairs from 8 clients at max_batch 8: flows within 1e-4 x (1 + peak), 10
    ``corr_fwd`` launches a split batch.
+21. Spatial training (``spatial_training``; rehearsable on the CPU): the
+   training forward with each frame's rows split over n shards (on their
+   own cards when there are enough, else all on ``cuda:0``), at the KITTI
+   recipe (256x832, batch 8, 3 loss scales).  (a) The halo-prepadded
+   photometric and regularizer kernels (``photometric_fwd_hpad``,
+   ``photometric_bwd_hpad``, ``regularizer_fwd_hpad``,
+   ``regularizer_bwd_hpad``) on every shard of n = 2 and 4 at the three
+   loss scales' slabs (one halo row a side; flows bilinear from a field 8
+   times coarser in +-6 px, so the warps cross the seams and the frame's
+   edges, plus +-1 px on 30% of the pixels) against their plain rows
+   versions, each pack 1 + 1 launches: sums rtol 1e-4, weights 1e-5,
+   d(flow) within 1e-4 of its largest value (regularizer: and zero where
+   the plain gradient is), float32; bfloat16 values within 2e-2 of the
+   bfloat16 plain versions and against the plain versions on the widened
+   images at the float32 rules, d(flow) within 2e-2 of its largest.
+   Positions where the L1 term's argument |img - warped| is within 1e-6 of
+   zero are left out of the photometric d(flow) (its sign is rounding
+   noise, which the kernel and ``bilinear_warp`` round apart; the whole-map
+   kernel does the same there), and counted.  Each kernel timed per shard
+   at n = 2, float32 and bfloat16, beside its plain version and its bound.
+   (b) A sharded forward and
+   backward launches exactly 3n of each photometric hpad kernel, 3n of each
+   regularizer hpad kernel with ``use_pallas_reg`` (else none), 5n of each
+   correlation hpad kernel, and no whole-map kernel.  (c) The sharded pack,
+   the photometric losses' gradient and the weighted total's over every
+   parameter against the unsharded ``forward`` on the same weights, float32
+   and bfloat16, ``use_pallas_reg`` off and on, n = 2 and 4: rel L2 within 3
+   times the unsharded step's own distance on snippets moved by one ulp of
+   the compute dtype (in bfloat16 one bfloat16 ulp: a float32 ulp rounds
+   away), or from another run of itself where that is larger (in (d) also
+   one on PyTorch's own convolutions in place of cuDNN's: a slab's
+   convolutions take other algorithms than the frame's), floor 1e-4 (phase
+   7's rule, with phase 20's second run).  (d) 4 Adam steps
+   (``make_optimizer``) at n = 2 against 4 unsharded ones, float32 and
+   bfloat16: the losses and the parameters' change after each step under the
+   same rule (in bfloat16 the yardstick is ~0.3 from the first step on:
+   Adam's first update is lr * sign(g), so there (c) carries the check), and
+   every parameter tensor's change at least half as long as the unsharded
+   one's after every step (phase 20's check against a run that never
+   updates, per tensor).  (e) ms
+   per forward + backward (median of 5 after 2, CUDA events) and peak GiB,
+   unsharded and at n = 1, 2, 4, float32 and bfloat16, beside the card's name
+   and power limit.  (f) One mesh over two devices: shard 0 on the CPU (the
+   plain versions), shard 1 on the card, float32 with ``use_pallas_reg`` at
+   batch 2, 128x256: the card's shard launches 3 of each hpad loss kernel
+   and 5 of each correlation hpad kernel, the pack lands on the CPU and every
+   gradient on its parameter's card, and the pack and gradients hold to the
+   unsharded step on the card under (c)'s rule.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
 ``corr_fwd_hpad`` and 11 (c)'s gradient for the hpad backward, of phase 12
-(b)'s probe runs for the gathers; ``ms``/``plain_ms`` per float32 training
-step: the sum over the five decoder levels or the three loss scales, for the
-hpad kernels per float32 spatial batch at n = 2: 5 levels x 2 shards, for the
+(b)'s probe runs for the gathers, of phase 21 (b)'s float32 step at n = 2
+with ``use_pallas_reg`` for the hpad loss kernels; ``ms``/``plain_ms`` per
+float32 training step: the sum over the five decoder levels or the three
+loss scales, for the correlation hpad kernels per float32 spatial batch at
+n = 2: 5 levels x 2 shards, for the hpad loss kernels per float32 sharded
+step at n = 2: 3 scales x 2 shards (of the whole sources, the bytes count
+the rows this run's warps reach), for the
 gathers per call at the probes' default shapes: ``row_gather`` bfloat16,
 ``lane_gather`` and ``sublane_gather`` float32; ``bound_ms``: the larger of
 the bytes the function must move over 3.35 TB/s and its operations over 67
@@ -431,6 +486,7 @@ SPATIAL_N = (2, 4)  # phase 11: row-shards of the 256-row frame
 # probe.py spatial_gap read 0.90-1.00 of it at n = 2, 4 and 8)
 BF16_SPATIAL_FACTOR = 1.2
 SPATIAL_REQUESTS = 8
+SPATIAL_TIMED = 5  # phase 21 (e): timed forward + backward runs after 2 warm-ups
 SPATIAL_CLIENTS = 4
 MD = 4  # the decoder's correlation window, +-4 px; the hpad operands carry 2 * MD more rows
 EVAL_PAIRS = 37  # phase 10: 4 full batches and one padded
@@ -566,7 +622,9 @@ PER_STEP = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
             "photometric_fwd": 3, "photometric_bwd": 3,
             "regularizer_fwd": 0, "regularizer_bwd": 0,
             "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0,
-            "row_gather": 0, "lane_gather": 0, "sublane_gather": 0}
+            "row_gather": 0, "lane_gather": 0, "sublane_gather": 0,
+            "photometric_fwd_hpad": 0, "photometric_bwd_hpad": 0,
+            "regularizer_fwd_hpad": 0, "regularizer_bwd_hpad": 0}
 PER_STEP_REG = {**PER_STEP, "regularizer_fwd": 3, "regularizer_bwd": 3}
 # a --freeze_flow step (no backward through the flow branch) and a 2-frame
 # step (the plain photometric losses, as the JAX forward_pair)
@@ -598,6 +656,14 @@ KERNELS = {
                     "benchmarks/pallas_gather_probe.py:42"),
     "sublane_gather": ("unopticalflow_tpu_torch/csrc/gather.cu",
                        "benchmarks/pallas_gather_probe.py:50"),
+    "photometric_fwd_hpad": ("unopticalflow_tpu_torch/csrc/photometric.cu",
+                             "unopticalflow_tpu/ops/pallas_photometric.py:198"),
+    "photometric_bwd_hpad": ("unopticalflow_tpu_torch/csrc/photometric.cu",
+                             "unopticalflow_tpu/ops/pallas_photometric.py:261"),
+    "regularizer_fwd_hpad": ("unopticalflow_tpu_torch/csrc/regularizer.cu",
+                             "unopticalflow_tpu/ops/pallas_regularizer.py:151"),
+    "regularizer_bwd_hpad": ("unopticalflow_tpu_torch/csrc/regularizer.cu",
+                             "unopticalflow_tpu/ops/pallas_regularizer.py:179"),
 }
 PHOTO_W = {"loss_pixel": 0.15, "loss_ssim": 0.85, "loss_flow_smooth": 0.0,
            "loss_flow_consis": 0.0}
@@ -2034,6 +2100,7 @@ def dispatch_graph(c) -> None:
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
         model = fresh(cfg)
+        init = [p.detach().clone() for p in model.parameters()]
         opt = make_optimizer(model)
         set_capturable(opt)
         multi = make_multi_train_step(model, opt, cfg, weights, k)
@@ -2072,7 +2139,18 @@ def dispatch_graph(c) -> None:
               f"with its replay in {t_capture:.2f} s, {DISPATCH_TIMED} replays none")
 
         # (a) from one state: one replay against 8 eager capturable-Adam steps,
-        # and against eager steps on batches moved by one ulp
+        # and against eager steps on batches moved by one ulp.  The state is the
+        # fresh one, set in place: the weights at their init, Adam's moments and
+        # step at zero (what a new Adam starts from).  After the dispatches
+        # above (56 steps on 8 repeated batches) the bf16 step is past its rise
+        # and chaotic (PERF.md q14), where two runs part by more than the
+        # one-ulp nudge's distance whatever the capture does.
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+                for t in opt.state[p].values():
+                    t.zero_()
+        del init
         held = graph_vs_eager(c, multi, model, opt, (xs,), cfg, weights, f"(a) {dtype}",
                               dtype)
         if held["replay_launches"]:
@@ -3072,6 +3150,520 @@ def data_parallel(c) -> None:
     print(f"data parallel: phase 20 in {time.perf_counter() - t20:.1f} s")
 
 
+def spatial_training(c) -> dict:
+    """Phase 21 (see the module): the training forward with each frame's rows
+    split over n shards (rehearsable on the CPU: the plain versions, no
+    timing).  ``c`` holds the device, the recipe's shape and batch, the
+    shards' devices by n (``shard_devices``), the launch counters, ``want``
+    (the card's launch counts; a CPU rehearsal gives zeros), the card's
+    nvidia-smi line, and the kernel record's ``max_err``, ``ms``,
+    ``plain_ms`` and ``work``, which (a) fills for the four hpad loss
+    kernels.  Returns the launches of one sharded float32 step at n = 2 with
+    ``use_pallas_reg``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, forward
+    from unopticalflow_tpu_torch.ops import photometric_cuda, regularizer_cuda
+    from unopticalflow_tpu_torch.ops.cost_volume_spmd import take_rows
+    from unopticalflow_tpu_torch.ops.photometric import (
+        photometric_pack_rows,
+        photometric_pack_rows_reference,
+    )
+    from unopticalflow_tpu_torch.ops.regularizer import (
+        regularizer_pack_rows,
+        regularizer_pack_rows_reference,
+    )
+    from unopticalflow_tpu_torch.ops.warp import bilinear_warp
+    from unopticalflow_tpu_torch.parallel import make_spatial_forward, spatial_mesh
+    from unopticalflow_tpu_torch.training import loss_weights_from_config, make_optimizer
+
+    device, batch_n = c.device, c.batch
+    on_card = device.type == "cuda"
+    h, w = c.img_hw
+    t21 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    zero = dict.fromkeys(KERNELS, 0)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) the four hpad loss kernels against their plain rows versions, every
+    # shard of n = 2 and 4 at the three loss scales' slabs
+    def slabs(x, n):
+        """n row-shards of x with one halo row each side (zeros outside)."""
+        parts = list(torch.chunk(x, n, 2))
+        hs = x.shape[2] // n
+        return [take_rows(parts, i * hs - 1, (i + 1) * hs + 1, x.device) for i in range(n)]
+
+    def rows_case(s, dtype):
+        """Seeded images and flows at loss scale s: flows bilinear from a field
+        8 times coarser in +-6 px (the warps cross the seams and the frame's
+        edges) plus +-1 px on 30% of the pixels (second differences off zero)."""
+        hh, ww = h >> s, w >> s
+        r = np.random.RandomState(SEED + 21 + s)
+        imgs = [torch.from_numpy(r.rand(batch_n, 3, hh, ww).astype(np.float32)).to(device, dtype)
+                for _ in range(3)]
+        coarse = torch.from_numpy(r.uniform(-6, 6, (batch_n, 4, hh // 8, ww // 8))
+                                  .astype(np.float32))
+        noise = (r.rand(batch_n, 4, hh, ww) < 0.3) * r.uniform(-1, 1, (batch_n, 4, hh, ww))
+        fl = (F.interpolate(coarse, size=(hh, ww), mode="bilinear", align_corners=False)
+              + torch.from_numpy(noise).float()).to(device)
+        w_fwd = torch.from_numpy(r.rand(batch_n, 1, hh, ww).astype(np.float32)).to(device, dtype)
+        return imgs, fl[:, :2].contiguous(), fl[:, 2:].contiguous(), w_fwd
+
+    def photo_grads(fn, il, ir, fb, ff, im, row0, height):
+        fb = fb.clone().requires_grad_(True)
+        ff = ff.clone().requires_grad_(True)
+        out = fn(il, ir, fb, ff, im, row0, height)
+        loss = ((out["s_dw"] / (out["s_w"] + 1.0)).sum()
+                + (out["s_cl"] / (out["s_w"] + 1.0)).sum())
+        return {k: v.detach() for k, v in out.items()}, torch.autograd.grad(loss, [fb, ff])
+
+    def reg_grads(fn, fb, ff, im, w_fwd, row0, height, cot):
+        fb = fb.clone().requires_grad_(True)
+        ff = ff.clone().requires_grad_(True)
+        out = fn(fb, ff, im, w_fwd, row0, height)
+        loss = sum((out[k] * cot[k]).sum() for k in out)
+        return {k: v.detach() for k, v in out.items()}, torch.autograd.grad(loss, [fb, ff])
+
+    def dflow_err(got, want, skip=(None, None)):
+        """(max |got - want| outside ``skip``'s positions, max |want|)."""
+        err = max(float((a - b).abs().masked_fill(t, 0).max() if t is not None
+                        else (a - b).abs().max()) for a, b, t in zip(got, want, skip))
+        return err, max(float(b.abs().max()) for b in want)
+
+    def l1_ties(il, ir, fb, ff, im, row0):
+        """(bwd, fwd) positions whose L1 term's argument |img - warped| is
+        within 1e-6 of zero in a channel: its sign there is rounding noise,
+        and the kernel rounds the warped value apart from ``bilinear_warp``
+        (phase 7's ill-conditioning; a pixel or two a scale on these inputs).
+        A warped value of 0 is no tie: the pixel's warp is masked out."""
+        warps = [bilinear_warp(src.float(), fl, use_mask=True, row0=row0 - 1)
+                 for src, fl in ((il, fb), (ir, ff))]
+        return [(((im.float() - wp).abs() < 1e-6) & (wp != 0)).any(1, keepdim=True)
+                for wp in warps]
+
+    photo_keys, reg_keys = ("s_dw", "s_w", "s_cl"), ("s_sx", "s_sy", "s_consis")
+    kernel_ms = {}  # "kernel scale dtype" -> ms over the shards of n = 2 (CUDA events)
+    bf16_hpad = {}  # kernel -> [ms, plain ms, bytes, operations] of a bfloat16 step at n = 2
+    for s in range(3):
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            (il, ir, im), fb, ff, w_full = rows_case(s, dtype)
+            height = im.shape[2]
+            cot = {"s_sx": torch.rand(2 * batch_n, generator=gen, device=device),
+                   "s_sy": torch.rand(2 * batch_n, generator=gen, device=device),
+                   "s_consis": torch.rand(batch_n, generator=gen, device=device)}
+            worst = {"photo": [0.0, 0.0], "reg": [0.0, 0.0]}  # [sums err, d(flow) err / max]
+            n_ties = 0
+            for n in SPATIAL_N:
+                hs = height // n
+                for i, (fbh, ffh, imh) in enumerate(zip(slabs(fb, n), slabs(ff, n),
+                                                        slabs(im, n))):
+                    row0 = i * hs
+                    wf = w_full[:, :, row0:row0 + hs].contiguous()
+                    where = f"s{s} n={n} shard {i} {tuple(imh.shape)} {dt}"
+                    c.reset_counts()
+                    got, g_got = photo_grads(photometric_pack_rows, il, ir, fbh, ffh, imh, row0,
+                                             height)
+                    got_r, gr_got = reg_grads(regularizer_pack_rows, fbh, ffh, imh, wf, row0,
+                                              height, cot)
+                    sync()
+                    launched = c.counts()
+                    if launched != c.want({**zero, "photometric_fwd_hpad": 1,
+                                           "photometric_bwd_hpad": 1,
+                                           "regularizer_fwd_hpad": 1,
+                                           "regularizer_bwd_hpad": 1}):
+                        raise AssertionError(f"hpad loss kernels {where}: launches {launched}")
+                    if got["weights"].dtype != dtype or \
+                            got["weights"].shape != (2 * batch_n, 1, hs, imh.shape[3]):
+                        raise AssertionError(f"photometric hpad {where}: weights "
+                                             f"{got['weights'].dtype} "
+                                             f"{tuple(got['weights'].shape)}")
+                    if any(g.shape != fbh.shape for g in (*g_got, *gr_got)):
+                        raise AssertionError(f"hpad {where}: d(flow) not the slab's shape")
+                    args = (il, ir, fbh, ffh, imh)
+                    if dtype == torch.bfloat16:
+                        # values against the bfloat16 plain versions (their d(flow)
+                        # takes sign(0) wherever the warped value rounds to the
+                        # image's: phase 5's rule holds it to the widened images only)
+                        want, _ = photo_grads(photometric_pack_rows_reference, *args, row0,
+                                              height)
+                        want_r, _ = reg_grads(regularizer_pack_rows_reference, fbh, ffh,
+                                              imh, wf, row0, height, cot)
+                        for k in photo_keys:
+                            torch.testing.assert_close(got[k], want[k], rtol=2e-2, atol=2e-2)
+                        for k in reg_keys:
+                            torch.testing.assert_close(got_r[k], want_r[k], rtol=2e-2, atol=2e-2)
+                        wdiff = float((got["weights"].float() - want["weights"].float()).abs()
+                                      .mean())
+                        if wdiff > 2e-2:
+                            raise AssertionError(f"photometric hpad {where} against the "
+                                                 f"bfloat16 plain version: weights {wdiff}")
+                    if dtype == torch.bfloat16 and not on_card:
+                        continue  # a rehearsal's "kernels" are the bfloat16 plain versions
+                    # float32 (bfloat16: the kernels compute in float32 and never
+                    # round, so the plain versions on the widened images)
+                    a32 = [t.float() for t in args]
+                    want, g_want = photo_grads(photometric_pack_rows_reference, *a32, row0,
+                                               height)
+                    want_r, gr_want = reg_grads(regularizer_pack_rows_reference, fbh, ffh,
+                                                imh.float(), wf.float(), row0, height, cot)
+                    for k in photo_keys:
+                        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+                    for k in reg_keys:
+                        torch.testing.assert_close(got_r[k], want_r[k], rtol=1e-4, atol=1e-4)
+                    torch.testing.assert_close(
+                        got["weights"].float(), want["weights"],
+                        rtol=1e-5 if dtype == torch.float32 else 2**-8, atol=1e-5)
+                    ties = l1_ties(*a32, row0)
+                    n_ties += sum(int(t.sum()) for t in ties)
+                    e_p, m_p = dflow_err(g_got, g_want, ties)
+                    e_r, m_r = dflow_err(gr_got, gr_want)
+                    zeros = sum(int(((a == 0) != (b == 0)).sum()) for a, b in zip(gr_got, gr_want))
+                    gtol = 1e-4 if dtype == torch.float32 else 2e-2
+                    if e_p > gtol * m_p or e_r > gtol * m_r or zeros:
+                        raise AssertionError(f"hpad {where}: d(flow) {e_p} (max {m_p}), {e_r} "
+                                             f"(max {m_r}), {zeros} positions zero in one "
+                                             "regularizer gradient only")
+                    f_p = max(float((got[k] - want[k]).abs().max()) for k in photo_keys)
+                    f_r = max(float((got_r[k] - want_r[k]).abs().max()) for k in reg_keys)
+                    for kname, err in (("photometric_fwd_hpad", f_p), ("photometric_bwd_hpad", e_p),
+                                       ("regularizer_fwd_hpad", f_r),
+                                       ("regularizer_bwd_hpad", e_r)):
+                        c.max_err[kname] = max(c.max_err[kname], err)
+                    worst["photo"] = [max(worst["photo"][0], f_p), max(worst["photo"][1],
+                                                                       e_p / m_p)]
+                    worst["reg"] = [max(worst["reg"][0], f_r), max(worst["reg"][1], e_r / m_r)]
+                    if not (on_card and n == 2):
+                        continue
+                    # timed at n = 2 (the record: a float32 sharded step, 3 scales x 2
+                    # shards; bfloat16 printed beside it); bytes: each input read
+                    # once (of the whole sources, the rows this run's warps reach),
+                    # each output written once
+                    isz = im.element_size()
+                    gdw = torch.rand(2 * batch_n, generator=gen, device=device)
+                    gcl = torch.rand(2 * batch_n, generator=gen, device=device)
+                    hh, ww = imh.shape[2], imh.shape[3]
+                    ys = torch.arange(row0 - 1, row0 - 1 + hh, device=device)[None, :, None]
+                    reach = [(ys + f[:, 1]).floor() for f in (fbh, ffh)]
+                    lo = max(0, int(min(float(r_.min()) for r_ in reach)))
+                    hi = min(height, int(max(float(r_.max()) for r_ in reach)) + 2)
+                    src = 2 * batch_n * 3 * max(hi - lo, 0) * ww * isz
+                    pos = batch_n * hh * ww
+                    slab_in = batch_n * (3 * isz + 2 * 2 * 4) * hh * ww
+                    works = {"photometric_fwd_hpad": (src + slab_in + 2 * batch_n * hs * ww * isz,
+                                                      OPS_PER_POSITION["photometric_fwd"] * pos),
+                             "photometric_bwd_hpad": (src + slab_in + 2 * batch_n * 2 * hh * ww * 4,
+                                                      OPS_PER_POSITION["photometric_bwd"] * pos),
+                             "regularizer_fwd_hpad": (slab_in + batch_n * hs * ww * isz,
+                                                      OPS_PER_POSITION["regularizer_fwd"] * pos),
+                             "regularizer_bwd_hpad": (slab_in + batch_n * hs * ww * isz
+                                                      + 2 * batch_n * 2 * hh * ww * 4,
+                                                      OPS_PER_POSITION["regularizer_bwd"] * pos)}
+                    pcall = (il, ir, fbh, ffh, imh, row0, height)
+                    rcall = (fbh, ffh, imh, wf, row0, height)
+                    fbg, ffg = (t.clone().requires_grad_(True) for t in (fbh, ffh))
+                    ploss = photometric_pack_rows_reference(il, ir, fbg, ffg, imh, row0, height)
+                    ploss = (ploss["s_dw"].sum() + ploss["s_cl"].sum())
+                    rout = regularizer_pack_rows_reference(fbg, ffg, imh, wf, row0, height)
+                    rloss = sum(v.sum() for v in rout.values())
+                    with torch.no_grad():
+                        timed = {
+                            "photometric_fwd_hpad": (
+                                _time_ms(torch, lambda: photometric_cuda.photo_fwd_hpad(*pcall)),
+                                _time_ms(torch, lambda: photometric_pack_rows_reference(*pcall),
+                                         reps=5, inner=2)),
+                            "regularizer_fwd_hpad": (
+                                _time_ms(torch, lambda: regularizer_cuda.reg_fwd_hpad(*rcall)),
+                                _time_ms(torch, lambda: regularizer_pack_rows_reference(*rcall),
+                                         reps=5, inner=2))}
+                    timed["photometric_bwd_hpad"] = (
+                        _time_ms(torch, lambda: photometric_cuda.photo_bwd_hpad(*pcall, gdw, gcl)),
+                        _time_ms(torch, lambda: torch.autograd.grad(ploss, [fbg, ffg],
+                                                                     retain_graph=True),
+                                 reps=5, inner=2))
+                    timed["regularizer_bwd_hpad"] = (
+                        _time_ms(torch, lambda: regularizer_cuda.reg_bwd_hpad(
+                            *rcall, cot["s_sx"], cot["s_sy"], cot["s_consis"])),
+                        _time_ms(torch, lambda: torch.autograd.grad(rloss, [fbg, ffg],
+                                                                     retain_graph=True),
+                                 reps=5, inner=2))
+                    for kname, (k_ms, p_ms) in timed.items():
+                        if dtype == torch.float32:
+                            c.ms[kname] += k_ms
+                            c.plain_ms[kname] += p_ms
+                            c.work[kname][0] += works[kname][0]
+                            c.work[kname][1] += works[kname][1]
+                        else:
+                            acc = bf16_hpad.setdefault(kname, [0.0, 0.0, 0.0, 0.0])
+                            for j, v in enumerate((k_ms, p_ms, *works[kname])):
+                                acc[j] += v
+                        key = f"{kname} s{s} {dt}"
+                        kernel_ms[key] = round(kernel_ms.get(key, 0.0) + k_ms, 4)
+                    del ploss, rloss, rout, fbg, ffg
+            print(f"spatial training (a) s{s} {(batch_n, 3, height, im.shape[3])} {dt}: the hpad "
+                  f"loss kernels on every shard of n = {SPATIAL_N}, 1 + 1 launches each; "
+                  f"photometric sums max_abs_err={worst['photo'][0]:.3e} d(flow) "
+                  f"{worst['photo'][1]:.3e} of its max ({n_ties} L1 ties left out); "
+                  f"regularizer sums "
+                  f"max_abs_err={worst['reg'][0]:.3e} d(flow) {worst['reg'][1]:.3e} of its max "
+                  "(float32 references; bfloat16 values also against the bfloat16 plain "
+                  "versions)")
+    if on_card:
+        print("spatial training (a): hpad kernel ms summed over the 2 shards of n = 2 "
+              f"(CUDA events; {c.smi}): " + json.dumps(kernel_ms))
+        for kname, (k_ms, p_ms, nbytes, ops) in bf16_hpad.items():
+            bound_ms, bound_by = _bound(nbytes, ops)
+            print(f"spatial training (a) {kname} per sharded step at n = 2 (3 scales x 2 "
+                  f"shards, bfloat16 images): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}) ({c.smi})")
+
+    # (b), (c) the sharded pack and gradient against the unsharded forward
+    weights = loss_weights_from_config(train_cli.recipe_config())
+    data = SyntheticSnippets(c.img_hw, batch_n, seed=SEED + 21)
+    x = torch.from_numpy(np.stack([data[i] for i in range(batch_n)])).to(device).float() / 255.0
+
+    def nudged(dtype, images=x):
+        """The snippets one ulp of the compute dtype up: the model casts them
+        to it, so in bfloat16 every value moves by one bfloat16 ulp (one
+        float32 ulp would round away)."""
+        xd = images.to(getattr(torch, dtype))
+        return torch.nextafter(xd, torch.full_like(xd, 2.0)).float()
+
+    def fresh(cfg):
+        return FlowModel(cfg, device=device, scheme="pwc",
+                         generator=torch.Generator().manual_seed(SEED + 21))
+
+    def meshed(n):
+        return spatial_mesh(n, devices=c.shard_devices(n))
+
+    def total(pack, wts=weights):
+        return sum(wts[k] * v.mean() for k, v in pack.items())
+
+    def step(model, fn, images):
+        """(pack, the photometric losses' gradient, the weighted total's
+        gradient), each flat over every parameter."""
+        params = list(model.parameters())
+        pack = fn(images)
+
+        def flat(loss, **kw):
+            return torch.cat([g.double().ravel() for g in torch.autograd.grad(loss, params, **kw)])
+
+        g_photo = flat(total(pack, PHOTO_W), retain_graph=True)
+        return torch.stack([v.detach().double() for v in pack.values()]), g_photo, flat(total(pack))
+
+    def sharded_launches(n, reg):
+        return c.want({**zero, "photometric_fwd_hpad": 3 * n, "photometric_bwd_hpad": 3 * n,
+                       "regularizer_fwd_hpad": 3 * n if reg else 0,
+                       "regularizer_bwd_hpad": 3 * n if reg else 0,
+                       "corr_fwd_hpad": 5 * n, "corr_bwd_df1_hpad": 5 * n,
+                       "corr_bwd_df2_hpad": 5 * n})
+
+    # phase 7's rule: a sharded step against the unsharded one, within 3 x the
+    # unsharded step's own distance on snippets moved by one ulp (of the
+    # compute dtype), floor 1e-4, or 3 x its distance from another run of
+    # itself where that is larger (the warps' scatter-adds make two runs
+    # differ, and Adam's steps carry it on: phase 18 (a) prints both, phase
+    # 20 holds to the second); the photometric losses' gradient is held
+    # beside the weighted total's, as phase 7 holds it
+    def bounds(dense, *others):
+        """(reference, bound) for each of the compared vectors: ``others``
+        are the unsharded runs on moved snippets and again."""
+        return [(d, max(1e-4, *(3 * _rel_l2(o, d) for o in rest)))
+                for d, *rest in zip(dense, *others)]
+
+    def held(dtype, label, got, refs):
+        errs = [_rel_l2(g, r) for g, (r, _) in zip(got, refs)]
+        print(f"spatial training {label} {dtype}: rel L2 from the unsharded step "
+              + ", ".join(f"{e:.3e} (bound {b:.3e})" for e, (_, b) in zip(errs, refs)))
+        if not all(e <= b for e, (_, b) in zip(errs, refs)):
+            raise AssertionError(f"spatial training {label} {dtype}: the sharded step departs "
+                                 "from the unsharded one")
+
+    record_launches = {}
+    # a rehearsal runs float32 only: this PyTorch's CPU bfloat16 convolutions
+    # give other values from one run to the next, and NaN with several threads
+    dtypes = ("float32", "bfloat16") if on_card else ("float32",)
+    for dtype in dtypes:
+        for reg in (False, True):
+            cfg = FlowModelConfig(compute_dtype=dtype, loss_dtype=dtype, use_pallas_reg=reg)
+            model = fresh(cfg)
+            dense = lambda im: forward(model, cfg, im)  # noqa: E731
+            d_step = step(model, dense, x)
+            u_step = step(model, dense, nudged(dtype))
+            a_step = step(model, dense, x)
+            refs = bounds(d_step, u_step, a_step)
+            for n in SPATIAL_N:
+                fn = make_spatial_forward(model, cfg, meshed(n))
+                # (b) one forward and backward, as a training step runs them
+                c.reset_counts()
+                total(fn(x)).backward()
+                sync()
+                launched = c.counts()
+                sp = step(model, fn, x)
+                if dtype == "float32" and reg and n == 2:
+                    record_launches = launched
+                print(f"spatial training (b) {dtype} use_pallas_reg={reg} n={n}: launches "
+                      f"{_launched(launched)}; against the unsharded {dtype} step, rel L2 of "
+                      "the pack, the photometric and the weighted total's gradients: "
+                      + ", ".join(f"{_rel_l2(a, b):.3e}" for a, b in zip(sp, d_step))
+                      + "; the unsharded step on snippets one ulp away: "
+                      + ", ".join(f"{_rel_l2(a, b):.3e}" for a, b in zip(u_step, d_step))
+                      + "; again: " + ", ".join(f"{_rel_l2(a, b):.3e}"
+                                                for a, b in zip(a_step, d_step)))
+                if launched != sharded_launches(n, reg):
+                    raise AssertionError(f"spatial training {dtype} reg={reg} n={n}: launches "
+                                         f"{launched}, want {sharded_launches(n, reg)}")
+                held(dtype, f"(c) use_pallas_reg={reg} n={n} pack, gradients", sp, refs)
+            del model, d_step, u_step, a_step, refs, sp
+            if on_card:
+                torch.cuda.empty_cache()
+
+    # (d) four Adam steps on the sharded gradients against four unsharded ones,
+    # the parameters' change held after each step.  In bfloat16 the yardstick
+    # stays near 0.3 from the first step on (Adam's first update is lr *
+    # sign(g), and a one-ulp nudge flips the sign of many small gradients), so
+    # there (c)'s gradients carry the check, and (d) adds what a run that
+    # skips an update would fail: every parameter tensor's change at least
+    # half as long as the unsharded one's, after every step
+    steps_n = 4
+    for dtype in dtypes:
+        cfg = FlowModelConfig(compute_dtype=dtype, loss_dtype=dtype)
+
+        def run(images, n, cudnn=True):
+            """(the losses, the parameters' change after each of steps_n Adam
+            steps); ``cudnn=False``: PyTorch's own convolutions in place of
+            cuDNN's."""
+            model = fresh(cfg)
+            opt = make_optimizer(model)
+            fn = (make_spatial_forward(model, cfg, meshed(n)) if n
+                  else (lambda im: forward(model, cfg, im)))
+            start = [p.detach().clone() for p in model.parameters()]
+            losses, changes = [], []
+            b = torch.backends.cudnn
+            with b.flags(enabled=cudnn, benchmark=b.benchmark, deterministic=b.deterministic,
+                         allow_tf32=b.allow_tf32):
+                for _ in range(steps_n):
+                    opt.zero_grad(set_to_none=True)
+                    loss = total(fn(images))
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.detach().double())
+                    changes.append(torch.cat([(p.detach() - p0).double().ravel()
+                                              for p, p0 in zip(model.parameters(), start)]))
+            return torch.stack(losses), *changes
+
+        d_run = run(x, 0)
+        # the yardstick also takes the unsharded run on another convolution
+        # algorithm: cuDNN picks a slab's algorithms apart from the frame's
+        # (and by the process's history, PERF.md q15), and 3 Adam updates
+        # carry that rounding into the losses
+        t_d = time.perf_counter()
+        native = run(x, 0, cudnn=False)
+        t_native = time.perf_counter() - t_d
+        refs = bounds(d_run, run(nudged(dtype), 0), run(x, 0), native)
+        sp = run(x, 2)
+        print(f"spatial training (d) {dtype}: {steps_n} Adam steps at n=2, losses "
+              + json.dumps([round(float(v), 6) for v in sp[0]]) + ", unsharded "
+              + json.dumps([round(float(v), 6) for v in d_run[0]]) + ", unsharded without "
+              f"cuDNN {json.dumps([round(float(v), 6) for v in native[0]])} ({t_native:.1f} s)")
+        held(dtype, f"(d) {steps_n} Adam steps' losses, parameters' change after each step",
+             sp, refs)
+        names, sizes = zip(*((k, p.numel()) for k, p in fresh(cfg).named_parameters()))
+        shortest = []  # after each step: (the least length ratio over the tensors, its name)
+        for a, (r, _) in zip(sp[1:], refs[1:]):
+            ratios = [(float(ta.norm() / tr.norm()), nm)
+                      for ta, tr, nm in zip(a.split(sizes), r.split(sizes), names)
+                      if float(tr.norm()) > 0]
+            shortest.append(min(ratios))
+        print(f"spatial training (d) {dtype}: each step's shortest sharded parameter change "
+              "over the unsharded one's (at least 0.5): "
+              + ", ".join(f"{v:.4f} ({nm})" for v, nm in shortest)
+              + "; the whole change's: "
+              + ", ".join(f"{float(a.norm() / r.norm()):.4f}"
+                          for a, (r, _) in zip(sp[1:], refs[1:])))
+        if not all(v > 0.5 for v, _ in shortest):
+            raise AssertionError(f"spatial training (d) {dtype}: a sharded parameter moved less "
+                                 "than half as far as the unsharded one")
+
+    # (e) ms per forward + backward by n, and peak memory
+    if on_card:
+        for dtype in ("float32", "bfloat16"):
+            cfg = FlowModelConfig(compute_dtype=dtype, loss_dtype=dtype)
+            model = fresh(cfg)
+            line = {}
+            for n in (0, 1, *SPATIAL_N):
+                fn = (make_spatial_forward(model, cfg, meshed(n)) if n
+                      else (lambda im: forward(model, cfg, im)))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                for _ in range(2):
+                    step(model, fn, x)
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(SPATIAL_TIMED + 1)]
+                events[0].record()
+                for j in range(SPATIAL_TIMED):
+                    model.zero_grad(set_to_none=True)
+                    total(fn(x)).backward()
+                    events[j + 1].record()
+                torch.cuda.synchronize()
+                ms_n = statistics.median(events[j].elapsed_time(events[j + 1])
+                                         for j in range(SPATIAL_TIMED))
+                peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+                line["unsharded" if n == 0 else f"n={n}"] = f"{ms_n:.3f} ms, {peak:.3f} GiB"
+            print(f"spatial training (e) {dtype}, use_pallas_reg off, batch {batch_n} at "
+                  f"{h}x{w}: ms per forward + backward (median of {SPATIAL_TIMED} after 2, CUDA "
+                  f"events) and peak GiB: {json.dumps(line)} ({c.smi})")
+            del model
+            torch.cuda.empty_cache()
+    # (f) one mesh over two devices, also where there is one card: shard 0 on
+    # the CPU, shard 1 on the card, so the halos, the shards' sums (on the
+    # CPU, the first shard's device) and every weight's gradient (read on
+    # both, held on the card) cross between devices; float32, use_pallas_reg,
+    # at a small frame (the CPU shard runs the plain versions)
+    if on_card:
+        hw_f, b_f = (128, 256), 2
+        small = SyntheticSnippets(hw_f, b_f, seed=SEED + 22)
+        x_f = torch.from_numpy(np.stack([small[i] for i in range(b_f)])).to(device).float() / 255
+        cfg = FlowModelConfig(use_pallas_reg=True)
+        model = fresh(cfg)
+        dense = lambda im: forward(model, cfg, im)  # noqa: E731
+        refs = bounds(step(model, dense, x_f), step(model, dense, nudged("float32", x_f)),
+                      step(model, dense, x_f))
+        fn = make_spatial_forward(model, cfg, spatial_mesh(2, devices=["cpu", device]))
+        c.reset_counts()
+        pack = fn(x_f)
+        total(pack).backward()
+        sync()
+        launched = c.counts()
+        want_f = c.want({**zero, "photometric_fwd_hpad": 3, "photometric_bwd_hpad": 3,
+                         "regularizer_fwd_hpad": 3, "regularizer_bwd_hpad": 3,
+                         "corr_fwd_hpad": 5, "corr_bwd_df1_hpad": 5, "corr_bwd_df2_hpad": 5})
+        pack_on = sorted({str(v.device) for v in pack.values()})
+        grads_on = sorted({str(p.grad.device) for p in model.parameters()})
+        print(f"spatial training (f) float32 use_pallas_reg=True, shards on ['cpu', "
+              f"'{device}'] at batch {b_f}, {hw_f}: launches {_launched(launched)} (the card's "
+              f"shard); pack on {pack_on}, gradients on {grads_on}")
+        if launched != want_f or pack_on != ["cpu"] or any(
+                p.grad.device != p.device for p in model.parameters()):
+            raise AssertionError(f"spatial training (f): launches {launched} (want {want_f}), "
+                                 f"pack on {pack_on}, gradients on {grads_on}")
+        sp = step(model, fn, x_f)
+        held("float32", "(f) shards on the CPU and the card, pack, gradients",
+             [v.to(device) for v in sp], refs)
+        del model, pack, refs, sp
+        torch.cuda.empty_cache()
+
+    print(f"spatial training: phase 21 in {time.perf_counter() - t21:.1f} s")
+    return record_launches
+
+
 def main() -> int:
     import torch
 
@@ -3166,7 +3758,7 @@ def main() -> int:
     # the loss kernels with bfloat16 images, per bf16 training step:
     # [kernel ms, plain ms, bytes, operations]
     bf16_step = {k: [0.0, 0.0, 0.0, 0.0] for k in KERNELS
-                 if k.startswith(("photometric", "regularizer"))}
+                 if k.startswith(("photometric", "regularizer")) and not k.endswith("_hpad")}
     zero_counts = dict.fromkeys(KERNELS, 0)
 
     def add_work(name, nbytes, ops):
@@ -4434,30 +5026,6 @@ def main() -> int:
         cli=[], smi=smi, flow_ms={"float32": ms_step, "bfloat16": ms_step_bf16}))
     torch.cuda.empty_cache()
 
-    launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
-                "regularizer_bwd": reg_counts["regularizer_bwd"],
-                "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
-                "corr_bwd_df1_hpad": grad_counts["corr_bwd_df1_hpad"],
-                "corr_bwd_df2_hpad": grad_counts["corr_bwd_df2_hpad"],
-                "row_gather": probe_counts["row_gather"],
-                "lane_gather": probe_counts["lane_gather"],
-                "sublane_gather": probe_counts["sublane_gather"]}
-    records = []
-    for name, (src, replaces) in KERNELS.items():
-        bound_ms, bound_by = _bound(*work[name])
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": src,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": max_err[name],
-            "ms": ms[name],
-            "plain_ms": plain_ms[name],
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": library_ms[name],
-        })
     # ---- 17. the host modules: JPEG, the NYU .mat, depth and mask evaluation --
     host_modules(types.SimpleNamespace(
         device=device, img_hw=IMG_HW, precision="bfloat16", batch=BATCH,
@@ -4500,7 +5068,41 @@ def main() -> int:
         cli=[], smi=smi))
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: 20 phases passed in {time.perf_counter() - t_start:.1f} s")
+    # ---- 21. spatial training: the loss stack and its gradients over row-shards --
+    hpad_loss_counts = spatial_training(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, batch=BATCH, shard_devices=shard_devices, counts=counts,
+        reset_counts=reset_counts, want=lambda d: d, smi=smi, max_err=max_err, ms=ms,
+        plain_ms=plain_ms, work=work))
+    torch.cuda.empty_cache()
+
+    launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
+                "regularizer_bwd": reg_counts["regularizer_bwd"],
+                "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
+                "corr_bwd_df1_hpad": grad_counts["corr_bwd_df1_hpad"],
+                "corr_bwd_df2_hpad": grad_counts["corr_bwd_df2_hpad"],
+                "row_gather": probe_counts["row_gather"],
+                "lane_gather": probe_counts["lane_gather"],
+                "sublane_gather": probe_counts["sublane_gather"],
+                **{k: hpad_loss_counts[k] for k in ("photometric_fwd_hpad", "photometric_bwd_hpad",
+                                                    "regularizer_fwd_hpad",
+                                                    "regularizer_bwd_hpad")}}
+    records = []
+    for name, (src, replaces) in KERNELS.items():
+        bound_ms, bound_by = _bound(*work[name])
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": ms[name],
+            "plain_ms": plain_ms[name],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms[name],
+        })
+    print(f"chip_smoke: 21 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

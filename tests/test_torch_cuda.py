@@ -466,6 +466,7 @@ def test_train_step_kernels_match_plain(device):
     assert {k: after[k] - before[k] for k in after} == {
         "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
         "photometric_fwd": 3, "photometric_bwd": 3,
+        "photometric_fwd_hpad": 0, "photometric_bwd_hpad": 0,
         "corr_fwd_hpad": 0, "corr_bwd_df1_hpad": 0, "corr_bwd_df2_hpad": 0}
     for k in want:
         assert torch.isfinite(got[k]) and torch.isfinite(want[k])
@@ -536,7 +537,9 @@ def test_regularizer_kernels_match_plain(device, shape, dtype):
     before = dict(regularizer_cuda.launches)
     got, gb, gf = _reg_run(regularizer_pack, *case, cot)
     torch.cuda.synchronize()
-    assert regularizer_cuda.launches == {k: v + 1 for k, v in before.items()}
+    # the whole-map kernels; the row-shard (hpad) ones launch only on a sharded step
+    assert regularizer_cuda.launches == {k: v + (0 if k.endswith("_hpad") else 1)
+                                        for k, v in before.items()}
     for k in ("s_sx", "s_sy", "s_consis"):
         assert got[k].shape == want[k].shape and got[k].dtype == torch.float32
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
@@ -590,7 +593,9 @@ def test_train_step_with_regularizer_kernels_matches_plain(device):
     before = dict(regularizer_cuda.launches)
     got, grads = _step_grads(model, cfg, batch)
     torch.cuda.synchronize()
-    assert regularizer_cuda.launches == {k: v + 3 for k, v in before.items()}
+    # the whole-map kernels; the row-shard (hpad) ones launch only on a sharded step
+    assert regularizer_cuda.launches == {k: v + (0 if k.endswith("_hpad") else 3)
+                                        for k, v in before.items()}
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())

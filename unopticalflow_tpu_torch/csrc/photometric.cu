@@ -55,6 +55,22 @@
 // SM leave is the L1 cache of the gathers: with the warp derivatives in shared
 // memory too (66.5 KB a block) the backward was slower on flows that are random
 // pixel by pixel.
+//
+// Halo-prepadded variants (HPAD = true).  One row-shard of a height-sharded
+// model (parallel/spatial.py) computes the pack over the rows it owns.  Its
+// center image and flows carry one row of halo on each side (operand rows 0
+// .. H-1, the owned rows 1 .. H-2), rows outside the image being zeros; the
+// source images img_l and img_r are the whole (B, 3, HS, W) maps at that
+// scale, and operand row k is global row y0 + k.  A position is evaluated
+// where its global row lies in the image (a halo row there is a real row,
+// whose warp and weights the SSIM windows of the owned rows next to it read;
+// elsewhere its x and y are SSIM's zero padding); the warp samples the source
+// at the global row, and the bounds and validity are the source's.  The
+// forward tiles the owned rows only: its sums and the weights it writes are
+// the owned rows'.  The backward tiles every operand row and writes d(flow)
+// for all of them (zero outside the image): the owned rows' SSIM windows
+// reach the halo rows' flows, and autograd carries that to the shards that
+// own those rows.  HPAD = false is the whole map: no halo, y0 = 0, HS = H.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,33 +304,49 @@ constexpr int FH = TH + 2, FW = TW + 2;  // tile + 1-pixel halo
 constexpr int FN = FH * FW;
 constexpr int FRING = FN - TH * TW;  // the 1-pixel ring's positions
 
-template <typename T>
+// The operand rows a kernel owns, [lo, hi), the source's rows hs and the
+// global row y0 of operand row 0 (see the halo-prepadded variants above).
+template <bool HPAD>
+struct Rows {
+  int lo, hi, hs, y0;
+  __device__ __forceinline__ Rows(int H, int HS, int Y0)
+      : lo(HPAD ? 1 : 0), hi(HPAD ? H - 1 : H), hs(HPAD ? HS : H), y0(HPAD ? Y0 : 0) {}
+  // operand row k lies inside the image (every row of a whole map does)
+  __device__ __forceinline__ bool in_image(int k) const {
+    return !HPAD || (y0 + k >= 0 && y0 + k < hs);
+  }
+};
+
+template <typename T, bool HPAD>
 __global__ void __launch_bounds__(NT, 4)
 photo_fwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
                  const T* __restrict__ img, const float* __restrict__ flow_b,
                  const float* __restrict__ flow_f, T* __restrict__ weights,
                  float* __restrict__ sums_out, int* __restrict__ counters,
-                 float* __restrict__ partials, int B, int H, int W, bool vec) {
+                 float* __restrict__ partials, int B, int H, int W, int HS, int Y0, bool vec) {
   __shared__ float sx[2][3][FN];
   __shared__ float sy[2][3][FN];
   __shared__ float red[NT / 32][6];
   __shared__ int last;
+  const Rows<HPAD> span(H, HS, Y0);
   const int b = blockIdx.z;
-  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
+  const int tx0 = blockIdx.x * TW, ty0 = span.lo + blockIdx.y * TH;
   const int tid = threadIdx.x;
-  const int plane = H * W;
-  const T* il = img_l + b * 3 * plane;
-  const T* ir = img_r + b * 3 * plane;
+  const int plane = H * W, splane = span.hs * W, oplane = (span.hi - span.lo) * W;
+  const T* il = img_l + b * 3 * splane;
+  const T* ir = img_r + b * 3 * splane;
   const T* im = img + b * 3 * plane;
   const float* fb = flow_b + b * 2 * plane;
   const float* ff = flow_f + b * 2 * plane;
   float sums[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // s_dw, s_w, s_cl of bwd, then fwd
 
-  // pass 1a: the thread's own two pixels
+  // pass 1a: the thread's own two pixels (a halo row below the owned rows
+  // is evaluated for the maps only)
   {
     const int pr = tid >> 4, pc = (tid & 15) * 2;
     const int gy = ty0 + pr, gx = tx0 + pc;
-    const bool in0 = gy < H && gx < W, in1 = in0 && gx + 1 < W;
+    const bool in0 = gy < H && gx < W && span.in_image(gy), in1 = in0 && gx + 1 < W;
+    const bool own = gy < span.hi;
     const int i0 = (pr + 1) * FW + pc + 1;
     if (in0) {
       const int p = gy * W + gx;
@@ -332,8 +364,10 @@ photo_fwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
           zero_maps<FN>(sx, sy, i0 + 1);
           continue;
         }
-        const Pixel<T, false> px(il, ir, c[k], ub[k], vb[k], uf[k], vf[k], H, W, gy, gx + k);
+        const Pixel<T, false> px(il, ir, c[k], ub[k], vb[k], uf[k], vf[k], span.hs, W,
+                                 span.y0 + gy, gx + k);
         put_maps<T, false, FN>(sx, sy, i0 + k, c[k], px);
+        if (!own) continue;
         sums[0] += px.diff_b * px.wgt_b;
         sums[1] += px.wgt_b;
         sums[3] += px.diff_f * px.wgt_f;
@@ -341,8 +375,11 @@ photo_fwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
         wgt[0][k] = px.wgt_b;
         wgt[1][k] = px.wgt_f;
       }
-      store2(weights + b * plane + p, vec, in1, wgt[0][0], wgt[0][1]);
-      store2(weights + (B + b) * plane + p, vec, in1, wgt[1][0], wgt[1][1]);
+      if (own) {
+        const int o = (gy - span.lo) * W + gx;
+        store2(weights + b * oplane + o, vec, in1, wgt[0][0], wgt[0][1]);
+        store2(weights + (B + b) * oplane + o, vec, in1, wgt[1][0], wgt[1][1]);
+      }
     } else {
       zero_maps<FN>(sx, sy, i0);
       zero_maps<FN>(sx, sy, i0 + 1);
@@ -354,11 +391,11 @@ photo_fwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
     ring_pos<1>(i, r, q);
     const int gy = ty0 - 1 + r, gx = tx0 - 1 + q;
     const int m = r * FW + q;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W && span.in_image(gy)) {
       const int p = gy * W + gx;
       const float c[3] = {to_f32(im[p]), to_f32(im[plane + p]), to_f32(im[2 * plane + p])};
-      const Pixel<T, false> px(il, ir, c, fb[p], fb[plane + p], ff[p], ff[plane + p], H, W,
-                               gy, gx);
+      const Pixel<T, false> px(il, ir, c, fb[p], fb[plane + p], ff[p], ff[plane + p], span.hs,
+                               W, span.y0 + gy, gx);
       put_maps<T, false, FN>(sx, sy, m, c, px);
     } else {
       zero_maps<FN>(sx, sy, m);
@@ -370,7 +407,7 @@ photo_fwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
   {
     const int q = tid & 31, r0 = (tid >> 5) * 2;
     const int gx = tx0 + q, gy = ty0 + r0;
-    const bool in0 = gx < W && gy < H, in1 = in0 && gy + 1 < H;
+    const bool in0 = gx < W && gy < span.hi, in1 = in0 && gy + 1 < span.hi;
     if (in0) {
 #pragma unroll
       for (int d = 0; d < 2; ++d) {
@@ -432,31 +469,34 @@ constexpr int QN = QH * QW;
 constexpr int QRUN = 3;                  // cotangent rows a thread pools at once
 static_assert(QH % QRUN == 0 && (QH / QRUN) * QW <= NT, "one cotangent run a thread");
 
-template <typename T>
+template <typename T, bool HPAD>
 __global__ void __launch_bounds__(NT, 3)
 photo_bwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
                  const T* __restrict__ img, const float* __restrict__ flow_b,
                  const float* __restrict__ flow_f, const float* __restrict__ g_dw,
                  const float* __restrict__ g_cl, float* __restrict__ dflow_b,
-                 float* __restrict__ dflow_f, int B, int H, int W, bool vec) {
+                 float* __restrict__ dflow_f, int B, int H, int W, int HS, int Y0, bool vec) {
   __shared__ float sx[2][3][BN];
   __shared__ float sy[2][3][BN];
   __shared__ float sq[3][QN];  // [mu_y, pool(y^2), pool(xy)] of one (direction, channel)
+  const Rows<HPAD> span(H, HS, Y0);
   const int b = blockIdx.z;
   const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
   const int tid = threadIdx.x;
-  const int plane = H * W;
-  const T* il = img_l + b * 3 * plane;
-  const T* ir = img_r + b * 3 * plane;
+  const int plane = H * W, splane = span.hs * W;
+  const T* il = img_l + b * 3 * splane;
+  const T* ir = img_r + b * 3 * splane;
   const T* im = img + b * 3 * plane;
   const float* fb = flow_b + b * 2 * plane;
   const float* ff = flow_f + b * 2 * plane;
 
   // pass 1a: the own two pixels; their warp derivatives, weights and the L1
-  // term's part of d(flow) stay in registers
+  // term's part of d(flow) stay in registers.  `out`: the pixels written (zero
+  // outside the image), in0: evaluated; the L1 term only on the owned rows.
   const int pr = tid >> 4, pc = (tid & 15) * 2;
   const int gy = ty0 + pr, gx = tx0 + pc;
-  const bool in0 = gy < H && gx < W, in1 = in0 && gx + 1 < W;
+  const bool out = gy < H && gx < W, out1 = out && gx + 1 < W;
+  const bool in0 = out && span.in_image(gy), in1 = in0 && gx + 1 < W;
   float ddx[2][2][3] = {}, ddy[2][2][3] = {};  // [pixel][direction][channel]
   float wgt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [pixel][direction]
   float du[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -465,7 +505,8 @@ photo_bwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
     const int i0 = (pr + 2) * BW + pc + 2;
     if (in0) {
       const int p = gy * W + gx;
-      const float gdw[2] = {g_dw[b], g_dw[B + b]};
+      const bool own = gy >= span.lo && gy < span.hi;
+      const float gdw[2] = {own ? g_dw[b] : 0.f, own ? g_dw[B + b] : 0.f};
       float c[2][3], ub[2], vb[2], uf[2], vf[2];
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) load2(im + ch * plane + p, vec, in1, c[0][ch], c[1][ch]);
@@ -479,7 +520,8 @@ photo_bwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
           zero_maps<BN>(sx, sy, i0 + 1);
           continue;
         }
-        const Pixel<T, true> px(il, ir, c[k], ub[k], vb[k], uf[k], vf[k], H, W, gy, gx + k);
+        const Pixel<T, true> px(il, ir, c[k], ub[k], vb[k], uf[k], vf[k], span.hs, W,
+                                span.y0 + gy, gx + k);
         put_maps<T, true, BN>(sx, sy, i0 + k, c[k], px);
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
@@ -509,11 +551,11 @@ photo_bwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
     ring_pos<2>(i, r, q);
     const int y = ty0 - 2 + r, x = tx0 - 2 + q;
     const int m = r * BW + q;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
+    if (y >= 0 && y < H && x >= 0 && x < W && span.in_image(y)) {
       const int p = y * W + x;
       const float c[3] = {to_f32(im[p]), to_f32(im[plane + p]), to_f32(im[2 * plane + p])};
-      const Pixel<T, false> px(il, ir, c, fb[p], fb[plane + p], ff[p], ff[plane + p], H, W, y,
-                               x);
+      const Pixel<T, false> px(il, ir, c, fb[p], fb[plane + p], ff[p], ff[plane + p], span.hs,
+                               W, span.y0 + y, x);
       put_maps<T, false, BN>(sx, sy, m, c, px);
     } else {
       zero_maps<BN>(sx, sy, m);
@@ -540,7 +582,7 @@ photo_bwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
         for (int j = 0; j < QRUN; ++j) {
           const int y = ty0 - 1 + r0 + j;
           float q_mu = 0.f, q_py2 = 0.f, q_pxy = 0.f;
-          if (y >= 0 && y < H && x >= 0 && x < W) {
+          if (y >= span.lo && y < span.hi && x >= 0 && x < W) {
             const Ssim st = ssim_of(add3(rows[j], rows[j + 1], rows[j + 2]));
             const float s = st.s;
             const float h = (1.f - s) * 0.5f;
@@ -593,14 +635,14 @@ photo_bwd_kernel(const T* __restrict__ img_l, const T* __restrict__ img_r,
     }
   }
 
-  if (in0) {
+  if (out) {
     const int p = gy * W + gx;
     float* ob = dflow_b + b * 2 * plane + p;
     float* of = dflow_f + b * 2 * plane + p;
-    store2(ob, vec, in1, du[0][0], du[1][0]);
-    store2(ob + plane, vec, in1, dv[0][0], dv[1][0]);
-    store2(of, vec, in1, du[0][1], du[1][1]);
-    store2(of + plane, vec, in1, dv[0][1], dv[1][1]);
+    store2(ob, vec, out1, du[0][0], du[1][0]);
+    store2(ob + plane, vec, out1, dv[0][0], dv[1][0]);
+    store2(of, vec, out1, du[0][1], du[1][1]);
+    store2(of + plane, vec, out1, dv[0][1], dv[1][1]);
   }
 }
 
@@ -615,34 +657,36 @@ bool pairs_align(int W, std::initializer_list<std::pair<const void*, int>> ptrs)
 }
 
 // work: [3][2B] sums (the outputs), [B] int32 counters of finished tiles,
-// [3][2][B][tiles] partial sums
-template <typename T>
+// [3][2][B][tiles] partial sums.  H: the operand's rows (the owned rows plus 2
+// when HPAD), HS: the source's, Y0: the global row of operand row 0.
+template <typename T, bool HPAD>
 cudaError_t launch_fwd(const void* il, const void* ir, const void* im, const float* fb,
                        const float* ff, void* weights, float* work, int B, int H, int W,
-                       cudaStream_t stream) {
+                       int HS, int Y0, cudaStream_t stream) {
   const int e = (int)sizeof(T);
   const bool vec = pairs_align(W, {{il, e}, {ir, e}, {im, e}, {weights, e}, {fb, 4}, {ff, 4}});
   int* counters = reinterpret_cast<int*>(work + 6 * B);
   const cudaError_t err = cudaMemsetAsync(counters, 0, B * sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  photo_fwd_kernel<T><<<grid, NT, 0, stream>>>(
+  const int owned = HPAD ? H - 2 : H;
+  const dim3 grid((W + TW - 1) / TW, (owned + TH - 1) / TH, B);
+  photo_fwd_kernel<T, HPAD><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(il), static_cast<const T*>(ir), static_cast<const T*>(im), fb, ff,
-      static_cast<T*>(weights), work, counters, work + 7 * B, B, H, W, vec);
+      static_cast<T*>(weights), work, counters, work + 7 * B, B, H, W, HS, Y0, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HPAD>
 cudaError_t launch_bwd(const void* il, const void* ir, const void* im, const float* fb,
                        const float* ff, const float* g_dw, const float* g_cl, float* dfb,
-                       float* dff, int B, int H, int W, cudaStream_t stream) {
+                       float* dff, int B, int H, int W, int HS, int Y0, cudaStream_t stream) {
   const int e = (int)sizeof(T);
   const bool vec =
       pairs_align(W, {{il, e}, {ir, e}, {im, e}, {fb, 4}, {ff, 4}, {dfb, 4}, {dff, 4}});
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  photo_bwd_kernel<T><<<grid, NT, 0, stream>>>(
+  photo_bwd_kernel<T, HPAD><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(il), static_cast<const T*>(ir), static_cast<const T*>(im), fb, ff,
-      g_dw, g_cl, dfb, dff, B, H, W, vec);
+      g_dw, g_cl, dfb, dff, B, H, W, HS, Y0, vec);
   return cudaGetLastError();
 }
 
@@ -650,6 +694,52 @@ cudaError_t launch_bwd(const void* il, const void* ir, const void* im, const flo
 bool bad_shape(int B, int H, int W) {
   return B <= 0 || H <= 0 || W <= 0 || B > 65535 || (H + TH - 1) / TH > 65535 ||
          (int64_t)B * 3 * H * W >= (int64_t(1) << 31);
+}
+
+// A halo-prepadded operand of H rows holds at least one owned row.
+bool bad_hpad_shape(int B, int H, int W, int HS) {
+  return H < 3 || bad_shape(B, H, W) || bad_shape(B, HS, W);
+}
+
+template <bool HPAD>
+int fwd(const void* img_l, const void* img_r, const void* img, const void* flow_b,
+        const void* flow_f, void* weights, void* partials, int B, int H, int W, int HS, int Y0,
+        int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fb = static_cast<const float*>(flow_b);
+  const float* ff = static_cast<const float*>(flow_f);
+  float* part = static_cast<float*>(partials);
+  switch (dtype) {
+    case 0:
+      return (int)launch_fwd<float, HPAD>(img_l, img_r, img, fb, ff, weights, part, B, H, W, HS,
+                                          Y0, s);
+    case 1:
+      return (int)launch_fwd<__nv_bfloat16, HPAD>(img_l, img_r, img, fb, ff, weights, part, B, H,
+                                                  W, HS, Y0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool HPAD>
+int bwd(const void* img_l, const void* img_r, const void* img, const void* flow_b,
+        const void* flow_f, const void* g_dw, const void* g_cl, void* dflow_b, void* dflow_f,
+        int B, int H, int W, int HS, int Y0, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fb = static_cast<const float*>(flow_b);
+  const float* ff = static_cast<const float*>(flow_f);
+  const float* gd = static_cast<const float*>(g_dw);
+  const float* gc = static_cast<const float*>(g_cl);
+  float* db = static_cast<float*>(dflow_b);
+  float* df = static_cast<float*>(dflow_f);
+  switch (dtype) {
+    case 0:
+      return (int)launch_bwd<float, HPAD>(img_l, img_r, img, fb, ff, gd, gc, db, df, B, H, W,
+                                          HS, Y0, s);
+    case 1:
+      return (int)launch_bwd<__nv_bfloat16, HPAD>(img_l, img_r, img, fb, ff, gd, gc, db, df, B,
+                                                  H, W, HS, Y0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -663,17 +753,8 @@ extern "C" int photo_fwd(const void* img_l, const void* img_r, const void* img,
                          const void* flow_b, const void* flow_f, void* weights, void* partials,
                          int B, int H, int W, int dtype, void* stream) {
   if (bad_shape(B, H, W)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fb = static_cast<const float*>(flow_b);
-  const float* ff = static_cast<const float*>(flow_f);
-  float* part = static_cast<float*>(partials);
-  switch (dtype) {
-    case 0: return (int)launch_fwd<float>(img_l, img_r, img, fb, ff, weights, part, B, H, W, s);
-    case 1:
-      return (int)launch_fwd<__nv_bfloat16>(img_l, img_r, img, fb, ff, weights, part, B, H, W,
-                                            s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fwd<false>(img_l, img_r, img, flow_b, flow_f, weights, partials, B, H, W, H, 0, dtype,
+                    stream);
 }
 
 // g_dw, g_cl: (2B,) f32 gradients of s_dw and s_cl, [bwd; fwd].
@@ -683,19 +764,30 @@ extern "C" int photo_bwd(const void* img_l, const void* img_r, const void* img,
                          const void* g_cl, void* dflow_b, void* dflow_f, int B, int H, int W,
                          int dtype, void* stream) {
   if (bad_shape(B, H, W)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fb = static_cast<const float*>(flow_b);
-  const float* ff = static_cast<const float*>(flow_f);
-  const float* gd = static_cast<const float*>(g_dw);
-  const float* gc = static_cast<const float*>(g_cl);
-  float* db = static_cast<float*>(dflow_b);
-  float* df = static_cast<float*>(dflow_f);
-  switch (dtype) {
-    case 0:
-      return (int)launch_bwd<float>(img_l, img_r, img, fb, ff, gd, gc, db, df, B, H, W, s);
-    case 1:
-      return (int)launch_bwd<__nv_bfloat16>(img_l, img_r, img, fb, ff, gd, gc, db, df, B, H,
-                                            W, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd<false>(img_l, img_r, img, flow_b, flow_f, g_dw, g_cl, dflow_b, dflow_f, B, H, W, H,
+                    0, dtype, stream);
+}
+
+// One row-shard: img_h, flow_b_h, flow_f_h carry h + 2 = H rows (one halo row
+// each side, zeros outside the image), the owned rows being global rows row0
+// .. row0 + h - 1; img_l, img_r are the whole (B, 3, HS, W) maps.  weights:
+// (2B, 1, h, W); partials: 7B + 6B * ceil(h/16) * ceil(W/32) floats, the first
+// 6B the owned rows' sums as photo_fwd's.
+extern "C" int photo_fwd_hpad(const void* img_l, const void* img_r, const void* img_h,
+                              const void* flow_b_h, const void* flow_f_h, void* weights,
+                              void* partials, int B, int HS, int H, int W, int row0, int dtype,
+                              void* stream) {
+  if (bad_hpad_shape(B, H, W, HS)) return (int)cudaErrorInvalidValue;
+  return fwd<true>(img_l, img_r, img_h, flow_b_h, flow_f_h, weights, partials, B, H, W, HS,
+                   row0 - 1, dtype, stream);
+}
+
+// dflow_b_h, dflow_f_h: (B, 2, H, W) f32, every operand row.
+extern "C" int photo_bwd_hpad(const void* img_l, const void* img_r, const void* img_h,
+                              const void* flow_b_h, const void* flow_f_h, const void* g_dw,
+                              const void* g_cl, void* dflow_b_h, void* dflow_f_h, int B, int HS,
+                              int H, int W, int row0, int dtype, void* stream) {
+  if (bad_hpad_shape(B, H, W, HS)) return (int)cudaErrorInvalidValue;
+  return bwd<true>(img_l, img_r, img_h, flow_b_h, flow_f_h, g_dw, g_cl, dflow_b_h, dflow_f_h, B,
+                   H, W, HS, row0 - 1, dtype, stream);
 }

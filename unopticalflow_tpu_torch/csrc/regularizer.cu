@@ -62,6 +62,22 @@
 // forward 17.3 KB, backward 20.2 KB a block; registers capped for 6 and 5
 // blocks of 256 an SM.  Indices are 32-bit (the wrapper bounds B * 3 * H * W
 // below 2^31).
+//
+// Halo-prepadded variants (HPAD = true).  One row-shard of a height-sharded
+// model (parallel/spatial.py) computes the sums of the terms it owns.  Its
+// flows and image carry one row of halo on each side (operand rows 0 .. H-1,
+// the owned rows 1 .. H-2; rows outside the image are zeros), operand row k
+// is global row y0 + k, and the image is HS rows tall; w_fwd holds the owned
+// rows only.  A term along rows spans three rows and belongs to the shard
+// that owns its middle row (the row of its edge weight wy), where its global
+// top row lies in [0, HS - 3]; the terms along a row and the consistency
+// term belong to the row's shard.  So every term is counted once over the
+// shards, and one halo row each side is all a shard reads.  The forward tiles
+// the owned rows and stages one row above and one below (the whole map's
+// forward stages two below: its y term starts at the position's row, the
+// shard's is centred there); the backward tiles every operand row and writes
+// d(flow) for all of them, the halo rows' from the owned terms that reach
+// them.  HPAD = false is the whole map: lo = 0, hi = H, y0 = 0, HS = H.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,6 +155,21 @@ __device__ __forceinline__ float2 lds2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+// The operand rows a kernel owns, [lo, hi), and which terms it counts (see the
+// halo-prepadded variants above).
+template <bool HPAD>
+struct Rows {
+  int lo, hi, hs, y0;
+  __device__ __forceinline__ Rows(int H, int HS, int Y0)
+      : lo(HPAD ? 1 : 0), hi(HPAD ? H - 1 : H), hs(HPAD ? HS : H), y0(HPAD ? Y0 : 0) {}
+  __device__ __forceinline__ bool owned(int k) const { return k >= lo && k < hi; }
+  // the y term whose window starts at operand row a: its middle row owned, its
+  // rows inside the image
+  __device__ __forceinline__ bool y_term(int a) const {
+    return owned(a + 1) && y0 + a >= 0 && y0 + a <= hs - 3;
+  }
+};
+
 // Positions of the chunk at (gy, gx .. gx + 1) inside the image.
 __device__ __forceinline__ int chunk_len(int gy, int gx, int H, int W) {
   return gy >= 0 && gy < H && gx >= 0 && gx < W ? min(W - gx, 2) : 0;
@@ -173,7 +204,8 @@ struct Stage {
   }
 
   // What a thread loads of one tile: its own chunk (tile row r, chunk c) of
-  // the raw flows (bwd u, v, fwd u, v), the image and the weights, and its
+  // the raw flows (bwd u, v, fwd u, v), the image and the weights (where its
+  // row is owned: w_fwd holds the owned rows from operand row lo), and its
   // share of the ring's (plane, chunk)s, g already scaled.
   struct Loads {
     float2 f[4], im[3], wf, rv[PER];
@@ -185,7 +217,8 @@ struct Stage {
   template <typename T>
   static __device__ __forceinline__ void fetch(Loads& l, const float* fb, const float* ff,
                                                const T* im, const T* wf, int H, int W, int ty0,
-                                               int tx0, int r, int c, int tid, bool vec) {
+                                               int tx0, int r, int c, int tid, bool vec,
+                                               int lo, int hi) {
     const int plane = H * W;
     l.n = chunk_len(ty0 + r, tx0 + 2 * c, H, W);
     l.p = l.n > 0 ? (ty0 + r) * W + tx0 + 2 * c : 0;
@@ -195,7 +228,8 @@ struct Stage {
     l.f[3] = load2(ff + plane + l.p, vec, l.n);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) l.im[ch] = load2(im + ch * plane + l.p, vec, l.n);
-    l.wf = load2(wf + l.p, vec, l.n);
+    const bool own = ty0 + r >= lo && ty0 + r < hi;
+    l.wf = load2(wf + (own ? l.p - lo * W : 0), vec, own ? l.n : 0);
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int i = tid + k * NT;  // plane i / RING, chunk i % RING
@@ -230,14 +264,18 @@ struct Stage {
 // holds: at staged row `k` (a row offset into plane 4), the x edges of
 // columns 1..2 and 2..3 of the window (x[0..3]) and the y edges of rows 1..2
 // at columns 0, 1; channels added in order 0, 1, 2 as edge_w adds them.
+// kx: the x window's row, ky: the y window's first row (the same row in the
+// whole map's form).
 template <int S, int P>
-__device__ __forceinline__ void edge_sums(const float* k, float (&mx)[2], float (&my)[2]) {
+__device__ __forceinline__ void edge_sums(const float* kx, const float* ky, float (&mx)[2],
+                                          float (&my)[2]) {
   mx[0] = mx[1] = my[0] = my[1] = 0.f;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    const float* si = k + (4 + ch) * P;
-    const float2 a = lds2(si), a2 = lds2(si + 2);
-    const float2 y1 = lds2(si + S), y2 = lds2(si + 2 * S);
+    const float* sx = kx + (4 + ch) * P;
+    const float* sy = ky + (4 + ch) * P;
+    const float2 a = lds2(sx), a2 = lds2(sx + 2);
+    const float2 y1 = lds2(sy + S), y2 = lds2(sy + 2 * S);
     mx[0] += fabsf(a2.x - a.y);  // the edge from window column 1 to 2
     mx[1] += fabsf(a2.y - a2.x);
     my[0] += fabsf(y2.x - y1.x);
@@ -247,31 +285,39 @@ __device__ __forceinline__ void edge_sums(const float* k, float (&mx)[2], float 
 
 // ---- forward ------------------------------------------------------------------
 
-using FwdStage = Stage<0, 2, 0, 1>;  // the stencils reach 2 positions right and down
+// The stencils reach 2 positions right and down (the y window from the
+// position's row); a shard's y window is centred on the position's row.
+template <bool HPAD>
+using FwdStage = Stage<HPAD ? 1 : 0, HPAD ? 1 : 2, 0, 1>;
 
-template <typename T>
+template <typename T, bool HPAD>
 __global__ void __launch_bounds__(NT, 6)
 reg_fwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_f,
                const T* __restrict__ img, const T* __restrict__ w_fwd,
                float* __restrict__ sums_out, int* __restrict__ counters,
-               float* __restrict__ partials, int B, int H, int W, bool vec) {
-  constexpr int S = FwdStage::S, P = FwdStage::P;
-  __shared__ __align__(16) float s[FwdStage::FLOATS];
+               float* __restrict__ partials, int B, int H, int W, int HS, int Y0, bool vec) {
+  using Stg = FwdStage<HPAD>;
+  constexpr int S = Stg::S, P = Stg::P, TOP = HPAD ? 1 : 0;
+  __shared__ __align__(16) float s[Stg::FLOATS];
   __shared__ float red[NT / 32][5];
   __shared__ int last;
+  const Rows<HPAD> span(H, HS, Y0);
   const int b = blockIdx.z;
-  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
+  const int tx0 = blockIdx.x * TW, ty0 = span.lo + blockIdx.y * TH;
   const int tid = threadIdx.x;
   const int r = tid / TC, c = tid % TC;
   const int plane = H * W;
   float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sx of half d at d, sy at 2 + d, consis at 4
 
-  FwdStage::Loads l;
-  FwdStage::fetch(l, flow_b + b * 2 * plane, flow_f + b * 2 * plane, img + b * 3 * plane,
-                  w_fwd + b * plane, H, W, ty0, tx0, r, c, tid, vec);
+  typename Stg::Loads l;
+  Stg::fetch(l, flow_b + b * 2 * plane, flow_f + b * 2 * plane, img + b * 3 * plane,
+             w_fwd + b * (span.hi - span.lo) * W, H, W, ty0, tx0, r, c, tid, vec, span.lo,
+             span.hi);
+  const int gy = ty0 + r, gx = tx0 + 2 * c;
+  const bool own = gy < span.hi;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    if (e >= l.n) continue;
+    if (e >= l.n || !own) continue;
     const float ub = e ? l.f[0].y : l.f[0].x, vb = e ? l.f[1].y : l.f[1].x;
     const float uf = e ? l.f[2].y : l.f[2].x, vf = e ? l.f[3].y : l.f[3].x;
     const float den_b = norm_of(ub, vb) + kEpsN;
@@ -280,19 +326,21 @@ reg_fwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_
     const float rv = vf / den_f + vb / den_b;
     sums[4] += (fabsf(ru) + fabsf(rv)) * (1.f - (e ? l.wf.y : l.wf.x));
   }
-  FwdStage::put(s, l, r, c);
+  Stg::put(s, l, r, c);
   __syncthreads();
 
-  // the own positions (gy, gx + e): x terms where gx + e <= W - 3, y terms
-  // where gy <= H - 3.  Staged row r holds gy, column 2c + e holds gx + e.
-  // The sums only need their tolerance, so the edge weights here take the
-  // fast exponential (the backward's are edge_w's, which its bits rest on).
-  const int gy = ty0 + r, gx = tx0 + 2 * c;
-  const float* sk = s + r * S + 2 * c;
+  // the own positions (gy, gx + e) of owned rows: x terms where gx + e <= W -
+  // 3, the y term whose window starts TOP rows above where Rows::y_term.
+  // Staged row TOP + r holds gy, column 2c + e holds gx + e.  The sums only
+  // need their tolerance, so the edge weights here take the fast exponential
+  // (the backward's are edge_w's, which its bits rest on).
+  const float* sk = s + (TOP + r) * S + 2 * c;  // the x window's row
+  const float* sw = s + r * S + 2 * c;          // the y window's first row
+  const bool xin = own && l.n > 0, yin = span.y_term(gy - TOP);
   float wx[2], wy[2];
   {
     float mx[2], my[2];
-    edge_sums<S, P>(sk, mx, my);
+    edge_sums<S, P>(sk, sw, mx, my);
     // wx[i, j+1]: the edge j+1 -> j+2; wy[i+1, j]: the edge i+1 -> i+2
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -306,17 +354,18 @@ reg_fwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_
 #pragma unroll
     for (int q = 2 * d; q < 2 * d + 2; ++q) {
       const float* sg = sk + q * P;
+      const float* sv = sw + q * P;
       const float2 a = lds2(sg), a2 = lds2(sg + 2);
-      const float2 y1 = lds2(sg + S), y2 = lds2(sg + 2 * S);
+      const float2 y0 = lds2(sv), y1 = lds2(sv + S), y2 = lds2(sv + 2 * S);
       ax[0] += fabsf(d2(a.x, a.y, a2.x));
       ax[1] += fabsf(d2(a.y, a2.x, a2.y));
-      ay[0] += fabsf(d2(a.x, y1.x, y2.x));
-      ay[1] += fabsf(d2(a.y, y1.y, y2.y));
+      ay[0] += fabsf(d2(y0.x, y1.x, y2.x));
+      ay[1] += fabsf(d2(y0.y, y1.y, y2.y));
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      if (gy < H && gx + e <= W - 3) sums[d] += wx[e] * ax[e];
-      if (gy <= H - 3 && gx + e < W) sums[2 + d] += wy[e] * ay[e];
+      if (xin && gx + e <= W - 3) sums[d] += wx[e] * ax[e];
+      if (yin && gx + e < W) sums[2 + d] += wy[e] * ay[e];
     }
   }
 
@@ -406,15 +455,16 @@ __device__ __forceinline__ void anchor(const float* s, int sr, int sc, bool in, 
     out[q] = in ? w * sgn(d2(a[q * P], a[q * P + step], a[q * P + 2 * step])) : 0.f;
 }
 
-template <typename T>
+template <typename T, bool HPAD>
 __global__ void __launch_bounds__(NT, 5)
 reg_bwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_f,
                const T* __restrict__ img, const T* __restrict__ w_fwd,
                const float* __restrict__ g_sx, const float* __restrict__ g_sy,
                const float* __restrict__ g_c, float* __restrict__ dflow_b,
-               float* __restrict__ dflow_f, int B, int H, int W, bool vec) {
+               float* __restrict__ dflow_f, int B, int H, int W, int HS, int Y0, bool vec) {
   constexpr int S = BwdStage::S, P = BwdStage::P;
   __shared__ __align__(16) float s[BwdStage::FLOATS];
+  const Rows<HPAD> span(H, HS, Y0);
   const int b = blockIdx.z;
   const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
   const int tid = threadIdx.x;
@@ -424,11 +474,12 @@ reg_bwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_
 
   BwdStage::Loads l;
   BwdStage::fetch(l, flow_b + b * 2 * plane, flow_f + b * 2 * plane, img + b * 3 * plane,
-                  w_fwd + b * plane, H, W, ty0, tx0, r, c, tid, vec);
+                  w_fwd + b * (span.hi - span.lo) * W, H, W, ty0, tx0, r, c, tid, vec, span.lo,
+                  span.hi);
   const int n = l.n, p = l.p;
-  // the consistency term's part of d(flow_f) at the own positions
-  float cu[2], cv[2];
-  {
+  // the consistency term's part of d(flow_f) at the own positions (owned rows)
+  float cu[2] = {0.f, 0.f}, cv[2] = {0.f, 0.f};
+  if (span.owned(gy)) {
     const float gc = g_c[b];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -447,12 +498,13 @@ reg_bwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_
   {
     const float* sk = s + (r + 2) * S + 2 * c + 2;
     float mx[2], my[2];
-    edge_sums<S, P>(sk, mx, my);
+    edge_sums<S, P>(sk, sk, mx, my);
     float wx[2], wy[2];
+    const bool xin = span.owned(gy), yin = span.y_term(gy);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      wx[e] = gy < H && gx + e <= W - 3 ? expf(-10.f * (mx[e] / 3.f)) : 0.f;
-      wy[e] = gy <= H - 3 && gx + e < W ? expf(-10.f * (my[e] / 3.f)) : 0.f;
+      wx[e] = xin && gx + e <= W - 3 ? expf(-10.f * (mx[e] / 3.f)) : 0.f;
+      wy[e] = yin && gx + e < W ? expf(-10.f * (my[e] / 3.f)) : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -470,10 +522,10 @@ reg_bwd_kernel(const float* __restrict__ flow_b, const float* __restrict__ flow_
     const int i = tid + k * NT;
     if (i < XRING) {
       const int rr = i >> 1, a = tx0 - 2 + (i & 1);  // x anchor (ty0 + rr, a)
-      anchor<false>(s, rr + 2, i & 1, ty0 + rr < H && a >= 0 && a <= W - 3, ring[k]);
+      anchor<false>(s, rr + 2, i & 1, span.owned(ty0 + rr) && a >= 0 && a <= W - 3, ring[k]);
     } else if (i < XRING + YRING) {
       const int j = i - XRING, a = ty0 - 2 + j / TW;  // y anchor (a, tx0 + j % TW)
-      anchor<true>(s, j / TW, j % TW + 2, a >= 0 && a <= H - 3 && tx0 + j % TW < W, ring[k]);
+      anchor<true>(s, j / TW, j % TW + 2, span.y_term(a) && tx0 + j % TW < W, ring[k]);
     }
   }
   __syncthreads();
@@ -550,30 +602,31 @@ bool chunks_align(int W, std::initializer_list<std::pair<const void*, int>> ptrs
 dim3 grid_of(int B, int H, int W) { return dim3((W + TW - 1) / TW, (H + TH - 1) / TH, B); }
 
 // work: [5][B] sums (the outputs), [B] int32 counters of finished tiles,
-// [5][B][tiles] partial sums
-template <typename T>
+// [5][B][tiles] partial sums.  H: the operand's rows (the owned rows plus 2
+// when HPAD), HS: the image's, Y0: the global row of operand row 0.
+template <typename T, bool HPAD>
 cudaError_t launch_fwd(const float* fb, const float* ff, const void* im, const void* wf,
-                       float* work, int B, int H, int W, cudaStream_t stream) {
+                       float* work, int B, int H, int W, int HS, int Y0, cudaStream_t stream) {
   const int e = (int)sizeof(T);
   const bool vec = chunks_align(W, {{fb, 4}, {ff, 4}, {im, e}, {wf, e}});
   int* counters = reinterpret_cast<int*>(work + 5 * B);
   const cudaError_t err = cudaMemsetAsync(counters, 0, B * sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  reg_fwd_kernel<T><<<grid_of(B, H, W), NT, 0, stream>>>(
+  reg_fwd_kernel<T, HPAD><<<grid_of(B, HPAD ? H - 2 : H, W), NT, 0, stream>>>(
       fb, ff, static_cast<const T*>(im), static_cast<const T*>(wf), work, counters, work + 6 * B,
-      B, H, W, vec);
+      B, H, W, HS, Y0, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HPAD>
 cudaError_t launch_bwd(const float* fb, const float* ff, const void* im, const void* wf,
                        const float* gsx, const float* gsy, const float* gc, float* dfb,
-                       float* dff, int B, int H, int W, cudaStream_t stream) {
+                       float* dff, int B, int H, int W, int HS, int Y0, cudaStream_t stream) {
   const int e = (int)sizeof(T);
   const bool vec = chunks_align(W, {{fb, 4}, {ff, 4}, {im, e}, {wf, e}, {dfb, 4}, {dff, 4}});
-  reg_bwd_kernel<T><<<grid_of(B, H, W), NT, 0, stream>>>(
+  reg_bwd_kernel<T, HPAD><<<grid_of(B, H, W), NT, 0, stream>>>(
       fb, ff, static_cast<const T*>(im), static_cast<const T*>(wf), gsx, gsy, gc, dfb, dff, B,
-      H, W, vec);
+      H, W, HS, Y0, vec);
   return cudaGetLastError();
 }
 
@@ -581,6 +634,49 @@ cudaError_t launch_bwd(const float* fb, const float* ff, const void* im, const v
 bool bad_shape(int B, int H, int W) {
   return B <= 0 || H <= 0 || W <= 0 || B > 65535 || (H + TH - 1) / TH > 65535 ||
          (int64_t)B * 3 * H * W >= (int64_t(1) << 31);
+}
+
+// A halo-prepadded operand of H rows holds at least one owned row.
+bool bad_hpad_shape(int B, int H, int W, int HS) {
+  return H < 3 || bad_shape(B, H, W) || bad_shape(B, HS, W);
+}
+
+template <bool HPAD>
+int fwd(const void* flow_b, const void* flow_f, const void* img, const void* w_fwd, void* work,
+        int B, int H, int W, int HS, int Y0, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fb = static_cast<const float*>(flow_b);
+  const float* ff = static_cast<const float*>(flow_f);
+  float* w = static_cast<float*>(work);
+  switch (dtype) {
+    case 0: return (int)launch_fwd<float, HPAD>(fb, ff, img, w_fwd, w, B, H, W, HS, Y0, s);
+    case 1:
+      return (int)launch_fwd<__nv_bfloat16, HPAD>(fb, ff, img, w_fwd, w, B, H, W, HS, Y0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool HPAD>
+int bwd(const void* flow_b, const void* flow_f, const void* img, const void* w_fwd,
+        const void* g_sx, const void* g_sy, const void* g_c, void* dflow_b, void* dflow_f, int B,
+        int H, int W, int HS, int Y0, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fb = static_cast<const float*>(flow_b);
+  const float* ff = static_cast<const float*>(flow_f);
+  const float* gsx = static_cast<const float*>(g_sx);
+  const float* gsy = static_cast<const float*>(g_sy);
+  const float* gc = static_cast<const float*>(g_c);
+  float* db = static_cast<float*>(dflow_b);
+  float* df = static_cast<float*>(dflow_f);
+  switch (dtype) {
+    case 0:
+      return (int)launch_bwd<float, HPAD>(fb, ff, img, w_fwd, gsx, gsy, gc, db, df, B, H, W, HS,
+                                          Y0, s);
+    case 1:
+      return (int)launch_bwd<__nv_bfloat16, HPAD>(fb, ff, img, w_fwd, gsx, gsy, gc, db, df, B, H,
+                                                  W, HS, Y0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -594,15 +690,7 @@ extern "C" int reg_fwd(const void* flow_b, const void* flow_f, const void* img,
                        const void* w_fwd, void* work, int B, int H, int W, int dtype,
                        void* stream) {
   if (bad_shape(B, H, W)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fb = static_cast<const float*>(flow_b);
-  const float* ff = static_cast<const float*>(flow_f);
-  float* w = static_cast<float*>(work);
-  switch (dtype) {
-    case 0: return (int)launch_fwd<float>(fb, ff, img, w_fwd, w, B, H, W, s);
-    case 1: return (int)launch_fwd<__nv_bfloat16>(fb, ff, img, w_fwd, w, B, H, W, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fwd<false>(flow_b, flow_f, img, w_fwd, work, B, H, W, H, 0, dtype, stream);
 }
 
 // g_sx, g_sy: (2B,) f32 gradients of s_sx and s_sy, [bwd; fwd]; g_c: (B,) of
@@ -612,20 +700,28 @@ extern "C" int reg_bwd(const void* flow_b, const void* flow_f, const void* img,
                        void* dflow_b, void* dflow_f, int B, int H, int W, int dtype,
                        void* stream) {
   if (bad_shape(B, H, W)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fb = static_cast<const float*>(flow_b);
-  const float* ff = static_cast<const float*>(flow_f);
-  const float* gsx = static_cast<const float*>(g_sx);
-  const float* gsy = static_cast<const float*>(g_sy);
-  const float* gc = static_cast<const float*>(g_c);
-  float* db = static_cast<float*>(dflow_b);
-  float* df = static_cast<float*>(dflow_f);
-  switch (dtype) {
-    case 0:
-      return (int)launch_bwd<float>(fb, ff, img, w_fwd, gsx, gsy, gc, db, df, B, H, W, s);
-    case 1:
-      return (int)launch_bwd<__nv_bfloat16>(fb, ff, img, w_fwd, gsx, gsy, gc, db, df, B, H,
-                                            W, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd<false>(flow_b, flow_f, img, w_fwd, g_sx, g_sy, g_c, dflow_b, dflow_f, B, H, W, H, 0,
+                    dtype, stream);
+}
+
+// One row-shard: flow_b_h, flow_f_h and img_h carry h + 2 = H rows (one halo
+// row each side, zeros outside the image), the owned rows being global rows
+// row0 .. row0 + h - 1 of an image HS rows tall; w_fwd is (B, 1, h, W).  work:
+// 6B + 5B * ceil(h/16) * ceil(W/32) floats, the first 5B the owned terms' sums
+// as reg_fwd's.
+extern "C" int reg_fwd_hpad(const void* flow_b_h, const void* flow_f_h, const void* img_h,
+                            const void* w_fwd, void* work, int B, int HS, int H, int W, int row0,
+                            int dtype, void* stream) {
+  if (bad_hpad_shape(B, H, W, HS)) return (int)cudaErrorInvalidValue;
+  return fwd<true>(flow_b_h, flow_f_h, img_h, w_fwd, work, B, H, W, HS, row0 - 1, dtype, stream);
+}
+
+// dflow_b_h, dflow_f_h: (B, 2, H, W) f32, every operand row.
+extern "C" int reg_bwd_hpad(const void* flow_b_h, const void* flow_f_h, const void* img_h,
+                            const void* w_fwd, const void* g_sx, const void* g_sy,
+                            const void* g_c, void* dflow_b_h, void* dflow_f_h, int B, int HS,
+                            int H, int W, int row0, int dtype, void* stream) {
+  if (bad_hpad_shape(B, H, W, HS)) return (int)cudaErrorInvalidValue;
+  return bwd<true>(flow_b_h, flow_f_h, img_h, w_fwd, g_sx, g_sy, g_c, dflow_b_h, dflow_f_h, B, H,
+                   W, HS, row0 - 1, dtype, stream);
 }

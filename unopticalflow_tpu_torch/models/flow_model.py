@@ -71,6 +71,30 @@ def inference_flow(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
     return flow.permute(0, 2, 3, 1).float()
 
 
+def scale_losses(photo, reg, h_s: int, w_s: int, b: int):
+    """One loss scale's terms from its sums, the whole map's or every
+    row-shard's added up (``parallel/spatial.py``): (loss_pixel, loss_ssim,
+    smoothness), each (2B,), and the (B,) consistency term, as the ratios of
+    the whole map's means (JAX flow_model.py:287-294).
+
+    ``photo`` holds the photometric pack's ``s_dw``, ``s_w`` and ``s_cl``;
+    ``reg`` the regularizer's ``s_sx``, ``s_sy`` and ``s_consis``, and
+    ``s_occ`` (the sum of 1 - w_fwd) where the plain sums give it, else
+    mean(1 - w_fwd) comes from ``s_w``.  With ``reg`` None the last two are
+    None.
+    """
+    hw = h_s * w_s
+    mean_w = photo["s_w"] / hw + 1e-12
+    pixel = (photo["s_dw"] / hw) / mean_w
+    ssim = (photo["s_cl"] / hw) / mean_w
+    if reg is None:
+        return pixel, ssim, None, None
+    # the plain losses' mean denominators
+    err = reg["s_sx"] / (h_s * (w_s - 2) * 2) + reg["s_sy"] / ((h_s - 2) * w_s * 2)
+    occ_mean = reg["s_occ"] / hw if "s_occ" in reg else 1.0 - photo["s_w"][b:] / hw
+    return pixel, ssim, err / 2.0, (reg["s_consis"] / (hw * 2)) / (occ_mean + 1e-12)
+
+
 def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
             corr_fn=cost_volume, photo_fn=photometric_pack, reg_fn=regularizer_pack,
             return_aux: bool = False):
@@ -111,19 +135,15 @@ def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
         weights = []
         for s in range(ns):
             out = photo_fn(pyr_lr[s][:b], pyr_lr[s][b:], flows_bwd[s], flows_fwd[s], pyr_c[s])
-            h_s, w_s = pyr_c[s].shape[2], pyr_c[s].shape[3]
-            hw = h_s * w_s
-            mean_w = out["s_w"] / hw + 1e-12
-            loss_pixel = loss_pixel + (out["s_dw"] / hw) / mean_w
-            loss_ssim = loss_ssim + (out["s_cl"] / hw) / mean_w
             weights.append(out["weights"])
+            reg = (reg_fn(flows_bwd[s], flows_fwd[s], pyr_c[s], out["weights"][b:].detach())
+                   if fused_reg else None)
+            terms = scale_losses(out, reg, pyr_c[s].shape[2], pyr_c[s].shape[3], b)
+            loss_pixel = loss_pixel + terms[0]
+            loss_ssim = loss_ssim + terms[1]
             if fused_reg:
-                # the plain losses' mean denominators (JAX flow_model.py:287-294)
-                reg = reg_fn(flows_bwd[s], flows_fwd[s], pyr_c[s], out["weights"][b:].detach())
-                err = reg["s_sx"] / (h_s * (w_s - 2) * 2) + reg["s_sy"] / ((h_s - 2) * w_s * 2)
-                smooth = smooth + err / 2.0
-                occ_mean = 1.0 - out["s_w"][b:] / hw  # mean(1 - w_fwd)
-                consis = consis + (reg["s_consis"] / (hw * 2)) / (occ_mean + 1e-12)
+                smooth = smooth + terms[2]
+                consis = consis + terms[3]
     else:
         warped_lr = [bilinear_warp(i, f, use_mask=True) for i, f in zip(pyr_lr[:ns], flows[:ns])]
         diffs, weights = losses.diff_and_occlusion_weights_packed(

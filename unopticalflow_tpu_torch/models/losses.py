@@ -13,6 +13,11 @@ Every loss is a per-sample (B,) float32 vector summed over ``num_scales``
 scales; per-sample means accumulate in float32 even when the image-space
 stack runs in bfloat16.  The caller applies the config weights and the
 batch mean.
+
+``smoothness_rows`` and ``consistency_rows`` give one row-shard's sums of the
+smoothness and consistency terms for a height-sharded forward
+(``parallel/spatial.py``), whose caller adds them over the shards and then
+divides by the whole map's mean denominators.
 """
 
 from __future__ import annotations
@@ -115,6 +120,38 @@ def second_order_smoothness(flow: torch.Tensor, img: torch.Tensor) -> torch.Tens
     return err / 2.0
 
 
+def smoothness_rows(flow_h: torch.Tensor, img_h: torch.Tensor, row0: int,
+                    height: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sums of ``second_order_smoothness``'s two terms that one row-shard
+    owns -> ((B_flow,), (B_flow,)) float32, before the means' denominators
+    (C h (w - 2) and C (h - 2) w of the whole map).
+
+    ``flow_h`` (already scaled) and ``img_h`` hold the shard's rows with one
+    halo row each side (global rows row0 - 1 .. row0 + h of a ``height``-row
+    map; rows outside it are never read).  A term along a row belongs to its
+    row's shard; a term along rows spans three rows and belongs to the shard
+    of its middle row (the row of its edge weight), so each term is counted
+    once over the shards.  ``img_h`` may carry a batch that divides the flow's,
+    as in ``second_order_smoothness``.
+    """
+    h = flow_h.shape[2] - 2
+    w_x = torch.exp(-10.0 * _grad_x(img_h[:, :, 1:h + 1]).abs().mean(1, keepdim=True))
+    w_y = torch.exp(-10.0 * _grad_y(img_h).abs().mean(1, keepdim=True))
+    if img_h.shape[0] != flow_h.shape[0]:
+        reps = flow_h.shape[0] // img_h.shape[0]
+        w_x = torch.cat([w_x] * reps, 0)
+        w_y = torch.cat([w_y] * reps, 0)
+    # y terms by their window's first slab row a: global row row0 - 1 + a in
+    # [0, height - 3], middle row a + 1 owned
+    lo = max(0, 1 - row0)
+    hi = max(lo, min(h, height - 1 - row0))
+    dx2 = _grad_x(_grad_x(flow_h[:, :, 1:h + 1]))
+    dy2 = _grad_y(_grad_y(flow_h[:, :, lo:hi + 2]))
+    s_x = (w_x[..., 1:] * dx2.abs()).float().sum((1, 2, 3))
+    s_y = (w_y[:, :, lo + 1:hi + 1] * dy2.abs()).float().sum((1, 2, 3))
+    return s_x, s_y
+
+
 def flow_smooth_loss(flows, imgs, num_scales: int) -> torch.Tensor:
     """Sum over scales of second_order_smoothness(flow / 20, img)."""
     total = 0.0
@@ -134,3 +171,14 @@ def flow_consistency_loss(fwd_flows, bwd_flows, occ_masks, num_scales: int) -> t
         loss = _mean_chw((fwd_n + bwd_n).abs() * occ)
         total = total + loss / (divider + EPS_DIV)
     return total
+
+
+def consistency_rows(fwd_flow: torch.Tensor, bwd_flow: torch.Tensor,
+                     occ_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One row-shard's sums of ``flow_consistency_loss``'s numerator and
+    divider at one scale -> ((B,), (B,)) float32, over the rows it owns
+    (``fwd_flow``, ``bwd_flow`` and ``occ_mask``, the weights, hold just those)."""
+    fwd_n = flow_normalization(fwd_flow)
+    bwd_n = flow_normalization(bwd_flow).detach()
+    occ = 1.0 - occ_mask
+    return ((fwd_n + bwd_n).abs() * occ).float().sum((1, 2, 3)), occ.float().sum((1, 2, 3))

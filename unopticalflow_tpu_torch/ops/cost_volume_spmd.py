@@ -25,7 +25,8 @@ per shard in their halo-prepadded form (``correlation_cuda.corr_*_hpad``).
   of the shard next to it.
 
 CUDA shards go to the kernels, CPU shards to the plain versions
-(``ops/cost_volume.py``'s ``*_hpad_reference``); a mix raises.
+(``ops/cost_volume.py``'s ``*_hpad_reference``), each shard by its own
+device, so one mesh may hold both.
 """
 
 from __future__ import annotations
@@ -79,40 +80,37 @@ def halo_exchange_h(shards, md: int) -> list[torch.Tensor]:
             for i, s in enumerate(shards)]
 
 
-def _ops(tensors):
-    """(fwd, df1, df2) of the shards' device type: the kernels or the plain versions."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+def _ops(t):
+    """(fwd, df1, df2) for a shard on ``t``'s device: the kernels or the plain versions."""
+    if t.device.type == "cuda":
         return (correlation_cuda.corr_fwd_hpad, correlation_cuda.corr_df1_hpad,
                 correlation_cuda.corr_df2_hpad)
-    if kinds == {"cpu"}:
+    if t.device.type == "cpu":
         return corr_fwd_hpad_reference, corr_df1_hpad_reference, corr_df2_hpad_reference
-    raise ValueError(f"cost_volume_sharded: shards on {sorted(kinds)}; all must be CUDA "
-                     "or all CPU")
+    raise ValueError(f"cost_volume_sharded: a shard on {t.device}; shards live on CUDA "
+                     "devices or the CPU")
 
 
 class _ShardedCorrelation(torch.autograd.Function):
     @staticmethod
     def forward(ctx, md, n, *shards):
         f1s, f2s = shards[:n], shards[n:]
-        fwd, _, _ = _ops(shards)
         f2h = halo_exchange_h(f2s, md)
         ctx.md, ctx.n = md, n
         ctx.save_for_backward(*f1s, *f2h)
-        return tuple(fwd(a, b, md) for a, b in zip(f1s, f2h))
+        return tuple(_ops(a)[0](a, b, md) for a, b in zip(f1s, f2h))
 
     @staticmethod
     def backward(ctx, *grads):
         md, n = ctx.md, ctx.n
         saved = ctx.saved_tensors
         f1s, f2h = saved[:n], saved[n:]
-        _, df1, df2 = _ops(saved)
         gs = [g.to(a.dtype).contiguous() for g, a in zip(grads, f1s)]
         d1 = d2 = [None] * n
         if any(ctx.needs_input_grad[2:2 + n]):
-            d1 = [df1(g, b, md) for g, b in zip(gs, f2h)]
+            d1 = [_ops(g)[1](g, b, md) for g, b in zip(gs, f2h)]
         if any(ctx.needs_input_grad[2 + n:]):
-            d2 = [df2(g, a, md)
+            d2 = [_ops(g)[2](g, a, md)
                   for g, a in zip(halo_exchange_h(gs, md), halo_exchange_h(f1s, md))]
         return (None, None, *d1, *d2)
 

@@ -22,6 +22,25 @@ gradient.
 * ``photometric_pack`` dispatches: CUDA tensors go to the hand-written kernels
   (``ops/photometric_cuda.py``), CPU tensors to the plain version.
 
+One row-shard of a height-sharded model (``parallel/spatial.py``) takes the
+pack over the rows it owns:
+
+    photometric_pack_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0, height)
+
+with the whole (B, 3, height, w) sources ``img_l``/``img_r`` gathered onto the
+shard's device, and the shard's center rows ``img_h`` and flows carrying one
+halo row on each side ((B, ., h + 2, w); rows outside the image are zeros).
+Its owned rows are global rows ``row0 .. row0 + h - 1``.  It returns the
+owned rows' ``s_dw``, ``s_w``, ``s_cl`` and ``weights`` (2B, 1, h, w): added
+over the shards, the sums are the whole map's.  The halo rows hold SSIM's
+3x3 windows: inside the image they are real rows, with their own warps and
+weights; outside it their products are SSIM's zero padding (their warp falls
+outside the image, so their weight is 0).  The gradient reaches the halo
+rows' flows, which autograd carries to the shards that own them.
+``photometric_pack_rows_reference`` is its plain version, and
+``photometric_pack_rows`` dispatches as ``photometric_pack`` does, to the
+kernels' halo-prepadded form (``photometric_cuda.photometric_rows``).
+
 In bfloat16 the two differ slightly: the kernel blends the bf16 corners in
 float32 and never rounds the warped image, as the fused JAX kernel does,
 while ``bilinear_warp`` rounds it to bf16.
@@ -62,3 +81,38 @@ def photometric_pack(img_l, img_r, flow_b, flow_f, img) -> dict:
     if img.device.type == "cpu":
         return photometric_pack_reference(img_l, img_r, flow_b, flow_f, img)
     raise ValueError(f"photometric_pack: unsupported device {img.device}")
+
+
+def photometric_pack_rows_reference(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int,
+                                    height: int) -> dict:
+    """Plain version of one row-shard's pack (see the module docstring)."""
+    from unopticalflow_tpu_torch.models import losses
+
+    if img_l.shape[2] != height or img_r.shape[2] != height:
+        raise ValueError(f"photometric_pack_rows: sources of {img_l.shape[2]} and "
+                         f"{img_r.shape[2]} rows, want the whole {height}")
+    warped = torch.cat([bilinear_warp(img_l, flow_b_h, use_mask=True, row0=row0 - 1),
+                        bilinear_warp(img_r, flow_f_h, use_mask=True, row0=row0 - 1)], 0)
+    diffs, weights = losses.diff_and_occlusion_weights_packed([warped], [img_h], 1)
+    own = slice(1, img_h.shape[2] - 1)
+    s_map = ssim(torch.cat([img_h, img_h], 0) * weights[0], warped * weights[0])[:, :, own]
+    diff, weight = diffs[0][:, :, own], weights[0][:, :, own]
+    cl = torch.clamp((1.0 - s_map) / 2.0, 0.0, 1.0)
+    return {
+        "s_dw": (diff * weight).float().sum((1, 2, 3)),
+        "s_w": weight.float().sum((1, 2, 3)).detach(),
+        "s_cl": cl.float().sum((1, 2, 3)) / 3.0,
+        "weights": weight.detach(),
+    }
+
+
+def photometric_pack_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int,
+                          height: int) -> dict:
+    """One row-shard's pack: the halo-prepadded kernels for CUDA tensors, plain on CPU."""
+    if img_h.is_cuda:
+        return photometric_cuda.photometric_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0,
+                                                 height)
+    if img_h.device.type == "cpu":
+        return photometric_pack_rows_reference(img_l, img_r, flow_b_h, flow_f_h, img_h, row0,
+                                               height)
+    raise ValueError(f"photometric_pack_rows: unsupported device {img_h.device}")

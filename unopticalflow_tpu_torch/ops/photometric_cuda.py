@@ -6,6 +6,13 @@ images) and their ``_cm`` variants (bfloat16 images).  The plain PyTorch
 version is ``ops/photometric.py::photometric_pack_reference``.
 ``ops/_build.py`` compiles the source with nvcc at first use.
 
+The ``*_hpad`` wrappers and ``photometric_rows`` launch the kernels' halo-
+prepadded form on one row-shard of a height-sharded model
+(``parallel/spatial.py``): the center image and the flows carry one halo row
+each side, the source images are whole, the sums and weights are the owned
+rows' and the backward's d(flow) covers the halo rows too (the plain version
+is ``photometric_pack_rows_reference``).
+
 ``launches`` counts kernel launches by kernel (one per wrapper call on
 CUDA), so a run can show that its path went through the kernels.  It
 counts host launches: under a CUDA graph (``training.make_multi_train_step``)
@@ -26,16 +33,24 @@ _SIGNATURES = {
     "photo_fwd": [_build.P] * 7 + [_build.I] * 4 + [_build.P],
     # img_l, img_r, img, flow_b, flow_f, g_dw, g_cl, dflow_b, dflow_f, B, H, W, dtype, stream
     "photo_bwd": [_build.P] * 9 + [_build.I] * 4 + [_build.P],
+    # img_l, img_r, img_h, flow_b_h, flow_f_h, weights, work, B, HS, H, W, row0, dtype, stream
+    "photo_fwd_hpad": [_build.P] * 7 + [_build.I] * 6 + [_build.P],
+    # img_l, img_r, img_h, flow_b_h, flow_f_h, g_dw, g_cl, dflow_b_h, dflow_f_h,
+    # B, HS, H, W, row0, dtype, stream
+    "photo_bwd_hpad": [_build.P] * 9 + [_build.I] * 6 + [_build.P],
 }
 
-launches = {"photometric_fwd": 0, "photometric_bwd": 0}
+launches = {"photometric_fwd": 0, "photometric_bwd": 0,
+            "photometric_fwd_hpad": 0, "photometric_bwd_hpad": 0}
 
 
 def _lib():
     return _build.load("photometric", _SIGNATURES)
 
 
-def _check(img_l, img_r, flow_b, flow_f, img) -> None:
+def _check_inputs(img_l, img_r, flow_b, flow_f, img) -> None:
+    """Devices, dtypes, layout and the center image's shape; not the shapes
+    that relate the inputs."""
     tensors = (img_l, img_r, flow_b, flow_f, img)
     dev = img.device
     if not all(t.is_cuda and t.device == dev for t in tensors):
@@ -53,6 +68,12 @@ def _check(img_l, img_r, flow_b, flow_f, img) -> None:
                         f"{flow_b.dtype}/{flow_f.dtype}")
     if img.dim() != 4 or img.shape[1] != 3:
         raise ValueError(f"photometric kernel needs (B, 3, H, W) images, got {tuple(img.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("photometric kernel needs contiguous NCHW inputs")
+
+
+def _check(img_l, img_r, flow_b, flow_f, img) -> None:
+    _check_inputs(img_l, img_r, flow_b, flow_f, img)
     b, _, h, w = img.shape
     if img_l.shape != img.shape or img_r.shape != img.shape:
         raise ValueError(f"photometric kernel needs equal image shapes, got "
@@ -60,9 +81,26 @@ def _check(img_l, img_r, flow_b, flow_f, img) -> None:
     if tuple(flow_b.shape) != (b, 2, h, w) or tuple(flow_f.shape) != (b, 2, h, w):
         raise ValueError(f"photometric kernel needs ({b}, 2, {h}, {w}) flows, got "
                          f"{tuple(flow_b.shape)} and {tuple(flow_f.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("photometric kernel needs contiguous NCHW inputs")
     _check_grid(img.shape)
+
+
+def _check_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int, height: int) -> None:
+    """One row-shard's inputs: (B, 3, h + 2, W) center rows and (B, 2, h + 2, W)
+    flows with their halo, the whole (B, 3, height, W) sources, and owned rows
+    row0 .. row0 + h - 1 inside the image."""
+    _check_inputs(img_l, img_r, flow_b_h, flow_f_h, img_h)
+    b, _, hh, w = img_h.shape
+    if img_l.shape != (b, 3, height, w) or img_r.shape != (b, 3, height, w):
+        raise ValueError(f"photometric rows kernel needs ({b}, 3, {height}, {w}) sources, got "
+                         f"{tuple(img_l.shape)} and {tuple(img_r.shape)}")
+    if tuple(flow_b_h.shape) != (b, 2, hh, w) or tuple(flow_f_h.shape) != (b, 2, hh, w):
+        raise ValueError(f"photometric rows kernel needs ({b}, 2, {hh}, {w}) flows, got "
+                         f"{tuple(flow_b_h.shape)} and {tuple(flow_f_h.shape)}")
+    if hh < 3 or row0 < 0 or row0 + hh - 2 > height:
+        raise ValueError(f"photometric rows kernel: owned rows {row0} .. {row0 + hh - 3} of a "
+                         f"{height}-row image, from a {hh}-row slab")
+    _check_grid(img_h.shape)
+    _check_grid(img_l.shape)
 
 
 def _check_grid(shape) -> None:
@@ -120,6 +158,53 @@ def photo_bwd(img_l, img_r, flow_b, flow_f, img, g_dw, g_cl):
     return d_b, d_f
 
 
+def photo_fwd_hpad(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int, height: int):
+    """Halo-prepadded forward kernel of one row-shard: the owned rows' (s_dw,
+    s_w, s_cl), each (2B,) f32, and weights (2B, 1, h, W)."""
+    _check_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0, height)
+    lib = _lib()
+    b, _, hh, w = img_h.shape
+    h = hh - 2
+    n_tiles = -(-h // _TY) * -(-w // _TX)
+    weights = torch.empty((2 * b, 1, h, w), dtype=img_h.dtype, device=img_h.device)
+    work = torch.empty(7 * b + 6 * b * n_tiles, dtype=torch.float32, device=img_h.device)
+    with torch.cuda.device(img_h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.photo_fwd_hpad(img_l.data_ptr(), img_r.data_ptr(), img_h.data_ptr(),
+                                 flow_b_h.data_ptr(), flow_f_h.data_ptr(), weights.data_ptr(),
+                                 work.data_ptr(), b, height, hh, w, row0,
+                                 _DTYPES[img_h.dtype], stream)
+    _build.check_launch(err, "photometric hpad forward")
+    launches["photometric_fwd_hpad"] += 1
+    s_dw, s_w, s_cl = work[:6 * b].view(3, 2 * b)
+    return s_dw, s_w, s_cl, weights
+
+
+def photo_bwd_hpad(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int, height: int, g_dw,
+                   g_cl):
+    """Halo-prepadded backward kernel: (d flow_b_h, d flow_f_h), each (B, 2, h + 2,
+    W) f32, the halo rows included."""
+    _check_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0, height)
+    b, _, hh, w = img_h.shape
+    g_dw = g_dw.to(torch.float32).contiguous()
+    g_cl = g_cl.to(torch.float32).contiguous()
+    if tuple(g_dw.shape) != (2 * b,) or tuple(g_cl.shape) != (2 * b,):
+        raise ValueError(f"photometric backward needs ({2 * b},) cotangents, got "
+                         f"{tuple(g_dw.shape)} and {tuple(g_cl.shape)}")
+    lib = _lib()
+    d_b = torch.empty_like(flow_b_h)
+    d_f = torch.empty_like(flow_f_h)
+    with torch.cuda.device(img_h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.photo_bwd_hpad(img_l.data_ptr(), img_r.data_ptr(), img_h.data_ptr(),
+                                 flow_b_h.data_ptr(), flow_f_h.data_ptr(), g_dw.data_ptr(),
+                                 g_cl.data_ptr(), d_b.data_ptr(), d_f.data_ptr(), b, height, hh,
+                                 w, row0, _DTYPES[img_h.dtype], stream)
+    _build.check_launch(err, "photometric hpad backward")
+    launches["photometric_bwd_hpad"] += 1
+    return d_b, d_f
+
+
 class _Photometric(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img_l, img_r, flow_b, flow_f, img):
@@ -142,4 +227,32 @@ class _Photometric(torch.autograd.Function):
 def photometric(img_l, img_r, flow_b, flow_f, img) -> dict:
     """The fused photometric pack of one scale on CUDA (see ops/photometric.py)."""
     s_dw, s_w, s_cl, weights = _Photometric.apply(img_l, img_r, flow_b, flow_f, img)
+    return {"s_dw": s_dw, "s_w": s_w, "s_cl": s_cl, "weights": weights}
+
+
+class _PhotometricRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img_l, img_r, flow_b_h, flow_f_h, img_h, row0, height):
+        s_dw, s_w, s_cl, weights = photo_fwd_hpad(img_l, img_r, flow_b_h, flow_f_h, img_h, row0,
+                                                  height)
+        ctx.save_for_backward(img_l, img_r, flow_b_h, flow_f_h, img_h)
+        ctx.rows = row0, height
+        ctx.mark_non_differentiable(s_w, weights)
+        return s_dw, s_w, s_cl, weights
+
+    @staticmethod
+    def backward(ctx, g_dw, g_w, g_cl, g_weights):
+        img_l, img_r, flow_b_h, flow_f_h, img_h = ctx.saved_tensors
+        if not (ctx.needs_input_grad[2] or ctx.needs_input_grad[3]):
+            return (None,) * 7
+        d_b, d_f = photo_bwd_hpad(img_l, img_r, flow_b_h, flow_f_h, img_h, *ctx.rows, g_dw,
+                                  g_cl)
+        return (None, None, d_b if ctx.needs_input_grad[2] else None,
+                d_f if ctx.needs_input_grad[3] else None, None, None, None)
+
+
+def photometric_rows(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int, height: int) -> dict:
+    """One row-shard's photometric pack on CUDA (see ops/photometric.py)."""
+    s_dw, s_w, s_cl, weights = _PhotometricRows.apply(img_l, img_r, flow_b_h, flow_f_h, img_h,
+                                                      row0, height)
     return {"s_dw": s_dw, "s_w": s_w, "s_cl": s_cl, "weights": weights}

@@ -25,6 +25,22 @@ denominators.
 * ``regularizer_pack`` dispatches: CUDA tensors go to the hand-written
   kernels (``ops/regularizer_cuda.py``), CPU tensors to the plain version.
 
+One row-shard of a height-sharded model (``parallel/spatial.py``) takes the
+sums of the terms it owns:
+
+    regularizer_pack_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
+
+with its flows and center rows carrying one halo row on each side ((B, .,
+h + 2, w); rows outside the image are zeros), its owned rows global rows
+``row0 .. row0 + h - 1`` of a ``height``-row map, and ``w_fwd`` the owned
+rows' weights (B, 1, h, w).  A term along rows spans three rows and belongs
+to the shard of its middle row, the row of its edge weight wy; the terms
+along a row and the consistency term belong to the row's shard.  Added over
+the shards, the sums are the whole map's.  ``regularizer_pack_rows_reference``
+is the plain version (``losses.smoothness_rows``); ``regularizer_pack_rows``
+dispatches CUDA tensors to the kernels' halo-prepadded form
+(``regularizer_cuda.regularizer_rows``).
+
 The scale by 1/20 is the product with the float32 0.05, written out: PyTorch
 divides a CUDA tensor by a Python number as a product with its reciprocal
 and a CPU tensor by true division, so ``flow / 20.0`` would round
@@ -72,3 +88,24 @@ def regularizer_pack(flow_b, flow_f, img, w_fwd) -> dict:
     if img.device.type == "cpu":
         return regularizer_pack_reference(flow_b, flow_f, img, w_fwd)
     raise ValueError(f"regularizer_pack: unsupported device {img.device}")
+
+
+def regularizer_pack_rows_reference(flow_b_h, flow_f_h, img_h, w_fwd, row0: int,
+                                    height: int) -> dict:
+    """Plain version of one row-shard's pack (see the module docstring)."""
+    from unopticalflow_tpu_torch.models import losses
+
+    g = torch.cat([flow_b_h, flow_f_h], 0).float() * INV20
+    s_sx, s_sy = losses.smoothness_rows(g, torch.cat([img_h, img_h], 0).float(), row0, height)
+    s_c, _ = losses.consistency_rows(flow_f_h[:, :, 1:-1].float(), flow_b_h[:, :, 1:-1].float(),
+                                     w_fwd.float())
+    return {"s_sx": s_sx, "s_sy": s_sy, "s_consis": s_c}
+
+
+def regularizer_pack_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0: int, height: int) -> dict:
+    """One row-shard's pack: the halo-prepadded kernels for CUDA tensors, plain on CPU."""
+    if img_h.is_cuda:
+        return regularizer_cuda.regularizer_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
+    if img_h.device.type == "cpu":
+        return regularizer_pack_rows_reference(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
+    raise ValueError(f"regularizer_pack_rows: unsupported device {img_h.device}")

@@ -5,6 +5,12 @@ The kernels replace ``unopticalflow_tpu/ops/pallas_regularizer.py``'s
 ``ops/regularizer.py::regularizer_pack_reference``.  ``ops/_build.py``
 compiles the source with nvcc at first use.
 
+The ``*_hpad`` wrappers and ``regularizer_rows`` launch the kernels' halo-
+prepadded form on one row-shard of a height-sharded model
+(``parallel/spatial.py``): flows and image with one halo row each side, the
+owned rows' weights, the sums of the terms the shard owns, and d(flow) for
+the halo rows too (the plain version is ``regularizer_pack_rows_reference``).
+
 ``launches`` counts kernel launches by kernel (one per wrapper call on
 CUDA), so a run can show that its path went through the kernels.  It
 counts host launches: under a CUDA graph (``training.make_multi_train_step``)
@@ -25,16 +31,24 @@ _SIGNATURES = {
     "reg_fwd": [_build.P] * 5 + [_build.I] * 4 + [_build.P],
     # flow_b, flow_f, img, w_fwd, g_sx, g_sy, g_c, dflow_b, dflow_f, B, H, W, dtype, stream
     "reg_bwd": [_build.P] * 9 + [_build.I] * 4 + [_build.P],
+    # flow_b_h, flow_f_h, img_h, w_fwd, work, B, HS, H, W, row0, dtype, stream
+    "reg_fwd_hpad": [_build.P] * 5 + [_build.I] * 6 + [_build.P],
+    # flow_b_h, flow_f_h, img_h, w_fwd, g_sx, g_sy, g_c, dflow_b_h, dflow_f_h,
+    # B, HS, H, W, row0, dtype, stream
+    "reg_bwd_hpad": [_build.P] * 9 + [_build.I] * 6 + [_build.P],
 }
 
-launches = {"regularizer_fwd": 0, "regularizer_bwd": 0}
+launches = {"regularizer_fwd": 0, "regularizer_bwd": 0,
+            "regularizer_fwd_hpad": 0, "regularizer_bwd_hpad": 0}
 
 
 def _lib():
     return _build.load("regularizer", _SIGNATURES)
 
 
-def _check(flow_b, flow_f, img, w_fwd) -> None:
+def _check(flow_b, flow_f, img, w_fwd, w_rows: int | None = None) -> None:
+    """``w_rows``: the weights' rows where they hold fewer than the image's (a
+    row-shard's owned rows)."""
     tensors = (flow_b, flow_f, img, w_fwd)
     dev = img.device
     if not all(t.is_cuda and t.device == dev for t in tensors):
@@ -57,8 +71,9 @@ def _check(flow_b, flow_f, img, w_fwd) -> None:
     if tuple(flow_b.shape) != (b, 2, h, w) or tuple(flow_f.shape) != (b, 2, h, w):
         raise ValueError(f"regularizer kernel needs ({b}, 2, {h}, {w}) flows, got "
                          f"{tuple(flow_b.shape)} and {tuple(flow_f.shape)}")
-    if tuple(w_fwd.shape) != (b, 1, h, w):
-        raise ValueError(f"regularizer kernel needs ({b}, 1, {h}, {w}) weights, got "
+    wh = h if w_rows is None else w_rows
+    if tuple(w_fwd.shape) != (b, 1, wh, w):
+        raise ValueError(f"regularizer kernel needs ({b}, 1, {wh}, {w}) weights, got "
                          f"{tuple(w_fwd.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("regularizer kernel needs contiguous NCHW inputs")
@@ -120,6 +135,58 @@ def reg_bwd(flow_b, flow_f, img, w_fwd, g_sx, g_sy, g_c):
     return d_b, d_f
 
 
+def _check_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0: int, height: int) -> None:
+    """One row-shard's inputs: (B, ., h + 2, W) flows and image with their halo,
+    (B, 1, h, W) weights, owned rows row0 .. row0 + h - 1 inside the image."""
+    hh = img_h.shape[2] if img_h.dim() == 4 else 0
+    _check(flow_b_h, flow_f_h, img_h, w_fwd, hh - 2)
+    if hh < 3 or row0 < 0 or row0 + hh - 2 > height:
+        raise ValueError(f"regularizer rows kernel: owned rows {row0} .. {row0 + hh - 3} of a "
+                         f"{height}-row image, from a {hh}-row slab")
+
+
+def reg_fwd_hpad(flow_b_h, flow_f_h, img_h, w_fwd, row0: int, height: int):
+    """Halo-prepadded forward kernel of one row-shard: the owned terms'
+    (s_sx (2B,), s_sy (2B,), s_consis (B,)), float32."""
+    _check_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
+    lib = _lib()
+    b, _, hh, w = img_h.shape
+    n_tiles = -(-(hh - 2) // _TY) * -(-w // _TX)
+    work = torch.empty(6 * b + 5 * b * n_tiles, dtype=torch.float32, device=img_h.device)
+    with torch.cuda.device(img_h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.reg_fwd_hpad(flow_b_h.data_ptr(), flow_f_h.data_ptr(), img_h.data_ptr(),
+                               w_fwd.data_ptr(), work.data_ptr(), b, height, hh, w, row0,
+                               _DTYPES[img_h.dtype], stream)
+    _build.check_launch(err, "regularizer hpad forward")
+    launches["regularizer_fwd_hpad"] += 1
+    return work[:2 * b], work[2 * b:4 * b], work[4 * b:5 * b]
+
+
+def reg_bwd_hpad(flow_b_h, flow_f_h, img_h, w_fwd, row0: int, height: int, g_sx, g_sy, g_c):
+    """Halo-prepadded backward kernel: (d flow_b_h, d flow_f_h), each (B, 2,
+    h + 2, W) f32, the halo rows included."""
+    _check_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
+    b, _, hh, w = img_h.shape
+    g_sx, g_sy, g_c = (t.to(torch.float32).contiguous() for t in (g_sx, g_sy, g_c))
+    if tuple(g_sx.shape) != (2 * b,) or tuple(g_sy.shape) != (2 * b,) or tuple(g_c.shape) != (b,):
+        raise ValueError(f"regularizer backward needs ({2 * b},), ({2 * b},) and ({b},) "
+                         f"cotangents, got {tuple(g_sx.shape)}, {tuple(g_sy.shape)} and "
+                         f"{tuple(g_c.shape)}")
+    lib = _lib()
+    d_b = torch.empty_like(flow_b_h)
+    d_f = torch.empty_like(flow_f_h)
+    with torch.cuda.device(img_h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.reg_bwd_hpad(flow_b_h.data_ptr(), flow_f_h.data_ptr(), img_h.data_ptr(),
+                               w_fwd.data_ptr(), g_sx.data_ptr(), g_sy.data_ptr(), g_c.data_ptr(),
+                               d_b.data_ptr(), d_f.data_ptr(), b, height, hh, w, row0,
+                               _DTYPES[img_h.dtype], stream)
+    _build.check_launch(err, "regularizer hpad backward")
+    launches["regularizer_bwd_hpad"] += 1
+    return d_b, d_f
+
+
 class _Regularizer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flow_b, flow_f, img, w_fwd):
@@ -141,4 +208,28 @@ class _Regularizer(torch.autograd.Function):
 def regularizer(flow_b, flow_f, img, w_fwd) -> dict:
     """The fused regularizer pack of one scale on CUDA (see ops/regularizer.py)."""
     s_sx, s_sy, s_c = _Regularizer.apply(flow_b, flow_f, img, w_fwd)
+    return {"s_sx": s_sx, "s_sy": s_sy, "s_consis": s_c}
+
+
+class _RegularizerRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flow_b_h, flow_f_h, img_h, w_fwd, row0, height):
+        s_sx, s_sy, s_c = reg_fwd_hpad(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
+        ctx.save_for_backward(flow_b_h, flow_f_h, img_h, w_fwd)
+        ctx.rows = row0, height
+        return s_sx, s_sy, s_c
+
+    @staticmethod
+    def backward(ctx, g_sx, g_sy, g_c):
+        flow_b_h, flow_f_h, img_h, w_fwd = ctx.saved_tensors
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            return (None,) * 6
+        d_b, d_f = reg_bwd_hpad(flow_b_h, flow_f_h, img_h, w_fwd, *ctx.rows, g_sx, g_sy, g_c)
+        return (d_b if ctx.needs_input_grad[0] else None,
+                d_f if ctx.needs_input_grad[1] else None, None, None, None, None)
+
+
+def regularizer_rows(flow_b_h, flow_f_h, img_h, w_fwd, row0: int, height: int) -> dict:
+    """One row-shard's regularizer pack on CUDA (see ops/regularizer.py)."""
+    s_sx, s_sy, s_c = _RegularizerRows.apply(flow_b_h, flow_f_h, img_h, w_fwd, row0, height)
     return {"s_sx": s_sx, "s_sy": s_sy, "s_consis": s_c}

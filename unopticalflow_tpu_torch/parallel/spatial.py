@@ -1,4 +1,5 @@
-"""Spatial (height-sharded) inference: one frame's rows split over a mesh.
+"""Spatial (height-sharded) inference and training forward: one frame's rows
+split over a mesh.
 
 Port of ``unopticalflow_tpu/parallel/spatial.py``.  For frames too large for
 one card (panoramas, film scans), or to spread one frame's latency over
@@ -36,6 +37,21 @@ walk the same code.
 A 2-D ``(data, spatial)`` mesh splits the batch over ``data`` as well
 (``make_spatial_infer(batch_axis="data")``): each data row of the mesh runs
 its part of the batch.
+
+``make_spatial_forward`` is the training forward (``models/flow_model.py::
+forward``) on row-shards: the same encoder and decoder, the four x4 flow
+resizes through ``_ShardOps.resize``, each shard's image pyramid pooled on its
+own rows (exact: every shard's height stays even at every loss scale), and
+per scale and shard the photometric pack of the rows it owns
+(``ops/photometric.py::photometric_pack_rows``: the whole source maps
+gathered onto the shard's device, the center rows and flows with one halo
+row each side) and the regularizer's sums of the terms it owns
+(``regularizer_pack_rows`` with ``use_pallas_reg``, else
+``losses.smoothness_rows``/``consistency_rows``).  The shards' sums are added
+on the first shard's device before the ratios of the whole map's means.
+The backward is autograd's: each halo row's gradient flows back through
+``take_rows`` to the shard that owns it, and each weight's gradient adds up
+the shards' uses of it.
 """
 
 from __future__ import annotations
@@ -46,8 +62,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from unopticalflow_tpu_torch.models import losses
+from unopticalflow_tpu_torch.models.flow_model import FlowModel, scale_losses
 from unopticalflow_tpu_torch.models.pwc_decoder import MAX_DISPLACEMENT
 from unopticalflow_tpu_torch.ops.cost_volume_spmd import cost_volume_sharded, row_starts, take_rows
+from unopticalflow_tpu_torch.ops.photometric import photometric_pack_rows
+from unopticalflow_tpu_torch.ops.pyramid import avg_pool_pyramid
+from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack_rows
 from unopticalflow_tpu_torch.ops.resize import resize_bilinear
 from unopticalflow_tpu_torch.ops.warp import bilinear_warp
 
@@ -203,3 +224,100 @@ def make_spatial_infer(model, mesh: Mesh, batch_axis: str | None = None):
         return [_infer_rows(model, r1, r2) for r1, r2 in zip(g1, g2)]
 
     return infer
+
+
+def _forward_rows(model, cfg, frames):
+    """The four (b,) losses of one batch part (``forward``'s pack), on the first
+    shard's device: ``frames``, (prev, center, next) lists of (b, h, W, 3)
+    row-shards."""
+    imgl, img, imgr = frames
+    b = img[0].shape[0]
+    dev0 = img[0].device
+    ops = _ShardOps()
+    ns = cfg.num_scales
+    ld = getattr(torch, cfg.loss_dtype)
+    # one encoder pass at 3B [img; imgl; imgr] and one decoder pass at 2B [bwd; fwd]
+    x = [torch.cat(fr, 0).permute(0, 3, 1, 2).contiguous() for fr in zip(img, imgl, imgr)]
+    feats = model.fpyramid(x, conv=ops.conv)
+    feats_cc = [[torch.cat([f[:b], f[:b]], 0) for f in level] for level in feats]
+    feats_lr = [[f[b:] for f in level] for level in feats]
+    dec = model.pwc_model.decode(feats_cc, feats_lr, ops)
+    flows = [[f.float() for f in ops.resize([f * 4.0 for f in dec[2 + s]], 4)]
+             for s in range(ns)]
+    # per scale, the shards' pyramid levels: centre (b) and [prev; next] (2b)
+    pyr_c = list(zip(*(avg_pool_pyramid(t[:b].to(ld), ns) for t in x)))
+    pyr_lr = list(zip(*(avg_pool_pyramid(t[b:].to(ld), ns) for t in x)))
+
+    def added(parts):
+        return {k: sum(p[k].to(dev0) for p in parts) for k in parts[0] if k != "weights"}
+
+    loss_pixel = loss_ssim = smooth = consis = 0.0
+    for s in range(ns):
+        starts = row_starts(pyr_c[s])
+        h_s, w_s = starts[-1], pyr_c[s][0].shape[3]
+        photo, reg = [], []
+        for i, c in enumerate(pyr_c[s]):
+            dev, lo, hi = c.device, starts[i] - 1, starts[i + 1] + 1
+            src = take_rows(pyr_lr[s], 0, h_s, dev)
+            img_h = take_rows(pyr_c[s], lo, hi, dev)
+            fl = take_rows(flows[s], lo, hi, dev)
+            out = photometric_pack_rows(src[:b], src[b:], fl[:b], fl[b:], img_h, starts[i], h_s)
+            photo.append(out)
+            w_fwd = out["weights"][b:]
+            if cfg.use_pallas_reg:
+                reg.append(regularizer_pack_rows(fl[:b], fl[b:], img_h, w_fwd, starts[i], h_s))
+            else:
+                s_sx, s_sy = losses.smoothness_rows(fl / 20.0, img_h, starts[i], h_s)
+                s_c, s_occ = losses.consistency_rows(fl[b:, :, 1:-1], fl[:b, :, 1:-1], w_fwd)
+                reg.append({"s_sx": s_sx, "s_sy": s_sy, "s_consis": s_c, "s_occ": s_occ})
+        # the whole map's ratios of the shards' added sums (mean_w is the map's)
+        terms = scale_losses(added(photo), added(reg), h_s, w_s, b)
+        loss_pixel = loss_pixel + terms[0]
+        loss_ssim = loss_ssim + terms[1]
+        smooth = smooth + terms[2]
+        consis = consis + terms[3]
+    return {
+        "loss_pixel": loss_pixel[:b] + loss_pixel[b:],
+        "loss_ssim": loss_ssim[:b] + loss_ssim[b:],
+        "loss_flow_smooth": smooth[:b] + smooth[b:],
+        "loss_flow_consis": consis,
+    }
+
+
+def make_spatial_forward(model, cfg, mesh: Mesh, batch_axis: str | None = None):
+    """The training forward (``models/flow_model.py::forward``) with each frame's
+    rows split over the mesh.
+
+    Returns ``fn(images)``: (B, 3H, W, 3) stacked (prev, center, next) snippets
+    in [0, 1], the JAX layout (an array or a tensor on any device) -> the pack
+    of the four (B,) float32 losses on the first shard's device,
+    differentiable to the model's parameters.  Each frame's H rows split as
+    ``make_spatial_infer`` splits them (H divisible by n_spatial * 64; JAX's
+    GSPMD splits the stacked 3H axis instead, the same function).  The
+    photometric and regularizer sums take their halo-prepadded kernels on
+    CUDA shards and their plain versions on CPU shards; the cost volumes take
+    ``cost_volume_sharded``.  Only the 3-frame flow forward with the softmax
+    occlusion weights has a sharded form: the 2-frame forward
+    (``forward_pair``) and the flowposenet one (``forward_flowpose``, refused
+    here by its model type) have none, nor has ``use_occlusion_weights=False``.
+    """
+    if not isinstance(model, FlowModel):
+        raise ValueError("make_spatial_forward: the flowposenet forward (forward_flowpose) "
+                         "has no spatial form; it takes a FlowModel")
+    if not cfg.use_occlusion_weights:
+        raise ValueError("make_spatial_forward: use_occlusion_weights=False (the occlusion "
+                         "ablation's plain loss path) has no spatial form")
+
+    def fn(images):
+        h3 = images.shape[1]
+        if h3 % 3:
+            raise ValueError(f"make_spatial_forward needs (B, 3H, W, 3) snippets, got "
+                             f"{tuple(images.shape)}")
+        h = h3 // 3
+        check_height(h, mesh.n_spatial)
+        grids = shard_images(mesh, batch_axis, *(images[:, i * h:(i + 1) * h] for i in range(3)))
+        packs = [_forward_rows(model, cfg, parts) for parts in zip(*grids)]
+        dev0 = mesh.devices[0][0]
+        return {k: torch.cat([p[k].to(dev0) for p in packs], 0) for k in packs[0]}
+
+    return fn
