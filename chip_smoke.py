@@ -247,18 +247,23 @@ Phases (each raises on failure, so the run exits non-zero):
    ``KittiEvalOdom().eval(plot=False)`` on 240 poses 1 m apart against the
    same trajectory with translations times 0.5: both errors under 1e-9
    after the Umeyama alignment.
-17. The host modules without opencv, h5py or matplotlib
+17. The host modules without opencv, h5py, matplotlib or PIL
    (``host_modules``; fixtures of ``tests/torch_fixtures/``, written by its
-   ``make_fixtures.py`` with cv2 and h5py).  (a) Every committed JPEG
-   (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, grey, qualities 10 to 100, a restart
-   interval, optimised tables, an odd size, an Exif orientation, a 512x832
-   stacked pair) decodes to cv2's decode beside it, bit for bit; the
-   progressive one raises; the host ms of decoding the pair (median of 20,
-   this machine's CPU).  (b) ``FlowServer`` and its HTTP handler on the
-   card at 256x832, bfloat16, ``max_batch`` 8: the JPEG pair and a PNG of
-   its decoded pixels get equal ``.flo`` replies (5 + 5 launches), a
-   progressive body a 400 naming the mode; the median ms of 8 requests with
-   each body.  (c) ``test.main --task demo`` on two JPEG frames equals the
+   ``make_fixtures.py`` with cv2, PIL, h5py and the JAX package).  (a) Every
+   committed JPEG, baseline (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, grey,
+   qualities 10 to 100, a restart interval, optimised tables, an odd size,
+   an Exif orientation, a 512x832 stacked pair) and progressive (4:4:4,
+   4:2:2, 4:2:0, a restart interval, PIL's, an odd size, the stacked pair),
+   decodes to cv2's decode beside it, bit for bit; the progression cut
+   after its third scan decodes so or raises naming libjpeg's block
+   smoothing; the interlaced (Adam7) PNGs of colour types 0, 2, 3, 4 and 6
+   decode to cv2's decodes; the host ms of decoding the baseline and the
+   progressive pair (median of 20 each, this machine's CPU).  (b)
+   ``FlowServer`` and its HTTP handler on the card at 256x832, bfloat16,
+   ``max_batch`` 8: the baseline and the progressive JPEG pair get equal
+   ``.flo`` replies (5 + 5 launches), and so does a PNG of the pair's
+   decoded pixels; the cut progression a 400 naming why; the median ms of
+   8 requests with each body.  (c) ``test.main --task demo`` on two JPEG frames equals the
    demo on PNGs of their decoded pixels (5 launches each).  (d) NYUv2
    without h5py: ``NYU_Prepare`` on raw ``.ppm`` scenes this phase writes
    and the MATLAB-layout labeled set (``train.txt`` names the train scenes
@@ -267,6 +272,13 @@ Phases (each raises on failure, so the run exits non-zero):
    disparities are resized on the card (near-zero error, as the JAX test's
    oracle), ``eval_depth`` (both protocols) and ``eval_mask`` on seeded
    inputs equal to the JAX package's numbers (rtol 1e-6) and PNG pixels.
+   (e) ``depth_harness.test_single_image`` on a JPEG frame with a
+   disparity computed on the card writes ``demo_depth.jpg``, the JPEG of
+   its magma pixels, and ``imageio.encode_jpeg`` of the committed magma
+   pixels is byte-equal to the JPEG PIL wrote of them.  (f)
+   ``VisualizerDebug``'s ``show_corres`` and ``show_epipolar_line`` on
+   ``drawing_inputs(17)`` write PNGs whose pixels have the SHA-256 of the
+   JAX package's (cv2-drawn) ones.
 18. K training steps a dispatch (``dispatch_graph``): the KITTI recipe
    (256x832, batch 8, 3 scales, regularizer off), K = 8, float32 and
    bfloat16, 8 seeded in-memory batches.  (b) A capturable Adam against
@@ -838,6 +850,27 @@ def depth_mask_inputs(seed: int):
     return gts, preds, masks, gt_masks
 
 
+def drawing_inputs(seed: int):
+    """Seeded inputs of phase 17 (f)'s drawing tools (and of
+    ``tests/torch_fixtures/make_fixtures.py``, which stores the SHA-256 of
+    the pixels of the JAX package's PNGs on them): two 48x80 BGR images, a
+    (4, 12) match [x1, y1, x2, y2] whose first four points lie on and past
+    the borders, and a fundamental matrix near a rectified pair's, whose
+    epipolar lines cross the images and run far past them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    img1 = rng.randint(0, 255, (48, 80, 3)).astype(np.uint8)
+    img2 = rng.randint(0, 255, (48, 80, 3)).astype(np.uint8)
+    n = 12
+    match = np.stack([rng.uniform(-4, 84, n), rng.uniform(-4, 52, n),
+                      rng.uniform(-4, 84, n), rng.uniform(-4, 52, n)])
+    match[:, :4] = [[0, 79, 0.5, 80.5], [0, 47, 47.5, -0.5], [2, 79, -1, 40], [3, 0, 47, -1.5]]
+    fundamental = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
+    fundamental += 0.01 * rng.randn(3, 3)
+    return img1, img2, match, fundamental
+
+
 def host_modules(c) -> None:
     """Phase 17 (see the module): ``c`` holds the device, the precision and
     size the server runs at, the launch counters (``want`` maps an expected
@@ -871,34 +904,48 @@ def host_modules(c) -> None:
         with open(path, "rb") as f:
             return f.read()
 
-    # (a) the committed JPEGs against cv2's decodes
-    checked = []
+    # (a) the committed JPEGs and interlaced PNGs against cv2's decodes
+    checked, cut = [], "decoded"
     for path in sorted(glob.glob(os.path.join(jpeg_dir, "*.jpg"))):
         name = os.path.basename(path)[:-4]
-        if name == "progressive":
-            try:
-                imageio.decode_jpeg(read(path))
-            except ValueError as e:
-                if "progressive" not in str(e):
-                    raise
-            else:
-                raise AssertionError("a progressive JPEG decoded")
+        if name == "disp_magma_q75":  # (e)'s
             continue
-        got = imageio.decode_jpeg(read(path))
-        want = imageio.decode_png(read(path[:-4] + ".png"))
+        want = imageio.decode_png(read(os.path.join(
+            jpeg_dir, "pair_512x832.png" if name == "pair_512x832_progressive" else name + ".png")))
+        try:
+            got = imageio.decode_jpeg(read(path))
+        except ValueError as e:
+            if name != "prog_cut3" or "block smoothing" not in str(e):
+                raise
+            cut = f"raises ({e})"
+            continue
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"JPEG {name}: differs from cv2's decode")
         checked.append(name)
+    adam7 = []
+    for path in sorted(glob.glob(os.path.join(fixtures, "png", "adam7_ct?.png"))):
+        got = imageio.decode_png(read(path), imageio.IMREAD_UNCHANGED)
+        want = imageio.decode_png(read(path[:-4] + "_cv2.png"), imageio.IMREAD_UNCHANGED)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"PNG {os.path.basename(path)}: differs from cv2's decode")
+        adam7.append(os.path.basename(path)[:-4])
+    if len(adam7) != 5:
+        raise AssertionError(f"interlaced PNG fixtures: {adam7}")
     pair_jpg = read(os.path.join(jpeg_dir, "pair_512x832.jpg"))
-    t_dec = []
+    pair_prog = read(os.path.join(jpeg_dir, "pair_512x832_progressive.jpg"))
+    t_dec = {"baseline": [], "progressive": []}
     for _ in range(20):
-        t0 = time.perf_counter()
-        pair_px = imageio.decode_jpeg(pair_jpg)
-        t_dec.append((time.perf_counter() - t0) * 1e3)
+        for kind, body in (("baseline", pair_jpg), ("progressive", pair_prog)):
+            t0 = time.perf_counter()
+            pair_px = imageio.decode_jpeg(body)
+            t_dec[kind].append((time.perf_counter() - t0) * 1e3)
     print(f"host modules (a): {len(checked)} JPEGs decode bit-equal to cv2's decodes "
-          f"({', '.join(checked)}), the progressive one raises; decoding the {pair_px.shape[0]}x"
-          f"{pair_px.shape[1]} stacked pair: {statistics.median(t_dec):.3f} ms on the host "
-          f"(median of 20, one thread; {c.smi})")
+          f"({', '.join(checked)}), the progression cut after scan 3 {cut}; the interlaced "
+          f"PNGs {', '.join(adam7)} decode bit-equal to cv2's; decoding the "
+          f"{pair_px.shape[0]}x{pair_px.shape[1]} stacked pair: baseline "
+          f"{statistics.median(t_dec['baseline']):.3f} ms, progressive "
+          f"{statistics.median(t_dec['progressive']):.3f} ms on the host (median of 20 each, "
+          f"one thread; {c.smi})")
 
     # (b) serving JPEG bodies on the card
     h, w = c.img_hw
@@ -919,16 +966,17 @@ def host_modules(c) -> None:
 
     try:
         reset_counts()
-        replies = [post(pair_jpg), post(pair_png)]
+        replies = [post(pair_jpg), post(pair_prog)]
         served = counts()
+        replies.append(post(pair_png))
         try:
-            post(read(os.path.join(jpeg_dir, "progressive.jpg")))
+            post(read(os.path.join(jpeg_dir, "prog_cut3.jpg")))
         except urllib.error.HTTPError as e:
             refusal = (e.code, json.loads(e.read())["error"])
         else:
             refusal = (200, "")
         lat = {}
-        for kind, body in (("jpeg", pair_jpg), ("png", pair_png)):
+        for kind, body in (("jpeg", pair_jpg), ("progressive", pair_prog), ("png", pair_png)):
             lat[kind] = []
             for _ in range(8):
                 t0 = time.perf_counter()
@@ -940,17 +988,20 @@ def host_modules(c) -> None:
         serving.join(timeout=10)
         server.close()
     flow = np.frombuffer(replies[0][12:], np.float32).reshape(-1)
-    if replies[0] != replies[1] or flow.size != h * w * 2 or not np.isfinite(flow).all() \
-            or served != c.want({**zero_counts, "corr_fwd": 10}) or refusal[0] != 400 \
-            or "progressive JPEG" not in refusal[1]:
-        raise AssertionError(f"serving JPEG: replies equal {replies[0] == replies[1]}, "
-                             f"{flow.size} values, launches {served}, refusal {refusal}")
+    if replies[0] != replies[1] or replies[0] != replies[2] or flow.size != h * w * 2 \
+            or not np.isfinite(flow).all() or served != c.want({**zero_counts, "corr_fwd": 10}) \
+            or refusal[0] != 400 or "block smoothing" not in refusal[1]:
+        raise AssertionError(f"serving JPEG: progressive reply equal {replies[0] == replies[1]}, "
+                             f"PNG reply equal {replies[0] == replies[2]}, {flow.size} values, "
+                             f"launches {served}, cut progression {refusal}")
     print(f"host modules (b): FlowServer + HTTP on {c.device} at {h}x{w}, {c.precision}, "
-          f"max_batch {c.batch}: the JPEG pair and a PNG of its decoded pixels get equal .flo "
-          f"replies ({len(replies[0])} bytes), {served['corr_fwd']} corr_fwd launches; a "
-          f"progressive body: {refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, "
-          f"decode + resize + inference + reply): JPEG {statistics.median(lat['jpeg']):.2f}, "
-          f"PNG {statistics.median(lat['png']):.2f} ({c.smi})")
+          f"max_batch {c.batch}: the baseline and the progressive JPEG pair get byte-equal .flo "
+          f"replies ({len(replies[0])} bytes; {served['corr_fwd']} corr_fwd launches for the "
+          f"two), and so does a PNG of the pair's decoded pixels; the cut progression: "
+          f"{refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, decode + resize + "
+          f"inference + reply): JPEG {statistics.median(lat['jpeg']):.2f}, progressive JPEG "
+          f"{statistics.median(lat['progressive']):.2f}, PNG {statistics.median(lat['png']):.2f} "
+          f"({c.smi})")
 
     # (c) the demo on JPEG frames against the demo on PNGs of their pixels
     pth = evaluation.export_pth(os.path.join(c.root, "demo.pth"), model)
@@ -992,10 +1043,21 @@ def host_modules(c) -> None:
             hd.update(str(a.dtype.str).encode() + str(a.shape).encode() + a.tobytes())
         return hd.hexdigest()
 
-    blocked = {m: sys.modules.get(m) for m in ("h5py", "cv2", "matplotlib", "PIL")}
-    try:
-        for m in blocked:
-            sys.modules[m] = None  # as on a machine without them
+    @contextlib.contextmanager
+    def host_libraries_blocked():
+        blocked = {m: sys.modules.get(m) for m in ("h5py", "cv2", "matplotlib", "PIL")}
+        try:
+            for m in blocked:
+                sys.modules[m] = None  # as on a machine without them
+            yield
+        finally:
+            for m, mod in blocked.items():
+                if mod is None:
+                    sys.modules.pop(m, None)
+                else:
+                    sys.modules[m] = mod
+
+    with host_libraries_blocked():
         raw = os.path.join(c.root, "nyu_raw")
         rng = np.random.RandomState(SEED + 17)
         for k, scene in enumerate(expected["train_scenes"] + expected["test_scenes"]):
@@ -1032,12 +1094,6 @@ def host_modules(c) -> None:
         pngs = {n: digest(imageio.imread(os.path.join(trace, "pred_mask", n),
                                          imageio.IMREAD_UNCHANGED))
                 for n in sorted(os.listdir(os.path.join(trace, "pred_mask")))}
-    finally:
-        for m, mod in blocked.items():
-            if mod is None:
-                sys.modules.pop(m, None)
-            else:
-                sys.modules[m] = mod
 
     def close(got, want):
         return np.allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
@@ -1069,6 +1125,46 @@ def host_modules(c) -> None:
           f"the host; test_nyu with an oracle on {c.device}: abs_rel {nyu_res[0]:.5f}, a1 "
           f"{nyu_res[4]:.5f}; eval_depth and eval_mask equal the JAX package's numbers "
           f"(rtol 1e-6) and PNG pixels")
+
+    # (e) the disparity's JPEG, and (f) the drawing tools
+    from unopticalflow_tpu_torch.utils.visualizer import VisualizerDebug, _magma_rgb
+
+    with open(os.path.join(fixtures, "drawing", "expected.json")) as f:
+        drawn_want = json.load(f)["png_pixels_sha256"]
+    with host_libraries_blocked():
+        demo_dir = os.path.join(c.root, "depth_demo")
+
+        def disparity(images):  # a disparity computed on the card from the frame
+            x = torch.as_tensor(images, device=c.device)
+            return 0.05 + 0.3 * x.mean(dim=-1, keepdim=True)
+
+        disp, _ = depth_harness.test_single_image(os.path.join(jpeg_dir, "frame_a.jpg"),
+                                                  disparity, (128, 416), save_dir=demo_dir)
+        demo_jpg = read(os.path.join(demo_dir, "demo_depth.jpg"))
+        demo_px = imageio.decode_jpeg(demo_jpg)
+        magma = imageio.decode_png(read(os.path.join(jpeg_dir, "disp_magma.png")))
+        magma_jpg = imageio.encode_jpeg(magma)
+        draw_dir = os.path.join(c.root, "drawing")
+        vis = VisualizerDebug(draw_dir)
+        img1, img2, match, fundamental = drawing_inputs(17)
+        vis.show_corres(img1, img2, match, "draw")
+        np.random.seed(17)
+        vis.show_epipolar_line(img1, img2, match, fundamental, "draw")
+        drawn = {n: digest(imageio.imread(os.path.join(draw_dir, n), imageio.IMREAD_UNCHANGED))
+                 for n in sorted(os.listdir(draw_dir))}
+    if demo_jpg != imageio.encode_jpeg(_magma_rgb(disp)[:, :, ::-1]) \
+            or demo_px.shape != disp.shape + (3,) \
+            or magma_jpg != read(os.path.join(jpeg_dir, "disp_magma_q75.jpg")):
+        raise AssertionError(f"disparity JPEG: demo_depth.jpg {demo_px.shape}, the magma "
+                             f"fixture's encode {len(magma_jpg)} bytes differs")
+    if drawn != drawn_want:
+        differ = sorted(n for n in drawn_want if drawn.get(n) != drawn_want[n])
+        raise AssertionError(f"drawing tools: {differ} differ from the JAX package's pixels")
+    print(f"host modules (e), (f), cv2, matplotlib and PIL blocked: test_single_image wrote "
+          f"demo_depth.jpg ({len(demo_jpg)} bytes, {demo_px.shape[1]}x{demo_px.shape[0]}), the "
+          f"JPEG of its magma pixels; encode_jpeg of the committed magma pixels is byte-equal to "
+          f"PIL's file ({len(magma_jpg)} bytes); {', '.join(drawn)} have the pixels of the JAX "
+          f"package's (SHA-256)")
     print(f"host modules: phase 17 took {time.perf_counter() - t17:.1f} s")
 
 

@@ -143,7 +143,10 @@ def test_single_image_equals_jax(tmp_path):
         assert disp.shape == wdisp.shape == (96, 160)
         assert np.abs(disp - wdisp).max() <= 2 * np.spacing(np.float32(np.abs(disp).max()))
         np.testing.assert_array_equal(depth, 1.0 / (1e-6 + disp))  # JAX's formula, exactly
-        assert (tmp_path / "port" / "demo_depth.png").exists()
+        # the JAX package's file: PIL's JPEG of its magma pixels, the same
+        # bytes (the disparities, 2 ulps apart, map to the same colours)
+        assert (tmp_path / "port" / "demo_depth.jpg").read_bytes() == \
+            (tmp_path / "jax" / "demo_depth.jpg").read_bytes()
 
 
 def test_a_tensor_prediction_is_brought_to_the_host():

@@ -3,12 +3,15 @@
 ``utils/config.parse_flat_yaml`` against ``yaml.safe_load`` on every
 ``config/*.yaml`` and on the scalar forms YAML 1.1 resolves; the PNG codec
 of ``utils/imageio.py`` (its row unfiltering in ``csrc/imageio.c``) against
-``cv2.imread`` bit for bit (files cv2 writes at several compression levels,
-so that libpng's adaptive filtering puts every row filter in them, and
-palette and grey-alpha files written here with every filter, which cv2
-cannot write); cv2 reading back what the port writes, and the port's
-writer choosing libpng's filter on every row; a JPEG request body
-through cv2; and the INTER_LINEAR resize against ``cv2.resize`` bit for bit.
+``cv2.imread`` bit for bit under the three flags (files cv2 writes at
+several compression levels, so that libpng's adaptive filtering puts every
+row filter in them, and palette and grey-alpha files written here with
+every filter, which cv2 cannot write; interlaced (Adam7) files of every
+colour type and depth the port reads, at 1x1, 7x9 and 33x65, written here;
+grey reads of colour and palette files, and the committed Adam7 fixtures);
+cv2 reading back what the port writes, and the port's writer choosing
+libpng's filter on every row; a JPEG request body through cv2; and the
+INTER_LINEAR resize against ``cv2.resize`` bit for bit.
 """
 
 import glob
@@ -89,9 +92,7 @@ def test_png_reads_equal_cv2_on_files_cv2_writes(ch, dtype, tmp_path):
             assert cv2.imwrite(path, img, [cv2.IMWRITE_PNG_COMPRESSION, level])
             with open(path, "rb") as f:
                 data = f.read()
-            # grey files also in grey (the port reads only grey files so)
-            grey = (cv2.IMREAD_GRAYSCALE,) if ch == 1 else ()
-            for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_UNCHANGED, *grey):
+            for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE):
                 want = cv2.imread(path, flags)
                 got = imageio.decode_png(data, flags)
                 assert got.dtype == want.dtype and got.shape == want.shape, (level, flags)
@@ -157,7 +158,7 @@ def test_png_reads_equal_cv2_on_every_filter_and_colour_type(kind, tmp_path):
     path = str(tmp_path / "f.png")
     with open(path, "wb") as f:
         f.write(data)
-    for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_UNCHANGED):
+    for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_UNCHANGED, cv2.IMREAD_GRAYSCALE):
         want = cv2.imread(path, flags)
         got = imageio.decode_png(data, flags)
         assert got.dtype == want.dtype and got.shape == want.shape, flags
@@ -189,20 +190,42 @@ def test_cv2_reads_back_what_the_port_writes(shape, dtype, tmp_path, monkeypatch
 
 def test_png_reader_refuses_what_it_does_not_read(monkeypatch):
     px = np.zeros((2, 3), np.uint8)
-    interlaced = (imageio._PNG_MAGIC
-                  + imageio._chunk(b"IHDR", struct.pack(">IIBBBBB", 3, 2, 8, 0, 0, 0, 1))
-                  + imageio._chunk(b"IDAT", zlib.compress(b"\0" * 8))
-                  + imageio._chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match="interlaced"):
-        imageio.decode_png(interlaced)
+
+    def interlaced(nbytes, method=1):
+        return (imageio._PNG_MAGIC
+                + imageio._chunk(b"IHDR", struct.pack(">IIBBBBB", 3, 2, 8, 0, 0, 0, method))
+                + imageio._chunk(b"IDAT", zlib.compress(b"\0" * nbytes))
+                + imageio._chunk(b"IEND", b""))
+
+    # a 3x2 Adam7 file has passes 1, 4, 6 and 7: 2 + 2 + 2 + 4 bytes, filters
+    # included; it decodes as cv2 decodes it, and short data raises
+    for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED):
+        want = cv2.imdecode(np.frombuffer(interlaced(10), np.uint8), flags)
+        assert np.array_equal(imageio.decode_png(interlaced(10), flags), want)
+    with pytest.raises(ValueError, match="interlaced PNG data holds 8 bytes"):
+        imageio.decode_png(interlaced(8))
+    with pytest.raises(ValueError, match="interlace method 2"):
+        imageio.decode_png(interlaced(10, 2))
     with pytest.raises(ValueError, match="not a PNG"):
         imageio.decode_png(b"GIF89a")
     with pytest.raises(ValueError, match="colour type"):
         imageio.decode_png(_png(3, 2, 16, 6, _filter_rows(np.zeros((2, 24), np.uint8), 8,
                                                            [0, 0])))
-    with pytest.raises(ValueError, match="reads grey files only in grey"):
-        imageio.decode_png(imageio.encode_png(np.zeros((2, 3, 3), np.uint8)),
-                           imageio.IMREAD_GRAYSCALE)
+    # a colour file in grey as cv2 converts it; with a colour-space chunk,
+    # which sends libpng's conversion through gamma tables, it raises
+    colour = np.random.RandomState(1).randint(0, 256, (2, 3, 3)).astype(np.uint8)
+    data = imageio.encode_png(colour)
+    assert np.array_equal(imageio.decode_png(data, imageio.IMREAD_GRAYSCALE),
+                          cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+    for kind in (b"gAMA", b"sRGB"):
+        body = struct.pack(">I", 45455) if kind == b"gAMA" else b"\0"
+        managed = data[:33] + imageio._chunk(kind, body) + data[33:]
+        assert not np.array_equal(  # what libpng does differs from the plain conversion
+            cv2.imdecode(np.frombuffer(managed, np.uint8), cv2.IMREAD_GRAYSCALE),
+            imageio.decode_png(data, imageio.IMREAD_GRAYSCALE))
+        with pytest.raises(ValueError, match=f"with a {kind.decode()} chunk"):
+            imageio.decode_png(managed, imageio.IMREAD_GRAYSCALE)
+        assert np.array_equal(imageio.decode_png(managed), imageio.decode_png(data))
     bad_filter = _png(3, 2, 8, 0, b"\0" + bytes(3) + b"\5" + bytes(3))
     with pytest.raises(ValueError, match="row filter 5 does not exist"):
         imageio.decode_png(bad_filter)
@@ -263,3 +286,95 @@ def test_resize_equals_cv2(src, dst, ch):
     want = cv2.resize(img, (dst[1], dst[0]))
     got = imageio.resize(img, (dst[1], dst[0]))
     assert got.shape == want.shape and np.array_equal(got, want)
+
+
+# ---- interlaced (Adam7) PNG and grey reads of colour PNG -------------------
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+# (colour type, bit depth): every pair the port reads
+PNG_KINDS = [(0, 8), (0, 16), (2, 8), (2, 16), (3, 8), (4, 8), (6, 8)]
+FLAGS3 = (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED)
+
+
+def _samples(h, w, ctype, depth, rng):
+    """A PNG's samples (h, w, channels) and the chunks its colour type needs."""
+    if ctype == 3:
+        pal = rng.randint(0, 256, (23, 3)).astype(np.uint8)
+        extra = (imageio._chunk(b"PLTE", pal.tobytes())
+                 + imageio._chunk(b"tRNS", rng.randint(0, 256, 11).astype(np.uint8).tobytes()))
+        return rng.randint(0, 23, (h, w, 1)).astype(np.uint8), extra
+    ch = imageio._CHANNELS[ctype]
+    dtype = np.uint16 if depth == 16 else np.uint8
+    maxv = np.iinfo(dtype).max
+    px = _smooth(h, w, ch, maxv, rng) if min(h, w) > 1 else rng.randint(0, maxv + 1, (h, w, ch))
+    return px.astype(dtype), b""
+
+
+def _rows(px):
+    """(h, w, ch) samples -> (h, row_bytes) bytes as the PNG stores them."""
+    raw = px.astype(">u2") if px.dtype == np.uint16 else px
+    return np.ascontiguousarray(raw).view(np.uint8).reshape(px.shape[0], -1)
+
+
+def _adam7(px, depth, ctype, extra):
+    """An interlaced PNG of the samples, each pass's rows filtered with the
+    five filters in turn (cv2 writes no interlaced file)."""
+    h, w, ch = px.shape
+    bpp = ch * depth // 8
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = px[y0::dy, x0::dx]
+        if sub.size:
+            raw += _filter_rows(_rows(sub), bpp, [k % 5 for k in range(sub.shape[0])])
+    return (imageio._PNG_MAGIC
+            + imageio._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 1))
+            + extra + imageio._chunk(b"IDAT", zlib.compress(raw, 6))
+            + imageio._chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 9), (33, 65)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("ctype,depth", PNG_KINDS, ids=[f"ct{c}_{d}" for c, d in PNG_KINDS])
+def test_adam7_reads_equal_cv2(ctype, depth, size):
+    rng = np.random.RandomState(ctype * 100 + depth + size[1])
+    px, extra = _samples(*size, ctype, depth, rng)
+    data = _adam7(px, depth, ctype, extra)
+    plain = _png(size[1], size[0], depth, ctype,
+                 _filter_rows(_rows(px), px.shape[2] * depth // 8, [0] * size[0]), extra)
+    for flags in FLAGS3:
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+        got = imageio.decode_png(data, flags)
+        assert got.dtype == want.dtype and got.shape == want.shape, flags
+        assert np.array_equal(got, want), flags
+        assert np.array_equal(got, imageio.decode_png(plain, flags)), flags  # same pixels
+
+
+@pytest.mark.parametrize("ctype,depth", [(2, 8), (2, 16), (3, 8), (6, 8)],
+                         ids=["rgb8", "rgb16", "palette", "rgba8"])
+def test_grey_reads_of_colour_files_equal_cv2(ctype, depth):
+    """cv2 asks libpng for (9797 R + 19234 G + 3737 B) >> 15 (rounded at 16
+    bits, then cut to the high byte); grey pixels among colour ones, and
+    saturated and zero channels, included."""
+    rng = np.random.RandomState(ctype + depth)
+    px, extra = _samples(40, 56, ctype, depth, rng)
+    if ctype != 3:
+        maxv = np.iinfo(px.dtype).max
+        px[:3] = px[:3, :, :1]  # grey rows: R = G = B
+        px[3:6, :, :3] = rng.choice([0, maxv], (3, px.shape[1], 3))
+    data = _png(56, 40, depth, ctype,
+                _filter_rows(_rows(px), px.shape[2] * depth // 8, [4, 3, 2, 1, 0] * 8), extra)
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
+    got = imageio.decode_png(data, imageio.IMREAD_GRAYSCALE)
+    assert got.dtype == want.dtype == np.uint8 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("ctype", [0, 2, 3, 4, 6])
+def test_committed_adam7_fixtures_decode_to_cv2s(ctype):
+    folder = os.path.join(REPO, "tests", "torch_fixtures", "png")
+    path = os.path.join(folder, f"adam7_ct{ctype}.png")
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    fixture = imageio.imread(os.path.join(folder, f"adam7_ct{ctype}_cv2.png"),
+                             imageio.IMREAD_UNCHANGED)
+    assert np.array_equal(fixture, want)  # the fixture is still cv2's decode
+    for flags in FLAGS3:
+        assert np.array_equal(imageio.imread(path, flags), cv2.imread(path, flags)), flags

@@ -3,10 +3,13 @@ against ``cv2.imdecode`` (written against OpenCV 5.0 with libjpeg-turbo
 3.1), bit for bit, on files cv2 writes from a seed: every sampling (4:4:4, 4:2:2, 4:2:0,
 4:4:0, 4:1:1, grey) at sizes from 1x1 to 375x1242, qualities 10 to 100,
 with and without a restart interval and optimised Huffman tables, under
-each of the three flags; the eight Exif orientations; refusals; ``imread``
-of a ``.jpg``; the server's decode of a JPEG pair against the JAX
-``serve._decode_pair`` and its reply over HTTP on the CPU; and the
-committed fixtures of ``tests/torch_fixtures/jpeg/``."""
+each of the three flags; the eight Exif orientations; a progressive file
+(``tests/test_torch_jpeg_progressive.py`` holds the progressive decoder to
+cv2 at length) and refusals; ``imread`` of a ``.jpg``; the server's decode
+of a JPEG pair against the JAX ``serve._decode_pair`` and its reply over
+HTTP on the CPU, to a baseline and a progressive body, and its 400 for a
+progression cut short; and the committed fixtures of
+``tests/torch_fixtures/jpeg/``."""
 
 import glob
 import json
@@ -110,8 +113,9 @@ def test_exif_orientation_equals_cv2(orientation):
 def test_refusals():
     img = _image(32, 48, seed=5)
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="progressive JPEG"):
-        imageio.decode_jpeg(prog.tobytes())
+    for flags in FLAGS:  # a progressive file decodes as cv2 decodes it
+        assert np.array_equal(imageio.decode_jpeg(prog.tobytes(), flags),
+                              cv2.imdecode(prog, flags))
     data = _encode(img, "420", 90, ())
     for cut in (len(data) // 2, len(data) - 2, 200, 3):
         with pytest.raises(ValueError, match="truncated"):
@@ -171,6 +175,8 @@ def test_server_decodes_a_jpeg_pair_as_jax_and_answers_it(monkeypatch):
     pair = np.concatenate([_image(96, 160, seed=8), _image(96, 160, seed=9)], 0)
     body = _encode(pair, "420", 90, ())
     want = jax_decode_pair(body, (h, w))
+    prog = _encode(pair, "420", 90, (cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    want_prog = jax_decode_pair(prog, (h, w))
     monkeypatch.setitem(sys.modules, "cv2", None)  # the port's decode needs no opencv
     got = _decode_pair(body, (h, w))
     assert got.dtype == want.dtype and np.array_equal(got, want)
@@ -189,13 +195,19 @@ def test_server_decodes_a_jpeg_pair_as_jax_and_answers_it(monkeypatch):
             reply = r.read()
         flow = np.frombuffer(reply[12:], np.float32).reshape(h, w, 2)
         assert np.array_equal(flow, engine.infer(want))
-        with open(os.path.join(FIXTURES, "progressive.jpg"), "rb") as f:
-            prog = f.read()
+        # a progressive body is answered as the JAX server answers it, and a
+        # progression cut short (which libjpeg smooths) gets a 400 naming why
+        with urllib.request.urlopen(urllib.request.Request(url, data=prog, method="POST"),
+                                    timeout=120) as r:
+            flow = np.frombuffer(r.read()[12:], np.float32).reshape(h, w, 2)
+        assert np.array_equal(flow, engine.infer(want_prog))
+        with open(os.path.join(FIXTURES, "prog_cut3.jpg"), "rb") as f:
+            cut = f.read()
         with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(urllib.request.Request(url, data=prog, method="POST"),
+            urllib.request.urlopen(urllib.request.Request(url, data=cut, method="POST"),
                                    timeout=60)
         assert err.value.code == 400
-        assert "progressive JPEG" in json.loads(err.value.read())["error"]
+        assert "block smoothing" in json.loads(err.value.read())["error"]
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -208,11 +220,15 @@ def test_server_decodes_a_jpeg_pair_as_jax_and_answers_it(monkeypatch):
 def test_committed_fixtures_decode_to_their_pngs(path):
     with open(path, "rb") as f:
         data = f.read()
-    if os.path.basename(path) == "progressive.jpg":
-        with pytest.raises(ValueError, match="progressive"):
-            imageio.decode_jpeg(data)
+    name = os.path.basename(path)[:-4]
+    if name == "disp_magma_q75":  # PIL's JPEG of disp_magma.png (test_torch_jpeg_encode.py)
         return
     want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    png = imageio.imread(path[:-4] + ".png")
+    png = imageio.imread(os.path.join(FIXTURES, "pair_512x832.png") if name.startswith(
+        "pair_512x832_") else path[:-4] + ".png")
     assert np.array_equal(png, want)  # the fixture is still cv2's decode
+    if name == "prog_cut3":  # libjpeg smooths the blocks of a cut progression
+        with pytest.raises(ValueError, match="block smoothing"):
+            imageio.decode_jpeg(data)
+        return
     assert np.array_equal(imageio.decode_jpeg(data), png)

@@ -2,8 +2,9 @@
 ``save_img``, ``show_mask``, ``save_depth_img`` and ``save_flow_img`` write
 files pixel-equal to the ones the JAX package writes with cv2 (float images
 rounded and saturated as cv2 stores them), and ``save_disp_color_img``
-writes the pixels the JAX package hands PIL for its JPEG (the port writes
-them as a PNG).  The magma table equals ``matplotlib.cm.magma``."""
+writes, under the JAX package's name, the JPEG PIL writes of the pixels the
+JAX package hands it: the same bytes.  The magma table equals
+``matplotlib.cm.magma``."""
 
 import os
 
@@ -64,7 +65,8 @@ def test_disp_color_equals_jax(tmp_path, monkeypatch):
     for k, d in enumerate(disps):
         path = port.save_disp_color_img(d, f"d{k}")
         ref.save_disp_color_img(d, f"d{k}")
-        assert path == str(tmp_path / "p" / f"d{k}_depth.png")
-        got = cv2.imread(path, cv2.IMREAD_UNCHANGED)[:, :, ::-1]  # BGR file -> RGB
-        assert np.array_equal(got, handed[k]), k
-        assert (tmp_path / "j" / f"d{k}_depth.jpg").exists()
+        assert path == str(tmp_path / "p" / f"d{k}_depth.jpg")
+        assert np.array_equal(visualizer._magma_rgb(d), handed[k]), k
+        jax_file = (tmp_path / "j" / f"d{k}_depth.jpg").read_bytes()
+        with open(path, "rb") as f:
+            assert f.read() == jax_file, k  # PIL's JPEG of the JAX package's pixels

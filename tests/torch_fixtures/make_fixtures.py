@@ -1,20 +1,40 @@
-"""Writes the fixtures of ``chip_smoke.py`` phase 17 and
-``tests/test_torch_jpeg.py``: JPEG files with cv2's decodes, and a
+"""Writes the fixtures of ``chip_smoke.py`` phase 17 and the port's image
+tests: JPEG and PNG files with cv2's decodes, the JPEG PIL writes of a
+magma disparity, the SHA-256 of the JAX package's drawings, and a
 MATLAB-layout NYUv2 labeled set with what the JAX package reads from it.
 
     python tests/torch_fixtures/make_fixtures.py
 
-It needs cv2, h5py, scipy and the JAX package (the card's machine has none
-of them, so the files are committed): OpenCV 5.0.0 with libjpeg-turbo
-3.1.2 wrote and decoded the JPEGs, h5py 3.14 the ``.mat``.  Every file is
-made from a seed.
+It needs cv2, PIL, h5py, scipy and the JAX package (the card's machine
+has none of them, so the files are committed): OpenCV 5.0.0 with
+libjpeg-turbo 3.1.2 and libpng 1.6.58 wrote and decoded the JPEGs and
+PNGs, Pillow 12.1 the JPEGs it writes, h5py 3.14 the ``.mat``.  Every file
+is made from a seed.
 
 * ``jpeg/<name>.jpg``: baseline JPEGs (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and
   grey, qualities 10 to 100, a restart interval, optimised Huffman tables,
   an odd size, an Exif orientation), each beside ``<name>.png``, cv2's
   ``IMREAD_COLOR`` decode written by the port's ``encode_png``; a 512x832
-  stacked pair and its two 256x832 frames (4:2:0, quality 90); and
-  ``progressive.jpg``, which the port refuses.
+  stacked pair and its two 256x832 frames (4:2:0, quality 90).
+* ``jpeg/prog_<name>.jpg``: progressive JPEGs, each beside cv2's decode:
+  4:4:4, 4:2:2 and 4:2:0 from cv2, one with a restart interval, one from
+  PIL (``progressive=True``), an odd size, and ``prog_cut3.jpg``, a cv2
+  progressive file cut after its third scan and ended with EOI (libjpeg
+  smooths its blocks; the port raises).  ``pair_512x832_progressive.jpg``
+  holds the pixels of ``pair_512x832.jpg`` at its quality; cv2 decodes both
+  to the same pixels, so ``pair_512x832.png`` serves both.
+* ``png/adam7_ct<k>.png``: interlaced (Adam7) PNGs of colour types 0, 2,
+  3 (with ``tRNS``), 4 and 6, each pass filtered with all five row
+  filters in turn, written by ``tests/test_torch_imageio.py``'s writer (cv2
+  writes no interlaced PNG), each beside
+  ``adam7_ct<k>_cv2.png``, cv2's ``IMREAD_UNCHANGED`` decode.
+* ``jpeg/disp_magma.png`` (BGR) and ``jpeg/disp_magma_q75.jpg``: the magma
+  pixels the JAX package's ``save_disp_color_img`` hands PIL for a seeded
+  disparity, and the JPEG PIL writes of them.
+* ``drawing/expected.json``: the SHA-256 of the pixels of the PNGs the JAX
+  package's ``show_corres`` and ``show_epipolar_line`` write on
+  ``chip_smoke.drawing_inputs(17)`` (``np.random`` seeded with 17 before
+  the epipolar lines).
 * ``nyu/nyu_depth_v2_labeled.mat``: a 512-byte MATLAB user block; chunked,
   deflated ``images`` (3, 3, 640, 480) uint8 and ``depths`` (3, 640, 480)
   float32 of smooth content; ``scenes`` (1, 3) references to (L, 1) uint16
@@ -26,6 +46,7 @@ made from a seed.
 """
 
 import hashlib
+import io
 import json
 import os
 import struct
@@ -37,12 +58,15 @@ import cv2
 import h5py
 import numpy as np
 import scipy.io
+from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, REPO)
 
-from chip_smoke import depth_mask_inputs  # noqa: E402
+from chip_smoke import depth_mask_inputs, drawing_inputs  # noqa: E402
+from tests.test_torch_imageio import _adam7  # noqa: E402
+from tests.test_torch_jpeg_progressive import _scans  # noqa: E402
 from unopticalflow_tpu_torch.utils import imageio  # noqa: E402
 
 SEED = 17
@@ -95,13 +119,95 @@ def jpeg_fixtures(out: str) -> None:
     files["frame_b"] = cv2.imencode(".jpg", b, [q, 90, s, sf["420"]])[1].tobytes()
     files["pair_512x832"] = cv2.imencode(".jpg", np.concatenate([a, b], 0),
                                          [q, 90, s, sf["420"]])[1].tobytes()
+    prog = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    prog_cases = {
+        "prog_s444_q90": (img, [q, 90, s, sf["444"], *prog]),
+        "prog_s422_q75": (img, [q, 75, s, sf["422"], *prog]),
+        "prog_s420_q50": (img, [q, 50, s, sf["420"], *prog]),
+        "prog_s420_rst2": (img, [q, 80, s, sf["420"], cv2.IMWRITE_JPEG_RST_INTERVAL, 2, *prog]),
+        "prog_odd_17x31_420": (img[:17, :31], [q, 85, s, sf["420"], *prog]),
+    }
+    for name, (src, params) in prog_cases.items():
+        files[name] = cv2.imencode(".jpg", src, params)[1].tobytes()
+    pil = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img[:, :, ::-1])).save(pil, "JPEG", progressive=True)
+    files["prog_pil_s420"] = pil.getvalue()
+    # ended after its third scan: the fourth scan header goes, and the rest
+    files["prog_cut3"] = files["prog_s420_q50"][:_scans(files["prog_s420_q50"])[3]] + b"\xff\xd9"
     for name, data in files.items():
         with open(os.path.join(out, name + ".jpg"), "wb") as f:
             f.write(data)
         want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
         imageio.imwrite(os.path.join(out, name + ".png"), want)
-    with open(os.path.join(out, "progressive.jpg"), "wb") as f:
-        f.write(cv2.imencode(".jpg", img, [q, 80, cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
+    pair_prog = cv2.imencode(".jpg", np.concatenate([a, b], 0),
+                             [q, 90, s, sf["420"], *prog])[1].tobytes()
+    assert np.array_equal(cv2.imdecode(np.frombuffer(pair_prog, np.uint8), cv2.IMREAD_COLOR),
+                          cv2.imdecode(np.frombuffer(files["pair_512x832"], np.uint8),
+                                       cv2.IMREAD_COLOR))
+    with open(os.path.join(out, "pair_512x832_progressive.jpg"), "wb") as f:
+        f.write(pair_prog)
+
+
+def png_fixtures(out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.RandomState(SEED + 2)
+    h, w = 33, 65
+    for ctype in (0, 2, 3, 4, 6):
+        ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+        extra = b""
+        if ctype == 3:
+            pal = rng.randint(0, 256, (37, 3)).astype(np.uint8)
+            px = rng.randint(0, 37, (h, w, 1)).astype(np.uint8)
+            extra = (imageio._chunk(b"PLTE", pal.tobytes())
+                     + imageio._chunk(b"tRNS", rng.randint(0, 256, 20).astype(np.uint8).tobytes()))
+        else:
+            px = smooth(rng, h, w, ch, blur=2)
+        data = _adam7(px, 8, ctype, extra)
+        with open(os.path.join(out, f"adam7_ct{ctype}.png"), "wb") as f:
+            f.write(data)
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        imageio.imwrite(os.path.join(out, f"adam7_ct{ctype}_cv2.png"), want)
+
+
+def magma_fixtures(out: str) -> None:
+    from unopticalflow_tpu.utils.visualizer import VisualizerDebug
+
+    rng = np.random.RandomState(SEED + 3)
+    yy, xx = np.mgrid[0:96, 0:160].astype(np.float64)
+    disp = 0.05 + 0.3 * (yy / 96) ** 2 + 0.02 * np.sin(xx / 9.0) + 0.01 * rng.rand(96, 160)
+    handed = []
+    real = Image.fromarray
+    Image.fromarray = lambda arr, *a, **k: handed.append(np.array(arr)) or real(arr, *a, **k)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            VisualizerDebug(tmp).save_disp_color_img(disp, "disp")
+            with open(os.path.join(tmp, "disp_depth.jpg"), "rb") as f:
+                jpg = f.read()
+    finally:
+        Image.fromarray = real
+    buf = io.BytesIO()
+    Image.fromarray(handed[0]).save(buf, "JPEG")
+    assert buf.getvalue() == jpg
+    imageio.imwrite(os.path.join(out, "disp_magma.png"), handed[0][:, :, ::-1])
+    with open(os.path.join(out, "disp_magma_q75.jpg"), "wb") as f:
+        f.write(jpg)
+
+
+def drawing_fixtures(out: str) -> None:
+    from unopticalflow_tpu.utils.visualizer import VisualizerDebug
+
+    os.makedirs(out, exist_ok=True)
+    img1, img2, match, fundamental = drawing_inputs(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        vis = VisualizerDebug(tmp)
+        vis.show_corres(img1, img2, match, "draw")
+        np.random.seed(SEED)
+        vis.show_epipolar_line(img1, img2, match, fundamental, "draw")
+        pixels = {name: digest(cv2.imread(os.path.join(tmp, name), cv2.IMREAD_UNCHANGED))
+                  for name in sorted(os.listdir(tmp))}
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump({"png_pixels_sha256": pixels}, f, indent=1)
+        f.write("\n")
 
 
 def digest(*arrays) -> str:
@@ -168,4 +274,7 @@ def nyu_fixtures(out: str) -> None:
 
 if __name__ == "__main__":
     jpeg_fixtures(os.path.join(HERE, "jpeg"))
+    png_fixtures(os.path.join(HERE, "png"))
+    magma_fixtures(os.path.join(HERE, "jpeg"))
+    drawing_fixtures(os.path.join(HERE, "drawing"))
     nyu_fixtures(os.path.join(HERE, "nyu"))

@@ -1,19 +1,25 @@
-// Host code of utils/imageio.py: a baseline JPEG decoder that gives what
-// cv2.imdecode gives, bit for bit, where OpenCV decodes with libjpeg-turbo.
+// Host code of utils/imageio.py: a JPEG decoder that gives what cv2.imdecode
+// gives, bit for bit, where OpenCV decodes with libjpeg-turbo.
 //
-// Sequential DCT with Huffman coding, 8-bit samples (SOF0 and SOF1), one or
-// three components (grey, YCbCr), any size, restart intervals, and several
-// scans.  Each step follows libjpeg's default decompression arithmetic:
+// Sequential and progressive DCT with Huffman coding, 8-bit samples (SOF0,
+// SOF1 and SOF2), one or three components (grey, YCbCr), any size, restart
+// intervals, and several scans.  A progressive file's scans (DC first and
+// refinement, AC first and refinement with end-of-band runs, as jdphuff.c
+// decodes them) fill a coefficient buffer of the whole image; once the file
+// has ended, that buffer goes through the same output steps as a sequential
+// file's.  Each step follows libjpeg's default decompression arithmetic:
 // the integer "islow" IDCT of jidctint.c with its range-limit table,
 // jdsample.c's fancy upsampling (h2v1 and h2v2 triangle filters, and
 // libjpeg-turbo's h1v2 for 4:4:0; plain replication where libjpeg falls
 // back to it, as for 4:1:1 or a chroma plane at most 2 samples wide), the
 // edge rows libjpeg repeats at the top and bottom of a component, and
-// jdcolor.c's fixed-point YCbCr -> BGR tables.  Progressive, lossless,
-// hierarchical, arithmetic-coded and 12-bit files, CMYK and RGB-coded
-// files, and a truncated or corrupt file are refused with a message that
-// names the mode or the fault.  The Exif orientation is applied by
-// utils/imageio.py.
+// jdcolor.c's fixed-point YCbCr -> BGR tables.  Lossless, hierarchical,
+// arithmetic-coded and 12-bit files, CMYK and RGB-coded files, a
+// progressive file whose scans leave a low-frequency coefficient unrefined
+// (libjpeg smooths such a file's blocks: jdcoefct.c decompress_smooth_data,
+// not reproduced here), and a truncated or corrupt file are refused with a
+// message that names the mode or the fault.  The Exif orientation is
+// applied by utils/imageio.py.
 //
 // Built with the host's C compiler by ops/_build.py (cc -O2 -shared -fPIC)
 // and called through ctypes, which lets go of Python's interpreter lock.
@@ -52,6 +58,9 @@ typedef struct {
     int16_t* coef;     // bw * bh blocks of 64, natural order
     int dc, ac, pred;  // the scan's tables and the DC prediction
     int seen;          // in a scan yet
+    uint16_t q[64];    // the quantisation table, latched at the first scan
+    int coef_bits[64];  // progressive: the last scan's Al of each coefficient
+                        // (zigzag order), -1 before its first scan
     uint8_t* plane;    // bw * 8 x bh * 8 samples after the IDCT
 } Comp;
 
@@ -64,6 +73,8 @@ typedef struct {
     int width, height, ncomp, hmax, vmax, mcusx, mcusy, sof;
     Comp c[4];
     int restart, jfif, adobe, adobe_transform;
+    int ss, se, ah, al;  // the scan's spectral band and successive approximation
+    int eobrun;          // progressive AC: blocks left in an end-of-band run
     uint64_t buf;  // bit reader
     int nbits, padded, marker;
     char* err;
@@ -178,6 +189,7 @@ static void read_sof(Dec* d, int marker) {
         c->dh = (int)(((int64_t)d->height * c->v + d->vmax - 1) / d->vmax);
         c->bw = d->mcusx * c->h;
         c->bh = d->mcusy * c->v;
+        for (int k = 0; k < 64; ++k) c->coef_bits[k] = -1;
     }
     d->sof = marker;
 }
@@ -196,11 +208,11 @@ static void read_app(Dec* d, int marker, int64_t end) {
 // entropy-coded data
 // ---------------------------------------------------------------------------
 
-// At least `need` (<= 32) bits in the buffer.  A marker ends the segment: the
-// bits after it read as zeros, counted in `padded`, which the data must not
-// reach (checked after each block).
-static void fill(Dec* d, int need) {
-    while (d->nbits < need) {
+// Fills the buffer to more than 56 bits, a byte at a time.  A marker ends
+// the segment: the bits after it read as zeros, counted in `padded`, which
+// the data must not reach (checked after each MCU).
+static void fill(Dec* d) {
+    while (d->nbits <= 56) {
         int b = 0;
         if (!d->marker) {
             if (d->pos >= d->n) fail(d, "truncated JPEG file (data ends inside a scan)");
@@ -227,7 +239,7 @@ static void fill(Dec* d, int need) {
 
 static inline int get_bits(Dec* d, int n) {
     if (n == 0) return 0;
-    fill(d, n);
+    if (d->nbits < n) fill(d);
     d->nbits -= n;
     return (int)((d->buf >> d->nbits) & ((1u << n) - 1));
 }
@@ -235,7 +247,7 @@ static inline int get_bits(Dec* d, int n) {
 static inline int extend(int v, int n) { return v < (1 << (n - 1)) ? v - (1 << n) + 1 : v; }
 
 static int decode_huff(Dec* d, const Huff* t) {
-    fill(d, 16);
+    if (d->nbits < 16) fill(d);
     uint32_t look = (uint32_t)(d->buf >> (d->nbits - 16)) & 0xFFFF;
     int l = t->look_len[look >> (16 - LOOK_BITS)];
     if (l) {
@@ -272,8 +284,81 @@ static void decode_block(Dec* d, Comp* c, int16_t* blk) {
             k += 15;
         }
     }
-    if (d->nbits < d->padded)
-        fail(d, "corrupt or truncated JPEG: a marker inside the data of a block");
+}
+
+// jdphuff.c decode_mcu_DC_first: the DC's high bits, from Al up.
+static void decode_dc_first(Dec* d, Comp* c, int16_t* blk) {
+    int s = decode_huff(d, &d->dc[c->dc]);
+    if (s > 15) fail(d, "corrupt JPEG: DC magnitude %d", s);
+    c->pred += s ? extend(get_bits(d, s), s) : 0;
+    blk[0] = (int16_t)(int)((unsigned)c->pred << d->al);
+}
+
+// jdphuff.c decode_mcu_DC_refine: one more bit of the DC, at Al.
+static void decode_dc_refine(Dec* d, Comp* c, int16_t* blk) {
+    (void)c;
+    if (get_bits(d, 1)) blk[0] = (int16_t)(blk[0] | (1 << d->al));
+}
+
+// jdphuff.c decode_mcu_AC_first: the band Ss..Se's high bits, from Al up;
+// an end-of-band run covers this block and EOBRUN - 1 more.
+static void decode_ac_first(Dec* d, Comp* c, int16_t* blk) {
+    if (d->eobrun > 0) {
+        d->eobrun--;
+        return;
+    }
+    const Huff* ac = &d->ac[c->ac];
+    for (int k = d->ss; k <= d->se; ++k) {
+        int rs = decode_huff(d, ac), r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            blk[kNatural[k]] = (int16_t)(int)((unsigned)extend(get_bits(d, s), s) << d->al);
+        } else if (r == 15) {  // ZRL: 16 zeros
+            k += 15;
+        } else {  // EOBr: a run of 2**r + r appended bits blocks, this one included
+            d->eobrun = (1 << r) + (r ? get_bits(d, r) : 0) - 1;
+            break;
+        }
+    }
+}
+
+// jdphuff.c decode_mcu_AC_refine: a bit at Al for each coefficient that is
+// already nonzero (1: its magnitude grows by 2**Al), and the coefficients
+// that become nonzero (+-2**Al), in libjpeg's order.
+static void decode_ac_refine(Dec* d, Comp* c, int16_t* blk) {
+    const int p1 = 1 << d->al, m1 = -p1;
+    int k = d->ss;
+    if (d->eobrun == 0) {
+        const Huff* ac = &d->ac[c->ac];
+        for (; k <= d->se; ++k) {
+            int rs = decode_huff(d, ac), r = rs >> 4, s = rs & 15;
+            if (s) {
+                s = get_bits(d, 1) ? p1 : m1;  // libjpeg takes any size as 1
+            } else if (r != 15) {
+                d->eobrun = (1 << r) + (r ? get_bits(d, r) : 0);
+                break;  // the rest of the block is the run's
+            }
+            // pass the nonzero coefficients, each with its correction bit,
+            // and r zero ones; the next zero is the new coefficient's place
+            do {
+                int16_t* t = blk + kNatural[k];
+                if (*t != 0) {
+                    if (get_bits(d, 1) && (*t & p1) == 0) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+                } else if (--r < 0) {
+                    break;
+                }
+                ++k;
+            } while (k <= d->se);
+            if (s) blk[kNatural[k]] = (int16_t)s;
+        }
+    }
+    if (d->eobrun > 0) {  // in an end-of-band run: correction bits only
+        for (; k <= d->se; ++k) {
+            int16_t* t = blk + kNatural[k];
+            if (*t != 0 && get_bits(d, 1) && (*t & p1) == 0) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+        }
+        d->eobrun--;
+    }
 }
 
 // The marker that ends an entropy-coded segment: 0xFF, fill bytes, the code.
@@ -296,6 +381,8 @@ static void restart(Dec* d, int* next_rst) {
     *next_rst = (*next_rst + 1) & 7;
 }
 
+typedef void (*BlockFn)(Dec*, Comp*, int16_t*);
+
 // The scan header up to `end`, then its entropy-coded data; leaves pos on
 // the marker after the data.
 static void read_sos(Dec* d, int64_t end) {
@@ -312,63 +399,83 @@ static void read_sos(Dec* d, int64_t end) {
         if (sc[i] == NULL) fail(d, "corrupt JPEG: scan names component %d", id);
         sc[i]->dc = tables >> 4;
         sc[i]->ac = tables & 15;
-        if (sc[i]->dc > 3 || sc[i]->ac > 3 || !d->dc[sc[i]->dc].present ||
-            !d->ac[sc[i]->ac].present)
-            fail(d, "corrupt JPEG: scan uses an undefined Huffman table");
-        if (!d->qset[sc[i]->tq]) fail(d, "corrupt JPEG: undefined quantisation table");
-        sc[i]->pred = 0;
-        sc[i]->seen = 1;
+        if (sc[i]->dc > 3 || sc[i]->ac > 3) fail(d, "corrupt JPEG: Huffman table slot %d", tables);
         blocks += sc[i]->h * sc[i]->v;
-        if (sc[i]->coef == NULL) {
-            sc[i]->coef = calloc((size_t)sc[i]->bw * sc[i]->bh * 64, sizeof(int16_t));
-            if (sc[i]->coef == NULL) fail(d, "out of memory");
-        }
     }
-    int ss = byte_at(d), se = byte_at(d), a = byte_at(d);
-    if (ss != 0 || se != 63 || a != 0)
-        fail(d, "corrupt JPEG: sequential scan with spectral range %d..%d", ss, se);
+    d->ss = byte_at(d);
+    d->se = byte_at(d);
+    int a = byte_at(d);
+    d->ah = a >> 4;
+    d->al = a & 15;
     if (ns > 1 && blocks > 10) fail(d, "corrupt JPEG: %d blocks in an MCU", blocks);
     if (d->pos != end) fail(d, "corrupt JPEG: scan header of the wrong length");
+    BlockFn fn = decode_block;
+    int need_dc = 1, need_ac = 1;
+    if (d->sof != 0xC2) {
+        if (d->ss != 0 || d->se != 63 || a != 0)
+            fail(d, "corrupt JPEG: sequential scan with spectral range %d..%d", d->ss, d->se);
+    } else {
+        // jdphuff.c start_pass_phuff_decoder's checks
+        int dc_band = d->ss == 0;
+        if ((dc_band && d->se != 0) || (!dc_band && (d->se < d->ss || d->se > 63 || ns != 1)) ||
+            (d->ah != 0 && d->al != d->ah - 1) || d->al > 13)
+            fail(d, "corrupt JPEG: progressive scan Ss %d, Se %d, Ah %d, Al %d", d->ss, d->se,
+                 d->ah, d->al);
+        fn = dc_band ? (d->ah ? decode_dc_refine : decode_dc_first)
+                     : (d->ah ? decode_ac_refine : decode_ac_first);
+        need_dc = dc_band && d->ah == 0;
+        need_ac = !dc_band;
+        for (int i = 0; i < ns; ++i)  // libjpeg only warns when Ah is not the last Al
+            for (int k = d->ss; k <= d->se; ++k) sc[i]->coef_bits[k] = d->al;
+    }
+    for (int i = 0; i < ns; ++i) {
+        Comp* c = sc[i];
+        if ((need_dc && !d->dc[c->dc].present) || (need_ac && !d->ac[c->ac].present))
+            fail(d, "corrupt JPEG: scan uses an undefined Huffman table");
+        if (!c->seen) {  // jdinput.c latch_quant_tables
+            if (!d->qset[c->tq]) fail(d, "corrupt JPEG: undefined quantisation table");
+            memcpy(c->q, d->q[c->tq], sizeof c->q);
+        }
+        c->pred = 0;
+        c->seen = 1;
+        if (c->coef == NULL) {
+            c->coef = calloc((size_t)c->bw * c->bh * 64, sizeof(int16_t));
+            if (c->coef == NULL) fail(d, "out of memory");
+        }
+    }
 
     d->buf = 0;
     d->nbits = d->padded = d->marker = 0;
+    d->eobrun = 0;
     int next_rst = 0, todo = d->restart;
-    if (ns == 1) {  // non-interleaved: one block an MCU over the component's own blocks
-        Comp* c = sc[0];
-        int nx = (c->dw + 7) / 8, ny = (c->dh + 7) / 8;
-        for (int by = 0; by < ny; ++by)
-            for (int bx = 0; bx < nx; ++bx) {
-                if (d->restart) {
-                    if (todo == 0) {
-                        restart(d, &next_rst);
-                        c->pred = 0;
-                        todo = d->restart;
-                    }
-                    --todo;
+    // a scan of one component codes its own blocks, one an MCU; a scan of
+    // several codes whole MCUs
+    const int one = ns == 1;
+    const int64_t nx = one ? (sc[0]->dw + 7) / 8 : d->mcusx;
+    const int64_t ny = one ? (sc[0]->dh + 7) / 8 : d->mcusy;
+    for (int64_t my = 0; my < ny; ++my)
+        for (int64_t mx = 0; mx < nx; ++mx) {
+            if (d->restart) {
+                if (todo == 0) {  // a restart resets the predictions and any run
+                    restart(d, &next_rst);
+                    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+                    d->eobrun = 0;
+                    todo = d->restart;
                 }
-                decode_block(d, c, c->coef + ((int64_t)by * c->bw + bx) * 64);
+                --todo;
             }
-    } else {
-        for (int my = 0; my < d->mcusy; ++my)
-            for (int mx = 0; mx < d->mcusx; ++mx) {
-                if (d->restart) {
-                    if (todo == 0) {
-                        restart(d, &next_rst);
-                        for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
-                        todo = d->restart;
+            for (int i = 0; i < ns; ++i) {
+                Comp* c = sc[i];
+                const int bv = one ? 1 : c->v, bh = one ? 1 : c->h;
+                for (int v = 0; v < bv; ++v)
+                    for (int h = 0; h < bh; ++h) {
+                        int64_t b = (my * bv + v) * c->bw + mx * bh + h;
+                        fn(d, c, c->coef + b * 64);
                     }
-                    --todo;
-                }
-                for (int i = 0; i < ns; ++i) {
-                    Comp* c = sc[i];
-                    for (int v = 0; v < c->v; ++v)
-                        for (int h = 0; h < c->h; ++h) {
-                            int64_t b = (int64_t)(my * c->v + v) * c->bw + mx * c->h + h;
-                            decode_block(d, c, c->coef + b * 64);
-                        }
-                }
             }
-    }
+            if (d->nbits < d->padded)
+                fail(d, "corrupt or truncated JPEG: a marker inside the data of a block");
+        }
     d->buf = 0;
     d->nbits = d->padded = d->marker = 0;
 }
@@ -550,6 +657,22 @@ static void free_dec(Dec* d) {
     }
 }
 
+// jdcoefct.c smoothing_ok (libjpeg-turbo 2.1 and later): whether libjpeg
+// would smooth the blocks of this progressive file.  It does when every
+// component's DC is at least partly known and one of its first ten
+// coefficients (zigzag order) is not fully refined.
+static int smoothing(const Dec* d) {
+    int useful = 0;
+    for (int i = 0; i < d->ncomp; ++i) {
+        const Comp* c = &d->c[i];
+        for (int k = 0; k < 10; ++k)
+            if (c->q[kNatural[k]] == 0) return 0;
+        if (c->coef_bits[0] < 0) return 0;
+        for (int k = 1; k < 10; ++k) useful |= c->coef_bits[k] != 0;
+    }
+    return useful;
+}
+
 // Reads the markers up to EOI, decoding every scan when `decode` is set.
 static void parse(Dec* d, int decode) {
     if (d->n < 2 || d->d[0] != 0xFF || d->d[1] != 0xD8) fail(d, "not a JPEG file (no SOI marker)");
@@ -566,18 +689,18 @@ static void parse(Dec* d, int decode) {
         switch (m) {
             case 0xC0:
             case 0xC1:
+            case 0xC2:
                 read_sof(d, m);
                 if (!decode) return;
                 break;
-            case 0xC2:
-                fail(d, "progressive JPEG (SOF2) is not supported: the port reads baseline JPEG");
             case 0xC3:
-                fail(d, "lossless JPEG (SOF3) is not supported: the port reads baseline JPEG");
+                fail(d, "lossless JPEG (SOF3) is not supported: the port reads sequential and "
+                     "progressive DCT JPEG");
             case 0xC5:
             case 0xC6:
             case 0xC7:
-                fail(d, "hierarchical JPEG (SOF%d) is not supported: the port reads baseline JPEG",
-                     m - 0xC0);
+                fail(d, "hierarchical JPEG (SOF%d) is not supported: the port reads sequential "
+                     "and progressive DCT JPEG", m - 0xC0);
             case 0xC9:
             case 0xCA:
             case 0xCB:
@@ -585,7 +708,7 @@ static void parse(Dec* d, int decode) {
             case 0xCE:
             case 0xCF:
                 fail(d, "arithmetic-coded JPEG (SOF%d) is not supported: the port reads "
-                     "Huffman-coded baseline JPEG", m - 0xC0);
+                     "Huffman-coded JPEG", m - 0xC0);
             case 0xC4:
                 read_dht(d, end);
                 break;
@@ -655,9 +778,14 @@ int jpeg_decode(const uint8_t* data, int64_t n, int grey, uint8_t* out, char* er
                 fail(d, "RGB-coded JPEG (no YCbCr transform) is not supported");
         }
         const int W = d->width, H = d->height, nout = (grey || d->ncomp == 1) ? 1 : 3;
+        for (int i = 0; i < d->ncomp; ++i)
+            if (!d->c[i].seen) fail(d, "corrupt JPEG: component %d is in no scan", d->c[i].id);
+        if (d->sof == 0xC2 && smoothing(d))
+            fail(d, "progressive JPEG whose scans leave a low-frequency coefficient unrefined "
+                 "(a cut progression) is not supported: libjpeg smooths such a file's blocks "
+                 "(block smoothing), which the port does not reproduce");
         for (int i = 0; i < d->ncomp; ++i) {
             Comp* c = &d->c[i];
-            if (!c->seen) fail(d, "corrupt JPEG: component %d is in no scan", c->id);
             if (d->hmax % c->h || d->vmax % c->v)
                 fail(d, "JPEG sampling %dx%d of %dx%d is not supported", c->h, c->v, d->hmax,
                      d->vmax);
@@ -667,7 +795,7 @@ int jpeg_decode(const uint8_t* data, int64_t n, int grey, uint8_t* out, char* er
             const int64_t ps = (int64_t)c->bw * 8;
             for (int by = 0; by < c->bh; ++by)
                 for (int bx = 0; bx < c->bw; ++bx)
-                    idct_islow(c->coef + ((int64_t)by * c->bw + bx) * 64, d->q[c->tq],
+                    idct_islow(c->coef + ((int64_t)by * c->bw + bx) * 64, c->q,
                                c->plane + (int64_t)by * 8 * ps + bx * 8, ps);
         }
         planes = malloc((size_t)W * H * nout);

@@ -140,7 +140,7 @@ def test_nyu(cfg, infer_disp, test_images, test_gt_depths, file=None):
 
 def test_single_image(img_path, infer_disp, training_hw, save_dir="./"):
     """The single-image depth demo: predict, resize back, and save the
-    magma-coloured disparity as ``<save_dir>/demo_depth.png``.  Returns
+    magma-coloured disparity as ``<save_dir>/demo_depth.jpg``.  Returns
     (disparity, depth) at the image's size."""
     from unopticalflow_tpu_torch.utils.visualizer import VisualizerDebug
 

@@ -7,7 +7,8 @@ the average EPE, the direction segmentation, the bilinear backward warp,
 the Middlebury colour wheel and the hue/saturation rendering (with its own
 copy of matplotlib's ``hsv_to_rgb``).  Images go through
 ``utils/imageio.py`` (PNG or JPEG; 16-bit PNG in cv2's BGR channel order).
-``show_flow``, which opens a window, is not ported.
+``show_flow`` shows a ``.flo`` file's colour wheel with matplotlib, which
+it imports when called, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -317,3 +318,11 @@ def visualize_flow(flow: np.ndarray, mode: str = "Y") -> np.ndarray:
     img[:, :, 2] = 8 - img[:, :, 1]
     img[valid == 0] = 0
     return (hsv_to_rgb(np.clip(img, 0, 1)) * 255).astype(np.uint8)
+
+
+def show_flow(filename: str) -> None:
+    """Display a .flo file's colour wheel with matplotlib (imported here)."""
+    import matplotlib.pyplot as plt
+
+    plt.imshow(flow_to_image(read_flow(filename)))
+    plt.show()

@@ -6,7 +6,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
         -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so csrc/<name>.cu
 
 and the host code of ``csrc/<name>.c`` (``utils/imageio.py``'s PNG row
-unfiltering and resize, and its JPEG decoder) with the host's C compiler,
+unfiltering and resize, and its JPEG decoder and encoder) with the host's C compiler,
 ``cc -O2 -shared -fPIC``, on every machine, at first use, into
 ``build/kernels/`` at the repository root, under a name keyed on a hash of
 the source, so an edited source is rebuilt and an unchanged one is not.  ``build_all`` starts one ``nvcc`` per source, all at
@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("correlation", "photometric", "regularizer", "gather")
-HOST_SOURCES = ("imageio", "jpeg")
+HOST_SOURCES = ("imageio", "jpeg", "jpeg_enc")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's report (registers, shared memory, spills per kernel) of each source

@@ -22,10 +22,12 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
 /flow`` with a PNG/JPEG of the vertically stacked pair, answered with
 Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it
-decodes PNG and baseline JPEG bodies with the port's own readers (no
-opencv; a JPEG mode they refuse, such as progressive, gets a 400 that
-names it), and ``main`` reads the yaml, so ``FlowServer`` itself needs only
-torch and numpy.
+decodes PNG (plain or interlaced) and JPEG (baseline or progressive) bodies
+with the port's own readers, as ``cv2.imdecode`` decodes them, without
+opencv; a body they refuse (another format, a lossless, arithmetic-coded,
+CMYK or truncated JPEG, a progressive one cut short) gets a 400 that names
+why.  ``main`` reads the yaml, so ``FlowServer`` itself needs only torch
+and numpy.
 
 Usage:
     python -m unopticalflow_tpu_torch.serve -c config/kitti.yaml \
@@ -233,8 +235,8 @@ def _decode_pair(body: bytes, img_hw) -> np.ndarray:
     """PNG/JPEG bytes of a vertically stacked pair -> (2H, W, 3) float32.
 
     Decoded by ``utils/imageio.py`` as ``cv2.imdecode`` decodes it; a body it
-    cannot decode (another format, a progressive or truncated JPEG) raises
-    ``ValueError`` with the reason, which the handler sends back in a 400.
+    cannot decode (another format, a truncated JPEG) raises ``ValueError``
+    with the reason, which the handler sends back in a 400.
     """
     arr = imageio.imdecode(body, imageio.IMREAD_COLOR)
     if arr is None:

@@ -2,32 +2,40 @@
 
 The port reads frames, request bodies and KITTI ground truth as PNG or JPEG
 with its own codecs (PNG: ``zlib``, numpy, and the row unfiltering of
-``csrc/imageio.c``; JPEG: the baseline decoder of ``csrc/jpeg.c``) and
-resizes with its own copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in
-numpy, the sums in ``csrc/imageio.c``; float32: numpy), each written to give
-what cv2 gives, so the entry points read the same data on every machine,
-with or without opencv.  Nothing here imports cv2.
+``csrc/imageio.c``; JPEG: the decoder of ``csrc/jpeg.c`` and the encoder of
+``csrc/jpeg_enc.c``) and resizes with its own copy of OpenCV's
+``INTER_LINEAR`` (uint8: the taps in numpy, the sums in ``csrc/imageio.c``;
+float32: numpy), each written to give what cv2 (and PIL, for the JPEG it
+writes) gives, so the entry points read and write the same data on every
+machine, with or without opencv.  Nothing here imports cv2 or PIL.
 
 * ``decode_png(data, flags)`` as ``cv2.imdecode``: ``IMREAD_COLOR`` gives BGR
   uint8 (H, W, 3) (16-bit samples keep their high byte, alpha is dropped,
   grey is repeated); ``IMREAD_UNCHANGED`` (-1) the file's own channels in
   BGR(A) order, uint8 or uint16, grey as (H, W), a palette expanded to BGR
-  (BGRA with a ``tRNS`` chunk).  Colour types 0, 2, 3, 4 and 6 at 8 bits and
-  0 and 2 at 16 bits; all five row filters; interlaced (Adam7) files raise.
-  ``IMREAD_GRAYSCALE`` (0) reads grey files only, as (H, W) uint8 (16-bit
-  samples keep their high byte): cv2's conversion of a colour file to grey
-  is not reproduced, and such a file raises.
+  (BGRA with a ``tRNS`` chunk); ``IMREAD_GRAYSCALE`` (0) (H, W) uint8, a
+  colour or palette file converted as libpng converts it for cv2 (alpha
+  dropped, (9797 R + 19234 G + 3737 B) >> 15, on 16-bit samples rounded
+  before the high byte is kept).  Colour types 0, 2, 3, 4 and 6 at 8 bits
+  and 0 and 2 at 16 bits; all five row filters; plain and interlaced
+  (Adam7) files.  A grey read of a colour file with a ``gAMA``, ``cHRM``,
+  ``sRGB`` or ``iCCP`` chunk, where libpng's conversion goes through gamma
+  tables, raises.
 * ``decode_jpeg(data, flags)`` as ``cv2.imdecode`` with libjpeg-turbo, bit
-  for bit: baseline (sequential, Huffman, 8-bit) grey or YCbCr files of any
-  size and sampling, with restart intervals.  ``IMREAD_COLOR`` gives BGR
-  (a grey file repeated), ``IMREAD_GRAYSCALE`` libjpeg's Y plane,
+  for bit: sequential and progressive (Huffman, 8-bit) grey or YCbCr files
+  of any size and sampling, with restart intervals.  ``IMREAD_COLOR`` gives
+  BGR (a grey file repeated), ``IMREAD_GRAYSCALE`` libjpeg's Y plane,
   ``IMREAD_UNCHANGED`` the file's own channels; the first two apply an
-  Exif ``Orientation`` tag, as cv2 does.  Progressive, lossless,
-  arithmetic-coded, 12-bit, CMYK and truncated files raise ``ValueError``,
-  naming the mode or the fault.
+  Exif ``Orientation`` tag, as cv2 does.  Lossless, hierarchical,
+  arithmetic-coded, 12-bit, CMYK and truncated files, and a progressive
+  file cut short of its last scans (whose blocks libjpeg smooths), raise
+  ``ValueError``, naming the mode or the fault.
 * ``encode_png(img)`` as ``cv2.imencode(".png")`` writes it, each row's
   filter chosen as libpng chooses it: (H, W) grey or (H, W, 3) BGR /
   (H, W, 4) BGRA, uint8 or uint16.
+* ``encode_jpeg(img, quality)`` as ``cv2.imencode(".jpg")`` writes a BGR
+  image, byte for byte (at quality 75 also PIL's default ``save(f,
+  "JPEG")`` of the RGB image).
 * ``read_ppm(path)``: a binary (P6, 8-bit) PPM as RGB (NYUv2's raw frames).
 * ``resize(img, (w, h))`` as ``cv2.resize(img, (w, h))``.  On uint8:
   weights with 11 fractional bits from single-precision source positions
@@ -52,6 +60,11 @@ IMREAD_COLOR = 1
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# chunks that make libpng convert colour to grey through gamma tables
+_COLOUR_MANAGED = (b"gAMA", b"cHRM", b"sRGB", b"iCCP")
 _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
 
 
@@ -194,7 +207,7 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
         raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR, "
                          "IMREAD_GRAYSCALE or IMREAD_UNCHANGED")
-    head, palette, trns, idat = None, None, None, []
+    head, palette, trns, idat, managed = None, None, None, [], []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             head = struct.unpack(">IIBBBBB", body)
@@ -204,22 +217,22 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind in _COLOUR_MANAGED:
+            managed.append(kind.decode())
     if head is None:
         raise ValueError("PNG file without IHDR")
     w, h, depth, ctype, _, _, interlace = head
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG files are not supported")
+    if interlace > 1:
+        raise ValueError(f"PNG interlace method {interlace} does not exist")
     if ctype not in _CHANNELS or depth not in (8, 16) or (depth == 16 and ctype not in (0, 2)):
         raise ValueError(f"PNG colour type {ctype} at {depth} bits is not supported")
-    if flags == IMREAD_GRAYSCALE and ctype != 0:
-        raise ValueError(f"IMREAD_GRAYSCALE of a PNG of colour type {ctype}: the port "
-                         "reads grey files only in grey")
+    if flags == IMREAD_GRAYSCALE and ctype in (2, 3, 6) and managed:
+        raise ValueError(f"IMREAD_GRAYSCALE of a colour PNG with a {managed[0]} chunk is not "
+                         "supported: libpng converts it through gamma tables")
     ch = _CHANNELS[ctype]
     bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"PNG data holds {raw.size} bytes, expected {h * (1 + w * bpp)}")
-    px = _unfilter(raw.reshape(h, 1 + w * bpp), h, w * bpp, bpp)
+    px = _deinterlace(raw, w, h, bpp) if interlace else _passes(raw, w, h, bpp)
     if depth == 16:
         img = px.view(">u2").astype(np.uint16).reshape(h, w, ch)
     else:
@@ -230,11 +243,15 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
             raise ValueError("palette PNG without PLTE")
         idx = img[:, :, 0]
         rgb = palette[idx]
+        if flags == IMREAD_GRAYSCALE:
+            return _grey(rgb, 8)
         if trns is not None and flags == IMREAD_UNCHANGED:
             alpha = np.full(len(palette), 255, np.uint8)
             alpha[: len(trns)] = np.frombuffer(trns, np.uint8)[: len(palette)]
             return _channels(np.dstack([rgb, alpha[idx]]), [2, 1, 0, 3])
         return _channels(rgb, [2, 1, 0])
+    if flags == IMREAD_GRAYSCALE and ch >= 3:
+        return _grey(img, depth)
     if flags != IMREAD_UNCHANGED and depth == 16:
         img = (img >> 8).astype(np.uint8)
     if flags == IMREAD_GRAYSCALE:
@@ -244,6 +261,50 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     if ch == 1:
         return np.ascontiguousarray(img[:, :, 0])
     return _channels(img, {2: [0, 0, 0, 1], 3: [2, 1, 0], 4: [2, 1, 0, 3]}[ch])
+
+
+def _passes(raw: np.ndarray, w: int, h: int, bpp: int) -> np.ndarray:
+    """A plain PNG's inflated data -> its (h, w * bpp) unfiltered bytes."""
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"PNG data holds {raw.size} bytes, expected {h * (1 + w * bpp)}")
+    return _unfilter(raw.reshape(h, 1 + w * bpp), h, w * bpp, bpp)
+
+
+def _deinterlace(raw: np.ndarray, w: int, h: int, bpp: int) -> np.ndarray:
+    """An Adam7 PNG's inflated data -> its (h, w * bpp) unfiltered bytes.
+
+    Each of the seven passes is a small image of its own, filtered over its
+    own rows (the first row's "previous row" is zeros); a pass with no
+    column or no row has no bytes, not even filter bytes."""
+    out = np.empty((h, w, bpp), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw == 0 or ph == 0:
+            continue
+        n = ph * (1 + pw * bpp)
+        if pos + n > raw.size:
+            raise ValueError(f"interlaced PNG data holds {raw.size} bytes, fewer than its "
+                             "passes need")
+        rows = _unfilter(raw[pos:pos + n].reshape(ph, 1 + pw * bpp), ph, pw * bpp, bpp)
+        out[y0::dy, x0::dx] = rows.reshape(ph, pw, bpp)
+        pos += n
+    if pos != raw.size:
+        raise ValueError(f"interlaced PNG data holds {raw.size} bytes, expected {pos}")
+    return out.reshape(h, w * bpp)
+
+
+def _grey(rgb: np.ndarray, depth: int) -> np.ndarray:
+    """(H, W, >=3) RGB(A) samples -> (H, W) uint8 as libpng's
+    ``png_set_rgb_to_gray(0.299, 0.587)`` and ``png_set_strip_16`` give
+    them to cv2: weights of 15 bits (9797, 19234, 32768 less both), alpha
+    ignored, an 8-bit sum truncated, a 16-bit one rounded and then cut to
+    its high byte."""
+    r, g, b = (rgb[:, :, k].astype(np.uint32) for k in range(3))
+    y = 9797 * r + 19234 * g + 3737 * b
+    if depth == 16:
+        return ((y + 16384) >> 23).astype(np.uint8)
+    return (y >> 15).astype(np.uint8)
 
 
 def _channels(img: np.ndarray, order) -> np.ndarray:
@@ -381,6 +442,38 @@ def decode_jpeg(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     if flags == IMREAD_UNCHANGED:
         return out
     return _orient(out, _exif_orientation(data))
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
+    """(H, W, 3) uint8 BGR -> the baseline JPEG libjpeg writes with its
+    defaults, byte for byte: ``cv2.imencode(".jpg", img,
+    [IMWRITE_JPEG_QUALITY, quality])``, which at quality 75 is also
+    ``Image.fromarray(img[:, :, ::-1]).save(f, "JPEG")`` (4:2:0, standard
+    Huffman tables, JFIF 1.01; see ``csrc/jpeg_enc.c``)."""
+    import ctypes
+
+    from unopticalflow_tpu_torch.ops import _build
+
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    if not (0 < h <= 65535 and 0 < w <= 65535):
+        raise ValueError(f"a JPEG of {w}x{h} pixels: each side must be 1 to 65535")
+    i64, p = ctypes.c_int64, _build.P
+    lib = _build.load("jpeg_enc", {"jpeg_encode": [p, i64, i64, _build.I, p, i64, p]})
+    # at most ~420 bytes an 8x8 block (every code 16 bits long, every byte
+    # stuffed), 6 blocks a 16x16 MCU
+    cap = 1024 + 10 * ((h + 15) // 16) * ((w + 15) // 16) * 256
+    out = np.empty(cap, np.uint8)
+    size = np.zeros(1, np.int64)
+    rc = lib.jpeg_encode(img.ctypes.data, h, w, int(quality), out.ctypes.data, cap,
+                         size.ctypes.data)
+    if rc < 0:
+        raise MemoryError("jpeg_encode: out of memory")
+    if rc:
+        raise RuntimeError(f"jpeg_encode needed {int(size[0])} bytes of {cap}")
+    return out[: int(size[0])].tobytes()
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,15 @@ The port's copy of ``Visualizer`` from ``unopticalflow_tpu/utils/visualizer.py``
 it accumulates log packs (the interleaved evaluation's result strings),
 pickles them to ``log.pkl``, and prints the four flow losses in the
 reference trainer's ``iter: N, loss_pixel: ...`` format.
-``VisualizerDebug`` writes the JAX package's debug images as PNG through
-``utils/imageio.py``: an image, a mask, a depth map, a flow's colour wheel
-(``test.py --task demo``) and a disparity in the magma colormap
-(``depth_harness.test_single_image``).  Float images are stored as
-``cv2.imwrite`` stores them (rounded and saturated to uint8).  Its drawing
-tools (correspondences, epipolar lines) and 3-D plots are not ported.
+``VisualizerDebug`` writes the JAX package's debug images through
+``utils/imageio.py``, under the JAX package's file names: as PNG an image,
+a mask, a depth map and a flow's colour wheel (``test.py --task demo``),
+float images stored as ``cv2.imwrite`` stores them (rounded and saturated
+to uint8); as JPEG a disparity in the magma colormap
+(``depth_harness.test_single_image``), the bytes PIL writes.  Its drawing
+tools (correspondences, epipolar lines) draw the pixels cv2 draws, through
+``utils/drawing.py``, and its 3-D ray tools call ``plot3D`` and ``scatter``
+on any ``ax`` given them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import pickle
 import numpy as np
 
 from unopticalflow_tpu_torch.evaluation.flowlib import flow_to_image
-from unopticalflow_tpu_torch.utils import imageio
+from unopticalflow_tpu_torch.utils import drawing, imageio
 
 _LOSSES = ("loss_pixel", "loss_ssim", "loss_flow_smooth", "loss_flow_consis")
 
@@ -166,7 +169,14 @@ def _magma_rgb(disp: np.ndarray) -> np.ndarray:
 
 
 class VisualizerDebug:
-    """The JAX package's debug-image dumper (its image writers)."""
+    """The JAX package's debug-image dumper: its image writers, drawing
+    tools and 3-D ray plots."""
+
+    # the correspondences' colours, BGR, taken in turn
+    _COLORS = (
+        (0, 0, 255), (0, 255, 0), (255, 0, 0), (0, 255, 255),
+        (255, 0, 255), (255, 255, 0), (128, 0, 255), (0, 128, 255),
+    )
 
     def __init__(self, dump_dir: str | None = None):
         self.dump_dir = dump_dir
@@ -201,11 +211,113 @@ class VisualizerDebug:
         return self._write(self._path(name + "_depth"), norm.astype(np.uint8))
 
     def save_disp_color_img(self, disp, name: str) -> str:
-        """``<dump_dir>/<name>_depth.png``: the disparity in magma.  The JAX
-        package writes these pixels as a JPEG through PIL; the port, which
-        writes no JPEG, as a PNG."""
-        return self._write(self._path(name + "_depth"), _magma_rgb(disp)[:, :, ::-1])
+        """``<dump_dir>/<name>_depth.jpg``: the disparity in magma, written
+        as the JAX package's PIL writes it (``imageio.encode_jpeg``: the
+        same bytes)."""
+        path = os.path.join(self.dump_dir, name + "_depth.jpg")
+        with open(path, "wb") as f:
+            f.write(imageio.encode_jpeg(_magma_rgb(disp)[:, :, ::-1]))
+        return path
 
     def save_flow_img(self, flow, name: str) -> str:
         """``<dump_dir>/<name>_flow.png``: the colour wheel of an (H, W, 2) flow."""
         return self._write(self._path(name + "_flow"), flow_to_image(np.asarray(flow)))
+
+    # -- correspondences and epipolar lines ---------------------------------
+
+    def show_corres(self, img1, img2, match, name: str) -> tuple[str, str]:
+        """``<name>_img1_cor.png`` and ``<name>_img2_cor.png``: each image
+        with its matched points, (4, N) rows [x1, y1, x2, y2], as circles of
+        radius 1 and thickness 2 in the colours taken in turn."""
+        match = np.asarray(match)
+        paths = []
+        for k, img in ((0, img1), (2, img2)):
+            canvas = np.asarray(img, np.uint8).copy()  # never draw in place
+            for i in range(match.shape[1]):
+                x, y = int(round(match[k, i])), int(round(match[k + 1, i]))
+                drawing.circle(canvas, (x, y), 1, self._COLORS[i % len(self._COLORS)], 2)
+            paths.append(self._write(self._path(f"{name}_img{k // 2 + 1}_cor"), canvas))
+        return paths[0], paths[1]
+
+    def draw_point_corres(self, img1, img2, match, name: str) -> tuple[str, str]:
+        paths = self.show_corres(img1, img2, match, name)
+        print("Correspondence Saved in " + paths[0])
+        return paths
+
+    @staticmethod
+    def drawlines(img1, img2, lines, pts1, pts2, rng=None):
+        """Copies of both images: on the first each line (a, b, c), ax + by
+        + c = 0, from x = 0 to its width, and its point as a filled circle of
+        radius 3; on the second the other point.  Each pair's colour is drawn
+        from ``rng`` (``np.random`` by default), as the JAX package draws it."""
+        rng = rng or np.random
+        img1 = np.asarray(img1, np.uint8).copy()  # never draw in place
+        img2 = np.asarray(img2, np.uint8).copy()
+        _, c = img1.shape[:2]
+        for line, pt1, pt2 in zip(lines, pts1, pts2):
+            color = tuple(int(v) for v in rng.randint(0, 255, 3))
+            a, b, cc = line
+            if abs(b) < 1e-12:
+                continue
+            x0, y0 = 0, int(-cc / b)
+            x1, y1 = c, int(-(cc + a * c) / b)
+            drawing.line(img1, (x0, y0), (x1, y1), color, 1)
+            drawing.circle(img1, tuple(int(v) for v in pt1), 3, color, -1)
+            drawing.circle(img2, tuple(int(v) for v in pt2), 3, color, -1)
+        return img1, img2
+
+    def show_epipolar_line(self, img1, img2, match, fundamental, name: str,
+                           convention: str = "x2Fx1") -> tuple[str, str]:
+        """``<name>_1eline.png`` and ``<name>_2eline.png``: each image with
+        the epipolar lines the other image's points give under F (``"x2Fx1"``:
+        x2^T F x1 = 0; ``"x1Fx2"``, as ``ops.geometry.fundamental_from_pose``
+        returns it, is transposed first)."""
+        if convention not in ("x2Fx1", "x1Fx2"):
+            raise ValueError(f"unknown F convention: {convention!r}")
+        match = np.asarray(match, np.float32)
+        f = np.asarray(fundamental, np.float64)
+        if convention == "x1Fx2":
+            f = f.T
+        pts1, pts2 = match[:2].T, match[2:].T
+        out1, _ = self.drawlines(img1, img2, drawing.epilines(pts2, 2, f), pts1, pts2)
+        out2, _ = self.drawlines(img2, img1, drawing.epilines(pts1, 1, f), pts2, pts1)
+        return (self._write(self._path(name + "_1eline"), out1),
+                self._write(self._path(name + "_2eline"), out2))
+
+    def draw_epipolar_line(self, img1, img2, match, fundamental, name: str) -> tuple[str, str]:
+        paths = self.show_epipolar_line(img1, img2, match, fundamental, name)
+        print("Epipolar Lines Saved in " + paths[0])
+        return paths
+
+    # -- 3-D rays on any ax with plot3D and scatter ----------------------------
+
+    @staticmethod
+    def visualize_points(ax, points):
+        ax.plot3D(points[:, 0], points[:, 1], points[:, 2])
+
+    @staticmethod
+    def scatter_3d(ax, point, scatter_color="r"):
+        ax.scatter(point[0], point[1], point[2], c=scatter_color)
+
+    def show_ray(self, ax, intrinsics, extrinsics, point2d):
+        """Plot the camera ray through a pixel; returns its direction."""
+        k_inv = np.linalg.inv(intrinsics)
+        rot, t = extrinsics[:, :3], extrinsics[:, 3]
+        direction = rot.T @ k_inv @ np.array([point2d[0], point2d[1], 1.0])
+        direction = direction / (np.linalg.norm(direction) + 1e-12)
+        origin = -rot.T @ t
+        pts = origin[None] + np.linspace(0.0, 100.0, 1000)[:, None] * direction[None]
+        self.visualize_points(ax, pts)
+        self.scatter_3d(ax, pts[0], scatter_color="r")
+        return direction
+
+    def visualize_two_rays(self, ax, match, proj1, proj2):
+        """Plot the two rays of a correspondence (proj1 = [K | 0]); returns
+        their directions' dot product."""
+        intrinsics = proj1[:, :3]
+        k_inv = np.linalg.inv(intrinsics)
+        rt1, rt2 = k_inv @ proj1, k_inv @ proj2
+        x1, y1, x2, y2 = np.asarray(match, np.float64)
+        d1 = self.show_ray(ax, intrinsics, rt1, [x1, y1])
+        d2 = self.show_ray(ax, intrinsics, rt2, [x2, y2])
+        return float(np.dot(d1.squeeze(), d2.squeeze()))
