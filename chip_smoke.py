@@ -249,22 +249,32 @@ Phases (each raises on failure, so the run exits non-zero):
    after the Umeyama alignment.
 17. The host modules without opencv, h5py, matplotlib or PIL
    (``host_modules``; fixtures of ``tests/torch_fixtures/``, written by its
-   ``make_fixtures.py`` with cv2, PIL, h5py and the JAX package).  (a) Every
-   committed JPEG, baseline (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, grey,
-   qualities 10 to 100, a restart interval, optimised tables, an odd size,
-   an Exif orientation, a 512x832 stacked pair) and progressive (4:4:4,
-   4:2:2, 4:2:0, a restart interval, PIL's, an odd size, the stacked pair),
-   decodes to cv2's decode beside it, bit for bit; the progression cut
-   after its third scan decodes so or raises naming libjpeg's block
-   smoothing; the interlaced (Adam7) PNGs of colour types 0, 2, 3, 4 and 6
-   decode to cv2's decodes; the host ms of decoding the baseline and the
-   progressive pair (median of 20 each, this machine's CPU).  (b)
-   ``FlowServer`` and its HTTP handler on the card at 256x832, bfloat16,
-   ``max_batch`` 8: the baseline and the progressive JPEG pair get equal
-   ``.flo`` replies (5 + 5 launches), and so does a PNG of the pair's
-   decoded pixels; the cut progression a 400 naming why; the median ms of
-   8 requests with each body.  (c) ``test.main --task demo`` on two JPEG frames equals the
-   demo on PNGs of their decoded pixels (5 launches each).  (d) NYUv2
+   ``make_fixtures.py`` with cv2, PIL, h5py and the JAX package).  (a) With
+   cv2, PIL, h5py and matplotlib blocked: every committed JPEG, baseline
+   (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, grey, qualities 10 to 100, a restart
+   interval, optimised tables, an odd size, an Exif orientation, a 512x832
+   stacked pair), progressive (4:4:4, 4:2:2, 4:2:0, a restart interval,
+   PIL's, an odd size, the stacked pair, and the progression cut after its
+   third scan, through libjpeg's block smoothing) and CMYK (PIL's), decodes
+   to cv2's decode beside it, bit for bit; the interlaced (Adam7) PNGs of
+   colour types 0, 2, 3, 4 and 6 decode to cv2's decodes; every fixture of
+   ``tests/torch_fixtures/formats/`` (BMP, PNM, PAM, PFM, Sun raster, HDR,
+   TIFF) has the SHA-256 of cv2's decode under each of the three flags (or
+   raises where cv2's output is undefined); the 512x832 stacked pair as
+   BMP, P6, Sun raster, uncompressed, LZW and Deflate TIFF and HDR (built
+   here by this module's writers from the committed pair's pixels) and as
+   PIL's JPEG-compressed TIFF (committed) decodes to the pair's pixels (the
+   lossless ones) or its cv2 digest, and the host ms of decoding it in each
+   format and as the baseline and progressive JPEG (median of 20 each, this
+   machine's CPU; a JSON line).  (b) ``FlowServer`` and its HTTP handler on
+   the card at 256x832, bfloat16, ``max_batch`` 8: each of those bodies and
+   the cut progression gets a 200 whose ``.flo`` reply is byte-equal to the
+   reply to a PNG of the body's decoded pixels, with exactly 5 ``corr_fwd``
+   launches a body; the baseline and progressive JPEG replies are equal; a
+   WebP body gets a 400 naming WebP; the median ms of 8 requests with each
+   body and with the PNG (a JSON line).  (c) ``test.main --task demo`` on
+   two JPEG, two BMP and two LZW TIFF frames equals the demo on PNGs of
+   their decoded pixels (5 launches each).  (d) NYUv2
    without h5py: ``NYU_Prepare`` on raw ``.ppm`` scenes this phase writes
    and the MATLAB-layout labeled set (``train.txt`` names the train scenes
    only), ``load_nyu_test_data`` equal to the JAX package's arrays (by
@@ -871,6 +881,260 @@ def drawing_inputs(seed: int):
     return img1, img2, match, fundamental
 
 
+# ---------------------------------------------------------------------------
+# writers of the image formats phase 17 serves (the format tests and
+# tests/torch_fixtures/make_fixtures.py build their files with them too)
+# ---------------------------------------------------------------------------
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff's encoder writes it: codes of 9 to 12 bits, high
+    bits first, a clear code first and at entry 4094, the width grown once
+    the next free entry passes 2**width - 1, and EOI last."""
+    out = bytearray()
+    acc, nbits = 0, 0
+
+    def emit(code, width):
+        nonlocal acc, nbits
+        acc = (acc << width) | code
+        nbits += width
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 255)
+        acc &= (1 << nbits) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    free, width = 258, 9
+    emit(256, width)
+
+    def grow():
+        nonlocal table, free, width
+        free += 1
+        if free == 4094:
+            emit(256, width)
+            table, free, width = {bytes([i]): i for i in range(256)}, 258, 9
+        elif free > (1 << width) - 1:
+            width += 1
+
+    cur = b""
+    for c in data:
+        nxt = cur + bytes((c,))
+        if nxt in table:
+            cur = nxt
+            continue
+        emit(table[cur], width)
+        table[nxt] = free
+        grow()
+        cur = bytes((c,))
+    if cur:
+        emit(table[cur], width)
+        grow()
+    emit(257, width)
+    if nbits:
+        out.append((acc << (8 - nbits)) & 255)
+    return bytes(out)
+
+
+def packbits_encode(row: bytes) -> bytes:
+    """PackBits of one row: runs of 2 to 128 equal bytes, literals of up to 128."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes((257 - (j - i + 1), row[i]))
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and row[j + 1] == row[j]):
+            j += 1
+        out += bytes((j - i - 1,)) + row[i:j]
+        i = j
+    return bytes(out)
+
+
+def write_bmp(w, h, bpp, pixels: bytes, palette=None, rle=0, hsize=40, topdown=False,
+              masks=None) -> bytes:
+    """A BMP around ``pixels`` (the rows as stored): a palette of (B, G, R)
+    entries, compression ``rle`` (1 RLE8, 2 RLE4, 3 BI_BITFIELDS with
+    ``masks``, after a 40-byte header or inside a larger one), a header of
+    12 (OS/2), 40, 108 or 124 bytes, rows bottom-up unless ``topdown``."""
+    import struct
+
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes((b, g, r)) + (b"" if hsize == 12 else b"\0") for b, g, r in palette)
+    if hsize == 12:
+        head = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        n = 0 if palette is None else len(palette)
+        head = struct.pack("<IiiHHIIiiII", hsize, w, -h if topdown else h, 1, bpp, rle,
+                           len(pixels), 2835, 2835, n, 0) + b"\0" * (hsize - 40)
+        if masks and hsize >= 52:
+            head = head[:40] + struct.pack("<" + "I" * len(masks), *masks) \
+                + head[40 + 4 * len(masks):]
+    extra = struct.pack("<III", *masks[:3]) if masks and hsize == 40 else b""
+    off = 14 + len(head) + len(extra) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off) + head + extra + pal + pixels
+
+
+def bmp_rows(rows) -> bytes:
+    """BMP rows (each ``bytes``), each padded to 4 bytes, bottom row first."""
+    return b"".join(r + b"\0" * (-len(r) % 4) for r in rows[::-1])
+
+
+def write_p6(bgr) -> bytes:
+    """A binary PPM (P6, maxval 255) of a BGR uint8 image."""
+    h, w = bgr.shape[:2]
+    return b"P6\n%d %d\n255\n" % (w, h) + bgr[:, :, ::-1].tobytes()
+
+
+def write_sun(bgr) -> bytes:
+    """A 24-bit ``RT_STANDARD`` Sun raster of a BGR uint8 image (rows padded to 16 bits)."""
+    import struct
+
+    import numpy as np
+
+    h, w = bgr.shape[:2]
+    rows = np.zeros((h, (3 * w + 1) & ~1), np.uint8)
+    rows[:, :3 * w] = bgr.reshape(h, 3 * w)
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, rows.size, 1, 0, 0) + rows.tobytes()
+
+
+def write_hdr(bgr_float) -> bytes:
+    """A Radiance HDR (``#?RADIANCE``, new-style scanline RLE) of a float BGR
+    image: each channel of each row as runs of 4 to 127 equal bytes and
+    literals of up to 128."""
+    import numpy as np
+
+    h, w = bgr_float.shape[:2]
+    rgb = bgr_float[:, :, ::-1].astype(np.float64)
+    peak = rgb.max(axis=2)
+    mant, expo = np.frexp(peak)
+    scale = np.where(peak > 1e-32, mant * 256.0 / np.where(peak > 1e-32, peak, 1.0), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[:, :, :3] = np.floor(rgb * scale[:, :, None]).astype(np.uint8)
+    rgbe[:, :, 3] = np.where(peak > 1e-32, expo + 128, 0)
+    out = bytearray(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w))
+    for y in range(h):
+        out += bytes((2, 2, w >> 8, w & 255))
+        for ch in range(4):
+            line, i = rgbe[y, :, ch].tobytes(), 0
+            while i < w:
+                j = i
+                while j < w and line[j] == line[i] and j - i < 127:
+                    j += 1
+                if j - i >= 4:
+                    out += bytes((128 + j - i, line[i]))
+                    i = j
+                    continue
+                j = i + 1  # a literal up to the next run of 4
+                while j < w and j - i < 128 and line[j:j + 4] != line[j:j + 1] * 4:
+                    j += 1
+                out += bytes((j - i,)) + line[i:j]
+                i = j
+    return bytes(out)
+
+
+def write_tiff(arr, photometric, bps=8, order="<", big=False, tile=None, rows_per_strip=None,
+               planar=1, compression=1, predictor=1, extra=None, colormap=None,
+               orientation=None, jpeg=None, tables=None) -> bytes:
+    """A TIFF of ``arr`` ((H, W) or (H, W, samples), uint8 / uint16, 0/1 for
+    ``bps`` 1) as stored: either byte order, classic or BigTIFF, strips of
+    ``rows_per_strip`` or ``tile`` (w, h) tiles, planar 1 or 2, compression
+    1, 5 (LZW), 8 (Deflate), 32773 (PackBits) or 7 (``jpeg(block)`` gives
+    each strip's bytes, ``tables`` the JPEGTables), Predictor 2, and the
+    ExtraSamples, ColorMap ((n, 3) 16-bit) and Orientation tags."""
+    import struct
+
+    import numpy as np
+
+    arr = np.asarray(arr)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    h, w, spp = arr.shape
+    dtype = np.dtype(order + "u2") if bps == 16 else np.dtype(np.uint8)
+
+    def encode(block):
+        bh = block.shape[0]
+        if bps == 1:
+            raw = np.packbits(block[:, :, 0].astype(np.uint8), axis=1).tobytes()
+        else:
+            x = block.astype(np.int64)
+            if predictor == 2:
+                x[:, 1:] -= block[:, :-1].astype(np.int64)
+            raw = (x % (1 << bps)).astype(dtype).tobytes()
+        if compression == 5:
+            return lzw_encode(raw)
+        if compression == 8:
+            return zlib.compress(raw, 9)
+        if compression == 32773:
+            n = len(raw) // bh
+            return b"".join(packbits_encode(raw[k * n:(k + 1) * n]) for k in range(bh))
+        if compression == 7:
+            return jpeg(block)
+        return raw
+
+    chunks = []
+    for plane in ([arr] if planar == 1 else [arr[:, :, k:k + 1] for k in range(spp)]):
+        if tile:
+            tw, th = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    blk = np.zeros((th, tw, plane.shape[2]), arr.dtype)
+                    sub = plane[ty:ty + th, tx:tx + tw]
+                    blk[:sub.shape[0], :sub.shape[1]] = sub
+                    chunks.append(encode(blk))
+        else:
+            rps = rows_per_strip or h
+            chunks += [encode(plane[y:y + rps]) for y in range(0, h, rps)]
+    long_kind = 16 if big else 4
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra is not None:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, [int(v) for v in np.asarray(colormap).T.ravel()])
+    if orientation:
+        tags[274] = (3, [orientation])
+    if tables is not None:
+        tags[347] = (7, list(tables))
+    head_len = 16 if big else 8
+    offsets, body, pos = [], bytearray(), head_len
+    for chunk in chunks:
+        offsets.append(pos)
+        body += chunk + b"\0" * (len(chunk) % 2)
+        pos = head_len + len(body)
+    if tile:
+        tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]), 324: (long_kind, offsets),
+                     325: (long_kind, [len(c) for c in chunks])})
+    else:
+        tags.update({278: (4, [rows_per_strip or h]), 273: (long_kind, offsets),
+                     279: (long_kind, [len(c) for c in chunks])})
+    code = {3: "H", 4: "I", 16: "Q", 7: "B"}
+    inline, entry = (8, "HHQ") if big else (4, "HHI")
+    ifd_len = (8 if big else 2) + len(tags) * (20 if big else 12) + (8 if big else 4)
+    ext_at, ext, entries = pos + ifd_len, bytearray(), bytearray()
+    for tag in sorted(tags):
+        kind, vals = tags[tag]
+        raw = struct.pack(order + code[kind] * len(vals), *vals)
+        if len(raw) <= inline:
+            val = raw + b"\0" * (inline - len(raw))
+        else:
+            val = struct.pack(order + ("Q" if big else "I"), ext_at + len(ext))
+            ext += raw + b"\0" * (len(raw) % 2)
+        entries += struct.pack(order + entry, tag, kind, len(vals)) + val
+    ifd = struct.pack(order + ("Q" if big else "H"), len(tags)) + entries \
+        + struct.pack(order + ("Q" if big else "I"), 0)
+    mark = b"II" if order == "<" else b"MM"
+    head = mark + (struct.pack(order + "HHHQ", 43, 8, 0, pos) if big
+                   else struct.pack(order + "HI", 42, pos))
+    return head + bytes(body) + ifd + bytes(ext)
+
+
 def host_modules(c) -> None:
     """Phase 17 (see the module): ``c`` holds the device, the precision and
     size the server runs at, the launch counters (``want`` maps an expected
@@ -896,6 +1160,7 @@ def host_modules(c) -> None:
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "torch_fixtures")
     jpeg_dir, nyu_dir = os.path.join(fixtures, "jpeg"), os.path.join(fixtures, "nyu")
+    formats_dir = os.path.join(fixtures, "formats")
     zero_counts = dict.fromkeys(KERNELS, 0)
     counts, reset_counts = c.counts, c.reset_counts
     os.makedirs(c.root, exist_ok=True)
@@ -903,138 +1168,6 @@ def host_modules(c) -> None:
     def read(path):
         with open(path, "rb") as f:
             return f.read()
-
-    # (a) the committed JPEGs and interlaced PNGs against cv2's decodes
-    checked, cut = [], "decoded"
-    for path in sorted(glob.glob(os.path.join(jpeg_dir, "*.jpg"))):
-        name = os.path.basename(path)[:-4]
-        if name == "disp_magma_q75":  # (e)'s
-            continue
-        want = imageio.decode_png(read(os.path.join(
-            jpeg_dir, "pair_512x832.png" if name == "pair_512x832_progressive" else name + ".png")))
-        try:
-            got = imageio.decode_jpeg(read(path))
-        except ValueError as e:
-            if name != "prog_cut3" or "block smoothing" not in str(e):
-                raise
-            cut = f"raises ({e})"
-            continue
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"JPEG {name}: differs from cv2's decode")
-        checked.append(name)
-    adam7 = []
-    for path in sorted(glob.glob(os.path.join(fixtures, "png", "adam7_ct?.png"))):
-        got = imageio.decode_png(read(path), imageio.IMREAD_UNCHANGED)
-        want = imageio.decode_png(read(path[:-4] + "_cv2.png"), imageio.IMREAD_UNCHANGED)
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"PNG {os.path.basename(path)}: differs from cv2's decode")
-        adam7.append(os.path.basename(path)[:-4])
-    if len(adam7) != 5:
-        raise AssertionError(f"interlaced PNG fixtures: {adam7}")
-    pair_jpg = read(os.path.join(jpeg_dir, "pair_512x832.jpg"))
-    pair_prog = read(os.path.join(jpeg_dir, "pair_512x832_progressive.jpg"))
-    t_dec = {"baseline": [], "progressive": []}
-    for _ in range(20):
-        for kind, body in (("baseline", pair_jpg), ("progressive", pair_prog)):
-            t0 = time.perf_counter()
-            pair_px = imageio.decode_jpeg(body)
-            t_dec[kind].append((time.perf_counter() - t0) * 1e3)
-    print(f"host modules (a): {len(checked)} JPEGs decode bit-equal to cv2's decodes "
-          f"({', '.join(checked)}), the progression cut after scan 3 {cut}; the interlaced "
-          f"PNGs {', '.join(adam7)} decode bit-equal to cv2's; decoding the "
-          f"{pair_px.shape[0]}x{pair_px.shape[1]} stacked pair: baseline "
-          f"{statistics.median(t_dec['baseline']):.3f} ms, progressive "
-          f"{statistics.median(t_dec['progressive']):.3f} ms on the host (median of 20 each, "
-          f"one thread; {c.smi})")
-
-    # (b) serving JPEG bodies on the card
-    h, w = c.img_hw
-    cfg = types.SimpleNamespace(img_hw=c.img_hw)
-    model = FlowModel(FlowModelConfig(compute_dtype=c.precision), device=c.device, scheme="pwc",
-                      generator=torch.Generator().manual_seed(SEED + 17))
-    server = FlowServer(cfg, model, max_batch=c.batch, max_wait_ms=5.0)
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server, cfg))
-    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
-    serving.start()
-    pair_png = imageio.encode_png(pair_px)
-    url = f"http://127.0.0.1:{httpd.server_address[1]}/flow"
-
-    def post(body):
-        req = urllib.request.Request(url, data=body, method="POST")
-        with urllib.request.urlopen(req, timeout=300) as r:
-            return r.read()
-
-    try:
-        reset_counts()
-        replies = [post(pair_jpg), post(pair_prog)]
-        served = counts()
-        replies.append(post(pair_png))
-        try:
-            post(read(os.path.join(jpeg_dir, "prog_cut3.jpg")))
-        except urllib.error.HTTPError as e:
-            refusal = (e.code, json.loads(e.read())["error"])
-        else:
-            refusal = (200, "")
-        lat = {}
-        for kind, body in (("jpeg", pair_jpg), ("progressive", pair_prog), ("png", pair_png)):
-            lat[kind] = []
-            for _ in range(8):
-                t0 = time.perf_counter()
-                post(body)
-                lat[kind].append((time.perf_counter() - t0) * 1e3)
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        serving.join(timeout=10)
-        server.close()
-    flow = np.frombuffer(replies[0][12:], np.float32).reshape(-1)
-    if replies[0] != replies[1] or replies[0] != replies[2] or flow.size != h * w * 2 \
-            or not np.isfinite(flow).all() or served != c.want({**zero_counts, "corr_fwd": 10}) \
-            or refusal[0] != 400 or "block smoothing" not in refusal[1]:
-        raise AssertionError(f"serving JPEG: progressive reply equal {replies[0] == replies[1]}, "
-                             f"PNG reply equal {replies[0] == replies[2]}, {flow.size} values, "
-                             f"launches {served}, cut progression {refusal}")
-    print(f"host modules (b): FlowServer + HTTP on {c.device} at {h}x{w}, {c.precision}, "
-          f"max_batch {c.batch}: the baseline and the progressive JPEG pair get byte-equal .flo "
-          f"replies ({len(replies[0])} bytes; {served['corr_fwd']} corr_fwd launches for the "
-          f"two), and so does a PNG of the pair's decoded pixels; the cut progression: "
-          f"{refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, decode + resize + "
-          f"inference + reply): JPEG {statistics.median(lat['jpeg']):.2f}, progressive JPEG "
-          f"{statistics.median(lat['progressive']):.2f}, PNG {statistics.median(lat['png']):.2f} "
-          f"({c.smi})")
-
-    # (c) the demo on JPEG frames against the demo on PNGs of their pixels
-    pth = evaluation.export_pth(os.path.join(c.root, "demo.pth"), model)
-    del model
-    yaml = os.path.join(c.root, "demo.yaml")
-    with open(yaml, "w") as f:
-        f.write(f"img_hw: [{h}, {w}]\nnum_scales: 3\n")
-    frames = {}
-    for k in ("a", "b"):
-        jpg = os.path.join(jpeg_dir, f"frame_{k}.jpg")
-        png = os.path.join(c.root, f"frame_{k}.png")
-        imageio.imwrite(png, imageio.decode_jpeg(read(jpg)))
-        frames[k] = (jpg, png)
-    demo, demo_counts = {}, {}
-    for kind, idx in (("jpeg", 0), ("png", 1)):
-        reset_counts()
-        demo[kind] = evaluation.main([
-            "-c", yaml, "--task", "demo", "--pretrained_model", pth, "--image_path",
-            frames["a"][idx], "--image_path2", frames["b"][idx], "--result_dir",
-            os.path.join(c.root, f"demo_{kind}"), *c.cli])
-        demo_counts[kind] = counts()
-    if not np.array_equal(demo["jpeg"], demo["png"]) or demo["jpeg"].shape != (h, w, 2) \
-            or any(v != c.want({**zero_counts, "corr_fwd": 5}) for v in demo_counts.values()):
-        raise AssertionError(f"demo on JPEG frames: equal to PNG "
-                             f"{np.array_equal(demo['jpeg'], demo['png'])}, launches {demo_counts}")
-    print(f"host modules (c): test.main --task demo on two JPEG frames equals the demo on PNGs "
-          f"of their decoded pixels ({h}x{w} flow, mean |flow| "
-          f"{float(np.abs(demo['jpeg']).mean()):.4f} px), "
-          f"{demo_counts['jpeg']['corr_fwd']} corr_fwd launches each")
-
-    # (d) NYUv2 without h5py: the preparer, the test split, the metrics
-    with open(os.path.join(nyu_dir, "expected.json")) as f:
-        expected = json.load(f)
 
     def digest(*arrays):
         hd = hashlib.sha256()
@@ -1056,6 +1189,199 @@ def host_modules(c) -> None:
                     sys.modules.pop(m, None)
                 else:
                     sys.modules[m] = mod
+
+    # (a) the committed fixtures against cv2's decodes, cv2 and PIL blocked
+    with host_libraries_blocked():
+        checked = []
+        for path in sorted(glob.glob(os.path.join(jpeg_dir, "*.jpg"))):
+            name = os.path.basename(path)[:-4]
+            if name == "disp_magma_q75":  # (e)'s
+                continue
+            want = imageio.decode_png(read(os.path.join(
+                jpeg_dir, "pair_512x832.png" if name == "pair_512x832_progressive" else
+                name + ".png")))
+            got = imageio.decode_jpeg(read(path))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"JPEG {name}: differs from cv2's decode")
+            checked.append(name)
+        if "prog_cut3" not in checked or not any(n.startswith("cmyk") for n in checked):
+            raise AssertionError(f"JPEG fixtures: {checked}")
+        adam7 = []
+        for path in sorted(glob.glob(os.path.join(fixtures, "png", "adam7_ct?.png"))):
+            got = imageio.decode_png(read(path), imageio.IMREAD_UNCHANGED)
+            want = imageio.decode_png(read(path[:-4] + "_cv2.png"), imageio.IMREAD_UNCHANGED)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"PNG {os.path.basename(path)}: differs from cv2's decode")
+            adam7.append(os.path.basename(path)[:-4])
+        if len(adam7) != 5:
+            raise AssertionError(f"interlaced PNG fixtures: {adam7}")
+        with open(os.path.join(formats_dir, "expected.json")) as f:
+            formats_want = json.load(f)
+        for name, entry in sorted(formats_want.items()):
+            data = read(os.path.join(formats_dir, name))
+            for flags, want in entry.items():
+                if want.startswith("raises: "):  # where cv2's output is undefined
+                    try:
+                        imageio.imdecode(data, int(flags))
+                    except ValueError as e:
+                        if want[len("raises: "):] not in str(e):
+                            raise
+                    else:
+                        raise AssertionError(f"{name} (flags {flags}) decodes; expected a raise")
+                elif digest(imageio.imdecode(data, int(flags))) != want:
+                    raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
+        # the 512x832 stacked pair in each format, the bodies built here from
+        # the committed pair's pixels (TIFF JPEG: PIL's file, committed)
+        pair_px = imageio.decode_png(read(os.path.join(jpeg_dir, "pair_512x832.png")))
+        rgb = np.ascontiguousarray(pair_px[:, :, ::-1])
+        pair_bodies = {
+            "BMP": write_bmp(pair_px.shape[1], pair_px.shape[0], 24,
+                             bmp_rows([r.tobytes() for r in pair_px])),
+            "P6": write_p6(pair_px),
+            "Sun raster": write_sun(pair_px),
+            "TIFF": write_tiff(rgb, 2, rows_per_strip=64),
+            "TIFF LZW": write_tiff(rgb, 2, compression=5, predictor=2, rows_per_strip=64),
+            "TIFF Deflate": write_tiff(rgb, 2, compression=8, predictor=2, rows_per_strip=64),
+            "TIFF JPEG": read(os.path.join(formats_dir, "pair_512x832_jpeg.tif")),
+            "HDR": write_hdr(pair_px.astype(np.float32) / 255.0),
+        }
+        pair_bodies = {"JPEG": read(os.path.join(jpeg_dir, "pair_512x832.jpg")),
+                       "progressive JPEG": read(os.path.join(
+                           jpeg_dir, "pair_512x832_progressive.jpg")), **pair_bodies}
+        t_dec = {k: [] for k in pair_bodies}
+        decoded = {}
+        for _ in range(20):
+            for kind, body in pair_bodies.items():
+                t0 = time.perf_counter()
+                decoded[kind] = imageio.imdecode(body)
+                t_dec[kind].append((time.perf_counter() - t0) * 1e3)
+    lossless = ("JPEG", "progressive JPEG", "BMP", "P6", "Sun raster", "TIFF", "TIFF LZW",
+                "TIFF Deflate")
+    differ = [k for k in lossless if not np.array_equal(decoded[k], pair_px)]
+    if differ or digest(decoded["TIFF JPEG"]) != formats_want["pair_512x832_jpeg.tif"]["1"] \
+            or decoded["HDR"].shape != pair_px.shape:
+        raise AssertionError(f"the stacked pair: {differ} differ from its pixels, TIFF JPEG "
+                             f"{digest(decoded['TIFF JPEG'])[:12]}, HDR {decoded['HDR'].shape}")
+    host_ms = {k: statistics.median(v) for k, v in t_dec.items()}
+    print(f"host modules (a), cv2, PIL, h5py and matplotlib blocked: {len(checked)} JPEGs decode "
+          f"bit-equal to cv2's decodes ({', '.join(checked)}; prog_cut3, the progression cut "
+          f"after scan 3, through libjpeg's block smoothing); the interlaced PNGs "
+          f"{', '.join(adam7)}; {len(formats_want)} BMP, PNM, PAM, PFM, Sun raster, HDR and TIFF "
+          f"fixtures equal cv2's decodes under IMREAD_COLOR, IMREAD_GRAYSCALE and "
+          f"IMREAD_UNCHANGED (SHA-256); host ms to decode the {pair_px.shape[0]}x"
+          f"{pair_px.shape[1]} stacked pair (median of 20, one thread; {c.smi}): "
+          + ", ".join(f"{k} {v:.3f} ({len(pair_bodies[k])} bytes)" for k, v in host_ms.items()))
+    print(json.dumps({"host_decode_ms": host_ms, "body_bytes": {
+        k: len(v) for k, v in pair_bodies.items()}, "smi": c.smi}))
+
+    # (b) serving each format on the card, against the PNG of the same pixels
+    h, w = c.img_hw
+    cfg = types.SimpleNamespace(img_hw=c.img_hw)
+    model = FlowModel(FlowModelConfig(compute_dtype=c.precision), device=c.device, scheme="pwc",
+                      generator=torch.Generator().manual_seed(SEED + 17))
+    server = FlowServer(cfg, model, max_batch=c.batch, max_wait_ms=5.0)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server, cfg))
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    pair_png = imageio.encode_png(pair_px)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/flow"
+    served_bodies = {**pair_bodies, "cut progression": read(os.path.join(jpeg_dir,
+                                                                         "prog_cut3.jpg"))}
+    # a WebP header (RIFF, size, WEBP, a VP8L chunk): refused before any decode
+    webp = b"RIFF" + (30).to_bytes(4, "little") + b"WEBPVP8L" + bytes(22)
+
+    def post(body):
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    try:
+        faults, launches, replies = [], {}, {}
+        for kind, body in served_bodies.items():
+            reset_counts()
+            replies[kind] = post(body)
+            launches[kind] = counts()
+            png_of_pixels = imageio.encode_png(imageio.imdecode(body))
+            if replies[kind] != post(png_of_pixels):
+                faults.append(f"{kind}: reply differs from the PNG of its pixels'")
+            if launches[kind] != c.want({**zero_counts, "corr_fwd": 5}):
+                faults.append(f"{kind}: launches {_launched(launches[kind])}")
+        try:
+            post(webp)
+        except urllib.error.HTTPError as e:
+            refusal = (e.code, json.loads(e.read())["error"])
+        else:
+            refusal = (200, "")
+        lat = {}
+        for kind, body in (("PNG", pair_png), *pair_bodies.items()):
+            lat[kind] = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                post(body)
+                lat[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serving.join(timeout=10)
+        server.close()
+    flow = np.frombuffer(replies["JPEG"][12:], np.float32).reshape(-1)
+    if replies["JPEG"] != replies["progressive JPEG"] or flow.size != h * w * 2 \
+            or not np.isfinite(flow).all() or refusal[0] != 400 or "WebP" not in refusal[1]:
+        faults.append(f"JPEG and progressive replies equal "
+                      f"{replies['JPEG'] == replies['progressive JPEG']}, {flow.size} values, "
+                      f"WebP {refusal}")
+    if faults:
+        raise AssertionError("serving: " + "; ".join(faults))
+    serve_ms = {k: statistics.median(v) for k, v in lat.items()}
+    print(f"host modules (b): FlowServer + HTTP on {c.device} at {h}x{w}, {c.precision}, "
+          f"max_batch {c.batch}: {len(served_bodies)} bodies ({', '.join(served_bodies)}) each "
+          f"get a 200 with the .flo reply ({len(replies['JPEG'])} bytes) of the PNG of their "
+          f"decoded pixels, each with exactly {launches['JPEG']['corr_fwd']} corr_fwd launches; "
+          f"a WebP body: {refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, decode + "
+          f"resize + inference + reply; {c.smi}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in serve_ms.items()))
+    print(json.dumps({"served_ms": serve_ms, "smi": c.smi}))
+
+    # (c) the demo on JPEG, BMP and TIFF frames against the demo on PNGs of their pixels
+    pth = evaluation.export_pth(os.path.join(c.root, "demo.pth"), model)
+    del model
+    yaml = os.path.join(c.root, "demo.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"img_hw: [{h}, {w}]\nnum_scales: 3\n")
+    frames = {kind: [] for kind in ("jpeg", "bmp", "tiff", "png")}
+    for k in ("a", "b"):
+        jpg = os.path.join(jpeg_dir, f"frame_{k}.jpg")
+        px = imageio.decode_jpeg(read(jpg))
+        writers = {"bmp": lambda: write_bmp(px.shape[1], px.shape[0], 24,
+                                            bmp_rows([r.tobytes() for r in px])),
+                   "tiff": lambda: write_tiff(px[:, :, ::-1], 2, compression=5, predictor=2),
+                   "png": lambda: imageio.encode_png(px)}
+        frames["jpeg"].append(jpg)
+        for kind, write in writers.items():
+            path = os.path.join(c.root, f"frame_{k}.{kind}")
+            with open(path, "wb") as f:
+                f.write(write())
+            frames[kind].append(path)
+    demo, demo_counts = {}, {}
+    for kind, (a, b) in frames.items():
+        reset_counts()
+        demo[kind] = evaluation.main([
+            "-c", yaml, "--task", "demo", "--pretrained_model", pth, "--image_path", a,
+            "--image_path2", b, "--result_dir", os.path.join(c.root, f"demo_{kind}"), *c.cli])
+        demo_counts[kind] = counts()
+    if any(not np.array_equal(v, demo["png"]) for v in demo.values()) \
+            or demo["png"].shape != (h, w, 2) \
+            or any(v != c.want({**zero_counts, "corr_fwd": 5}) for v in demo_counts.values()):
+        equal = {k: np.array_equal(v, demo["png"]) for k, v in demo.items()}
+        raise AssertionError(f"demo: equal to the PNG demo {equal}, launches {demo_counts}")
+    print(f"host modules (c): test.main --task demo on two JPEG, two BMP and two LZW TIFF frames "
+          f"equals the demo on PNGs of their decoded pixels ({h}x{w} flow, mean |flow| "
+          f"{float(np.abs(demo['png']).mean()):.4f} px), "
+          f"{demo_counts['jpeg']['corr_fwd']} corr_fwd launches each")
+
+    # (d) NYUv2 without h5py: the preparer, the test split, the metrics
+    with open(os.path.join(nyu_dir, "expected.json")) as f:
+        expected = json.load(f)
 
     with host_libraries_blocked():
         raw = os.path.join(c.root, "nyu_raw")

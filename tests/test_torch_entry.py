@@ -624,6 +624,50 @@ def test_sintel_flow_and_demo_match_jax(sintel_dir, tmp_path, jax_state, monkeyp
     assert np.array_equal(png, flow_to_image(flow))
 
 
+def test_demo_on_bmp_and_tiff_frames_matches_jax(tmp_path, jax_state, monkeypatch):
+    """``test.main --task demo`` (yaml and cv2 blocked) on two BMP frames and
+    on two LZW TIFF frames (cv2's writes) against the JAX package's
+    ``test_single_pair`` on the same files, the JAX ``.ckpt``'s weights
+    carried over by ``params_to_torch_state_dict``, at the Sintel demo's
+    tolerance."""
+    import jax
+    import jax.numpy as jnp
+
+    import test as jax_test
+    from unopticalflow_tpu.models import FlowModelConfig as JaxFlowModelConfig
+    from unopticalflow_tpu.models import inference_flow as jax_inference_flow
+    from unopticalflow_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from unopticalflow_tpu.utils.config import Config
+
+    params = jax_state[0]
+    src = str(tmp_path / "last.ckpt")
+    jax_save(src, 3, params)
+    cfg_path = tmp_path / "demo.yaml"
+    cfg_path.write_text("img_hw: [64, 128]\nnum_scales: 3\n")
+    rng = np.random.RandomState(5)
+    scene = cv2.GaussianBlur(rng.randint(0, 256, (90, 170, 3)).astype(np.uint8), (0, 0), 3)
+    frames = (scene[3:83, 2:152], scene[:80, :150])  # moved 2 px right, 3 px down
+    jcfg = JaxFlowModelConfig(num_scales=3)
+    infer = jax.jit(lambda a, b: jax_inference_flow(
+        jax.tree.map(jnp.asarray, params), jcfg, a, b))
+    cfg = Config({"img_hw": (64, 128), "config_file": str(cfg_path), "mode": "flow"})
+    for ext in (".bmp", ".tif"):
+        paths = [str(tmp_path / f"frame{k}{ext}") for k in range(2)]
+        for path, frame in zip(paths, frames):
+            assert cv2.imwrite(path, frame)
+        with monkeypatch.context() as m:
+            _block(m)
+            flow = port_test.main(["-c", str(cfg_path), "--pretrained_model", src, "--device",
+                                   "cpu", "--task", "demo", "--image_path", paths[0],
+                                   "--image_path2", paths[1], "--result_dir",
+                                   str(tmp_path / f"demo{ext}")])
+        want = jax_test.test_single_pair(cfg, infer, *paths, save_dir=str(tmp_path / f"jax{ext}"))
+        assert flow.shape == want.shape == (64, 128, 2) and flow.dtype == np.float32, ext
+        peak = np.abs(want).max()
+        assert peak > 0.1, ext
+        assert np.abs(flow - want).max() <= 1e-4 * (1 + peak), ext
+
+
 def _metric_values(res):
     header, values = res.split("\n")[:2]
     return header, np.array([float(v) for v in values.split(",")])

@@ -5,19 +5,17 @@ against ``cv2.imdecode`` (written against OpenCV 5.0 with libjpeg-turbo
 with and without a restart interval and optimised Huffman tables, under
 each of the three flags; the eight Exif orientations; a progressive file
 (``tests/test_torch_jpeg_progressive.py`` holds the progressive decoder to
-cv2 at length) and refusals; ``imread`` of a ``.jpg``; the server's decode
-of a JPEG pair against the JAX ``serve._decode_pair`` and its reply over
-HTTP on the CPU, to a baseline and a progressive body, and its 400 for a
-progression cut short; and the committed fixtures of
+cv2 at length) and refusals; CMYK files from PIL; ``imread`` of a ``.jpg``;
+the server's decode of a JPEG pair against the JAX ``serve._decode_pair``
+and its reply over HTTP on the CPU, to a baseline and a progressive body
+and to a progression cut short; and the committed fixtures of
 ``tests/torch_fixtures/jpeg/``."""
 
 import glob
-import json
 import os
 import struct
 import threading
 import types
-import urllib.error
 import urllib.request
 
 import cv2
@@ -120,7 +118,8 @@ def test_refusals():
     for cut in (len(data) // 2, len(data) - 2, 200, 3):
         with pytest.raises(ValueError, match="truncated"):
             imageio.decode_jpeg(data[:cut])
-    # a 12-bit frame header, an arithmetic-coded one, and a CMYK one
+    # a 12-bit frame header, an arithmetic-coded one, and a YCCK one (Adobe
+    # transform 2; transform 0 is CMYK, which decodes)
     sof = data.index(b"\xff\xc0")
     twelve = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     with pytest.raises(ValueError, match="12-bit JPEG"):
@@ -129,10 +128,11 @@ def test_refusals():
         imageio.decode_jpeg(data[:sof + 1] + b"\xc9" + data[sof + 2:])
     with pytest.raises(ValueError, match="lossless JPEG"):
         imageio.decode_jpeg(data[:sof + 1] + b"\xc3" + data[sof + 2:])
-    cmyk = bytearray(data)
-    cmyk[sof + 9] = 4
-    with pytest.raises(ValueError, match="CMYK"):
-        imageio.decode_jpeg(bytes(cmyk))
+    cmyk = _cmyk(_image(16, 24, seed=6)[:, :, [0, 1, 2, 1]], quality=90)
+    ycck = bytearray(cmyk)
+    ycck[cmyk.index(b"Adobe") + 11] = 2  # the APP14 segment's transform byte
+    with pytest.raises(ValueError, match="YCCK JPEG"):
+        imageio.decode_jpeg(bytes(ycck))
     # a Huffman table with more codes of a length than the length holds (five
     # 1-bit codes) is refused before it fills the decoder's lookup table
     dht = data.index(b"\xff\xc4")
@@ -156,11 +156,39 @@ def test_imread_reads_jpg(tmp_path):
     path.write_bytes(data)
     for flags in FLAGS:
         assert np.array_equal(imageio.imread(str(path), flags), cv2.imread(str(path), flags))
-    other = tmp_path / "frame.bmp"
+    other = tmp_path / "frame.gif"  # a format the port does not read
     cv2.imwrite(str(other), img)
-    with pytest.raises(ValueError, match="neither PNG nor JPEG"):
+    with pytest.raises(ValueError, match="not an image format the port reads"):
         imageio.imread(str(other))
     assert imageio.imread(str(tmp_path / "missing.jpg")) is None
+
+
+def _cmyk(cmyk, **kwargs) -> bytes:
+    """PIL's JPEG of a CMYK image: Adobe's inverted CMYK, APP14 transform 0."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    h, w = cmyk.shape[:2]
+    Image.frombytes("CMYK", (w, h), np.ascontiguousarray(cmyk).tobytes()).save(buf, "JPEG",
+                                                                                **kwargs)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"quality": 30}, {"subsampling": 2},
+                                    {"subsampling": 1, "quality": 95}, {"progressive": True}],
+                         ids=["q75", "q30", "s420", "s422_q95", "progressive"])
+def test_cmyk_decodes_as_cv2(kwargs):
+    """CMYK converted to BGR and grey as OpenCV converts libjpeg's CMYK."""
+    for h, w in ((1, 1), (17, 31), (48, 64)):
+        rng = np.random.RandomState(h + w)
+        data = _cmyk(np.dstack([_image(h, w, seed=h), rng.randint(0, 256, (h, w, 1))]).astype(
+            np.uint8), **kwargs)
+        for flags in FLAGS:
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+            got = imageio.decode_jpeg(data, flags)
+            assert got.shape == want.shape and np.array_equal(got, want), (h, w, flags)
 
 
 def test_server_decodes_a_jpeg_pair_as_jax_and_answers_it(monkeypatch):
@@ -177,6 +205,9 @@ def test_server_decodes_a_jpeg_pair_as_jax_and_answers_it(monkeypatch):
     want = jax_decode_pair(body, (h, w))
     prog = _encode(pair, "420", 90, (cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
     want_prog = jax_decode_pair(prog, (h, w))
+    with open(os.path.join(FIXTURES, "prog_cut3.jpg"), "rb") as f:
+        cut = f.read()
+    want_cut = jax_decode_pair(cut, (h, w))
     monkeypatch.setitem(sys.modules, "cv2", None)  # the port's decode needs no opencv
     got = _decode_pair(body, (h, w))
     assert got.dtype == want.dtype and np.array_equal(got, want)
@@ -195,19 +226,16 @@ def test_server_decodes_a_jpeg_pair_as_jax_and_answers_it(monkeypatch):
             reply = r.read()
         flow = np.frombuffer(reply[12:], np.float32).reshape(h, w, 2)
         assert np.array_equal(flow, engine.infer(want))
-        # a progressive body is answered as the JAX server answers it, and a
-        # progression cut short (which libjpeg smooths) gets a 400 naming why
+        # a progressive body, and a progression cut short (which libjpeg
+        # smooths), are answered as the JAX server answers them
         with urllib.request.urlopen(urllib.request.Request(url, data=prog, method="POST"),
                                     timeout=120) as r:
             flow = np.frombuffer(r.read()[12:], np.float32).reshape(h, w, 2)
         assert np.array_equal(flow, engine.infer(want_prog))
-        with open(os.path.join(FIXTURES, "prog_cut3.jpg"), "rb") as f:
-            cut = f.read()
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(urllib.request.Request(url, data=cut, method="POST"),
-                                   timeout=60)
-        assert err.value.code == 400
-        assert "block smoothing" in json.loads(err.value.read())["error"]
+        with urllib.request.urlopen(urllib.request.Request(url, data=cut, method="POST"),
+                                    timeout=120) as r:
+            flow = np.frombuffer(r.read()[12:], np.float32).reshape(h, w, 2)
+        assert np.array_equal(flow, engine.infer(want_cut))
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -227,8 +255,4 @@ def test_committed_fixtures_decode_to_their_pngs(path):
     png = imageio.imread(os.path.join(FIXTURES, "pair_512x832.png") if name.startswith(
         "pair_512x832_") else path[:-4] + ".png")
     assert np.array_equal(png, want)  # the fixture is still cv2's decode
-    if name == "prog_cut3":  # libjpeg smooths the blocks of a cut progression
-        with pytest.raises(ValueError, match="block smoothing"):
-            imageio.decode_jpeg(data)
-        return
     assert np.array_equal(imageio.decode_jpeg(data), png)

@@ -4,8 +4,9 @@ libjpeg-turbo 3.1), bit for bit, on files cv2 and PIL write from a seed:
 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and grey at qualities 10, 75 and 100,
 with and without a restart interval, at 1x1, 17x31 and 48x64, under the
 three flags; PIL's progressive file; every progression cut short after
-each of its scans (libjpeg smooths the blocks of such a file, which the
-port refuses, naming it); the committed progressive fixtures; and the server's
+each of its scans, which libjpeg decodes with its block smoothing, at
+every sampling, with and without a restart interval; the committed
+progressive fixtures and every cut of them; and the server's
 reply over HTTP on the CPU to a progressive pair equal to its reply to the
 baseline pair of the same pixels."""
 
@@ -105,26 +106,20 @@ def test_pil_progressive_decodes_as_cv2():
                 assert _same_as_cv2(buf.getvalue(), flags), (h, w, kwargs, flags)
 
 
-@pytest.mark.parametrize("sampling", ["420", "444", "grey"])
+@pytest.mark.parametrize("sampling", SAMPLINGS)
 def test_cut_progressions_decode_as_cv2_or_raise(sampling):
-    """A progressive file ended after each of its scans: where libjpeg would
-    smooth the blocks (a component's DC known and one of its first ten
-    coefficients unrefined), the port raises naming it; else it decodes."""
-    data = _progressive(_image(24, 40, seed=3), sampling, 80)
-    scans = _scans(data)
-    outcomes = []
-    for k in range(1, len(scans) + 1):
-        cut = data[:scans[k]] + b"\xff\xd9" if k < len(scans) else data
-        try:
+    """A progressive file ended after each of its scans decodes as cv2
+    decodes it: where a component's DC is known and one of its first ten
+    coefficients unrefined, through libjpeg's block smoothing (its AC
+    estimates from the 5x5 DC neighbourhood, and its DC estimate where no
+    AC data came), at odd sizes, with and without a restart interval."""
+    for size, restart in (((24, 40), 0), ((17, 31), 2), ((33, 65), 0)):
+        data = _progressive(_image(*size, seed=3), sampling, 80, restart)
+        scans = _scans(data)
+        for k in range(1, len(scans) + 1):
+            cut = data[:scans[k]] + b"\xff\xd9" if k < len(scans) else data
             for flags in FLAGS:
-                assert _same_as_cv2(cut, flags), (k, flags)
-            outcomes.append("decoded")
-        except ValueError as e:
-            assert "block smoothing" in str(e) and "cut progression" in str(e)
-            outcomes.append("raised")
-    # cv2's progression refines the low frequencies last: every cut but the
-    # whole file is smoothed by libjpeg
-    assert outcomes == ["raised"] * (len(scans) - 1) + ["decoded"]
+                assert _same_as_cv2(cut, flags), (size, restart, k, flags)
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(FIXTURES, "*prog*.jpg"))),
@@ -137,12 +132,13 @@ def test_committed_progressive_fixtures(path):
                        name + ".png")
     want = imageio.imread(png)
     assert np.array_equal(want, cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
-    if name == "prog_cut3":
-        with pytest.raises(ValueError, match="block smoothing"):
-            imageio.decode_jpeg(data)
-        return
     assert np.array_equal(imageio.decode_jpeg(data), want)
     assert _same_as_cv2(data, cv2.IMREAD_GRAYSCALE) and _same_as_cv2(data, -1)
+    scans = _scans(data)  # and every cut of it
+    for k in range(1, len(scans)):
+        cut = data[:scans[k]] + b"\xff\xd9"
+        for flags in FLAGS:
+            assert _same_as_cv2(cut, flags), (k, flags)
 
 
 def test_server_answers_a_progressive_pair_as_the_baseline_pair():

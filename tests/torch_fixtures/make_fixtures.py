@@ -31,6 +31,23 @@ is made from a seed.
 * ``jpeg/disp_magma.png`` (BGR) and ``jpeg/disp_magma_q75.jpg``: the magma
   pixels the JAX package's ``save_disp_color_img`` hands PIL for a seeded
   disparity, and the JPEG PIL writes of them.
+* ``formats/<name>.<ext>``: BMP (cv2's and PIL's, hand-packed RLE8 and
+  RLE4 with end-of-line, delta and end-of-bitmap codes, 1- and 4-bit and
+  short palettes, 555 and 565, OS/2, V4 and V5 headers, top-down rows),
+  PNM (ASCII with comments, binary, 16-bit, maxvals 100 and 1000), PAM
+  (the four tuple types), PFM (both byte orders, a scale of 0.5), Sun
+  raster (cv2's, 1-, 8- and 32-bit, with and without a colour map,
+  ``RT_OLD``), Radiance HDR (cv2's RLE, flat, narrow, ``#?RGBE``) and TIFF
+  (none, PackBits, LZW with Predictor 2, Deflate, JPEG from PIL, big-endian,
+  BigTIFF, tiled, planar, 16-bit, 1-bit white-is-zero, palettes, alpha
+  associated and not, an Orientation), each beside ``<name>_cv2.png``,
+  cv2's ``IMREAD_COLOR`` decode; ``formats/expected.json``: the SHA-256 of
+  cv2's decode of each under each of the three flags (or why the port
+  raises where cv2's output is undefined); ``formats/pair_512x832_jpeg.tif``,
+  the stacked pair's pixels as PIL's JPEG-compressed TIFF.  Written with
+  ``chip_smoke.py``'s writers, cv2 and PIL.
+* ``jpeg/cmyk_<name>.jpg``: PIL's CMYK JPEGs (Adobe's inverted CMYK,
+  4:4:4 and 4:2:0, one progressive), each beside cv2's decode.
 * ``drawing/expected.json``: the SHA-256 of the pixels of the PNGs the JAX
   package's ``show_corres`` and ``show_epipolar_line`` write on
   ``chip_smoke.drawing_inputs(17)`` (``np.random`` seeded with 17 before
@@ -64,7 +81,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, REPO)
 
-from chip_smoke import depth_mask_inputs, drawing_inputs  # noqa: E402
+from chip_smoke import (bmp_rows, depth_mask_inputs, drawing_inputs, write_bmp,  # noqa: E402
+                        write_hdr, write_sun, write_tiff)
 from tests.test_torch_imageio import _adam7  # noqa: E402
 from tests.test_torch_jpeg_progressive import _scans  # noqa: E402
 from unopticalflow_tpu_torch.utils import imageio  # noqa: E402
@@ -146,6 +164,220 @@ def jpeg_fixtures(out: str) -> None:
                                        cv2.IMREAD_COLOR))
     with open(os.path.join(out, "pair_512x832_progressive.jpg"), "wb") as f:
         f.write(pair_prog)
+
+
+# (fixture, flag) pairs where cv2 leaves part of its output unset, or reads
+# the file wrongly, and the port raises: the message's words
+UNDEFINED = {
+    ("pam_rgba", 1): "leaves the rest", ("pam_rgba", 0): "leaves the rest",
+}
+
+
+def cmyk_fixtures(out: str) -> None:
+    rng = np.random.RandomState(SEED + 4)
+    img = smooth(rng, 24, 40, ch=4, blur=3)
+    cases = {"cmyk_q90": {"quality": 90}, "cmyk_s420_q60": {"quality": 60, "subsampling": 2},
+             "cmyk_prog": {"quality": 80, "progressive": True}}
+    for name, kwargs in cases.items():
+        buf = io.BytesIO()
+        Image.frombytes("CMYK", img.shape[1::-1], img.tobytes()).save(buf, "JPEG", **kwargs)
+        with open(os.path.join(out, name + ".jpg"), "wb") as f:
+            f.write(buf.getvalue())
+        want = cv2.imdecode(np.frombuffer(buf.getvalue(), np.uint8), cv2.IMREAD_COLOR)
+        imageio.imwrite(os.path.join(out, name + ".png"), want)
+
+
+def _pnm_ascii(magic: bytes, img: np.ndarray, maxval) -> bytes:
+    h, w = img.shape[:2]
+    head = magic + b"\n# a comment\n%d %d\n" % (w, h)
+    if maxval is not None:
+        head += b"# another\n%d\n" % maxval
+    rows = [b" ".join(b"%d" % v for v in r.ravel()) for r in img]
+    return head + b"\n".join(rows) + b"\n"
+
+
+def format_files() -> dict:
+    """{name: file bytes} of the format fixtures."""
+    rng = np.random.RandomState(SEED + 5)
+    h, w = 23, 37
+    bgr = smooth(rng, h, w, blur=2)
+    bgr[::5, ::3] = rng.randint(0, 256, bgr[::5, ::3].shape)  # some edges
+    grey = np.ascontiguousarray(bgr[:, :, 1])
+    rgb = np.ascontiguousarray(bgr[:, :, ::-1])
+    files = {}
+    # BMP
+    files["bmp_cv2_24.bmp"] = cv2.imencode(".bmp", bgr)[1].tobytes()
+    files["bmp_cv2_grey.bmp"] = cv2.imencode(".bmp", grey)[1].tobytes()
+    pil = io.BytesIO()
+    Image.fromarray(rgb).quantize(40).save(pil, "BMP")
+    files["bmp_pil_p8.bmp"] = pil.getvalue()
+    pil = io.BytesIO()
+    Image.fromarray(rgb).convert("RGBA").save(pil, "BMP")
+    files["bmp_pil_32.bmp"] = pil.getvalue()
+    idx4 = rng.randint(0, 16, (h, w)).astype(np.uint8)
+    pad = np.zeros((h, w + 1), np.uint8)
+    pad[:, :w] = idx4
+    rows4 = [((r[0::2] << 4) | r[1::2]).astype(np.uint8).tobytes() for r in pad]
+    files["bmp_p4_short.bmp"] = write_bmp(w, h, 4, bmp_rows(rows4),
+                                          rng.randint(0, 256, (5, 3)))  # indices past 5: black
+    bits = rng.randint(0, 2, (h, w)).astype(np.uint8)
+    files["bmp_p1.bmp"] = write_bmp(w, h, 1, bmp_rows([np.packbits(r).tobytes() for r in bits]),
+                                    [(10, 200, 30), (250, 240, 5)])
+    v16 = rng.randint(0, 65536, (h, w)).astype("<u2")
+    rows16 = [r.tobytes() for r in v16]
+    files["bmp_555.bmp"] = write_bmp(w, h, 16, bmp_rows(rows16))
+    files["bmp_565.bmp"] = write_bmp(w, h, 16, bmp_rows(rows16), rle=3,
+                                     masks=(0xF800, 0x7E0, 0x1F))
+    pal8 = rng.randint(0, 256, (256, 3))
+    idx8 = rng.randint(0, 256, (h, w)).astype(np.uint8)
+    files["bmp_os2_p8.bmp"] = write_bmp(w, h, 8, bmp_rows([r.tobytes() for r in idx8]), pal8,
+                                        hsize=12)
+    files["bmp_os2_24.bmp"] = write_bmp(w, h, 24, bmp_rows([r.tobytes() for r in bgr]),
+                                        hsize=12)
+    bgra = np.dstack([bgr, rng.randint(0, 256, (h, w))]).astype(np.uint8)
+    files["bmp_v4_32_masks.bmp"] = write_bmp(w, h, 32, bmp_rows([r.tobytes() for r in bgra]),
+                                             rle=3, hsize=108,
+                                             masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+    files["bmp_v5_24_topdown.bmp"] = write_bmp(w, h, 24, bmp_rows(
+        [r.tobytes() for r in bgr[::-1]]), hsize=124, topdown=True)
+    # RLE8: runs, an absolute run, end of line early, a delta, end of bitmap early
+    rle8 = bytearray()
+    for y in range(h - 4):
+        if y % 4 == 1:
+            rle8 += bytes((0, 9)) + bytes(rng.randint(0, 256, 9).tolist()) + b"\0"  # absolute
+            rle8 += bytes((5, 17, 0, 0))  # 5 pixels, end of line
+        elif y % 4 == 2:
+            rle8 += bytes((7, 3, 0, 2, 4, 1, 20, 200, 0, 0))  # delta: 4 right, 1 down
+        else:
+            rle8 += bytes((20, rng.randint(0, 256), w - 20, rng.randint(0, 256)))
+    rle8 += bytes((0, 1))
+    files["bmp_rle8.bmp"] = write_bmp(w, h, 8, bytes(rle8), pal8, rle=1)
+    rle4 = bytearray()
+    for y in range(h - 3):
+        if y % 3 == 0:
+            rle4 += bytes((0, 11)) + bytes(rng.randint(0, 256, 6).tolist()) + bytes((14, 0x5A))
+            rle4 += bytes((0, 0))
+        elif y % 3 == 1:
+            rle4 += bytes((w, 0x3C))
+            rle4 += bytes((0, 0))
+        else:
+            rle4 += bytes((6, 0x12, 0, 2, 3, 0, 9, 0x77, 0, 0))  # a delta along the row
+    rle4 += bytes((0, 0)) * 3 + bytes((0, 1))
+    files["bmp_rle4.bmp"] = write_bmp(w, h, 4, bytes(rle4), rng.randint(0, 256, (16, 3)), rle=2)
+    # PNM, PAM, PFM
+    files["pbm_p1_comments.pbm"] = _pnm_ascii(b"P1", bits, None)
+    files["pbm_p4.pbm"] = b"P4\n# odd width\n%d %d\n" % (w, h) + np.packbits(
+        bits, axis=1).tobytes()
+    files["pgm_p2_mv100.pgm"] = _pnm_ascii(b"P2", (grey.astype(int) * 100) // 255, 100)
+    files["pgm_p5.pgm"] = cv2.imencode(".pgm", grey)[1].tobytes()
+    g16 = rng.randint(0, 65536, (h, w)).astype(np.uint16)
+    files["pgm_p5_16.pgm"] = cv2.imencode(".pgm", g16)[1].tobytes()
+    files["pgm_p5_mv1000.pgm"] = b"P5\n%d %d\n1000\n" % (w, h) + (
+        g16.astype(int) * 1000 // 65535).astype(">u2").tobytes()
+    files["ppm_p3_comments.ppm"] = _pnm_ascii(b"P3", rgb, 255)
+    files["ppm_p6.ppm"] = cv2.imencode(".ppm", bgr)[1].tobytes()
+    files["ppm_p6_16.ppm"] = cv2.imencode(".ppm", rng.randint(0, 65536, (h, w, 3)).astype(
+        np.uint16))[1].tobytes()
+
+    def pam(depth, maxval, tupl, body):
+        return (b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\nTUPLTYPE %s\nENDHDR\n"
+                % (w, h, depth, maxval, tupl) + body)
+
+    files["pam_bw.pam"] = pam(1, 1, b"BLACKANDWHITE", rng.randint(0, 256, (h, w)).astype(
+        np.uint8).tobytes())
+    files["pam_grey.pam"] = pam(1, 255, b"GRAYSCALE", grey.tobytes())
+    files["pam_rgb.pam"] = pam(3, 255, b"RGB", rgb.tobytes())
+    files["pam_rgba.pam"] = pam(4, 255, b"RGB_ALPHA", np.dstack([rgb, grey]).tobytes())
+    fl = (rgb.astype(np.float32) / 40.0) ** 2  # 0 to 40: 8-bit reads saturate
+    files["pfm_rgb_le.pfm"] = b"PF\n%d %d\n-1.0\n" % (w, h) + fl[::-1].astype("<f4").tobytes()
+    files["pfm_grey_be_half.pfm"] = b"Pf\n%d %d\n0.5\n" % (w, h) + fl[::-1, :, 1].astype(
+        ">f4").tobytes()
+    # Sun raster
+    files["ras_cv2_24.ras"] = cv2.imencode(".ras", bgr)[1].tobytes()
+    files["ras_cv2_8.ras"] = cv2.imencode(".ras", grey)[1].tobytes()
+    files["ras_24.ras"] = write_sun(bgr)
+    rows32 = np.zeros((h, w, 4), np.uint8)  # X, B, G, R
+    rows32[:, :, 1:] = bgr
+    files["ras_32.ras"] = struct.pack(">8I", 0x59A66A95, w, h, 32, rows32.size, 1, 0, 0) \
+        + rows32.tobytes()
+    cmap = rng.randint(0, 256, (3, 100)).astype(np.uint8)  # R, G, B planes; indices past 100
+    rows8 = np.zeros((h, w + 1), np.uint8)
+    rows8[:, :w] = idx8
+    files["ras_8_map.ras"] = struct.pack(">8I", 0x59A66A95, w, h, 8, rows8.size, 1, 1, 300) \
+        + cmap.tobytes() + rows8.tobytes()
+    files["ras_8_old.ras"] = struct.pack(">8I", 0x59A66A95, w, h, 8, 0, 0, 0, 0) + rows8.tobytes()
+    rows1 = np.zeros((h, (w + 15) // 16 * 2), np.uint8)
+    packed = np.packbits(bits, axis=1)
+    rows1[:, :packed.shape[1]] = packed
+    files["ras_1_map.ras"] = struct.pack(">8I", 0x59A66A95, w, h, 1, rows1.size, 1, 1, 6) \
+        + bytes((250, 10, 128, 40, 60, 220)) + rows1.tobytes()
+    # Radiance HDR
+    hdr = rgb.astype(np.float32)[:, :, ::-1] / 64.0
+    files["hdr_cv2_rle.hdr"] = cv2.imencode(".hdr", hdr)[1].tobytes()
+    files["hdr_writer_rle.hdr"] = write_hdr(hdr)
+    files["hdr_narrow.hdr"] = cv2.imencode(".hdr", hdr[:, :7])[1].tobytes()  # under 8: flat
+    files["hdr_flat_rgbe.hdr"] = (b"#?RGBE\n# flat pixels\nFORMAT=32-bit_rle_rgbe\n\n"
+                                  b"-Y %d +X %d\n" % (h, w)
+                                  + rng.randint(100, 140, (h, w, 4)).astype(np.uint8).tobytes())
+    # TIFF
+    files["tif_cv2_lzw_pred.tif"] = cv2.imencode(".tiff", bgr)[1].tobytes()
+    files["tif_rgb_none.tif"] = write_tiff(rgb, 2, rows_per_strip=5)
+    files["tif_rgb_packbits_be.tif"] = write_tiff(rgb, 2, order=">", compression=32773,
+                                                  rows_per_strip=8)
+    files["tif_rgb_deflate_pred.tif"] = write_tiff(rgb, 2, compression=8, predictor=2,
+                                                   rows_per_strip=7)
+    files["tif_bigtiff_lzw.tif"] = write_tiff(rgb, 2, big=True, compression=5, rows_per_strip=6)
+    files["tif_tiled_deflate.tif"] = write_tiff(rgb, 2, compression=8, tile=(16, 16))
+    files["tif_planar_lzw.tif"] = write_tiff(rgb, 2, planar=2, compression=5, rows_per_strip=9)
+    files["tif_grey16_be_pred.tif"] = write_tiff(g16, 1, bps=16, order=">", compression=8,
+                                                 predictor=2)
+    files["tif_rgb16_lzw.tif"] = write_tiff(rng.randint(0, 65536, (h, w, 3)).astype(np.uint16),
+                                            2, bps=16, compression=5, rows_per_strip=4)
+    files["tif_white1_packbits.tif"] = write_tiff(bits, 0, bps=1, compression=32773)
+    files["tif_pal8.tif"] = write_tiff(idx8, 3, colormap=rng.randint(0, 65536, (256, 3)))
+    files["tif_pal1.tif"] = write_tiff(bits, 3, bps=1, colormap=[(60000, 200, 9000),
+                                                                 (300, 50000, 40000)])
+    rgba = np.dstack([rgb, grey]).astype(np.uint8)
+    files["tif_rgba_unassoc.tif"] = write_tiff(rgba, 2, extra=[2], compression=8)
+    files["tif_rgba_assoc.tif"] = write_tiff(rgba, 2, extra=[1])
+    files["tif_orient6.tif"] = write_tiff(rgb, 2, orientation=6, compression=5)
+    for mode, comp in (("RGB", "jpeg"), ("L", "jpeg"), ("YCbCr", "jpeg")):
+        buf = io.BytesIO()
+        Image.fromarray(rgb).convert(mode).save(buf, "TIFF", compression=comp)
+        files[f"tif_pil_{mode.lower()}_{comp}.tif"] = buf.getvalue()
+    return files
+
+
+def format_fixtures(out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    files = format_files()
+    expected = {}
+    for name, data in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        stem = name.rsplit(".", 1)[0]
+        entry = {}
+        for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED):
+            if (stem, flags) in UNDEFINED:
+                entry[str(flags)] = "raises: " + UNDEFINED[stem, flags]
+                continue
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+            entry[str(flags)] = digest(want)
+            if flags == cv2.IMREAD_COLOR:
+                imageio.imwrite(os.path.join(out, stem + "_cv2.png"), want)
+        expected[name] = entry
+    # the stacked pair as PIL's JPEG-compressed TIFF (served by chip_smoke.py phase 17)
+    pair = cv2.imread(os.path.join(HERE, "jpeg", "pair_512x832.png"))
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(pair[:, :, ::-1])).save(buf, "TIFF", compression="jpeg")
+    with open(os.path.join(out, "pair_512x832_jpeg.tif"), "wb") as f:
+        f.write(buf.getvalue())
+    expected["pair_512x832_jpeg.tif"] = {
+        str(k): digest(cv2.imdecode(np.frombuffer(buf.getvalue(), np.uint8), k))
+        for k in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED)}
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def png_fixtures(out: str) -> None:
@@ -273,8 +505,14 @@ def nyu_fixtures(out: str) -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["formats"]:  # the format and CMYK fixtures only
+        cmyk_fixtures(os.path.join(HERE, "jpeg"))
+        format_fixtures(os.path.join(HERE, "formats"))
+        sys.exit(0)
     jpeg_fixtures(os.path.join(HERE, "jpeg"))
     png_fixtures(os.path.join(HERE, "png"))
     magma_fixtures(os.path.join(HERE, "jpeg"))
     drawing_fixtures(os.path.join(HERE, "drawing"))
     nyu_fixtures(os.path.join(HERE, "nyu"))
+    cmyk_fixtures(os.path.join(HERE, "jpeg"))
+    format_fixtures(os.path.join(HERE, "formats"))

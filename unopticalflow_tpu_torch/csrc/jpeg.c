@@ -2,24 +2,27 @@
 // gives, bit for bit, where OpenCV decodes with libjpeg-turbo.
 //
 // Sequential and progressive DCT with Huffman coding, 8-bit samples (SOF0,
-// SOF1 and SOF2), one or three components (grey, YCbCr), any size, restart
-// intervals, and several scans.  A progressive file's scans (DC first and
-// refinement, AC first and refinement with end-of-band runs, as jdphuff.c
-// decodes them) fill a coefficient buffer of the whole image; once the file
-// has ended, that buffer goes through the same output steps as a sequential
-// file's.  Each step follows libjpeg's default decompression arithmetic:
-// the integer "islow" IDCT of jidctint.c with its range-limit table,
-// jdsample.c's fancy upsampling (h2v1 and h2v2 triangle filters, and
+// SOF1 and SOF2), one, three or four components (grey, YCbCr, and CMYK as
+// Adobe's APP14 marker with transform 0 names it, or as a 4-component file
+// without the marker), any size, restart intervals, and several scans.  A
+// progressive file's scans (DC first and refinement, AC first and
+// refinement with end-of-band runs, as jdphuff.c decodes them) fill a
+// coefficient buffer of the whole image; once the file has ended, that
+// buffer goes through the same output steps as a sequential file's, with
+// the block smoothing of jdcoefct.c decompress_smooth_data (libjpeg-turbo
+// 2.1 and later: AC estimates from a 5x5 neighbourhood of DC values) where
+// the scans leave a low-frequency coefficient unrefined, as in a
+// progression cut short.  Each step follows libjpeg's default decompression
+// arithmetic: the integer "islow" IDCT of jidctint.c with its range-limit
+// table, jdsample.c's fancy upsampling (h2v1 and h2v2 triangle filters, and
 // libjpeg-turbo's h1v2 for 4:4:0; plain replication where libjpeg falls
 // back to it, as for 4:1:1 or a chroma plane at most 2 samples wide), the
-// edge rows libjpeg repeats at the top and bottom of a component, and
-// jdcolor.c's fixed-point YCbCr -> BGR tables.  Lossless, hierarchical,
-// arithmetic-coded and 12-bit files, CMYK and RGB-coded files, a
-// progressive file whose scans leave a low-frequency coefficient unrefined
-// (libjpeg smooths such a file's blocks: jdcoefct.c decompress_smooth_data,
-// not reproduced here), and a truncated or corrupt file are refused with a
-// message that names the mode or the fault.  The Exif orientation is
-// applied by utils/imageio.py.
+// edge rows libjpeg repeats at the top and bottom of a component, jdcolor.c's
+// fixed-point YCbCr -> BGR tables, and OpenCV's CMYK -> BGR and CMYK -> grey
+// conversions of libjpeg's CMYK samples.  Lossless, hierarchical,
+// arithmetic-coded and 12-bit files, YCCK and RGB-coded files, and a
+// truncated or corrupt file are refused with a message that names the mode
+// or the fault.  The Exif orientation is applied by utils/imageio.py.
 //
 // Built with the host's C compiler by ops/_build.py (cc -O2 -shared -fPIC)
 // and called through ctypes, which lets go of Python's interpreter lock.
@@ -166,9 +169,9 @@ static void read_sof(Dec* d, int marker) {
     if (d->width == 0) fail(d, "corrupt JPEG: width 0");
     if ((int64_t)d->width * d->height > ((int64_t)1 << 30))  // cv2's CV_IO_MAX_IMAGE_PIXELS
         fail(d, "JPEG of %dx%d pixels is larger than 2**30 pixels", d->width, d->height);
-    if (d->ncomp == 4) fail(d, "CMYK/YCCK (4-component) JPEG is not supported");
-    if (d->ncomp != 1 && d->ncomp != 3)
-        fail(d, "%d-component JPEG is not supported: the port reads grey and YCbCr", d->ncomp);
+    if (d->ncomp != 1 && d->ncomp != 3 && d->ncomp != 4)
+        fail(d, "%d-component JPEG is not supported: the port reads grey, YCbCr and CMYK",
+             d->ncomp);
     for (int i = 0; i < d->ncomp; ++i) {
         Comp* c = &d->c[i];
         c->id = byte_at(d);
@@ -673,6 +676,139 @@ static int smoothing(const Dec* d) {
     return useful;
 }
 
+// An AC estimate of jdcoefct.c: num / (128 q) rounded half away from zero,
+// kept below 2**Al in magnitude where the coefficient's next Al bits are
+// unknown (Al < 0: none of it is).
+static int smooth_pred(int64_t num, int64_t q, int al) {
+    int neg = num < 0;
+    int pred = (int)(((q << 7) + (neg ? -num : num)) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return neg ? -pred : pred;
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later) for one
+// component: each block's first nine AC coefficients (zigzag 1-9), where
+// still zero and not fully refined, estimated from the DC values of the
+// 5 x 5 blocks around it (edges repeated); with no AC data at all the DC
+// too is re-estimated, from a smoother kernel.  The rows are walked as
+// libjpeg walks them, an iMCU row of v_samp block rows at a time, with its
+// row-index arithmetic: in the last iMCU row, which may hold fewer block
+// rows, the neighbour tests use that smaller count.  Writes the IDCT of
+// the visible blocks into the component's plane.
+static void smooth_component(const Dec* d, const Comp* c) {
+    const int* bits = c->coef_bits;
+    const int64_t Q00 = c->q[0], Q01 = c->q[1], Q10 = c->q[8], Q20 = c->q[16], Q11 = c->q[9],
+                  Q02 = c->q[2], Q03 = c->q[3], Q12 = c->q[10], Q21 = c->q[17], Q30 = c->q[24];
+    int change_dc = 1;
+    for (int k = 1; k < 10; ++k) change_dc &= bits[k] == -1;
+    const int wib = (c->dw + 7) / 8, hib = (c->dh + 7) / 8, total = d->mcusy;
+    const int64_t ps = (int64_t)c->bw * 8;
+    int16_t ws[64];
+    for (int r = 0; r < total; ++r) {
+        int block_rows = c->v;
+        if (r == total - 1 && hib % c->v) block_rows = hib % c->v;
+        const int image_rows = block_rows * total;
+        for (int br = 0; br < block_rows; ++br) {
+            const int ibr = r * block_rows + br, row = r * c->v + br;
+            const int prow = ibr > 0 ? row - 1 : row, pprow = ibr > 1 ? row - 2 : prow;
+            const int nrow = ibr < image_rows - 1 ? row + 1 : row;
+            const int nnrow = ibr < image_rows - 2 ? row + 2 : nrow;
+#define DC_AT(rr, x) ((int)c->coef[((int64_t)(rr) * c->bw + (x)) * 64])
+            int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11, DC12, DC13;
+            int DC14, DC15, DC16, DC17, DC18, DC19, DC20, DC21, DC22, DC23, DC24, DC25;
+            DC01 = DC02 = DC03 = DC04 = DC05 = DC_AT(pprow, 0);
+            DC06 = DC07 = DC08 = DC09 = DC10 = DC_AT(prow, 0);
+            DC11 = DC12 = DC13 = DC14 = DC15 = DC_AT(row, 0);
+            DC16 = DC17 = DC18 = DC19 = DC20 = DC_AT(nrow, 0);
+            DC21 = DC22 = DC23 = DC24 = DC25 = DC_AT(nnrow, 0);
+            const int last = wib - 1;
+            for (int bn = 0; bn <= last; ++bn) {
+                memcpy(ws, c->coef + ((int64_t)row * c->bw + bn) * 64, sizeof ws);
+                if (bn == 0 && bn < last) {
+                    DC04 = DC05 = DC_AT(pprow, 1);
+                    DC09 = DC10 = DC_AT(prow, 1);
+                    DC14 = DC15 = DC_AT(row, 1);
+                    DC19 = DC20 = DC_AT(nrow, 1);
+                    DC24 = DC25 = DC_AT(nnrow, 1);
+                }
+                if (bn + 1 < last) {
+                    DC05 = DC_AT(pprow, bn + 2);
+                    DC10 = DC_AT(prow, bn + 2);
+                    DC15 = DC_AT(row, bn + 2);
+                    DC20 = DC_AT(nrow, bn + 2);
+                    DC25 = DC_AT(nnrow, bn + 2);
+                }
+#undef DC_AT
+                int al;
+                if ((al = bits[1]) != 0 && ws[1] == 0)  // AC01
+                    ws[1] = (int16_t)smooth_pred(
+                        Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                                            13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 -
+                                            38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                                            13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+                                         : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                        Q01, al);
+                if ((al = bits[2]) != 0 && ws[8] == 0)  // AC10
+                    ws[8] = (int16_t)smooth_pred(
+                        Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                            13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                                            13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                            3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                         : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                        Q10, al);
+                if ((al = bits[3]) != 0 && ws[16] == 0)  // AC20
+                    ws[16] = (int16_t)smooth_pred(
+                        Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                                            14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 +
+                                            2 * DC19 + DC23)
+                                         : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                        Q20, al);
+                if ((al = bits[4]) != 0 && ws[9] == 0)  // AC11
+                    ws[9] = (int16_t)smooth_pred(
+                        Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                                            9 * DC19 + DC21 - DC25)
+                                         : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                                            DC22 - DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+                        Q11, al);
+                if ((al = bits[5]) != 0 && ws[2] == 0)  // AC02
+                    ws[2] = (int16_t)smooth_pred(
+                        Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                                            14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                                            2 * DC19)
+                                         : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                        Q02, al);
+                if (change_dc) {
+                    if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+                        ws[3] = (int16_t)smooth_pred(
+                            Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+                    if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+                        ws[10] = (int16_t)smooth_pred(
+                            Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+                    if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+                        ws[17] = (int16_t)smooth_pred(
+                            Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+                    if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+                        ws[24] = (int16_t)smooth_pred(
+                            Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+                    ws[0] = (int16_t)smooth_pred(
+                        Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+                               6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                               152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 +
+                               42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 -
+                               6 * DC24 - 2 * DC25),
+                        Q00, 0);
+                }
+                idct_islow(ws, c->q, c->plane + (int64_t)row * 8 * ps + bn * 8, ps);
+                DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+                DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+                DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+                DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+                DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+            }
+        }
+    }
+}
+
 // Reads the markers up to EOI, decoding every scan when `decode` is set.
 static void parse(Dec* d, int decode) {
     if (d->n < 2 || d->d[0] != 0xFF || d->d[1] != 0xD8) fail(d, "not a JPEG file (no SOI marker)");
@@ -754,9 +890,13 @@ int jpeg_info(const uint8_t* data, int64_t n, int64_t* info, char* err, int errl
     return rc;
 }
 
-// Decodes into out: (H, W, 3) BGR when grey == 0 (a grey file repeated), or
-// (H, W) when grey == 1 (a colour file's Y).  Returns 0, or 1 with a message.
-int jpeg_decode(const uint8_t* data, int64_t n, int grey, uint8_t* out, char* err, int errlen) {
+// Decodes into out: (H, W, 3) BGR when mode == 0 (a grey file repeated),
+// (H, W) when mode == 1 (a YCbCr file's Y, a CMYK file's weighted sum), or
+// (H, W, components) when mode == 2: each component upsampled and left as
+// stored, as libjpeg gives a JCS_UNKNOWN file (TIFF's JPEG strips of RGB
+// data).  Returns 0, or 1 with a message.
+int jpeg_decode(const uint8_t* data, int64_t n, int mode, uint8_t* out, char* err, int errlen) {
+    const int grey = mode == 1, raw = mode == 2;
     static int limit_ready = 0;
     if (!limit_ready) {  // idempotent: a race only writes the same bytes twice
         init_limit();
@@ -772,18 +912,21 @@ int jpeg_decode(const uint8_t* data, int64_t n, int grey, uint8_t* out, char* er
     int rc = 0;
     if (setjmp(d->jb) == 0) {
         parse(d, 1);
-        if (d->ncomp == 3) {
+        if (d->ncomp == 3 && !raw) {
             int rgb_ids = d->c[0].id == 82 && d->c[1].id == 71 && d->c[2].id == 66;
             if (!d->jfif && ((d->adobe && d->adobe_transform == 0) || (!d->adobe && rgb_ids)))
                 fail(d, "RGB-coded JPEG (no YCbCr transform) is not supported");
         }
-        const int W = d->width, H = d->height, nout = (grey || d->ncomp == 1) ? 1 : 3;
+        // jdapimin.c: 4 components are CMYK without an Adobe marker or with
+        // its transform 0, else YCCK
+        if (d->ncomp == 4 && d->adobe && d->adobe_transform != 0 && !raw)
+            fail(d, "YCCK JPEG (Adobe transform %d) is not supported: the port reads CMYK",
+                 d->adobe_transform);
+        const int W = d->width, H = d->height;
+        const int nout = (raw || d->ncomp == 4) ? d->ncomp : ((grey || d->ncomp == 1) ? 1 : 3);
         for (int i = 0; i < d->ncomp; ++i)
             if (!d->c[i].seen) fail(d, "corrupt JPEG: component %d is in no scan", d->c[i].id);
-        if (d->sof == 0xC2 && smoothing(d))
-            fail(d, "progressive JPEG whose scans leave a low-frequency coefficient unrefined "
-                 "(a cut progression) is not supported: libjpeg smooths such a file's blocks "
-                 "(block smoothing), which the port does not reproduce");
+        const int smooth = d->sof == 0xC2 && smoothing(d);
         for (int i = 0; i < d->ncomp; ++i) {
             Comp* c = &d->c[i];
             if (d->hmax % c->h || d->vmax % c->v)
@@ -793,6 +936,10 @@ int jpeg_decode(const uint8_t* data, int64_t n, int grey, uint8_t* out, char* er
             c->plane = malloc((size_t)c->bw * 8 * c->bh * 8);
             if (c->plane == NULL) fail(d, "out of memory");
             const int64_t ps = (int64_t)c->bw * 8;
+            if (smooth) {
+                smooth_component(d, c);
+                continue;
+            }
             for (int by = 0; by < c->bh; ++by)
                 for (int bx = 0; bx < c->bw; ++bx)
                     idct_islow(c->coef + ((int64_t)by * c->bw + bx) * 64, c->q,
@@ -803,7 +950,29 @@ int jpeg_decode(const uint8_t* data, int64_t n, int grey, uint8_t* out, char* er
         if (planes == NULL || row == NULL) fail(d, "out of memory");
         for (int i = 0; i < nout; ++i) upsample(d, &d->c[i], planes + (int64_t)i * W * H, row);
         const int64_t np = (int64_t)W * H;
-        if (nout == 1 && grey) {
+        if (raw) {
+            for (int64_t i = 0; i < np; ++i)
+                for (int k = 0; k < nout; ++k) out[i * nout + k] = planes[k * np + i];
+        } else if (nout == 4) {
+            // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R and icvCvt_CMYK2Gray_8u_C4C1R on
+            // libjpeg's (Adobe-inverted) CMYK samples: each of C, M, Y becomes
+            // K - (255 - x) * K / 256, then B, G, R are Y, M, C; grey is their
+            // sum with 14-bit weights, rounded
+            const uint8_t *pc = planes, *pm = planes + np, *pyl = planes + 2 * np,
+                          *pk = planes + 3 * np;
+            for (int64_t i = 0; i < np; ++i) {
+                int k = pk[i];
+                int r = k - ((255 - pc[i]) * k >> 8), g = k - ((255 - pm[i]) * k >> 8),
+                    b = k - ((255 - pyl[i]) * k >> 8);
+                if (grey) {
+                    out[i] = (uint8_t)((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14);
+                } else {
+                    out[3 * i] = (uint8_t)b;
+                    out[3 * i + 1] = (uint8_t)g;
+                    out[3 * i + 2] = (uint8_t)r;
+                }
+            }
+        } else if (nout == 1 && grey) {
             memcpy(out, planes, (size_t)np);
         } else if (nout == 1) {
             for (int64_t i = 0; i < np; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = planes[i];

@@ -20,13 +20,13 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
   the flow rows are gathered before they go to the waiters.
 
 The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
-/flow`` with a PNG/JPEG of the vertically stacked pair, answered with
+/flow`` with an image of the vertically stacked pair, answered with
 Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it
-decodes PNG (plain or interlaced) and JPEG (baseline or progressive) bodies
-with the port's own readers, as ``cv2.imdecode`` decodes them, without
-opencv; a body they refuse (another format, a lossless, arithmetic-coded,
-CMYK or truncated JPEG, a progressive one cut short) gets a 400 that names
-why.  ``main`` reads the yaml, so ``FlowServer`` itself needs only torch
+decodes PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR and TIFF
+bodies with the port's own readers (``utils/imageio.py``), as
+``cv2.imdecode`` decodes them, without opencv; a body they refuse (WebP,
+JPEG 2000, AVIF, a lossless, arithmetic-coded or truncated JPEG, a corrupt
+TIFF) gets a 400 that names why.  ``main`` reads the yaml, so ``FlowServer`` itself needs only torch
 and numpy.
 
 Usage:
@@ -232,11 +232,11 @@ class FlowServer:
 
 
 def _decode_pair(body: bytes, img_hw) -> np.ndarray:
-    """PNG/JPEG bytes of a vertically stacked pair -> (2H, W, 3) float32.
+    """Image bytes of a vertically stacked pair -> (2H, W, 3) float32.
 
     Decoded by ``utils/imageio.py`` as ``cv2.imdecode`` decodes it; a body it
-    cannot decode (another format, a truncated JPEG) raises ``ValueError``
-    with the reason, which the handler sends back in a 400.
+    cannot decode (a format it does not read, a truncated file) raises
+    ``ValueError`` with the reason, which the handler sends back in a 400.
     """
     arr = imageio.imdecode(body, imageio.IMREAD_COLOR)
     if arr is None:

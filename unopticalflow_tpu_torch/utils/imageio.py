@@ -1,14 +1,21 @@
 """Image reading, writing and resizing for the port's entry points.
 
-The port reads frames, request bodies and KITTI ground truth as PNG or JPEG
-with its own codecs (PNG: ``zlib``, numpy, and the row unfiltering of
-``csrc/imageio.c``; JPEG: the decoder of ``csrc/jpeg.c`` and the encoder of
-``csrc/jpeg_enc.c``) and resizes with its own copy of OpenCV's
-``INTER_LINEAR`` (uint8: the taps in numpy, the sums in ``csrc/imageio.c``;
-float32: numpy), each written to give what cv2 (and PIL, for the JPEG it
-writes) gives, so the entry points read and write the same data on every
-machine, with or without opencv.  Nothing here imports cv2 or PIL.
+The port reads frames, request bodies and KITTI ground truth with its own
+codecs, each written to give what cv2 gives (and PIL, for the JPEG it
+writes), so the entry points read and write the same data on every
+machine, with or without opencv: PNG (``zlib``, numpy, and the row
+unfiltering of ``csrc/imageio.c``), JPEG (the decoder of ``csrc/jpeg.c``
+and the encoder of ``csrc/jpeg_enc.c``), and BMP, PNM/PAM/PFM, Sun raster
+and Radiance HDR (``utils/rasters.py``) and TIFF (``utils/tiff.py``).  It
+resizes with its own copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in
+numpy, the sums in ``csrc/imageio.c``; float32: numpy).  Nothing here
+imports cv2 or PIL.
 
+* ``imdecode(data, flags)`` and ``imread(path, flags)`` as cv2's: the
+  format from the first bytes, as cv2 tells them apart.  A WebP, JPEG 2000
+  or AVIF body raises ``ValueError`` naming the format as one the port
+  does not read yet; bytes of no format the port knows give None (and
+  ``imread`` raises, naming the formats it reads).
 * ``decode_png(data, flags)`` as ``cv2.imdecode``: ``IMREAD_COLOR`` gives BGR
   uint8 (H, W, 3) (16-bit samples keep their high byte, alpha is dropped,
   grey is repeated); ``IMREAD_UNCHANGED`` (-1) the file's own channels in
@@ -22,14 +29,15 @@ machine, with or without opencv.  Nothing here imports cv2 or PIL.
   ``sRGB`` or ``iCCP`` chunk, where libpng's conversion goes through gamma
   tables, raises.
 * ``decode_jpeg(data, flags)`` as ``cv2.imdecode`` with libjpeg-turbo, bit
-  for bit: sequential and progressive (Huffman, 8-bit) grey or YCbCr files
-  of any size and sampling, with restart intervals.  ``IMREAD_COLOR`` gives
-  BGR (a grey file repeated), ``IMREAD_GRAYSCALE`` libjpeg's Y plane,
-  ``IMREAD_UNCHANGED`` the file's own channels; the first two apply an
-  Exif ``Orientation`` tag, as cv2 does.  Lossless, hierarchical,
-  arithmetic-coded, 12-bit, CMYK and truncated files, and a progressive
-  file cut short of its last scans (whose blocks libjpeg smooths), raise
-  ``ValueError``, naming the mode or the fault.
+  for bit: sequential and progressive (Huffman, 8-bit) grey, YCbCr or CMYK
+  (Adobe's inverted CMYK, as PIL writes it) files of any size and
+  sampling, with restart intervals, and a progressive file cut short of
+  its last scans through libjpeg's block smoothing.  ``IMREAD_COLOR`` gives
+  BGR (a grey file repeated), ``IMREAD_GRAYSCALE`` libjpeg's Y plane (a
+  CMYK file's BGR weighted), ``IMREAD_UNCHANGED`` the file's own channels
+  (BGR for CMYK); the first two apply an Exif ``Orientation`` tag, as cv2
+  does.  Lossless, hierarchical, arithmetic-coded, 12-bit, YCCK, RGB-coded
+  and truncated files raise ``ValueError``, naming the mode or the fault.
 * ``encode_png(img)`` as ``cv2.imencode(".png")`` writes it, each row's
   filter chosen as libpng chooses it: (H, W) grey or (H, W, 3) BGR /
   (H, W, 4) BGRA, uint8 or uint16.
@@ -74,7 +82,8 @@ _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
 
 
 def imread(path: str, flags: int = IMREAD_COLOR):
-    """The image in a PNG or JPEG file, or None when the file is missing.
+    """The image in a file of a format ``imdecode`` reads, or None when the
+    file is missing.
 
     The format is read from the file's first bytes; another format raises,
     saying so.
@@ -85,20 +94,75 @@ def imread(path: str, flags: int = IMREAD_COLOR):
         data = f.read()
     img = imdecode(data, flags)
     if img is None:
-        raise ValueError(f"{path}: neither PNG nor JPEG; the port reads those two")
+        raise ValueError(f"{path}: not an image format the port reads ({READS})")
+    if flags == IMREAD_GRAYSCALE and img.ndim == 3:
+        # cv2.imread refuses the colour image cv2.imdecode hands back (a PFM's)
+        raise ValueError(f"{path}: an IMREAD_GRAYSCALE read of a colour PFM, which cv2.imread "
+                         "refuses")
     return img
 
 
-def imdecode(data: bytes, flags: int = IMREAD_COLOR):
-    """The image in a request body: None when it is neither PNG nor JPEG.
+READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF"
+# formats cv2 reads that the port does not read yet: (name, test of the first bytes)
+_NOT_YET = (
+    ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),
+    ("JPEG 2000", lambda d: d.startswith((b"\x00\x00\x00\x0cjP  \r\n\x87\n",  # JP2 box
+                                          b"\xff\x4f\xff\x51"))),  # a J2K codestream
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
+)
 
-    A PNG or JPEG body that the port cannot decode raises ``ValueError``.
-    """
+
+def _decoder(data: bytes):
+    """The decoder of the format ``data`` opens with (as cv2 tells formats
+    apart), or None."""
+    from unopticalflow_tpu_torch.utils import rasters, tiff
+
     if data.startswith(_PNG_MAGIC):
-        return decode_png(data, flags)
+        return decode_png
     if data.startswith(_JPEG_MAGIC):
-        return decode_jpeg(data, flags)
+        return decode_jpeg
+    if data.startswith(b"BM"):
+        return rasters.decode_bmp
+    if data[:1] == b"P" and data[2:3].isspace():  # P1-P6, P7, Pf, PF
+        kind = data[1:2]
+        if b"1" <= kind <= b"6":
+            return rasters.decode_pnm
+        if kind == b"7":
+            return rasters.decode_pam
+        if kind in (b"f", b"F"):
+            return rasters.decode_pfm
+    if data.startswith(b"\x59\xa6\x6a\x95"):
+        return rasters.decode_sun
+    if data.startswith((b"#?RADIANCE", b"#?RGBE")):
+        return rasters.decode_hdr
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return tiff.decode_tiff
     return None
+
+
+def imdecode(data: bytes, flags: int = IMREAD_COLOR):
+    """The image in a request body: None when its first bytes name no
+    format the port knows.
+
+    A body of a format the port reads but cannot decode (truncated,
+    corrupt, a mode it does not support), and a WebP, JPEG 2000 or AVIF
+    body, raise ``ValueError`` saying why.
+    """
+    decode = _decoder(data)
+    if decode is not None:
+        img = decode(data, flags)
+        # a reader may hand back a view of the body's bytes: the caller owns a copy
+        return img if img.flags.writeable else img.copy()
+    for name, test in _NOT_YET:
+        if test(data):
+            raise ValueError(f"{name} is not a format the port reads yet ({READS})")
+    return None
+
+
+def _check_flags(flags: int) -> None:
+    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
+        raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR, "
+                         "IMREAD_GRAYSCALE or IMREAD_UNCHANGED")
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
@@ -204,9 +268,7 @@ def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     """PNG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
-    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
-        raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR, "
-                         "IMREAD_GRAYSCALE or IMREAD_UNCHANGED")
+    _check_flags(flags)
     head, palette, trns, idat, managed = None, None, None, [], []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -425,9 +487,7 @@ def decode_jpeg(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     """JPEG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
     import ctypes
 
-    if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
-        raise ValueError(f"imread flags {flags}: the port reads IMREAD_COLOR, "
-                         "IMREAD_GRAYSCALE or IMREAD_UNCHANGED")
+    _check_flags(flags)
     lib = _jpeg_lib()
     buf = np.frombuffer(data, np.uint8)
     info = np.zeros(3, np.int64)
@@ -442,6 +502,24 @@ def decode_jpeg(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     if flags == IMREAD_UNCHANGED:
         return out
     return _orient(out, _exif_orientation(data))
+
+
+def _jpeg_raw(data: bytes, mode: int) -> np.ndarray:
+    """A JPEG stream of a TIFF strip or tile as libjpeg hands it to libtiff:
+    mode 0 BGR (YCbCr converted), 1 grey, 2 the stored components (H, W, n)."""
+    import ctypes
+
+    lib = _jpeg_lib()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(buf.ctypes.data, buf.size, info.ctypes.data, err, len(err)):
+        raise ValueError(f"TIFF JPEG data: {err.value.decode()}")
+    w, h, ncomp = (int(v) for v in info)
+    out = np.empty((h, w) if mode == 1 else (h, w, 3 if mode == 0 else ncomp), np.uint8)
+    if lib.jpeg_decode(buf.ctypes.data, buf.size, mode, out.ctypes.data, err, len(err)):
+        raise ValueError(f"TIFF JPEG data: {err.value.decode()}")
+    return out
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
