@@ -260,21 +260,26 @@ Phases (each raises on failure, so the run exits non-zero):
    colour types 0, 2, 3, 4 and 6 decode to cv2's decodes; every fixture of
    ``tests/torch_fixtures/formats/`` (BMP, PNM, PAM, PFM, Sun raster, HDR,
    TIFF) has the SHA-256 of cv2's decode under each of the three flags (or
-   raises where cv2's output is undefined); the 512x832 stacked pair as
-   BMP, P6, Sun raster, uncompressed, LZW and Deflate TIFF and HDR (built
-   here by this module's writers from the committed pair's pixels) and as
-   PIL's JPEG-compressed TIFF (committed) decodes to the pair's pixels (the
-   lossless ones) or its cv2 digest, and the host ms of decoding it in each
-   format and as the baseline and progressive JPEG (median of 20 each, this
-   machine's CPU; a JSON line).  (b) ``FlowServer`` and its HTTP handler on
-   the card at 256x832, bfloat16, ``max_batch`` 8: each of those bodies and
+   raises where cv2's output is undefined); every fixture of
+   ``tests/torch_fixtures/webp/`` (lossy VP8, lossless VP8L, ALPH raw and
+   VP8L-coded under each filter, animations, Exif orientation) has the
+   SHA-256 of cv2's decode under each flag, and each body cv2 refuses
+   raises; the 512x832 stacked pair as BMP, P6, Sun raster, uncompressed,
+   LZW and Deflate TIFF and HDR (built here by this module's writers from
+   the committed pair's pixels), as PIL's JPEG-compressed TIFF and as lossy,
+   lossless and lossy-with-alpha WebP (committed) decodes to the pair's
+   pixels (the lossless ones) or its cv2 digest, and the host ms of
+   decoding it in each format, as the baseline and progressive JPEG and as
+   the PNG (median of 20 each, this machine's CPU; a JSON line).  (b)
+   ``FlowServer`` and its HTTP handler on the card at 256x832, bfloat16,
+   ``max_batch`` 8: each of those bodies (the PNG among them) and
    the cut progression gets a 200 whose ``.flo`` reply is byte-equal to the
    reply to a PNG of the body's decoded pixels, with exactly 5 ``corr_fwd``
-   launches a body; the baseline and progressive JPEG replies are equal; a
-   WebP body gets a 400 naming WebP; the median ms of 8 requests with each
-   body and with the PNG (a JSON line).  (c) ``test.main --task demo`` on
-   two JPEG, two BMP and two LZW TIFF frames equals the demo on PNGs of
-   their decoded pixels (5 launches each).  (d) NYUv2
+   launches a body; the baseline and progressive JPEG replies are equal; an
+   AVIF body gets a 400 naming AVIF; the median ms of 8 requests with each
+   body (a JSON line).  (c) ``test.main --task demo`` on two JPEG, two BMP,
+   two LZW TIFF and two WebP frames equals the demo on PNGs of their decoded
+   pixels (5 launches each).  (d) NYUv2
    without h5py: ``NYU_Prepare`` on raw ``.ppm`` scenes this phase writes
    and the MATLAB-layout labeled set (``train.txt`` names the train scenes
    only), ``load_nyu_test_data`` equal to the JAX package's arrays (by
@@ -445,6 +450,18 @@ Phases (each raises on failure, so the run exits non-zero):
    and 5 of each correlation hpad kernel, the pack lands on the CPU and every
    gradient on its parameter's card, and the pack and gradients hold to the
    unsharded step on the card under (c)'s rule.
+22. The bfloat16 step's gradient gap (``bf16_gap``; rehearsable on the
+   CPU): at the recipe's 256x832, the "pwc" init, on seeded noise frames at
+   batch 1 (``benchmarks/bf16_gap.py::snippets``, the frames its CPU run
+   holds to the JAX package) and on synthetic snippets at batch 8 (phase
+   21's), the rel L2 of the bfloat16 step's gradients (photometric weights,
+   full weights) from the float32 step's, with the kernels (exactly 5 + 10 +
+   10 correlation and 3 + 6 photometric launches a dtype: one forward, two
+   gradients) and with the plain versions on the card; it fails if the
+   kernels' gap exceeds 2 x the plain versions' + 1e-3.  Then PERF.md q14's
+   48 eager steps on 8 repeated batches once more with a float32 loss stack
+   (``loss_dtype`` float32 under bfloat16 convolutions): the block means
+   and whether they rose.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -1161,6 +1178,7 @@ def host_modules(c) -> None:
                             "torch_fixtures")
     jpeg_dir, nyu_dir = os.path.join(fixtures, "jpeg"), os.path.join(fixtures, "nyu")
     formats_dir = os.path.join(fixtures, "formats")
+    webp_dir = os.path.join(fixtures, "webp")
     zero_counts = dict.fromkeys(KERNELS, 0)
     counts, reset_counts = c.counts, c.reset_counts
     os.makedirs(c.root, exist_ok=True)
@@ -1230,6 +1248,19 @@ def host_modules(c) -> None:
                         raise AssertionError(f"{name} (flags {flags}) decodes; expected a raise")
                 elif digest(imageio.imdecode(data, int(flags))) != want:
                     raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
+        with open(os.path.join(webp_dir, "expected.json")) as f:
+            webp_want = json.load(f)
+        for name, entry in sorted(webp_want.items()):
+            data = read(os.path.join(webp_dir, name))
+            for flags, want in entry.items():
+                if want == "none":  # a body cv2 refuses: the port raises
+                    try:
+                        imageio.imdecode(data, int(flags))
+                    except ValueError:
+                        continue
+                    raise AssertionError(f"{name} (flags {flags}) decodes; cv2 refuses it")
+                if digest(imageio.imdecode(data, int(flags))) != want:
+                    raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
         # the 512x832 stacked pair in each format, the bodies built here from
         # the committed pair's pixels (TIFF JPEG: PIL's file, committed)
         pair_px = imageio.decode_png(read(os.path.join(jpeg_dir, "pair_512x832.png")))
@@ -1244,8 +1275,12 @@ def host_modules(c) -> None:
             "TIFF Deflate": write_tiff(rgb, 2, compression=8, predictor=2, rows_per_strip=64),
             "TIFF JPEG": read(os.path.join(formats_dir, "pair_512x832_jpeg.tif")),
             "HDR": write_hdr(pair_px.astype(np.float32) / 255.0),
+            **{f"WebP{tag}": read(os.path.join(webp_dir, f"pair_512x832_{name}.webp"))
+               for tag, name in (("", "lossy"), (" lossless", "lossless"),
+                                 (" alpha", "alpha"))},
         }
-        pair_bodies = {"JPEG": read(os.path.join(jpeg_dir, "pair_512x832.jpg")),
+        pair_bodies = {"PNG": read(os.path.join(jpeg_dir, "pair_512x832.png")),
+                       "JPEG": read(os.path.join(jpeg_dir, "pair_512x832.jpg")),
                        "progressive JPEG": read(os.path.join(
                            jpeg_dir, "pair_512x832_progressive.jpg")), **pair_bodies}
         t_dec = {k: [] for k in pair_bodies}
@@ -1255,9 +1290,11 @@ def host_modules(c) -> None:
                 t0 = time.perf_counter()
                 decoded[kind] = imageio.imdecode(body)
                 t_dec[kind].append((time.perf_counter() - t0) * 1e3)
-    lossless = ("JPEG", "progressive JPEG", "BMP", "P6", "Sun raster", "TIFF", "TIFF LZW",
-                "TIFF Deflate")
+    lossless = ("PNG", "JPEG", "progressive JPEG", "BMP", "P6", "Sun raster", "TIFF", "TIFF LZW",
+                "TIFF Deflate", "WebP lossless")
     differ = [k for k in lossless if not np.array_equal(decoded[k], pair_px)]
+    differ += [k for k, name in (("WebP", "lossy"), ("WebP alpha", "alpha"))
+               if digest(decoded[k]) != webp_want[f"pair_512x832_{name}.webp"]["1"]]
     if differ or digest(decoded["TIFF JPEG"]) != formats_want["pair_512x832_jpeg.tif"]["1"] \
             or decoded["HDR"].shape != pair_px.shape:
         raise AssertionError(f"the stacked pair: {differ} differ from its pixels, TIFF JPEG "
@@ -1267,8 +1304,10 @@ def host_modules(c) -> None:
           f"bit-equal to cv2's decodes ({', '.join(checked)}; prog_cut3, the progression cut "
           f"after scan 3, through libjpeg's block smoothing); the interlaced PNGs "
           f"{', '.join(adam7)}; {len(formats_want)} BMP, PNM, PAM, PFM, Sun raster, HDR and TIFF "
-          f"fixtures equal cv2's decodes under IMREAD_COLOR, IMREAD_GRAYSCALE and "
-          f"IMREAD_UNCHANGED (SHA-256); host ms to decode the {pair_px.shape[0]}x"
+          f"fixtures and {len(webp_want)} WebP fixtures equal cv2's decodes under IMREAD_COLOR, "
+          f"IMREAD_GRAYSCALE and IMREAD_UNCHANGED (SHA-256; the "
+          f"{sum('none' in e.values() for e in webp_want.values())} WebP bodies cv2 refuses "
+          f"raise); host ms to decode the {pair_px.shape[0]}x"
           f"{pair_px.shape[1]} stacked pair (median of 20, one thread; {c.smi}): "
           + ", ".join(f"{k} {v:.3f} ({len(pair_bodies[k])} bytes)" for k, v in host_ms.items()))
     print(json.dumps({"host_decode_ms": host_ms, "body_bytes": {
@@ -1283,12 +1322,11 @@ def host_modules(c) -> None:
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server, cfg))
     serving = threading.Thread(target=httpd.serve_forever, daemon=True)
     serving.start()
-    pair_png = imageio.encode_png(pair_px)
     url = f"http://127.0.0.1:{httpd.server_address[1]}/flow"
     served_bodies = {**pair_bodies, "cut progression": read(os.path.join(jpeg_dir,
                                                                          "prog_cut3.jpg"))}
-    # a WebP header (RIFF, size, WEBP, a VP8L chunk): refused before any decode
-    webp = b"RIFF" + (30).to_bytes(4, "little") + b"WEBPVP8L" + bytes(22)
+    # an AVIF header (an ISO BMFF ftyp box of brand avif): refused before any decode
+    avif = (28).to_bytes(4, "big") + b"ftypavif" + bytes(16)
 
     def post(body):
         req = urllib.request.Request(url, data=body, method="POST")
@@ -1307,13 +1345,13 @@ def host_modules(c) -> None:
             if launches[kind] != c.want({**zero_counts, "corr_fwd": 5}):
                 faults.append(f"{kind}: launches {_launched(launches[kind])}")
         try:
-            post(webp)
+            post(avif)
         except urllib.error.HTTPError as e:
             refusal = (e.code, json.loads(e.read())["error"])
         else:
             refusal = (200, "")
         lat = {}
-        for kind, body in (("PNG", pair_png), *pair_bodies.items()):
+        for kind, body in pair_bodies.items():
             lat[kind] = []
             for _ in range(8):
                 t0 = time.perf_counter()
@@ -1326,10 +1364,10 @@ def host_modules(c) -> None:
         server.close()
     flow = np.frombuffer(replies["JPEG"][12:], np.float32).reshape(-1)
     if replies["JPEG"] != replies["progressive JPEG"] or flow.size != h * w * 2 \
-            or not np.isfinite(flow).all() or refusal[0] != 400 or "WebP" not in refusal[1]:
+            or not np.isfinite(flow).all() or refusal[0] != 400 or "AVIF" not in refusal[1]:
         faults.append(f"JPEG and progressive replies equal "
                       f"{replies['JPEG'] == replies['progressive JPEG']}, {flow.size} values, "
-                      f"WebP {refusal}")
+                      f"AVIF {refusal}")
     if faults:
         raise AssertionError("serving: " + "; ".join(faults))
     serve_ms = {k: statistics.median(v) for k, v in lat.items()}
@@ -1337,7 +1375,7 @@ def host_modules(c) -> None:
           f"max_batch {c.batch}: {len(served_bodies)} bodies ({', '.join(served_bodies)}) each "
           f"get a 200 with the .flo reply ({len(replies['JPEG'])} bytes) of the PNG of their "
           f"decoded pixels, each with exactly {launches['JPEG']['corr_fwd']} corr_fwd launches; "
-          f"a WebP body: {refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, decode + "
+          f"an AVIF body: {refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, decode + "
           f"resize + inference + reply; {c.smi}): "
           + ", ".join(f"{k} {v:.2f}" for k, v in serve_ms.items()))
     print(json.dumps({"served_ms": serve_ms, "smi": c.smi}))
@@ -1348,7 +1386,7 @@ def host_modules(c) -> None:
     yaml = os.path.join(c.root, "demo.yaml")
     with open(yaml, "w") as f:
         f.write(f"img_hw: [{h}, {w}]\nnum_scales: 3\n")
-    frames = {kind: [] for kind in ("jpeg", "bmp", "tiff", "png")}
+    frames = {kind: [] for kind in ("jpeg", "bmp", "tiff", "png", "webp", "webp_png")}
     for k in ("a", "b"):
         jpg = os.path.join(jpeg_dir, f"frame_{k}.jpg")
         px = imageio.decode_jpeg(read(jpg))
@@ -1362,6 +1400,12 @@ def host_modules(c) -> None:
             with open(path, "wb") as f:
                 f.write(write())
             frames[kind].append(path)
+        webp_frame = os.path.join(webp_dir, f"frame_{k}.webp")
+        frames["webp"].append(webp_frame)
+        path = os.path.join(c.root, f"frame_{k}_webp.png")
+        with open(path, "wb") as f:
+            f.write(imageio.encode_png(imageio.imread(webp_frame)))
+        frames["webp_png"].append(path)
     demo, demo_counts = {}, {}
     for kind, (a, b) in frames.items():
         reset_counts()
@@ -1369,13 +1413,15 @@ def host_modules(c) -> None:
             "-c", yaml, "--task", "demo", "--pretrained_model", pth, "--image_path", a,
             "--image_path2", b, "--result_dir", os.path.join(c.root, f"demo_{kind}"), *c.cli])
         demo_counts[kind] = counts()
-    if any(not np.array_equal(v, demo["png"]) for v in demo.values()) \
+    if any(not np.array_equal(v, demo["webp_png" if k.startswith("webp") else "png"])
+           for k, v in demo.items()) \
             or demo["png"].shape != (h, w, 2) \
             or any(v != c.want({**zero_counts, "corr_fwd": 5}) for v in demo_counts.values()):
-        equal = {k: np.array_equal(v, demo["png"]) for k, v in demo.items()}
+        equal = {k: np.array_equal(v, demo["webp_png" if k.startswith("webp") else "png"])
+                 for k, v in demo.items()}
         raise AssertionError(f"demo: equal to the PNG demo {equal}, launches {demo_counts}")
-    print(f"host modules (c): test.main --task demo on two JPEG, two BMP and two LZW TIFF frames "
-          f"equals the demo on PNGs of their decoded pixels ({h}x{w} flow, mean |flow| "
+    print(f"host modules (c): test.main --task demo on two JPEG, two BMP, two LZW TIFF and two "
+          f"WebP frames equals the demo on PNGs of their decoded pixels ({h}x{w} flow, mean |flow| "
           f"{float(np.abs(demo['png']).mean()):.4f} px), "
           f"{demo_counts['jpeg']['corr_fwd']} corr_fwd launches each")
 
@@ -4086,6 +4132,82 @@ def spatial_training(c) -> dict:
     return record_launches
 
 
+def bf16_gap(c) -> None:
+    """Phase 22 (see the module): ``c`` holds the device, the recipe's size
+    and batch, K and q14's steps, the launch counters (``want`` maps an
+    expected count to what this device launches), ``sync``, ``empty_cache``
+    and the card's nvidia-smi line."""
+    import numpy as np
+    import torch
+
+    from unopticalflow_tpu_torch import train as train_cli
+    from unopticalflow_tpu_torch.benchmarks import bf16_gap as gap
+    from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
+    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig
+    from unopticalflow_tpu_torch.ops.cost_volume import cost_volume_reference
+    from unopticalflow_tpu_torch.ops.photometric import photometric_pack_reference
+    from unopticalflow_tpu_torch.training import loss_weights_from_config
+
+    t22 = time.perf_counter()
+    (h, w), batch_n = c.img_hw, c.batch
+    plain = dict(corr_fn=cost_volume_reference, photo_fn=photometric_pack_reference)
+    # one forward and two gradients a dtype, in float32 and in bfloat16
+    want = c.want({**dict.fromkeys(KERNELS, 0), "corr_fwd": 10, "corr_bwd_df1": 20,
+                   "corr_bwd_df2": 20, "photometric_fwd": 6, "photometric_bwd": 12})
+    data = SyntheticSnippets(c.img_hw, batch_n, seed=SEED + 21)
+    cases = {
+        "seeded noise frames, batch 1": (SEED + 22, gap.snippets(1, h, w, seed=SEED)),
+        f"synthetic snippets, batch {batch_n}": (
+            SEED + 21, np.stack([data[i] for i in range(batch_n)]).astype(np.float32) / 255.0),
+    }
+    for label, (seed, x) in cases.items():
+        init = FlowModel(device="cpu", scheme="pwc", generator=torch.Generator().manual_seed(seed))
+        state = {k: v.numpy() for k, v in init.state_dict().items()}
+        c.reset_counts()
+        kern = gap.port_steps(state, x, c.device)
+        c.sync()
+        launched = c.counts()
+        ref = gap.port_steps(state, x, c.device, **plain)
+        c.empty_cache()
+        g_k, g_p = gap.gaps(kern), gap.gaps(ref)
+        apart = {name: [gap.rel_l2(kern[dt][1][name], ref[dt][1][name]) for dt in gap.DTYPES]
+                 for name in gap.WEIGHT_SETS}
+        packs = {dt: {k: round(float(v.mean()), 6) for k, v in kern[dt][0].items()}
+                 for dt in gap.DTYPES}
+        print(f"bf16 gap ({label}, {h}x{w}, pwc init; {c.smi}): rel L2 of the bfloat16 step's "
+              f"gradient from the float32 step's, kernels / plain versions: "
+              + "; ".join(f"{name} {g_k[name]['gap_port']:.4f} / {g_p[name]['gap_port']:.4f} "
+                          f"(kernels vs plain, float32 {apart[name][0]:.3e}, bfloat16 "
+                          f"{apart[name][1]:.3e})" for name in gap.WEIGHT_SETS)
+              + f"; packs (batch means) {json.dumps(packs)}; launches {_launched(launched)}")
+        if launched != want:
+            raise AssertionError(f"bf16 gap {label}: launches {launched}, want {want}")
+        for name in gap.WEIGHT_SETS:
+            if not all(np.isfinite(kern[dt][1][name]).all() for dt in gap.DTYPES):
+                raise AssertionError(f"bf16 gap {label}: a {name} gradient is not finite")
+            if g_k[name]["gap_port"] > 2 * g_p[name]["gap_port"] + 1e-3:
+                raise AssertionError(f"bf16 gap {label} {name}: the kernels' gap "
+                                     f"{g_k[name]['gap_port']} exceeds 2 x the plain versions' "
+                                     f"{g_p[name]['gap_port']} + 1e-3")
+        del kern, ref
+    # q14 once more: bfloat16 convolutions, the loss stack in float32
+    k = c.k
+    weights = loss_weights_from_config(train_cli.recipe_config())
+    data = SyntheticSnippets(c.img_hw, k * batch_n, seed=SEED + 18)
+    xs = torch.from_numpy(np.stack([data[i] for i in range(k * batch_n)])).to(c.device)
+    xs = xs.reshape(k, batch_n, 3 * h, w, 3)
+    cfg = FlowModelConfig(compute_dtype="bfloat16", loss_dtype="float32")
+    losses = q14_runs(c, cfg, weights, xs, 1, c.q14_steps, kinds=("eager",))["eager"][0]
+    rose, means = _rose(losses, k)
+    print(f"bf16 gap: q14 with loss_dtype float32 (bfloat16 convolutions), {c.q14_steps} eager "
+          f"steps on {k} repeated batches at {h}x{w}, batch {batch_n}: means of {k}-step blocks "
+          f"{json.dumps([round(m, 4) for m in means])}; {'rose' if rose else 'did not rise'} "
+          f"(a block above {Q14_RISE} x the lowest before it); phase 22 in "
+          f"{time.perf_counter() - t22:.1f} s")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("q14 float32 loss stack: a loss is not finite")
+
+
 def main() -> int:
     import torch
 
@@ -5497,6 +5619,13 @@ def main() -> int:
         plain_ms=plain_ms, work=work))
     torch.cuda.empty_cache()
 
+    # ---- 22. the bfloat16 step's gradient gap, kernels against plain -----------
+    bf16_gap(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, batch=BATCH, k=DISPATCH_K, q14_steps=Q14_STEPS,
+        counts=counts, reset_counts=reset_counts, want=lambda d: d,
+        sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache, smi=smi))
+    torch.cuda.empty_cache()
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
@@ -5524,7 +5653,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 21 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: 22 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

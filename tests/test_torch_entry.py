@@ -668,6 +668,49 @@ def test_demo_on_bmp_and_tiff_frames_matches_jax(tmp_path, jax_state, monkeypatc
         assert np.abs(flow - want).max() <= 1e-4 * (1 + peak), ext
 
 
+def test_demo_on_webp_frames_matches_jax(tmp_path, jax_state, monkeypatch):
+    """``test.main --task demo`` (yaml and cv2 blocked) on two lossy and on
+    two lossless WebP frames (cv2's writes) against the JAX package's
+    ``test_single_pair`` on the same files, as the BMP and TIFF test above."""
+    import jax
+    import jax.numpy as jnp
+
+    import test as jax_test
+    from unopticalflow_tpu.models import FlowModelConfig as JaxFlowModelConfig
+    from unopticalflow_tpu.models import inference_flow as jax_inference_flow
+    from unopticalflow_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from unopticalflow_tpu.utils.config import Config
+
+    params = jax_state[0]
+    src = str(tmp_path / "last.ckpt")
+    jax_save(src, 3, params)
+    cfg_path = tmp_path / "demo.yaml"
+    cfg_path.write_text("img_hw: [64, 128]\nnum_scales: 3\n")
+    rng = np.random.RandomState(6)
+    scene = cv2.GaussianBlur(rng.randint(0, 256, (90, 170, 3)).astype(np.uint8), (0, 0), 3)
+    frames = (scene[3:83, 2:152], scene[:80, :150])  # moved 2 px right, 3 px down
+    jcfg = JaxFlowModelConfig(num_scales=3)
+    infer = jax.jit(lambda a, b: jax_inference_flow(
+        jax.tree.map(jnp.asarray, params), jcfg, a, b))
+    cfg = Config({"img_hw": (64, 128), "config_file": str(cfg_path), "mode": "flow"})
+    for quality in (90, 101):
+        paths = [str(tmp_path / f"frame{k}_q{quality}.webp") for k in range(2)]
+        for path, frame in zip(paths, frames):
+            assert cv2.imwrite(path, frame, [cv2.IMWRITE_WEBP_QUALITY, quality])
+        with monkeypatch.context() as m:
+            _block(m)
+            flow = port_test.main(["-c", str(cfg_path), "--pretrained_model", src, "--device",
+                                   "cpu", "--task", "demo", "--image_path", paths[0],
+                                   "--image_path2", paths[1], "--result_dir",
+                                   str(tmp_path / f"demo{quality}")])
+        want = jax_test.test_single_pair(cfg, infer, *paths,
+                                         save_dir=str(tmp_path / f"jax{quality}"))
+        assert flow.shape == want.shape == (64, 128, 2) and flow.dtype == np.float32, quality
+        peak = np.abs(want).max()
+        assert peak > 0.1, quality
+        assert np.abs(flow - want).max() <= 1e-4 * (1 + peak), quality
+
+
 def _metric_values(res):
     header, values = res.split("\n")[:2]
     return header, np.array([float(v) for v in values.split(",")])

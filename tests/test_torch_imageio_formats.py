@@ -6,10 +6,12 @@ libtiff 4.7), every value equal, under ``IMREAD_COLOR``,
 ``tests/torch_fixtures/formats/`` (against cv2 live and against the
 digests of cv2's decodes committed beside them); generated variants of
 each reader's options; truncated and corrupt bodies, which raise naming the
-format; unknown bytes, which give None, and WebP, JPEG 2000 and AVIF, which
-raise naming themselves; and the stacked pair in each format through the
-port's ``serve._decode_pair`` against the JAX package's, and over HTTP on
-the CPU against the reply to a PNG of the same pixels."""
+format; unknown bytes, which give None, JPEG 2000 and AVIF, which raise
+naming themselves, and WebP, which decodes as cv2 decodes it
+(``tests/test_torch_webp.py`` holds the WebP reader in full); and the
+stacked pair in each format through the port's ``serve._decode_pair``
+against the JAX package's, and over HTTP on the CPU against the reply to a
+PNG of the same pixels."""
 
 import hashlib
 import io
@@ -258,13 +260,16 @@ def test_unknown_bytes_and_formats_not_read_yet():
     for data in (b"", b"GIF89a", cv2.imencode(".gif", _image(8, 8, 2))[1].tobytes(),
                  b"\x00\x01\x02\x03" * 8, b"P8\n1 1\n255\n\x00"):
         assert imageio.imdecode(data) is None
-    webp = cv2.imencode(".webp", _image(8, 8, 3))[1].tobytes()
     avif = cv2.imencode(".avif", _image(8, 8, 4))[1].tobytes()
     jp2 = b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40)
-    for name, data in (("WebP", webp), ("AVIF", avif), ("JPEG 2000", jp2),
+    for name, data in (("AVIF", avif), ("JPEG 2000", jp2),
                        ("JPEG 2000", b"\xff\x4f\xff\x51" + bytes(40))):
         with pytest.raises(ValueError, match=f"{name} is not a format the port reads yet"):
             imageio.imdecode(data)
+    # WebP, once refused here, now decodes as cv2 decodes it
+    webp = cv2.imencode(".webp", _image(8, 8, 3))[1].tobytes()
+    for flags in FLAGS:
+        assert _same(webp, flags)
 
 
 def test_imread_reads_each_format(tmp_path):
@@ -310,6 +315,8 @@ def _pair_bodies():
         "tiff_jpeg": _pil_tiff(rgb, "jpeg"),
         "hdr": write_hdr(pair.astype(np.float32) / 255),
         "pam": cv2.imencode(".pam", pair)[1].tobytes(),
+        "webp": cv2.imencode(".webp", pair, [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes(),
+        "webp_lossless": cv2.imencode(".webp", pair, [cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes(),
     }
 
 
@@ -350,14 +357,14 @@ def test_server_answers_each_format_as_the_png_of_its_pixels():
             return r.read()
 
     try:
-        for fmt in ("bmp", "tiff_lzw", "hdr"):
+        for fmt in ("bmp", "tiff_lzw", "hdr", "webp", "webp_lossless"):
             png = imageio.encode_png(imageio.imdecode(bodies[fmt]))
             assert post(bodies[fmt]) == post(png), fmt
-        webp = cv2.imencode(".webp", _image(16, 16, 6))[1].tobytes()
+        avif = cv2.imencode(".avif", _image(16, 16, 6))[1].tobytes()
         with pytest.raises(urllib.error.HTTPError) as err:
-            post(webp)
+            post(avif)
         assert err.value.code == 400
-        assert "WebP" in json.loads(err.value.read())["error"]
+        assert "AVIF" in json.loads(err.value.read())["error"]
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -390,7 +397,8 @@ def test_single_image_depth_reads_each_format(tmp_path, monkeypatch):
     bodies = {"bmp": write_bmp(72, 40, 24, bmp_rows([r.tobytes() for r in frame])),
               "ppm": write_p6(frame), "ras": write_sun(frame),
               "tif": write_tiff(np.ascontiguousarray(frame[:, :, ::-1]), 2, compression=5),
-              "hdr": write_hdr(frame.astype(np.float32) / 255)}
+              "hdr": write_hdr(frame.astype(np.float32) / 255),
+              "webp": cv2.imencode(".webp", frame, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes()}
 
     def infer_disp(images):  # a disparity that follows the frame's pixels
         return 0.05 + 0.3 * images.mean(axis=-1, keepdims=True)

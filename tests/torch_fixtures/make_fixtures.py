@@ -380,6 +380,392 @@ def format_fixtures(out: str) -> None:
         f.write("\n")
 
 
+# ---------------------------------------------------------------------------
+# WebP: writers of the files cv2 and PIL do not write, and the fixtures
+# ---------------------------------------------------------------------------
+
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk: tag, little-endian size, payload padded to even."""
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def webp_riff(chunks: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WEBP" + chunks
+
+
+def vp8x_chunk(w: int, h: int, flags: int) -> bytes:
+    """VP8X: the flags (0x10 alpha, 0x08 Exif, 0x02 animation) and the canvas."""
+    return webp_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def alpha_filtered(alpha: np.ndarray, method: int) -> bytes:
+    """An alpha plane's deltas under ALPH filter ``method`` (0 none, 1
+    horizontal, 2 vertical, 3 gradient): each sample less its prediction,
+    the first row predicted from the left (0 before it), the first column
+    from above."""
+    a = alpha.astype(np.int32)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    elif method == 3:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    else:
+        pred[:] = 0
+    return ((a - pred) & 0xFF).astype(np.uint8).tobytes()
+
+
+def webp_with_raw_alpha(lossy: bytes, alpha: np.ndarray, method: int, levels: int = 0) -> bytes:
+    """An extended file: VP8X (alpha), ALPH stored raw (compression 0) with
+    filter ``method`` and the level-reduction bit ``levels``, then the VP8
+    chunk of the simple lossy file ``lossy``."""
+    h, w = alpha.shape
+    header = bytes([(levels << 4) | (method << 2)])
+    return webp_riff(vp8x_chunk(w, h, 0x10) + webp_chunk(b"ALPH", header
+                                                          + alpha_filtered(alpha, method))
+                     + lossy[12:])
+
+
+def webp_animation(canvas, frames, flags: int = 0x02) -> bytes:
+    """An animation: ``frames`` of (x, y, w, h, simple file), each frame's
+    image chunk taken from the simple file, x and y even."""
+    body = vp8x_chunk(*canvas, flags) + webp_chunk(b"ANIM", bytes(4) + struct.pack("<H", 0))
+    for x, y, w, h, f in frames:
+        head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, 100))
+        body += webp_chunk(b"ANMF", head + b"\0" + f[12:])
+    return webp_riff(body)
+
+
+def _webp_tables() -> dict:
+    """The VP8 probability tables of ``csrc/webp.c`` (read from its source)."""
+    import re
+
+    with open(os.path.join(REPO, "unopticalflow_tpu_torch", "csrc", "webp.c")) as f:
+        src = f.read()
+    return {name: [int(v) for v in re.search(name + r"\[\d+\] = \{(.*?)\};", src, re.S)
+                   .group(1).replace("\n", " ").split(",") if v.strip()]
+            for name in ("kCoeffsUpdateProba", "kBModesProba")}
+
+
+class BoolDecoder:
+    """RFC 6386's boolean decoder, logging each (probability, bit)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos, self.count = data, 2, 0
+        self.value = int.from_bytes(data[:2].ljust(2, b"\0"), "big")
+        self.range, self.log = 255, []
+
+    def bit(self, prob: int = 128) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if self.value >= split << 8:
+            self.range -= split
+            self.value -= split << 8
+            b = 1
+        else:
+            self.range = split
+            b = 0
+        while self.range < 128:
+            self.value, self.range, self.count = self.value << 1, self.range << 1, self.count + 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.data[self.pos] if self.pos < len(self.data) else 0
+                self.pos += 1
+        self.log.append((prob, b))
+        return b
+
+    def value_of(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.bit()
+        return v
+
+    def signed(self, n: int) -> int:
+        v = self.value_of(n)
+        return -v if self.bit() else v
+
+
+class BoolEncoder:
+    """RFC 6386's boolean encoder."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.bit_count = bytearray(), 255, 0, 24
+
+    def bit(self, b: int, prob: int = 128) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if b:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):  # carry into the bytes written
+                i = len(self.out) - 1
+                while self.out[i] == 255:
+                    self.out[i] = 0
+                    i -= 1
+                self.out[i] += 1
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if self.bit_count == 0:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value_of(self, v: int, n: int) -> None:
+        for k in range(n - 1, -1, -1):
+            self.bit((v >> k) & 1)
+
+    def signed(self, v: int, n: int) -> None:
+        self.value_of(abs(v), n)
+        self.bit(int(v < 0))
+
+    def flush(self) -> bytes:
+        for _ in range(32):
+            self.bit(0)
+        return bytes(self.out)
+
+
+def vp8_with_headers(simple_file: bytes, **fields) -> bytes:
+    """A simple lossy file with its frame's segment and filter headers
+    rewritten (``simple``, ``level``, ``sharpness``, ``ref_delta``,
+    ``mode_delta``: the loop filter; ``relative``: segment quantisers and
+    filter strengths (``strengths``) given relative to the frame's): the
+    first partition is decoded, its header fields replaced and every other
+    decision written back with its own probability (the token partitions,
+    untouched, stay valid).  No writer on hand sets these fields."""
+    tables = _webp_tables()
+    payload = simple_file[20:]
+    tag = int.from_bytes(payload[:3], "little")
+    w = int.from_bytes(payload[6:8], "little") & 0x3FFF
+    h = int.from_bytes(payload[8:10], "little") & 0x3FFF
+    part0 = payload[10:10 + (tag >> 5)]
+    br = BoolDecoder(part0)
+    br.value_of(2)
+    head_end = len(br.log)
+    seg = {"use": br.bit(), "map": 0, "update": 0, "absolute": 1, "quant": [0] * 4,
+           "filter": [0] * 4, "probs": [255] * 3}
+    if seg["use"]:
+        seg["map"] = br.bit()
+        seg["update"] = br.bit()
+        if seg["update"]:
+            seg["absolute"] = br.bit()
+            seg["quant"] = [br.signed(7) if br.bit() else 0 for _ in range(4)]
+            seg["filter"] = [br.signed(6) if br.bit() else 0 for _ in range(4)]
+        if seg["map"]:
+            seg["probs"] = [br.value_of(8) if br.bit() else 255 for _ in range(3)]
+    flt = {"simple": br.bit(), "level": br.value_of(6), "sharpness": br.value_of(3)}
+    if br.bit() and br.bit():
+        raise ValueError("loop filter deltas already present")
+    tail_start = len(br.log)
+    br.value_of(2)  # token partitions
+    base_q = br.value_of(7)
+    for _ in range(5):
+        if br.bit():
+            br.signed(4)
+    br.bit()  # refresh
+    for prob in tables["kCoeffsUpdateProba"]:
+        if br.bit(prob):
+            br.value_of(8)
+    skip_proba = br.bit()
+    skip_p = br.value_of(8) if skip_proba else 0
+    modes = tables["kBModesProba"]
+    top = [0] * (4 * ((w + 15) // 16))
+    for _ in range((h + 15) // 16):
+        left = [0] * 4
+        for mb_x in range((w + 15) // 16):
+            if seg["map"]:
+                if not br.bit(seg["probs"][0]):
+                    br.bit(seg["probs"][1])
+                else:
+                    br.bit(seg["probs"][2])
+            if skip_proba:
+                br.bit(skip_p)
+            t = top[4 * mb_x:4 * mb_x + 4]
+            if br.bit(145):  # 16x16
+                ymode = (1 if br.bit(128) else 3) if br.bit(156) else (2 if br.bit(163) else 0)
+                t, left = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    ymode = left[y]
+                    for x in range(4):
+                        prob = modes[(t[x] * 10 + ymode) * 9:][:9]
+                        # the tree of B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU
+                        if not br.bit(prob[0]):
+                            ymode = 0
+                        elif not br.bit(prob[1]):
+                            ymode = 1
+                        elif not br.bit(prob[2]):
+                            ymode = 2
+                        elif not br.bit(prob[3]):
+                            ymode = 3 if not br.bit(prob[4]) else (4 if not br.bit(prob[5]) else 5)
+                        elif not br.bit(prob[6]):
+                            ymode = 6
+                        elif not br.bit(prob[7]):
+                            ymode = 7
+                        else:
+                            ymode = 8 if not br.bit(prob[8]) else 9
+                        t[x] = ymode
+                    left[y] = ymode
+            top[4 * mb_x:4 * mb_x + 4] = t
+            if br.bit(142) and br.bit(114):
+                br.bit(183)
+    enc = BoolEncoder()
+    for prob, b in br.log[:head_end]:
+        enc.bit(b, prob)
+    relative = fields.get("relative", False)
+    level = fields.get("level", flt["level"])
+    enc.bit(seg["use"])
+    if seg["use"]:
+        enc.bit(seg["map"])
+        enc.bit(1)
+        enc.bit(0 if relative else 1)
+        quant = [q - base_q for q in seg["quant"]] if relative else seg["quant"]
+        strengths = fields.get("strengths", seg["filter"])
+        for v, n in [(q, 7) for q in quant] + [(f, 6) for f in strengths]:
+            enc.bit(int(v != 0))
+            if v:
+                enc.signed(v, n)
+        if seg["map"]:
+            for prob in seg["probs"]:
+                enc.bit(int(prob != 255))
+                if prob != 255:
+                    enc.value_of(prob, 8)
+    enc.bit(fields.get("simple", flt["simple"]))
+    enc.value_of(level, 6)
+    enc.value_of(fields.get("sharpness", flt["sharpness"]), 3)
+    ref, mode = fields.get("ref_delta"), fields.get("mode_delta")
+    enc.bit(int(ref is not None or mode is not None))
+    if ref is not None or mode is not None:
+        enc.bit(1)
+        for v in (ref, 0, 0, 0, mode, 0, 0, 0):
+            enc.bit(int(bool(v)))
+            if v:
+                enc.signed(v, 6)
+    for prob, b in br.log[tail_start:]:
+        enc.bit(b, prob)
+    new0 = enc.flush()
+    frame = ((tag & 0x1F) | (len(new0) << 5)).to_bytes(3, "little") + payload[3:10] + new0 \
+        + payload[10 + (tag >> 5):]
+    return webp_riff(webp_chunk(b"VP8 ", frame))
+
+
+def webp_files() -> dict:
+    """{name: file bytes} of the WebP fixtures."""
+    rng = np.random.RandomState(SEED + 21)
+    h, w = 37, 53
+    bgr = smooth(rng, h, w, blur=2)
+    bgr[::5, ::3] = rng.randint(0, 256, bgr[::5, ::3].shape)
+    rgb = np.ascontiguousarray(bgr[:, :, ::-1])
+    alpha = smooth(rng, h, w, ch=1, blur=3)[:, :, 0]
+    rgba = np.dstack([rgb, alpha])
+
+    def cv2_webp(img, quality=None):
+        params = [] if quality is None else [cv2.IMWRITE_WEBP_QUALITY, quality]
+        return cv2.imencode(".webp", img, params)[1].tobytes()
+
+    def pil_webp(img, mode, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img, mode).save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    files = {f"vp8_q{q}.webp": cv2_webp(bgr, q) for q in (1, 50, 95, 100)}
+    for hh, ww in ((1, 1), (17, 33)):
+        files[f"vp8_{hh}x{ww}.webp"] = cv2_webp(smooth(rng, hh, ww, blur=1), 80)
+    # flat and textured regions: libwebp gives them different segments
+    seg = smooth(rng, 96, 128, blur=6)
+    seg[:, 64:] = rng.randint(0, 256, (96, 64, 3))
+    files["vp8_segments_96x128.webp"] = cv2_webp(seg, 40)
+    files["vp8l_colour.webp"] = cv2_webp(bgr, 101)
+    files["vp8l_grey.webp"] = cv2_webp(np.ascontiguousarray(bgr[:, :, 1]), 101)
+    for n in (2, 4, 16, 200):  # colour indexing: 8, 4, 2 and 1 pixels a byte
+        pal = rng.randint(0, 256, (n, 3)).astype(np.uint8)
+        files[f"vp8l_palette{n}.webp"] = cv2_webp(pal[rng.randint(0, n, (h, w))], 101)
+    files["vp8l_noisy.webp"] = cv2_webp(rng.randint(0, 256, (h, w, 3)).astype(np.uint8), 101)
+    files["vp8l_smooth.webp"] = cv2_webp(smooth(rng, 64, 96, blur=8), 101)
+    files["vp8l_bgra.webp"] = cv2_webp(np.ascontiguousarray(rgba[:, :, [2, 1, 0, 3]]))
+    for name, kw in (("alpha_aq100", {"quality": 80, "alpha_quality": 100}),
+                     ("alpha_aq50", {"quality": 80, "alpha_quality": 50}),
+                     ("alpha_m0", {"quality": 60, "method": 0}),
+                     ("alpha_m6", {"quality": 90, "method": 6})):
+        files[f"pil_{name}.webp"] = pil_webp(rgba, "RGBA", **kw)
+    files["pil_lossless_exact.webp"] = pil_webp(rgba, "RGBA", lossless=True, exact=True)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, "WEBP", save_all=True, duration=100, quality=70,
+                              append_images=[Image.fromarray(np.ascontiguousarray(rgb[::-1]))])
+    files["pil_animation.webp"] = buf.getvalue()
+    small = smooth(rng, 17, 21, blur=2)
+    files["animation_offset_frame.webp"] = webp_animation(
+        (w, h), [(4, 6, 21, 17, cv2_webp(small, 101)), (0, 0, w, h, cv2_webp(bgr, 80))],
+        flags=0x12)
+    lossy = cv2_webp(bgr, 75)
+    # loop filter and segment fields no writer on hand sets (vp8_with_headers)
+    seg_lossy = files["vp8_segments_96x128.webp"]
+    for name, fields in (("simple_l20", {"simple": 1, "level": 20}),
+                         ("simple_l40_sharp6", {"simple": 1, "level": 40, "sharpness": 6}),
+                         ("normal_l30_sharp3", {"level": 30, "sharpness": 3}),
+                         ("lf_deltas", {"level": 24, "ref_delta": 9, "mode_delta": -14}),
+                         ("relative_segments", {"relative": True, "strengths": [-9, 3, 0, 20]})):
+        files[f"vp8_{name}.webp"] = vp8_with_headers(seg_lossy, **fields)
+    for m in range(4):
+        files[f"alph_raw_filter{m}.webp"] = webp_with_raw_alpha(lossy, alpha, m)
+    files["alph_raw_levels.webp"] = webp_with_raw_alpha(lossy, alpha & 0xF0, 3, levels=1)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    files["pil_exif_orient6.webp"] = pil_webp(rgb, "RGB", quality=85, exif=exif.tobytes())
+    from PIL import ImageCms
+
+    icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    files["pil_iccp_lossless.webp"] = pil_webp(rgb, "RGB", lossless=True, icc_profile=icc)
+    # bodies cv2 refuses (imdecode gives None)
+    files["bad_vp8_truncated.webp"] = lossy[:len(lossy) // 2]
+    files["bad_vp8l_truncated.webp"] = files["vp8l_colour.webp"][:-40]
+    riff_long = bytearray(lossy)
+    riff_long[4:8] = struct.pack("<I", len(lossy))
+    files["bad_riff_size.webp"] = bytes(riff_long)
+    code = bytearray(lossy)
+    code[20 + 3] ^= 0xFF
+    files["bad_vp8_start_code.webp"] = bytes(code)
+    alph = bytearray(files["alph_raw_filter1.webp"])
+    alph[alph.index(b"ALPH") + 8] |= 0xC0  # reserved bits
+    files["bad_alph_header.webp"] = bytes(alph)
+    # the served 512x832 stacked pair (chip_smoke.py phase 17)
+    pair = cv2.imread(os.path.join(HERE, "jpeg", "pair_512x832.png"))
+    yy, xx = np.mgrid[0:512, 0:832]
+    pair_alpha = ((xx // 8 + yy // 8) % 2 * 96 + 100 + xx * 59 // 832).astype(np.uint8)
+    files["pair_512x832_lossy.webp"] = cv2_webp(pair, 90)
+    files["pair_512x832_lossless.webp"] = cv2_webp(pair, 101)
+    files["pair_512x832_alpha.webp"] = pil_webp(
+        np.dstack([np.ascontiguousarray(pair[:, :, ::-1]), pair_alpha]), "RGBA", quality=90,
+        alpha_quality=100)
+    # the demo's two frames (chip_smoke.py phase 17 (c)), from the JPEG frames' pixels
+    for k in ("a", "b"):
+        files[f"frame_{k}.webp"] = cv2_webp(cv2.imread(os.path.join(HERE, "jpeg",
+                                                                    f"frame_{k}.jpg")), 85)
+    return files
+
+
+def webp_fixtures(out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    expected = {}
+    for name, data in webp_files().items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        entry = {}
+        for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED):
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+            entry[str(flags)] = "none" if want is None else digest(want)
+        expected[name] = entry
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def png_fixtures(out: str) -> None:
     os.makedirs(out, exist_ok=True)
     rng = np.random.RandomState(SEED + 2)
@@ -509,6 +895,9 @@ if __name__ == "__main__":
         cmyk_fixtures(os.path.join(HERE, "jpeg"))
         format_fixtures(os.path.join(HERE, "formats"))
         sys.exit(0)
+    if sys.argv[1:] == ["webp"]:  # the WebP fixtures only
+        webp_fixtures(os.path.join(HERE, "webp"))
+        sys.exit(0)
     jpeg_fixtures(os.path.join(HERE, "jpeg"))
     png_fixtures(os.path.join(HERE, "png"))
     magma_fixtures(os.path.join(HERE, "jpeg"))
@@ -516,3 +905,4 @@ if __name__ == "__main__":
     nyu_fixtures(os.path.join(HERE, "nyu"))
     cmyk_fixtures(os.path.join(HERE, "jpeg"))
     format_fixtures(os.path.join(HERE, "formats"))
+    webp_fixtures(os.path.join(HERE, "webp"))

@@ -6,15 +6,16 @@ writes), so the entry points read and write the same data on every
 machine, with or without opencv: PNG (``zlib``, numpy, and the row
 unfiltering of ``csrc/imageio.c``), JPEG (the decoder of ``csrc/jpeg.c``
 and the encoder of ``csrc/jpeg_enc.c``), and BMP, PNM/PAM/PFM, Sun raster
-and Radiance HDR (``utils/rasters.py``) and TIFF (``utils/tiff.py``).  It
+and Radiance HDR (``utils/rasters.py``), TIFF (``utils/tiff.py``) and WebP
+(``utils/webp.py``, its codecs in ``csrc/webp.c``).  It
 resizes with its own copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in
 numpy, the sums in ``csrc/imageio.c``; float32: numpy).  Nothing here
 imports cv2 or PIL.
 
 * ``imdecode(data, flags)`` and ``imread(path, flags)`` as cv2's: the
-  format from the first bytes, as cv2 tells them apart.  A WebP, JPEG 2000
-  or AVIF body raises ``ValueError`` naming the format as one the port
-  does not read yet; bytes of no format the port knows give None (and
+  format from the first bytes, as cv2 tells them apart.  A JPEG 2000 or
+  AVIF body raises ``ValueError`` naming the format as one the port does
+  not read yet; bytes of no format the port knows give None (and
   ``imread`` raises, naming the formats it reads).
 * ``decode_png(data, flags)`` as ``cv2.imdecode``: ``IMREAD_COLOR`` gives BGR
   uint8 (H, W, 3) (16-bit samples keep their high byte, alpha is dropped,
@@ -102,10 +103,9 @@ def imread(path: str, flags: int = IMREAD_COLOR):
     return img
 
 
-READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF"
+READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF, WebP"
 # formats cv2 reads that the port does not read yet: (name, test of the first bytes)
 _NOT_YET = (
-    ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),
     ("JPEG 2000", lambda d: d.startswith((b"\x00\x00\x00\x0cjP  \r\n\x87\n",  # JP2 box
                                           b"\xff\x4f\xff\x51"))),  # a J2K codestream
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
@@ -115,7 +115,7 @@ _NOT_YET = (
 def _decoder(data: bytes):
     """The decoder of the format ``data`` opens with (as cv2 tells formats
     apart), or None."""
-    from unopticalflow_tpu_torch.utils import rasters, tiff
+    from unopticalflow_tpu_torch.utils import rasters, tiff, webp
 
     if data.startswith(_PNG_MAGIC):
         return decode_png
@@ -137,6 +137,8 @@ def _decoder(data: bytes):
         return rasters.decode_hdr
     if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
         return tiff.decode_tiff
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" or webp.is_bitstream(data):
+        return webp.decode_webp
     return None
 
 
@@ -145,8 +147,8 @@ def imdecode(data: bytes, flags: int = IMREAD_COLOR):
     format the port knows.
 
     A body of a format the port reads but cannot decode (truncated,
-    corrupt, a mode it does not support), and a WebP, JPEG 2000 or AVIF
-    body, raise ``ValueError`` saying why.
+    corrupt, a mode it does not support), and a JPEG 2000 or AVIF body,
+    raise ``ValueError`` saying why.
     """
     decode = _decoder(data)
     if decode is not None:
