@@ -449,7 +449,22 @@ Phases (each raises on failure, so the run exits non-zero):
    batch 2, 128x256: the card's shard launches 3 of each hpad loss kernel
    and 5 of each correlation hpad kernel, the pack lands on the CPU and every
    gradient on its parameter's card, and the pack and gradients hold to the
-   unsharded step on the card under (c)'s rule.
+   unsharded step on the card under (c)'s rule.  (g)-(i) The sharded forms
+   beyond the 3-frame flow forward, float32 and bfloat16, against their
+   unsharded forms on the same weights under (c)'s rule (pack, photometric
+   and weighted total's gradients), each forward + backward launching 5n of
+   each correlation hpad kernel and, where the form takes them, 3n of each
+   photometric and regularizer hpad kernel, no whole-map kernel; ms per
+   forward + backward and peak GiB beside the unsharded form's (the
+   yardstick also holds an unsharded run on PyTorch's own convolutions, as
+   in (d)): (g)
+   ``forward_flowpose`` with ``use_pallas_reg`` (every hpad kernel) at the
+   recipe (config/odo.yaml's 256x832, batch 8, phase 16's intrinsics), n =
+   1, 2, 4; (h) ``forward_pair`` and ``forward_flowpose_pair`` at
+   config/nyu_posenet_192.yaml's 192x256 (NYU's intrinsics), n = 1 and 3,
+   the correlation kernels only; (i) ``forward`` with
+   ``use_occlusion_weights=False`` at the recipe, n = 1, 2, 4, the
+   correlation kernels only.
 22. The bfloat16 step's gradient gap (``bf16_gap``; rehearsable on the
    CPU): at the recipe's 256x832, the "pwc" init, on seeded noise frames at
    batch 1 (``benchmarks/bf16_gap.py::snippets``, the frames its CPU run
@@ -3634,7 +3649,9 @@ def spatial_training(c) -> dict:
 
     from unopticalflow_tpu_torch import train as train_cli
     from unopticalflow_tpu_torch.data.synthetic import SyntheticSnippets
-    from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, forward
+    from unopticalflow_tpu_torch.models import (FlowModel, FlowModelConfig, FlowPoseModel,
+                                                forward, forward_flowpose,
+                                                forward_flowpose_pair, forward_pair)
     from unopticalflow_tpu_torch.ops import photometric_cuda, regularizer_cuda
     from unopticalflow_tpu_torch.ops.cost_volume_spmd import take_rows
     from unopticalflow_tpu_torch.ops.photometric import (
@@ -3914,17 +3931,38 @@ def spatial_training(c) -> dict:
     def total(pack, wts=weights):
         return sum(wts[k] * v.mean() for k, v in pack.items())
 
-    def step(model, fn, images):
+    def step(model, fn, *args, wts=weights):
         """(pack, the photometric losses' gradient, the weighted total's
         gradient), each flat over every parameter."""
         params = list(model.parameters())
-        pack = fn(images)
+        pack = fn(*args)
 
         def flat(loss, **kw):
             return torch.cat([g.double().ravel() for g in torch.autograd.grad(loss, params, **kw)])
 
-        g_photo = flat(total(pack, PHOTO_W), retain_graph=True)
-        return torch.stack([v.detach().double() for v in pack.values()]), g_photo, flat(total(pack))
+        g_photo = flat(total(pack, {k: PHOTO_W.get(k, 0.0) for k in pack}), retain_graph=True)
+        return (torch.stack([v.detach().double() for v in pack.values()]), g_photo,
+                flat(total(pack, wts)))
+
+    def timed_fb(model, fn, *args, wts=weights):
+        """(ms per forward + backward of the weighted total, median of
+        SPATIAL_TIMED after 2, CUDA events; the peak GiB above what was
+        allocated before)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        for _ in range(2):
+            step(model, fn, *args, wts=wts)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(SPATIAL_TIMED + 1)]
+        events[0].record()
+        for j in range(SPATIAL_TIMED):
+            model.zero_grad(set_to_none=True)
+            total(fn(*args), wts).backward()
+            events[j + 1].record()
+        torch.cuda.synchronize()
+        ms_n = statistics.median(events[j].elapsed_time(events[j + 1])
+                                 for j in range(SPATIAL_TIMED))
+        return ms_n, (torch.cuda.max_memory_allocated(device) - base) / 2**30
 
     def sharded_launches(n, reg):
         return c.want({**zero, "photometric_fwd_hpad": 3 * n, "photometric_bwd_hpad": 3 * n,
@@ -4069,21 +4107,7 @@ def spatial_training(c) -> dict:
             for n in (0, 1, *SPATIAL_N):
                 fn = (make_spatial_forward(model, cfg, meshed(n)) if n
                       else (lambda im: forward(model, cfg, im)))
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(device)
-                base = torch.cuda.memory_allocated(device)
-                for _ in range(2):
-                    step(model, fn, x)
-                events = [torch.cuda.Event(enable_timing=True) for _ in range(SPATIAL_TIMED + 1)]
-                events[0].record()
-                for j in range(SPATIAL_TIMED):
-                    model.zero_grad(set_to_none=True)
-                    total(fn(x)).backward()
-                    events[j + 1].record()
-                torch.cuda.synchronize()
-                ms_n = statistics.median(events[j].elapsed_time(events[j + 1])
-                                         for j in range(SPATIAL_TIMED))
-                peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+                ms_n, peak = timed_fb(model, fn, x)
                 line["unsharded" if n == 0 else f"n={n}"] = f"{ms_n:.3f} ms, {peak:.3f} GiB"
             print(f"spatial training (e) {dtype}, use_pallas_reg off, batch {batch_n} at "
                   f"{h}x{w}: ms per forward + backward (median of {SPATIAL_TIMED} after 2, CUDA "
@@ -4127,6 +4151,86 @@ def spatial_training(c) -> dict:
              [v.to(device) for v in sp], refs)
         del model, pack, refs, sp
         torch.cuda.empty_cache()
+
+    # (g)-(i): the sharded forms beyond the 3-frame flow forward, each against
+    # its unsharded form on the same weights: launches of one forward +
+    # backward (5n of each hpad correlation kernel, 3n of the hpad photometric
+    # pair and 3n of the regularizer pair where the form takes them, none of a
+    # whole-map kernel), the pack and both gradients under (c)'s rule with
+    # (d)'s yardstick of an unsharded run on PyTorch's own convolutions (the
+    # epipolar loss's gradient follows the convolutions' rounding: at n = 1,
+    # 192x256, the weighted total's sat 3.4e-4 from the unsharded one's, where
+    # a one-ulp move of the pairs and a rerun stayed under the 1e-4 floor's
+    # third), and on the card ms
+    # per forward + backward beside the unsharded form's (e's timing) and
+    # peak GiB
+    fp_weights = loss_weights_from_config(types.SimpleNamespace(mode="flowposenet"))
+    pose_data = pose_snippets(c.img_hw, batch_n, SEED + 21)
+    x_fp = torch.from_numpy(pose_data.snippets[:batch_n].astype(np.float32) / 255.0).to(device)
+    ks_fp = [torch.from_numpy(np.stack([pose_data.ks[i][j] for i in range(batch_n)])).to(device)
+             for j in range(2)]
+    pairs = pair_snippets(c.pair_hw, c.pair_frame_hw, batch_n, SEED + 28)
+    x_pair = torch.from_numpy(np.stack([pairs[i][0] for i in range(batch_n)])).to(device)
+    ks_pair = [torch.from_numpy(np.repeat(a[:1], batch_n, 0)).to(device)
+               for a in (pairs.k, pairs.k_inv)]
+
+    def form_case(label, cls, cfg, frames, dense_fn, args, ns, loss_kernels, wts):
+        model = cls(cfg, device=device, scheme="pwc",
+                    generator=torch.Generator().manual_seed(SEED + 21))
+        dense = lambda *a: dense_fn(model, cfg, *a)  # noqa: E731
+        dtype = cfg.compute_dtype
+        b = torch.backends.cudnn
+        with b.flags(enabled=False, benchmark=b.benchmark, deterministic=b.deterministic,
+                     allow_tf32=b.allow_tf32):
+            native = step(model, dense, *args, wts=wts)
+        refs = bounds(step(model, dense, *args, wts=wts),
+                      step(model, dense, nudged(dtype, args[0]), *args[1:], wts=wts),
+                      step(model, dense, *args, wts=wts), native)
+        line = {}
+        if on_card:
+            ms_n, peak = timed_fb(model, dense, *args, wts=wts)
+            line["unsharded"] = f"{ms_n:.3f} ms, {peak:.3f} GiB"
+        for n in ns:
+            fn = make_spatial_forward(model, cfg, meshed(n), frames=frames)
+            c.reset_counts()
+            total(fn(*args), wts).backward()
+            sync()
+            launched = c.counts()
+            want_n = c.want({**zero, "corr_fwd_hpad": 5 * n, "corr_bwd_df1_hpad": 5 * n,
+                             "corr_bwd_df2_hpad": 5 * n,
+                             **{f"{kind}_{way}_hpad": 3 * n for kind in loss_kernels
+                                for way in ("fwd", "bwd")}})
+            print(f"spatial training {label} {dtype} n={n}: launches {_launched(launched)} "
+                  f"(want {_launched(want_n)})")
+            if launched != want_n:
+                raise AssertionError(f"spatial training {label} {dtype} n={n}: launches "
+                                     f"{launched}, want {want_n}")
+            held(dtype, f"{label} n={n} pack, gradients", step(model, fn, *args, wts=wts), refs)
+            if on_card:
+                ms_n, peak = timed_fb(model, fn, *args, wts=wts)
+                line[f"n={n}"] = f"{ms_n:.3f} ms, {peak:.3f} GiB"
+        if on_card:
+            print(f"spatial training {label} {dtype}, batch {batch_n} at "
+                  f"{tuple(args[0].shape[1:3])} stacked: ms per forward + backward (median of "
+                  f"{SPATIAL_TIMED} after 2, CUDA events) and peak GiB: {json.dumps(line)} "
+                  f"({c.smi})")
+            torch.cuda.empty_cache()
+
+    for dtype in dtypes:
+        cfg_d = dict(compute_dtype=dtype, loss_dtype=dtype)
+        # (g) flowposenet, 3 frames, with use_pallas_reg: every hpad kernel
+        form_case("(g) flowposenet use_pallas_reg=True", FlowPoseModel,
+                  FlowModelConfig(use_pallas_reg=True, **cfg_d), 3, forward_flowpose,
+                  (x_fp, *ks_fp), (1, *SPATIAL_N), ("photometric", "regularizer"), fp_weights)
+        # (h) the 2-frame forms: the correlation kernels only, as unsharded
+        form_case("(h) forward_pair", FlowModel, FlowModelConfig(**cfg_d), 2, forward_pair,
+                  (x_pair,), (1, 3), (), weights)
+        form_case("(h) forward_flowpose_pair", FlowPoseModel, FlowModelConfig(**cfg_d), 2,
+                  forward_flowpose_pair, (x_pair, *ks_pair), (1, 3), (), fp_weights)
+        # (i) the occlusion ablation: the plain loss sums, as unsharded
+        form_case("(i) use_occlusion_weights=False", FlowModel,
+                  FlowModelConfig(use_occlusion_weights=False, **cfg_d), 3, forward, (x,),
+                  (1, *SPATIAL_N), (), weights)
 
     print(f"spatial training: phase 21 in {time.perf_counter() - t21:.1f} s")
     return record_launches
@@ -5614,7 +5718,8 @@ def main() -> int:
 
     # ---- 21. spatial training: the loss stack and its gradients over row-shards --
     hpad_loss_counts = spatial_training(types.SimpleNamespace(
-        device=device, img_hw=IMG_HW, batch=BATCH, shard_devices=shard_devices, counts=counts,
+        device=device, img_hw=IMG_HW, batch=BATCH, pair_hw=NYU_HW, pair_frame_hw=NYU_FRAME_HW,
+        shard_devices=shard_devices, counts=counts,
         reset_counts=reset_counts, want=lambda d: d, smi=smi, max_err=max_err, ms=ms,
         plain_ms=plain_ms, work=work))
     torch.cuda.empty_cache()

@@ -27,7 +27,9 @@ float32), and the zero pattern of d(flow) identical (the second differences
 round as the plain version's, so sign(0) = 0 lands on the same positions).
 Halo-prepadded correlation kernels: the correlation's tolerances; spatial
 inference at n = 2 within 1e-4 * (1 + max|flow|) of the unsharded flow
-(float32; cuDNN may pick other algorithms for slabs of other heights).
+(float32; cuDNN may pick other algorithms for slabs of other heights), and
+each sharded training form's pack within rtol 1e-4 / atol 1e-5 of its
+unsharded form's.
 Gathers: bit for bit (``torch.equal``): the row gather copies, and the
 block gathers add in x's dtype in the plain versions' order.
 """
@@ -38,7 +40,16 @@ import numpy as np
 import pytest
 import torch
 
-from unopticalflow_tpu_torch.models import FlowModel, FlowModelConfig, inference_flow
+from unopticalflow_tpu_torch.models import (
+    FlowModel,
+    FlowModelConfig,
+    FlowPoseModel,
+    forward,
+    forward_flowpose,
+    forward_flowpose_pair,
+    forward_pair,
+    inference_flow,
+)
 from unopticalflow_tpu_torch.ops import (
     correlation_cuda,
     gather_cuda,
@@ -64,7 +75,12 @@ from unopticalflow_tpu_torch.ops.gather import (
 )
 from unopticalflow_tpu_torch.ops.photometric import photometric_pack, photometric_pack_reference
 from unopticalflow_tpu_torch.ops.regularizer import regularizer_pack, regularizer_pack_reference
-from unopticalflow_tpu_torch.parallel import gather_rows, make_spatial_infer, spatial_mesh
+from unopticalflow_tpu_torch.parallel import (
+    gather_rows,
+    make_spatial_forward,
+    make_spatial_infer,
+    spatial_mesh,
+)
 from unopticalflow_tpu_torch.training import loss_fn, loss_weights_from_config
 from unopticalflow_tpu_torch.utils.device import resolve_device
 
@@ -241,6 +257,50 @@ def test_spatial_infer_goes_through_the_hpad_kernel(device):
     torch.cuda.synchronize()
     after = _counts()
     assert [after[k] - before[k] for k in HPAD] == [10, 10, 10]
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+# form id -> (model, frames, config, unsharded forward, each hpad kernel's launches at n = 2)
+SPATIAL_FORMS = {
+    "flowpose_reg": (FlowPoseModel, 3, FlowModelConfig(use_pallas_reg=True), forward_flowpose,
+                     {"photometric": 6, "regularizer": 6}),
+    "flowpose_pair": (FlowPoseModel, 2, FlowModelConfig(), forward_flowpose_pair, {}),
+    "pair": (FlowModel, 2, FlowModelConfig(), forward_pair, {}),
+    "ablation": (FlowModel, 3, FlowModelConfig(use_occlusion_weights=False), forward, {}),
+}
+
+
+@pytest.mark.parametrize("form", sorted(SPATIAL_FORMS))
+def test_spatial_forward_forms_go_through_the_hpad_kernels(device, form):
+    """Each sharded training form at n = 2 on this card against its unsharded
+    form: the pack within rtol 1e-4 / atol 1e-5 (float32; cuDNN may pick
+    other algorithms for slabs), every gradient finite, and per forward +
+    backward 5n launches of each hpad correlation kernel, 3n of the hpad
+    photometric pair and regularizer pair where the form takes them (the
+    3-frame flowposenet form with ``use_pallas_reg``), none elsewhere."""
+    cls, frames, cfg, dense, loss_kernels = SPATIAL_FORMS[form]
+    model = cls(cfg, device=device, scheme="pwc", generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device=device).manual_seed(2)
+    x = torch.rand(2, frames * 128, 128, 3, generator=g, device=device)
+    k = torch.tensor([[100.0, 0, 64], [0, 100, 64], [0, 0, 1]], device=device).repeat(2, 1, 1)
+    args = (x, k, torch.linalg.inv(k)) if cls is FlowPoseModel else (x,)
+    fn = make_spatial_forward(model, cfg, spatial_mesh(2, devices=[device, device]),
+                              frames=frames)
+    with torch.no_grad():
+        want = dense(model, cfg, *args)
+    counters = (correlation_cuda.launches, photometric_cuda.launches, regularizer_cuda.launches)
+    before = [dict(c) for c in counters]
+    got = fn(*args)
+    sum(v.mean() for v in got.values()).backward()
+    torch.cuda.synchronize()
+    launched = {k_: c[k_] - b[k_] for c, b in zip(counters, before) for k_ in c if c[k_] - b[k_]}
+    want_launches = {**{name: 10 for name in HPAD},
+                     **{f"{kind}_{way}_hpad": n for kind, n in loss_kernels.items()
+                        for way in ("fwd", "bwd")}}
+    assert launched == want_launches
+    assert sorted(got) == sorted(want)
+    for key, v in want.items():
+        torch.testing.assert_close(got[key], v, rtol=1e-4, atol=1e-5)
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
 

@@ -373,6 +373,62 @@ def test_server_answers_each_format_as_the_png_of_its_pixels():
     assert not t.is_alive()
 
 
+def _tiled(bps, channels, hw, tile, seed=0):
+    """An uncompressed tiled TIFF of random grey or RGB samples."""
+    rng = np.random.RandomState(seed)
+    arr = rng.randint(0, 1 << bps, hw + (channels,)).astype(np.uint8 if bps == 8 else np.uint16)
+    return write_tiff(arr, 1 if channels == 1 else 2, bps=bps, tile=tile)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 32)], ids=["tile16", "tile32"])
+@pytest.mark.parametrize("hw", [(64, 64), (40, 56)], ids=["even", "overhang"])
+@pytest.mark.parametrize("channels", [1, 3], ids=["grey", "rgb"])
+@pytest.mark.parametrize("bps", [8, 16])
+def test_uncompressed_tiles_decode_as_cv2_none_included(bps, channels, hw, tile):
+    """cv2 gives None for an uncompressed tile that its RGBA reader (every
+    read but a 16-bit ``IMREAD_UNCHANGED`` one) takes from a raw buffer of
+    another size than the tile's (the byte count rounded up to 1024): 16x16
+    tiles of 8- and 16-bit samples there, 32x32 tiles of 8-bit grey (1024
+    bytes) or RGB (3072) not.  The port gives the same, None included."""
+    data = _tiled(bps, channels, hw, tile)
+    nones = 0
+    for flags in FLAGS:
+        want = _cv2(data, flags)
+        if want is None:
+            nones += 1
+            assert imageio.imdecode(data, flags) is None, flags
+        elif bps == 16 and channels == 1 and hw == (40, 56) and flags != cv2.IMREAD_UNCHANGED:
+            # cv2's RGBA reader misplaces the rows of overhanging 16-bit grey tiles
+            with pytest.raises(ValueError, match="misplaces their rows"):
+                imageio.imdecode(data, flags)
+        else:
+            assert _same(data, flags), flags
+    assert nones == (0 if tile == (32, 32) else 2 if bps == 16 else 3)
+
+
+def test_decode_pair_of_refused_tiles_matches_jax(monkeypatch):
+    """A stacked pair in uncompressed 16x16 tiles, which cv2 gives None for:
+    the port's ``serve._decode_pair`` refuses it as the JAX server's does (a
+    400 over HTTP); in 32x32 tiles both decode it, equal."""
+    import sys
+
+    from serve import _decode_pair as jax_decode_pair
+    from unopticalflow_tpu_torch.serve import _decode_pair
+
+    pair, _ = _pair_bodies()
+    rgb = np.ascontiguousarray(pair[:, :, ::-1])
+    refused, read = write_tiff(rgb, 2, tile=(16, 16)), write_tiff(rgb, 2, tile=(32, 32))
+    with pytest.raises(ValueError) as jax_err:
+        jax_decode_pair(refused, (32, 64))
+    want = jax_decode_pair(read, (32, 64))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ValueError) as err:
+        _decode_pair(refused, (32, 64))
+    assert str(err.value) == str(jax_err.value) == "request body is not a decodable image"
+    got = _decode_pair(read, (32, 64))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
 def test_lzw_writer_round_trips_through_libtiff_and_the_port():
     """``chip_smoke.lzw_encode`` writes what libtiff reads, across the code
     width changes and a table reset (the port's LZW is held to cv2 above)."""

@@ -231,11 +231,25 @@ def test_spatial_forward_refuses_what_it_cannot_shard():
         fn(_snippets(64, seed=0))  # H = 64, not a multiple of 2 * 64
     with pytest.raises(ValueError, match=r"\(B, 3H, W, 3\)"):
         fn(np.zeros((B, 256, W, 3), np.float32))
-    with pytest.raises(ValueError, match="use_occlusion_weights"):
-        make_spatial_forward(model, FlowModelConfig(use_occlusion_weights=False), mesh)
-    with pytest.raises(ValueError, match="forward_flowpose"):
-        make_spatial_forward(FlowPoseModel(FlowModelConfig(), device="cpu"), FlowModelConfig(),
-                             mesh)
+    # once refused, the occlusion ablation and the flowposenet forward now
+    # have sharded forms (tests/test_torch_spatial_ablation.py, _pose.py)
+    assert callable(make_spatial_forward(model, FlowModelConfig(use_occlusion_weights=False),
+                                         mesh))
+    pose_model = FlowPoseModel(FlowModelConfig(), device="cpu")
+    pose_fn = make_spatial_forward(pose_model, FlowModelConfig(), mesh)
+    with pytest.raises(ValueError, match="intrinsics"):
+        pose_fn(_snippets(128, seed=0))  # a flowposenet call without intrinsics
+    k = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+    with pytest.raises(ValueError, match="intrinsics"):
+        fn(_snippets(128, seed=0), k, k)  # a flow model's call with them
+    # a 2-frame stack of the wrong height
+    pair_fn = make_spatial_forward(model, FlowModelConfig(), mesh, frames=2)
+    with pytest.raises(ValueError, match="divisible"):
+        pair_fn(np.zeros((B, 2 * 64, W, 3), np.float32))
+    with pytest.raises(ValueError, match=r"\(B, 2H, W, 3\)"):
+        pair_fn(np.zeros((B, 257, W, 3), np.float32))
+    with pytest.raises(ValueError, match="frames must be 2 or 3"):
+        make_spatial_forward(model, FlowModelConfig(), mesh, frames=4)
     with pytest.raises(ValueError, match="batch_axis='data'"):
         make_spatial_forward(model, FlowModelConfig(), spatial_mesh(2, 2, devices=["cpu"] * 4))(
             _snippets(128, seed=0))

@@ -167,6 +167,16 @@ def forward(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
     return pack
 
 
+def pair_weights(f_ab, back, warped, ld) -> torch.Tensor:
+    """The 2-frame forward's photometric weights, detached, in ``ld``: the
+    warp's validity times the soft forward-backward weight exp(-|f_ab +
+    back|^2 / (|f_ab|^2 + |back|^2 + 1)), per pixel of (N, ., h, w) maps."""
+    sq = ((f_ab + back) ** 2).sum(1, keepdim=True)
+    mag = (f_ab ** 2 + back ** 2).sum(1, keepdim=True)
+    valid = 1.0 - (warped == 0).all(1, keepdim=True).to(f_ab.dtype)
+    return (torch.exp(-sq / (mag + 1.0)) * valid).detach().to(ld)
+
+
 def forward_pair(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
                  corr_fn=cost_volume, return_aux: bool = False):
     """2-frame training forward pass (the JAX ``forward_pair``).
@@ -205,11 +215,7 @@ def forward_pair(model: FlowModel, cfg: FlowModelConfig, images: torch.Tensor,
         f_ba = torch.cat([f_ab[b:], f_ab[:b]], 0)
         back = bilinear_warp(f_ba, f_ab, use_mask=False)
         backs.append(back)
-        sq = ((f_ab + back) ** 2).sum(1, keepdim=True)
-        mag = (f_ab ** 2 + back ** 2).sum(1, keepdim=True)
-        soft = torch.exp(-sq / (mag + 1.0))
-        valid = 1.0 - (warped[s] == 0).all(1, keepdim=True).to(f_ab.dtype)
-        weights.append((soft * valid).detach().to(ld))
+        weights.append(pair_weights(f_ab, back, warped[s], ld))
     diffs = [(p - wp).abs().mean(1, keepdim=True) for p, wp in zip(pyr_src, warped)]
 
     def halves(v):

@@ -13,6 +13,13 @@ Batches are ``(images, K, K_inv)``: (B, 3H, W, 3) snippets (2H for the
 2-frame variant) in the JAX layout, and (B, 3, 3) intrinsics at the network's
 resolution.  The pose net runs batch-packed at 2B over the same pairs as the
 decoder.
+
+Both forwards also run with each frame's rows split over a mesh
+(``parallel/spatial.py::make_spatial_forward`` of a ``FlowPoseModel``): the
+flow losses as the flow model's sharded forward gives them, the pose net on
+the row-shards (``spatial.pose_rows``), and the loss as ``epipolar_ratio``
+of each shard's ``epipolar_sums`` added up, F (from the pose and the
+intrinsics) copied to every shard's device.
 """
 
 from __future__ import annotations
@@ -45,6 +52,23 @@ class FlowPoseModel(nn.Module):
         set_compute_dtype(self.pose, getattr(torch, cfg.compute_dtype))
 
 
+def epipolar_sums(flow, weight, fundamental, row0: int = 0):
+    """The sums of the epipolar loss over the rows ``flow`` holds: (sum of
+    d * w, sum of w), each (N,) float32, d = sqrt(Sampson distance + 1e-6)
+    under ``fundamental`` (N, 3, 3) and w the weight.  ``row0`` is the
+    frame's row of the first row (a row-shard's), as in
+    ``sampson_epipolar_distance``: added over the shards, the sums are the
+    whole map's."""
+    d = torch.sqrt(sampson_epipolar_distance(flow.float(), fundamental, row0) + 1e-6)
+    w = weight[:, 0].float()
+    return (d * w).sum((1, 2)), w.sum((1, 2))
+
+
+def epipolar_ratio(s_dw: torch.Tensor, s_w: torch.Tensor) -> torch.Tensor:
+    """The epipolar loss of its (added) sums: the weighted mean."""
+    return s_dw / (s_w + 1e-8)
+
+
 def epipolar_loss(flow, weight, pose, intrinsics, intrinsics_inv) -> torch.Tensor:
     """Occlusion-weighted mean of sqrt(Sampson distance + 1e-6), per sample.
 
@@ -53,9 +77,7 @@ def epipolar_loss(flow, weight, pose, intrinsics, intrinsics_inv) -> torch.Tenso
     Returns (N,) float32.
     """
     f = fundamental_from_pose(pose.float(), intrinsics.float(), intrinsics_inv.float())
-    d = torch.sqrt(sampson_epipolar_distance(flow.float(), f) + 1e-6)
-    w = weight[:, 0].float()
-    return (d * w).sum((1, 2)) / (w.sum((1, 2)) + 1e-8)
+    return epipolar_ratio(*epipolar_sums(flow, weight, f))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

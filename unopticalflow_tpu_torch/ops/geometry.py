@@ -155,17 +155,20 @@ def fundamental_from_pose(pose: torch.Tensor, intrinsics: torch.Tensor,
     return intrinsics_inv.transpose(1, 2) @ essential @ intrinsics_inv
 
 
-def sampson_epipolar_distance(flow: torch.Tensor, fundamental: torch.Tensor) -> torch.Tensor:
+def sampson_epipolar_distance(flow: torch.Tensor, fundamental: torch.Tensor,
+                              row0: int = 0) -> torch.Tensor:
     """Squared Sampson (first-order geometric) epipolar distance per pixel.
 
     flow: (B, 2, H, W) frame1 -> frame2 in pixels: the match of pixel (u, v)
     is (u + flow[:, 0], v + flow[:, 1]).  fundamental: (B, 3, 3) with
-    x1^T F x2 = 0.  Returns (B, H, W).
+    x1^T F x2 = 0.  ``row0``: the frame's row of the flow's first row (a
+    row-shard's, ``parallel/spatial.py``), so its pixels sit at v = row0 ..
+    row0 + H - 1.  Returns (B, H, W).
     """
     b, _, h, w = flow.shape
     dt = flow.dtype
     u = torch.arange(w, dtype=dt, device=flow.device)[None, None, :].expand(b, h, w)
-    v = torch.arange(h, dtype=dt, device=flow.device)[None, :, None].expand(b, h, w)
+    v = torch.arange(row0, row0 + h, dtype=dt, device=flow.device)[None, :, None].expand(b, h, w)
     x2, y2 = u + flow[:, 0], v + flow[:, 1]
     f = fundamental.to(dt)[:, :, :, None, None]  # (B, 3, 3, 1, 1)
     # F x2 (the epiline in image 1) and F^T x1 (the epiline in image 2)

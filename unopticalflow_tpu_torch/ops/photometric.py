@@ -84,8 +84,11 @@ def photometric_pack(img_l, img_r, flow_b, flow_f, img) -> dict:
 
 
 def photometric_pack_rows_reference(img_l, img_r, flow_b_h, flow_f_h, img_h, row0: int,
-                                    height: int) -> dict:
-    """Plain version of one row-shard's pack (see the module docstring)."""
+                                    height: int, use_weights: bool = True) -> dict:
+    """Plain version of one row-shard's pack (see the module docstring).
+    ``use_weights=False`` is the occlusion ablation's pack: the weights are
+    the warp's validity alone (``losses.diff_and_occlusion_weights_packed``),
+    a form the kernels do not take, as in the unsharded forward."""
     from unopticalflow_tpu_torch.models import losses
 
     if img_l.shape[2] != height or img_r.shape[2] != height:
@@ -93,10 +96,20 @@ def photometric_pack_rows_reference(img_l, img_r, flow_b_h, flow_f_h, img_h, row
                          f"{img_r.shape[2]} rows, want the whole {height}")
     warped = torch.cat([bilinear_warp(img_l, flow_b_h, use_mask=True, row0=row0 - 1),
                         bilinear_warp(img_r, flow_f_h, use_mask=True, row0=row0 - 1)], 0)
-    diffs, weights = losses.diff_and_occlusion_weights_packed([warped], [img_h], 1)
+    diffs, weights = losses.diff_and_occlusion_weights_packed([warped], [img_h], 1,
+                                                              use_weights=use_weights)
+    return owned_rows_pack(torch.cat([img_h, img_h], 0), warped, diffs[0], weights[0])
+
+
+def owned_rows_pack(img_h, warped_h, diff_h, weight_h) -> dict:
+    """The pack's sums over a slab's owned rows, all but its first and last
+    (the halo rows, which only SSIM's 3x3 window reads): ``img_h`` and
+    ``warped_h`` (N, C, h + 2, w), ``diff_h`` and ``weight_h`` (N, 1, h + 2,
+    w) of the same slab; the weights of the owned rows, detached, as
+    ``weights``."""
     own = slice(1, img_h.shape[2] - 1)
-    s_map = ssim(torch.cat([img_h, img_h], 0) * weights[0], warped * weights[0])[:, :, own]
-    diff, weight = diffs[0][:, :, own], weights[0][:, :, own]
+    s_map = ssim(img_h * weight_h, warped_h * weight_h)[:, :, own]
+    diff, weight = diff_h[:, :, own], weight_h[:, :, own]
     cl = torch.clamp((1.0 - s_map) / 2.0, 0.0, 1.0)
     return {
         "s_dw": (diff * weight).float().sum((1, 2, 3)),

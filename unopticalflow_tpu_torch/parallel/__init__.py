@@ -1,5 +1,7 @@
 """Parallelism of the port: data parallelism over processes (``mesh``) and
-spatial (height-sharded) inference and training forward (``spatial``)."""
+spatial (height-sharded) inference and training forwards (``spatial``:
+the flow model's 3- and 2-frame forwards, the occlusion ablation and the
+flow + pose model's forwards, each frame's rows split over a mesh)."""
 
 from unopticalflow_tpu_torch.parallel.mesh import (
     all_reduce_mean,

@@ -95,7 +95,8 @@ def imread(path: str, flags: int = IMREAD_COLOR):
         data = f.read()
     img = imdecode(data, flags)
     if img is None:
-        raise ValueError(f"{path}: not an image format the port reads ({READS})")
+        raise ValueError(f"{path}: " + ("cv2 reads no image from it" if _decoder(data) else
+                                        f"not an image format the port reads ({READS})"))
     if flags == IMREAD_GRAYSCALE and img.ndim == 3:
         # cv2.imread refuses the colour image cv2.imdecode hands back (a PFM's)
         raise ValueError(f"{path}: an IMREAD_GRAYSCALE read of a colour PFM, which cv2.imread "
@@ -144,7 +145,8 @@ def _decoder(data: bytes):
 
 def imdecode(data: bytes, flags: int = IMREAD_COLOR):
     """The image in a request body: None when its first bytes name no
-    format the port knows.
+    format the port knows, or where ``cv2.imdecode`` gives None for a format
+    it reads (uncompressed TIFF tiles that libtiff refuses, ``utils/tiff.py``).
 
     A body of a format the port reads but cannot decode (truncated,
     corrupt, a mode it does not support), and a JPEG 2000 or AVIF body,
@@ -152,9 +154,9 @@ def imdecode(data: bytes, flags: int = IMREAD_COLOR):
     """
     decode = _decoder(data)
     if decode is not None:
-        img = decode(data, flags)
+        img = decode(data, flags)  # None where cv2 gives None (a TIFF's refused tile)
         # a reader may hand back a view of the body's bytes: the caller owns a copy
-        return img if img.flags.writeable else img.copy()
+        return img if img is None or img.flags.writeable else img.copy()
     for name, test in _NOT_YET:
         if test(data):
             raise ValueError(f"{name} is not a format the port reads yet ({READS})")

@@ -21,8 +21,14 @@ unassociated alpha as ``(a * v + 127) // 255``; then BGR, BGRA (a 4-sample
 file under ``IMREAD_UNCHANGED``) or grey as ``(B * 1868 + G * 9617 + R *
 4899 + 8192) >> 14``.  ``IMREAD_UNCHANGED`` of a 16-bit file gives the
 samples as stored (RGB turned to BGR).  The Orientation tag is applied to
-every read, as cv2 applies it to TIFF.  A file the port cannot decode
-raises ``ValueError`` naming the fault.
+every read, as cv2 applies it to TIFF.
+
+An uncompressed tile read through the RGBA interface gives None, as cv2
+gives it: libtiff keeps a raw tile in a buffer of its byte count rounded up
+to 1024 bytes, and refuses the tile ("Invalid tile byte count") unless that
+is the tile's size, so a tile of 16x16 RGB samples (768 bytes) never
+decodes there, one of 32x32 (3072 bytes) does.  A file the port cannot
+decode raises ``ValueError`` naming the fault.
 """
 
 from __future__ import annotations
@@ -134,8 +140,9 @@ def _chunk(raw: bytes, compression: int, need: int, tables: bytes | None, jpeg_m
     return out
 
 
-def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """TIFF bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
+def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray | None:
+    """TIFF bytes -> the array ``cv2.imdecode(data, flags)`` gives, None
+    included (see the module)."""
     _check_flags(flags)
     tags, order = _ifd(data)
     w, h = _one(tags, 256, 0), _one(tags, 257, 0)
@@ -181,6 +188,13 @@ def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
         offsets, counts = tags.get(273), tags.get(279)
     if not cw or not ch or offsets is None or counts is None or len(offsets) != len(counts):
         raise ValueError("TIFF without its strip or tile offsets and byte counts")
+    planes = spp if planar == 2 else 1
+    per = 1 if planar == 2 else spp  # samples a pixel in each chunk
+    row_bytes = (cw * per * bps + 7) // 8
+    rgba_read = not (flags == IMREAD_UNCHANGED and bps == 16)
+    if tiled and compression == 1 and rgba_read and any(
+            -(-n // 1024) * 1024 != ch * row_bytes for n in counts):
+        return None  # libtiff's refusal of the tile (see the module)
     # where OpenCV's output is wrong: raise rather than match it
     if tiled and bps == 16 and photometric in (0, 1) and flags != IMREAD_UNCHANGED and (
             w % cw or h % ch):
@@ -192,14 +206,11 @@ def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
                          "them wrongly")
 
     # the stored samples, (h, w, spp) uint8 / uint16 (1-bit samples as 0/1)
-    planes = spp if planar == 2 else 1
-    per = 1 if planar == 2 else spp  # samples a pixel in each chunk
     across, down = -(-w // cw), -(-h // ch)
     if len(offsets) < across * down * planes:
         raise ValueError(f"TIFF holds {len(offsets)} strips or tiles, "
                          f"{across * down * planes} needed")
     dtype = np.dtype(order + "u2") if bps == 16 else np.dtype(np.uint8)
-    row_bytes = (cw * per * bps + 7) // 8
     tables = tags.get(347)
     jpeg_mode = 2 if photometric in (2, 3) else (1 if photometric in (0, 1) else 0)
     img = np.empty((h, w, spp), np.uint16 if bps == 16 else np.uint8)
@@ -239,7 +250,7 @@ def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
         photometric = 2
 
     alpha_kind = extra[0] if extra else 0
-    if flags == IMREAD_UNCHANGED and bps == 16:
+    if not rgba_read:
         out = img[:, :, 0] if spp == 1 else _channels(img, [2, 1, 0, 3][:spp])
     else:
         rgba = _rgba(img, photometric, bps, spp, alpha_kind, tags)
