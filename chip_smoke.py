@@ -264,11 +264,18 @@ Phases (each raises on failure, so the run exits non-zero):
    ``tests/torch_fixtures/webp/`` (lossy VP8, lossless VP8L, ALPH raw and
    VP8L-coded under each filter, animations, Exif orientation) has the
    SHA-256 of cv2's decode under each flag, and each body cv2 refuses
-   raises; the 512x832 stacked pair as BMP, P6, Sun raster, uncompressed,
-   LZW and Deflate TIFF and HDR (built here by this module's writers from
-   the committed pair's pixels), as PIL's JPEG-compressed TIFF and as lossy,
-   lossless and lossy-with-alpha WebP (committed) decodes to the pair's
-   pixels (the lossless ones) or its cv2 digest, and the host ms of
+   raises; every fixture of ``tests/torch_fixtures/jpeg2000/`` (JP2 and
+   J2K, 5/3 and 9/7, every progression, code-block style, tiles, layers,
+   POC, ROI, PPM/PPT, colour boxes) has the SHA-256 of cv2's decode under
+   each flag, and gives no image where cv2 gives none; every fixture of
+   ``tests/torch_fixtures/grey/`` (colour PNGs read as grey through
+   libpng's gamma tables, grey-and-alpha TIFF tiles) has cv2's digest or
+   the port's raise; the 512x832 stacked pair as BMP, P6, Sun raster,
+   uncompressed, LZW and Deflate TIFF and HDR (built here by this module's
+   writers from the committed pair's pixels), as PIL's JPEG-compressed TIFF,
+   as lossy, lossless and lossy-with-alpha WebP and as lossless JP2 and
+   irreversible J2K (committed) decodes to the pair's pixels (the lossless
+   ones) or its cv2 digest, and the host ms of
    decoding it in each format, as the baseline and progressive JPEG and as
    the PNG (median of 20 each, this machine's CPU; a JSON line).  (b)
    ``FlowServer`` and its HTTP handler on the card at 256x832, bfloat16,
@@ -278,8 +285,8 @@ Phases (each raises on failure, so the run exits non-zero):
    launches a body; the baseline and progressive JPEG replies are equal; an
    AVIF body gets a 400 naming AVIF; the median ms of 8 requests with each
    body (a JSON line).  (c) ``test.main --task demo`` on two JPEG, two BMP,
-   two LZW TIFF and two WebP frames equals the demo on PNGs of their decoded
-   pixels (5 launches each).  (d) NYUv2
+   two LZW TIFF, two WebP and two JP2 frames equals the demo on PNGs of
+   their decoded pixels (5 launches each).  (d) NYUv2
    without h5py: ``NYU_Prepare`` on raw ``.ppm`` scenes this phase writes
    and the MATLAB-layout labeled set (``train.txt`` names the train scenes
    only), ``load_nyu_test_data`` equal to the JAX package's arrays (by
@@ -307,17 +314,19 @@ Phases (each raises on failure, so the run exits non-zero):
    bf16 step past its rise, where it is chaotic, PERF.md q14), one graph
    dispatch against 8 eager capturable-Adam steps: the 8 losses and the
    parameters' change within 3 times the eager steps' own distance on
-   snippets moved by one ulp (phase 7's rule, floor 1e-4), and in float32
-   the first sub-step's loss bit-equal; the eager steps' distance from a
-   second eager run on the same snippets is printed beside (the backward's
-   atomic sums differ run to run).  (d) ms/step of the graph (median of
-   3 dispatches over 8) against the trainer's K = 1 eager step (median of 8,
-   ``make_optimizer``'s Adam) in the same process, each with the idle share
-   of a profiled window (2 dispatches, or 4 eager steps: 1 - the profiler's
-   busy device time over the window's CUDA-event time, which holds the
-   profiler's own overhead, and beside it 1 - the busy time over the
-   unprofiled ms/step), its device operations a step and its peak memory, in
-   both dtypes.  (e) ``python -m
+   snippets moved by one ulp of the compute dtype (phase 7's rule, floor
+   1e-4; one float32 ulp rounds away in bfloat16), or 3 times their
+   distance from a second eager run on the same snippets where that is
+   larger (the backward's atomic sums differ run to run, and the bf16
+   steps, which rise from the first, carry it on: phases 20 and 21 hold to
+   it too), and in float32 the first sub-step's loss bit-equal.  (d)
+   ms/step of the graph (median of 3 dispatches over 8) against the
+   trainer's K = 1 eager step (median of 8, ``make_optimizer``'s Adam) in
+   the same process, each with the idle share of a profiled window (2
+   dispatches, or 4 eager steps: 1 - the profiler's busy device time over
+   the window's CUDA-event time, which holds the profiler's own overhead,
+   and beside it 1 - the busy time over the unprofiled ms/step), its device
+   operations a step and its peak memory, in both dtypes.  (e) ``python -m
    unopticalflow_tpu_torch.train --steps_per_dispatch auto`` (a subprocess;
    log and save every 8, 16
    iterations, bfloat16, batch 8, 256x832) on a warm ``--cache_decoded``
@@ -337,10 +346,10 @@ Phases (each raises on failure, so the run exits non-zero):
    after its own eager dispatch and capture, holds one graph dispatch to 4
    eager capturable-Adam steps as (a) does (first sub-step's loss
    bit-equal, parameters the optimizer does not hold unchanged).  (g)
-   ``synthetic_epe.run`` with ``--lr-schedule cosine``, 64 iterations,
+   ``synthetic_epe.run`` with ``--lr-schedule cosine``, 32 iterations,
    batch 4, 128x256, bfloat16, at K = 8 (a graph) and K = 1: every step's
    learning rate, read back from the graph, within one float32 ulp of
-   ``cosine_decay_lr``, evaluation points labelled 7 and 39, finite EPEs
+   ``cosine_decay_lr``, evaluation points labelled 7 and 23, finite EPEs
    printed side by side.
 19. The measuring and learning tools (``tools``; rehearsable on the CPU), at
    256x832, batch 8, K = 8 where a step runs.  (a) The device generator
@@ -349,7 +358,7 @@ Phases (each raises on failure, so the run exits non-zero):
    the rectangle in frame at every t, the exact-warp invariant (1e-6), the
    moments within 0.05 / 0.04 of the host generator's; its ms a batch (CUDA
    events) against the host generator's ms a snippet.  (b)
-   ``synthetic_epe.run --device-gen``, bfloat16, 64 iterations at K = 8:
+   ``synthetic_epe.run --device-gen``, bfloat16, 32 iterations at K = 8:
    launches by dispatch 8 x (5, 5, 5, 3, 3) eager, the same in the capture,
    none in the replays; the EPE beside zero flow's, ms/step beside the
    generator's.  (c) ``make_prepared_synth`` writes 16 snippets, ``train()``
@@ -442,7 +451,7 @@ Phases (each raises on failure, so the run exits non-zero):
    every parameter tensor's change at least half as long as the unsharded
    one's after every step (phase 20's check against a run that never
    updates, per tensor).  (e) ms
-   per forward + backward (median of 5 after 2, CUDA events) and peak GiB,
+   per forward + backward (median of 3 after 2, CUDA events) and peak GiB,
    unsharded and at n = 1, 2, 4, float32 and bfloat16, beside the card's name
    and power limit.  (f) One mesh over two devices: shard 0 on the CPU (the
    plain versions), shard 1 on the card, float32 with ``use_pallas_reg`` at
@@ -540,7 +549,7 @@ SPATIAL_N = (2, 4)  # phase 11: row-shards of the 256-row frame
 # probe.py spatial_gap read 0.90-1.00 of it at n = 2, 4 and 8)
 BF16_SPATIAL_FACTOR = 1.2
 SPATIAL_REQUESTS = 8
-SPATIAL_TIMED = 5  # phase 21 (e): timed forward + backward runs after 2 warm-ups
+SPATIAL_TIMED = 3  # phase 21 (e): timed forward + backward runs after 2 warm-ups
 SPATIAL_CLIENTS = 4
 MD = 4  # the decoder's correlation window, +-4 px; the hpad operands carry 2 * MD more rows
 EVAL_PAIRS = 37  # phase 10: 4 full batches and one padded
@@ -600,7 +609,7 @@ DISPATCH_SNIPPETS = 8
 # phase 18 (f): what --steps_per_dispatch auto picks at the flags' default
 # intervals (log 100, save 2000, test 2000); (g): synthetic_epe's iterations
 DISPATCH_AUTO_K = 4
-EPE_ITERS = 64
+EPE_ITERS = 32
 EPE_HW = (128, 256)
 # phase 19: the tools at the recipe's shape; the generator's motions as
 # make_pool's and make_prepared_synth's defaults (the 256x832 campaign's);
@@ -610,7 +619,7 @@ EPE_HW = (128, 256)
 # q14's runs of each kind and steps a run; a run "rose" when a block of K
 # steps' mean loss exceeds Q14_RISE times the lowest block mean before it
 TOOLS_MAX_BG, TOOLS_MAX_FG = 16, 32
-TOOLS_EPE_ITERS = 64
+TOOLS_EPE_ITERS = 32
 PREP_SNIPPETS = 16
 PREP_STEPS = 16
 LB_SNIPPETS, LB_BATCHES = 4, 4
@@ -1194,6 +1203,7 @@ def host_modules(c) -> None:
     jpeg_dir, nyu_dir = os.path.join(fixtures, "jpeg"), os.path.join(fixtures, "nyu")
     formats_dir = os.path.join(fixtures, "formats")
     webp_dir = os.path.join(fixtures, "webp")
+    j2k_dir, grey_dir = os.path.join(fixtures, "jpeg2000"), os.path.join(fixtures, "grey")
     zero_counts = dict.fromkeys(KERNELS, 0)
     counts, reset_counts = c.counts, c.reset_counts
     os.makedirs(c.root, exist_ok=True)
@@ -1276,6 +1286,32 @@ def host_modules(c) -> None:
                     raise AssertionError(f"{name} (flags {flags}) decodes; cv2 refuses it")
                 if digest(imageio.imdecode(data, int(flags))) != want:
                     raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
+        with open(os.path.join(j2k_dir, "expected.json")) as f:
+            j2k_want = json.load(f)
+        for name, entry in sorted(j2k_want.items()):
+            data = read(os.path.join(j2k_dir, name))
+            for flags, want in entry.items():
+                try:
+                    got = imageio.imdecode(data, int(flags))
+                except ValueError:
+                    got = None  # no image, as where cv2 gives None
+                if (digest(got) if got is not None else "none") != want:
+                    raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
+        with open(os.path.join(grey_dir, "expected.json")) as f:
+            grey_want = json.load(f)
+        for name, entry in sorted(grey_want.items()):
+            data = read(os.path.join(grey_dir, name))
+            for flags, want in entry.items():
+                if want.startswith("raises: "):  # where the port raises by design
+                    try:
+                        imageio.imdecode(data, int(flags))
+                    except ValueError as e:
+                        if want[len("raises: "):] not in str(e):
+                            raise
+                    else:
+                        raise AssertionError(f"{name} (flags {flags}) decodes; expected a raise")
+                elif digest(imageio.imdecode(data, int(flags))) != want:
+                    raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
         # the 512x832 stacked pair in each format, the bodies built here from
         # the committed pair's pixels (TIFF JPEG: PIL's file, committed)
         pair_px = imageio.decode_png(read(os.path.join(jpeg_dir, "pair_512x832.png")))
@@ -1293,6 +1329,8 @@ def host_modules(c) -> None:
             **{f"WebP{tag}": read(os.path.join(webp_dir, f"pair_512x832_{name}.webp"))
                for tag, name in (("", "lossy"), (" lossless", "lossless"),
                                  (" alpha", "alpha"))},
+            "JP2 lossless": read(os.path.join(j2k_dir, "pair_512x832_lossless.jp2")),
+            "J2K irreversible": read(os.path.join(j2k_dir, "pair_512x832_irreversible.j2k")),
         }
         pair_bodies = {"PNG": read(os.path.join(jpeg_dir, "pair_512x832.png")),
                        "JPEG": read(os.path.join(jpeg_dir, "pair_512x832.jpg")),
@@ -1306,10 +1344,12 @@ def host_modules(c) -> None:
                 decoded[kind] = imageio.imdecode(body)
                 t_dec[kind].append((time.perf_counter() - t0) * 1e3)
     lossless = ("PNG", "JPEG", "progressive JPEG", "BMP", "P6", "Sun raster", "TIFF", "TIFF LZW",
-                "TIFF Deflate", "WebP lossless")
+                "TIFF Deflate", "WebP lossless", "JP2 lossless")
     differ = [k for k in lossless if not np.array_equal(decoded[k], pair_px)]
     differ += [k for k, name in (("WebP", "lossy"), ("WebP alpha", "alpha"))
                if digest(decoded[k]) != webp_want[f"pair_512x832_{name}.webp"]["1"]]
+    if digest(decoded["J2K irreversible"]) != j2k_want["pair_512x832_irreversible.j2k"]["1"]:
+        differ.append("J2K irreversible")
     if differ or digest(decoded["TIFF JPEG"]) != formats_want["pair_512x832_jpeg.tif"]["1"] \
             or decoded["HDR"].shape != pair_px.shape:
         raise AssertionError(f"the stacked pair: {differ} differ from its pixels, TIFF JPEG "
@@ -1319,10 +1359,12 @@ def host_modules(c) -> None:
           f"bit-equal to cv2's decodes ({', '.join(checked)}; prog_cut3, the progression cut "
           f"after scan 3, through libjpeg's block smoothing); the interlaced PNGs "
           f"{', '.join(adam7)}; {len(formats_want)} BMP, PNM, PAM, PFM, Sun raster, HDR and TIFF "
-          f"fixtures and {len(webp_want)} WebP fixtures equal cv2's decodes under IMREAD_COLOR, "
-          f"IMREAD_GRAYSCALE and IMREAD_UNCHANGED (SHA-256; the "
+          f"fixtures, {len(webp_want)} WebP fixtures, {len(j2k_want)} JPEG 2000 fixtures and "
+          f"{len(grey_want)} gamma-PNG and grey-and-alpha TIFF fixtures equal cv2's decodes "
+          f"under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_UNCHANGED (SHA-256; the "
           f"{sum('none' in e.values() for e in webp_want.values())} WebP bodies cv2 refuses "
-          f"raise); host ms to decode the {pair_px.shape[0]}x"
+          f"raise, the {sum('none' in e.values() for e in j2k_want.values())} JPEG 2000 bodies "
+          f"it refuses give no image); host ms to decode the {pair_px.shape[0]}x"
           f"{pair_px.shape[1]} stacked pair (median of 20, one thread; {c.smi}): "
           + ", ".join(f"{k} {v:.3f} ({len(pair_bodies[k])} bytes)" for k, v in host_ms.items()))
     print(json.dumps({"host_decode_ms": host_ms, "body_bytes": {
@@ -1401,7 +1443,8 @@ def host_modules(c) -> None:
     yaml = os.path.join(c.root, "demo.yaml")
     with open(yaml, "w") as f:
         f.write(f"img_hw: [{h}, {w}]\nnum_scales: 3\n")
-    frames = {kind: [] for kind in ("jpeg", "bmp", "tiff", "png", "webp", "webp_png")}
+    frames = {kind: [] for kind in ("jpeg", "bmp", "tiff", "png", "webp", "webp_png", "jp2",
+                                    "jp2_png")}
     for k in ("a", "b"):
         jpg = os.path.join(jpeg_dir, f"frame_{k}.jpg")
         px = imageio.decode_jpeg(read(jpg))
@@ -1415,12 +1458,13 @@ def host_modules(c) -> None:
             with open(path, "wb") as f:
                 f.write(write())
             frames[kind].append(path)
-        webp_frame = os.path.join(webp_dir, f"frame_{k}.webp")
-        frames["webp"].append(webp_frame)
-        path = os.path.join(c.root, f"frame_{k}_webp.png")
-        with open(path, "wb") as f:
-            f.write(imageio.encode_png(imageio.imread(webp_frame)))
-        frames["webp_png"].append(path)
+        for kind, frame in (("webp", os.path.join(webp_dir, f"frame_{k}.webp")),
+                            ("jp2", os.path.join(j2k_dir, f"frame_{k}.jp2"))):
+            frames[kind].append(frame)
+            path = os.path.join(c.root, f"frame_{k}_{kind}.png")
+            with open(path, "wb") as f:
+                f.write(imageio.encode_png(imageio.imread(frame)))
+            frames[f"{kind}_png"].append(path)
     demo, demo_counts = {}, {}
     for kind, (a, b) in frames.items():
         reset_counts()
@@ -1428,15 +1472,17 @@ def host_modules(c) -> None:
             "-c", yaml, "--task", "demo", "--pretrained_model", pth, "--image_path", a,
             "--image_path2", b, "--result_dir", os.path.join(c.root, f"demo_{kind}"), *c.cli])
         demo_counts[kind] = counts()
-    if any(not np.array_equal(v, demo["webp_png" if k.startswith("webp") else "png"])
-           for k, v in demo.items()) \
+    def reference(kind):  # lossy WebP and JPEG 2000: the PNGs of their own decoded pixels
+        return demo[f"{kind.split('_')[0]}_png" if kind.startswith(("webp", "jp2")) else "png"]
+
+    if any(not np.array_equal(v, reference(k)) for k, v in demo.items()) \
             or demo["png"].shape != (h, w, 2) \
             or any(v != c.want({**zero_counts, "corr_fwd": 5}) for v in demo_counts.values()):
-        equal = {k: np.array_equal(v, demo["webp_png" if k.startswith("webp") else "png"])
-                 for k, v in demo.items()}
+        equal = {k: np.array_equal(v, reference(k)) for k, v in demo.items()}
         raise AssertionError(f"demo: equal to the PNG demo {equal}, launches {demo_counts}")
-    print(f"host modules (c): test.main --task demo on two JPEG, two BMP, two LZW TIFF and two "
-          f"WebP frames equals the demo on PNGs of their decoded pixels ({h}x{w} flow, mean |flow| "
+    print(f"host modules (c): test.main --task demo on two JPEG, two BMP, two LZW TIFF, two "
+          f"WebP and two JP2 frames equals the demo on PNGs of their decoded pixels ({h}x{w} "
+          f"flow, mean |flow| "
           f"{float(np.abs(demo['png']).mean()):.4f} px), "
           f"{demo_counts['jpeg']['corr_fwd']} corr_fwd launches each")
 
@@ -2379,10 +2425,11 @@ def graph_vs_eager(c, multi, model, opt, batch, cfg, weights, label, dtype, mode
     """From one state (weights and Adam's): one graph dispatch of ``multi``
     (warmed up and captured) on ``batch``, a tuple of (K, ...) leaves,
     against K eager capturable-Adam ``train_step`` calls on its slots, a
-    second eager run, and eager steps on images moved by one ulp: the K
-    losses and the parameters' change within 3 times the eager steps' own
-    distance on the moved images (phase 7's rule, floor 1e-4); in float32
-    the first sub-step's loss bit-equal.  Restores the state after each.
+    second eager run, and eager steps on images moved by one ulp of
+    ``dtype``: the K losses and the parameters' change within 3 times the
+    eager steps' own distance on the moved images (phase 7's rule, floor
+    1e-4) or from the second run, whichever is larger; in float32 the first
+    sub-step's loss bit-equal.  Restores the state after each.
     ``c``: the launch counters."""
     import warnings
 
@@ -2433,19 +2480,28 @@ def graph_vs_eager(c, multi, model, opt, batch, cfg, weights, label, dtype, mode
     # the eager steps again on the same batches: the backward's atomic
     # sums (the warps' scatter-adds) make two runs differ after step one
     loss_again, d_again = eager(batch)
+    # the images one ulp of the compute dtype up: the model casts them to it,
+    # so one float32 ulp would round away in bfloat16 and leave a rerun
     imgs = batch[0].float() / 255.0 if batch[0].dtype == torch.uint8 else batch[0]
-    loss_noise, d_noise = eager((torch.nextafter(imgs, torch.full_like(imgs, 2.0)),
+    imgs = imgs.to(getattr(torch, dtype))
+    loss_noise, d_noise = eager((torch.nextafter(imgs, torch.full_like(imgs, 2.0)).float(),
                                  *batch[1:]))
     del imgs
-    loss_err, loss_tol = _rel_l2(loss_graph, loss_eager), _rel_l2(loss_noise, loss_eager)
-    d_err, d_tol = _rel_l2(d_graph, d_eager), _rel_l2(d_noise, d_eager)
+    # the larger of the two spreads, as phases 20 and 21 hold their steps: the
+    # bf16 loss rises 1.6 -> 10 in these 8 steps (PERF.md q14), where one
+    # sample of a chaotic spread is too few
+    loss_err, d_err = _rel_l2(loss_graph, loss_eager), _rel_l2(d_graph, d_eager)
+    loss_tol = max(_rel_l2(loss_noise, loss_eager), _rel_l2(loss_again, loss_eager))
+    d_tol = max(_rel_l2(d_noise, d_eager), _rel_l2(d_again, d_eager))
     first_equal = bool(loss_graph[0] == loss_eager[0])
     print(f"steps per dispatch {label}: one graph dispatch of {multi.steps} steps against "
           f"{multi.steps} eager capturable-Adam steps from the same weights and Adam "
-          f"state: losses rel L2 {loss_err:.3e} (eager vs eager on images one ulp away "
-          f"{loss_tol:.3e}), the parameters' change rel L2 {d_err:.3e} ({d_tol:.3e}); "
-          f"eager vs eager on the same batches {_rel_l2(loss_again, loss_eager):.3e} and "
-          f"{_rel_l2(d_again, d_eager):.3e}; first sub-step's loss "
+          f"state: losses rel L2 {loss_err:.3e} (eager vs eager on images one {dtype} ulp "
+          f"away {_rel_l2(loss_noise, loss_eager):.3e}), the parameters' change rel L2 "
+          f"{d_err:.3e} ({_rel_l2(d_noise, d_eager):.3e}); eager vs eager on the same "
+          f"batches {_rel_l2(loss_again, loss_eager):.3e} and "
+          f"{_rel_l2(d_again, d_eager):.3e}; bounds 3 x the larger, floor 1e-4: "
+          f"{max(1e-4, 3 * loss_tol):.3e} and {max(1e-4, 3 * d_tol):.3e}; first sub-step's loss "
           f"{'bit-equal' if first_equal else 'differs'} ({float(loss_graph[0])!r}, "
           f"{float(loss_eager[0])!r}); the replay launched {replay_launches or 'nothing'}; "
           f"graph losses " + json.dumps([round(float(v), 6) for v in loss_graph]))
@@ -4740,6 +4796,9 @@ def main() -> int:
 
     # ---- 6. the training slice: train() at the KITTI recipe --------------
     model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    # an earlier run's trees (phase 15's prepared data) would skip what this
+    # run must do, so every run starts from an empty one
+    shutil.rmtree(model_dir, ignore_errors=True)
     os.makedirs(model_dir, exist_ok=True)
     tcfg = recipe_config(num_iterations=TRAIN_STEPS, init_scheme="pwc", seed=SEED,
                          log_interval=5, save_interval=1000, model_dir=model_dir,

@@ -211,8 +211,8 @@ def test_png_reader_refuses_what_it_does_not_read(monkeypatch):
     with pytest.raises(ValueError, match="colour type"):
         imageio.decode_png(_png(3, 2, 16, 6, _filter_rows(np.zeros((2, 24), np.uint8), 8,
                                                            [0, 0])))
-    # a colour file in grey as cv2 converts it; with a colour-space chunk,
-    # which sends libpng's conversion through gamma tables, it raises
+    # a colour file in grey as cv2 converts it; with a gAMA or sRGB chunk,
+    # which sends libpng's conversion through gamma tables, as libpng does it
     colour = np.random.RandomState(1).randint(0, 256, (2, 3, 3)).astype(np.uint8)
     data = imageio.encode_png(colour)
     assert np.array_equal(imageio.decode_png(data, imageio.IMREAD_GRAYSCALE),
@@ -220,11 +220,10 @@ def test_png_reader_refuses_what_it_does_not_read(monkeypatch):
     for kind in (b"gAMA", b"sRGB"):
         body = struct.pack(">I", 45455) if kind == b"gAMA" else b"\0"
         managed = data[:33] + imageio._chunk(kind, body) + data[33:]
-        assert not np.array_equal(  # what libpng does differs from the plain conversion
-            cv2.imdecode(np.frombuffer(managed, np.uint8), cv2.IMREAD_GRAYSCALE),
-            imageio.decode_png(data, imageio.IMREAD_GRAYSCALE))
-        with pytest.raises(ValueError, match=f"with a {kind.decode()} chunk"):
-            imageio.decode_png(managed, imageio.IMREAD_GRAYSCALE)
+        want = cv2.imdecode(np.frombuffer(managed, np.uint8), cv2.IMREAD_GRAYSCALE)
+        # what libpng does differs from the plain conversion
+        assert not np.array_equal(want, imageio.decode_png(data, imageio.IMREAD_GRAYSCALE))
+        assert np.array_equal(imageio.decode_png(managed, imageio.IMREAD_GRAYSCALE), want)
         assert np.array_equal(imageio.decode_png(managed), imageio.decode_png(data))
     bad_filter = _png(3, 2, 8, 0, b"\0" + bytes(3) + b"\5" + bytes(3))
     with pytest.raises(ValueError, match="row filter 5 does not exist"):

@@ -22,6 +22,7 @@ import threading
 import types
 import urllib.error
 import urllib.request
+import zlib
 
 import cv2
 import numpy as np
@@ -261,15 +262,25 @@ def test_unknown_bytes_and_formats_not_read_yet():
                  b"\x00\x01\x02\x03" * 8, b"P8\n1 1\n255\n\x00"):
         assert imageio.imdecode(data) is None
     avif = cv2.imencode(".avif", _image(8, 8, 4))[1].tobytes()
+    with pytest.raises(ValueError, match="AVIF is not a format the port reads yet"):
+        imageio.imdecode(avif)
+    # JPEG 2000 stubs, once refused as a format not read yet: cv2 reads no
+    # image from them, and the port raises naming the fault
     jp2 = b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40)
-    for name, data in (("AVIF", avif), ("JPEG 2000", jp2),
-                       ("JPEG 2000", b"\xff\x4f\xff\x51" + bytes(40))):
-        with pytest.raises(ValueError, match=f"{name} is not a format the port reads yet"):
-            imageio.imdecode(data)
-    # WebP, once refused here, now decodes as cv2 decodes it
-    webp = cv2.imencode(".webp", _image(8, 8, 3))[1].tobytes()
-    for flags in FLAGS:
-        assert _same(webp, flags)
+    for data in (jp2, b"\xff\x4f\xff\x51" + bytes(40)):
+        for flags in FLAGS:
+            assert _cv2(data, flags) is None
+            with pytest.raises(ValueError, match="JPEG 2000: "):
+                imageio.imdecode(data, flags)
+    # WebP and JPEG 2000 (PIL's JP2: cv2 writes none), once refused here, now
+    # decode as cv2 decodes them
+    from PIL import Image
+
+    jp2 = io.BytesIO()
+    Image.fromarray(_image(8, 8, 3)).save(jp2, "JPEG2000")
+    for body in (cv2.imencode(".webp", _image(8, 8, 3))[1].tobytes(), jp2.getvalue()):
+        for flags in FLAGS:
+            assert _same(body, flags)
 
 
 def test_imread_reads_each_format(tmp_path):
@@ -519,3 +530,196 @@ def test_fuzzed_bmp_rle_streams_decode_as_cv2(seed):
             continue
         for flags in FLAGS:
             assert _same(data, flags), (seed, flags, data.hex())
+
+
+def _with_chunks(data: bytes, chunks) -> bytes:
+    """A PNG with ``chunks`` ((type, body), ...) put after its IHDR."""
+    return data[:33] + b"".join(imageio._chunk(k, b) for k, b in chunks) + data[33:]
+
+
+def _srgb_profile() -> bytes:
+    from PIL import ImageCms
+
+    return ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+
+
+def _gamma22_profile() -> bytes:
+    """A minimal ICC v2 RGB display profile whose three curves are a gamma
+    of 2.2 (D50 white point, sRGB's primaries adapted to D50)."""
+    def s15(v):
+        return struct.pack(">i", int(round(v * 65536)))
+
+    def xyz(x, y, z):
+        return b"XYZ " + bytes(4) + s15(x) + s15(y) + s15(z)
+
+    curve = b"curv" + bytes(4) + struct.pack(">IH", 1, int(2.2 * 256)) + b"\0\0"
+    tags = [(b"wtpt", xyz(0.9642, 1.0, 0.8249)), (b"rXYZ", xyz(0.4361, 0.2225, 0.0139)),
+            (b"gXYZ", xyz(0.3851, 0.7169, 0.0971)), (b"bXYZ", xyz(0.1431, 0.0606, 0.7141)),
+            (b"rTRC", curve), (b"gTRC", curve), (b"bTRC", curve),
+            (b"desc", b"desc" + bytes(4) + struct.pack(">I", 4) + b"g22\0" + bytes(79)),
+            (b"cprt", b"text" + bytes(4) + b"none\0")]
+    table, data, offset = b"", b"", 128 + 4 + 12 * len(tags)
+    for sig, body in tags:
+        data += bytes(-(offset + len(data)) % 4)
+        table += sig + struct.pack(">II", offset + len(data), len(body))
+        data += body
+    body = struct.pack(">I", len(tags)) + table + data
+    head = (struct.pack(">I", 128 + len(body)) + b"lcms" + bytes([2, 0x10, 0, 0]) + b"mntrRGB XYZ "
+            + bytes(12) + b"acspAPPL" + bytes(24) + s15(0.9642) + s15(1.0) + s15(0.8249)
+            + b"lcms" + bytes(44))
+    return head + body
+
+
+_GAMMA_CHUNKS = {
+    "gAMA_45455": [(b"gAMA", struct.pack(">I", 45455))],
+    "gAMA_50000": [(b"gAMA", struct.pack(">I", 50000))],
+    "gAMA_30000": [(b"gAMA", struct.pack(">I", 30000))],
+    "gAMA_220000": [(b"gAMA", struct.pack(">I", 220000))],
+    "gAMA_100000": [(b"gAMA", struct.pack(">I", 100000))],  # 1.0: no tables
+    "gAMA_97000": [(b"gAMA", struct.pack(">I", 97000))],  # within libpng's threshold of 1.0
+    "gAMA_0": [(b"gAMA", struct.pack(">I", 0))],  # out of range: ignored
+    "gAMA_twice": [(b"gAMA", struct.pack(">I", 50000)), (b"gAMA", struct.pack(">I", 45455))],
+    "sRGB": [(b"sRGB", b"\0")],
+    "sRGB_over_gAMA": [(b"gAMA", struct.pack(">I", 80000)), (b"sRGB", b"\1")],
+    "cHRM": [(b"cHRM", struct.pack(">8I", 31270, 32900, 64000, 33000, 30000, 60000, 15000,
+                                   6000))],
+    "iCCP_srgb_lcms": "icc",  # an sRGB profile libpng does not know by its checksum
+    "iCCP_gamma22": "icc22",  # a valid profile of gamma 2.2 curves
+    "iCCP_too_short": [(b"iCCP", b"x\0\0" + zlib.compress(b"short"))],
+}
+
+
+@pytest.mark.parametrize("chunks", sorted(_GAMMA_CHUNKS))
+@pytest.mark.parametrize("kind", ["rgb8", "rgba8", "palette8", "rgb16"])
+def test_png_grey_read_with_colour_chunks_as_cv2(kind, chunks):
+    """``IMREAD_GRAYSCALE`` of a colour PNG with colour-space chunks: libpng
+    converts through its gamma tables in linear light where the file gamma
+    (``gAMA``, or sRGB's for an ``sRGB`` chunk) is other than 1.0, and as
+    plainly as without the chunks otherwise; every value as cv2's, the other
+    flags unchanged."""
+    rng = np.random.RandomState(sorted(_GAMMA_CHUNKS).index(chunks))
+    h, w = 19, 41
+    if kind == "palette8":
+        pal = rng.randint(0, 256, (40, 3)).astype(np.uint8)
+        pal[:5] = pal[:5, :1]  # grey entries
+        rows = imageio._filter_rows(rng.randint(0, 40, (h, w)).astype(np.uint8), 1)
+        data = (imageio._PNG_MAGIC
+                + imageio._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+                + imageio._chunk(b"PLTE", pal.tobytes())
+                + imageio._chunk(b"tRNS", bytes(range(0, 200, 10)))
+                + imageio._chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + imageio._chunk(b"IEND", b""))
+    else:
+        ch, top = (4, 256) if kind == "rgba8" else (3, 256 if kind == "rgb8" else 65536)
+        img = rng.randint(0, top, (h, w, ch)).astype(np.uint8 if top == 256 else np.uint16)
+        img[:4, :, :3] = img[:4, :, :1]  # pixels of three equal samples
+        data = imageio.encode_png(img)
+    spec = _GAMMA_CHUNKS[chunks]
+    if spec == "icc":
+        spec = [(b"iCCP", b"sRGB\0\0" + zlib.compress(_srgb_profile()))]
+    elif spec == "icc22":
+        spec = [(b"iCCP", b"g22\0\0" + zlib.compress(_gamma22_profile()))]
+    managed = _with_chunks(data, spec)
+    for flags in FLAGS:
+        assert _same(managed, flags), flags
+    plain = chunks in ("gAMA_100000", "gAMA_97000", "gAMA_0", "cHRM", "iCCP_srgb_lcms",
+                       "iCCP_gamma22", "iCCP_too_short")
+    assert np.array_equal(_cv2(managed, cv2.IMREAD_GRAYSCALE),
+                          _cv2(data, cv2.IMREAD_GRAYSCALE)) == plain
+
+
+def test_png_grey_read_with_a_known_srgb_profile_length_raises():
+    """An ``iCCP`` profile as long as one libpng recognises as sRGB by its
+    checksum (libpng then converts with sRGB's gamma; the port cannot tell
+    the profiles apart): the grey read of a colour file raises, the others
+    decode."""
+    colour = np.random.RandomState(2).randint(0, 256, (3, 5, 3)).astype(np.uint8)
+    profile = bytes(128) + bytes(3024 - 128)
+    managed = _with_chunks(imageio.encode_png(colour),
+                           [(b"iCCP", b"x\0\0" + zlib.compress(profile))])
+    with pytest.raises(ValueError, match="iCCP profile of 3024 bytes"):
+        imageio.imdecode(managed, cv2.IMREAD_GRAYSCALE)
+    assert np.array_equal(imageio.imdecode(managed), colour)
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773], ids=["none", "lzw", "deflate",
+                                                                "packbits"])
+@pytest.mark.parametrize("hw_tile", [((6, 4), (32, 16)), ((40, 24), (32, 32)),
+                                     ((17, 33), (32, 16)), ((70, 50), (48, 48)),
+                                     ((64, 64), (32, 32))],
+                         ids=["one_tile", "clipped_right", "clipped_both", "clipped_48",
+                              "whole_tiles"])
+@pytest.mark.parametrize("bps", [8, 16])
+def test_grey_and_alpha_tiles_decode_as_cv2(bps, hw_tile, compression):
+    """Grey and alpha (ExtraSamples 0, 1 and 2) in tiles: at 8 bits the
+    tiles clipped on the right read as libtiff's RGBA reader reads them for
+    cv2 (the hidden columns stepped over as one sample each), every value
+    equal; 16-bit grey tiles that overhang raise naming the fault (as
+    before); uncompressed tiles libtiff refuses give None."""
+    (h, w), tile = hw_tile
+    rng = np.random.RandomState(h * w + compression)
+    for extra in ([0], [1], [2]):
+        arr = rng.randint(0, 1 << bps, (h, w, 2)).astype(np.uint8 if bps == 8 else np.uint16)
+        data = write_tiff(arr, 1, bps=bps, tile=tile, compression=compression, extra=extra)
+        for flags in FLAGS:
+            want = _cv2(data, flags)
+            if want is None:
+                assert imageio.imdecode(data, flags) is None, flags
+            elif bps == 16 and (flags == cv2.IMREAD_UNCHANGED or w % tile[0] or h % tile[1]):
+                with pytest.raises(ValueError, match="16-bit grey"):
+                    imageio.imdecode(data, flags)
+            else:
+                assert _same(data, flags), (extra, flags)
+
+
+def test_grey_and_alpha_tiles_mirrored_by_orientation_raise():
+    """8-bit grey and alpha tiles clipped on the right, in a file whose
+    Orientation mirrors the columns (2, 3, 6, 7): libtiff's reader reads
+    them otherwise than the port repeats, so the port raises; without the
+    mirror (4, 5, 8) and without clipping they decode as cv2's."""
+    rng = np.random.RandomState(4)
+    arr = rng.randint(0, 256, (17, 33, 2)).astype(np.uint8)
+    whole = rng.randint(0, 256, (17, 32, 2)).astype(np.uint8)
+    for orientation in range(2, 9):
+        data = write_tiff(arr, 1, tile=(32, 16), extra=[2], orientation=orientation)
+        if orientation in (2, 3, 6, 7):
+            with pytest.raises(ValueError, match="mirrors the columns"):
+                imageio.imdecode(data)
+        else:
+            assert all(_same(data, f) for f in FLAGS), orientation
+        data = write_tiff(whole, 1, tile=(32, 16), extra=[2], orientation=orientation)
+        assert all(_same(data, f) for f in FLAGS), orientation
+
+
+@pytest.mark.parametrize("compression", [1, 32773, 5, 8])
+def test_predictor_applies_after_lzw_and_deflate_only(compression):
+    """Predictor 2 is undone after LZW and Deflate, as libtiff's codecs undo
+    it; with no compression or PackBits libtiff ignores the tag, and so does
+    the port."""
+    rng = np.random.RandomState(compression)
+    arr = rng.randint(0, 256, (9, 14, 3)).astype(np.uint8)
+    data = write_tiff(arr, 2, compression=compression, predictor=2, rows_per_strip=4)
+    for flags in FLAGS:
+        assert _same(data, flags), flags
+
+
+GREY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures", "grey")
+with open(os.path.join(GREY_DIR, "expected.json")) as _f:
+    GREY_EXPECTED = json.load(_f)
+
+
+@pytest.mark.parametrize("name", sorted(GREY_EXPECTED))
+def test_grey_fixture_decodes_as_cv2(name):
+    """``tests/torch_fixtures/grey/`` (the colour PNGs read as grey through
+    libpng's gamma tables and the grey-and-alpha TIFF tiles chip_smoke.py
+    phase 17 checks): each flag's decode against cv2's, live and by the
+    committed digest, or the port's raise where it raises by design."""
+    with open(os.path.join(GREY_DIR, name), "rb") as f:
+        data = f.read()
+    for flags, want in GREY_EXPECTED[name].items():
+        if want.startswith("raises: "):
+            with pytest.raises(ValueError, match=want[len("raises: "):]):
+                imageio.imdecode(data, int(flags))
+            continue
+        assert _same(data, int(flags)), flags
+        assert digest(imageio.imdecode(data, int(flags))) == want, flags

@@ -60,6 +60,18 @@ is made from a seed.
   ``load_nyu_test_data`` returns, its ``eval_depth`` and ``eval_mask`` on
   ``chip_smoke.depth_mask_inputs(17)``, and the SHA-256 of the pixels of
   ``eval_mask``'s PNGs.
+* ``jpeg2000/<name>.jp2|j2k`` (``python tests/torch_fixtures/make_fixtures.py
+  jpeg2000``): PIL's JP2 and J2K files and OpenJPEG's (``opj_encode``, the
+  libopenjp2 2.5 PIL ships, through ctypes): 5/3 and 9/7, each progression,
+  code-block style, POC, ROI, tile-parts, PLT/TLM, precisions 10-16, sYCC,
+  colour, palette and channel-definition boxes, PPM and PPT
+  (``packed_headers``), bodies cv2 refuses, the stacked pair as lossless
+  JP2 and irreversible J2K and the demo's frames as JP2;
+  ``jpeg2000/expected.json``: the SHA-256 of cv2's decode of each under
+  each flag ("none" where it gives none).  ``grey/``: colour PNGs with
+  gAMA, sRGB and cHRM chunks (libpng's gamma grey reads), grey-and-alpha
+  TIFF tiles and a Predictor 2 TIFF without compression, with cv2's
+  digests (or the port's raise).
 """
 
 import hashlib
@@ -70,6 +82,7 @@ import struct
 import sys
 import tempfile
 import types
+import zlib
 
 import cv2
 import h5py
@@ -766,6 +779,393 @@ def webp_fixtures(out: str) -> None:
         f.write("\n")
 
 
+# ---------------------------------------------------------------------------
+# JPEG 2000: OpenJPEG's encoder (the libopenjp2 PIL ships), JP2 boxes, and
+# codestreams whose packet headers move to PPM / PPT markers
+# ---------------------------------------------------------------------------
+
+_OPJ = None
+_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+_SPACE = {"unspecified": 0, "srgb": 1, "gray": 2, "sycc": 3}
+
+
+def _openjp2():
+    """The OpenJPEG 2.5 library PIL is built with, through ctypes: its
+    encoder takes options (code-block styles, SOP/EPH, POC, ROI, tile-parts,
+    PLT/TLM) that PIL's ``save`` does not pass on."""
+    global _OPJ
+    if _OPJ is None:
+        import ctypes
+        import glob
+
+        import PIL
+
+        libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+        lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libopenjp2*"))[0])
+        p = ctypes.c_void_p
+        for name, args, res in (
+                ("opj_image_create", [ctypes.c_uint32, p, ctypes.c_int], p),
+                ("opj_create_compress", [ctypes.c_int], p),
+                ("opj_stream_create_default_file_stream", [ctypes.c_char_p, ctypes.c_int], p),
+                ("opj_set_default_encoder_parameters", [p], None),
+                ("opj_setup_encoder", [p, p, p], ctypes.c_int),
+                ("opj_encoder_set_extra_options", [p, p], ctypes.c_int),
+                ("opj_start_compress", [p, p, p], ctypes.c_int),
+                ("opj_encode", [p, p], ctypes.c_int),
+                ("opj_end_compress", [p, p], ctypes.c_int),
+                ("opj_destroy_codec", [p], None), ("opj_stream_destroy", [p], None),
+                ("opj_image_destroy", [p], None)):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = res
+        _OPJ = lib
+    return _OPJ
+
+
+def opj_encode(planes, prec=8, jp2=True, space="srgb", irreversible=False, mct=None, numres=6,
+               cblk=(64, 64), precincts=None, prog="LRCP", layers=None, tile=None,
+               tile_offset=(0, 0), sop=False, eph=False, mode=0, roi=None, pocs=(), tp=None,
+               extra=()) -> bytes:
+    """A JPEG 2000 file (JP2, or a bare codestream) of ``planes`` (2-D int
+    arrays of one size) from OpenJPEG's encoder: ``layers`` compression
+    ratios (0 is lossless), code-blocks of ``cblk`` samples and style
+    ``mode`` (1 BYPASS, 2 RESET, 4 TERMALL, 8 VSC, 16 PTERM, 32 SEGSYM),
+    ``precincts`` (w, h) from the highest resolution down, a progression,
+    ``tile`` (w, h) at ``tile_offset``, SOP / EPH markers, ``roi`` (component,
+    shift), ``pocs`` (rs, cs, le, re, ce, order), tile-parts split by ``tp``
+    ("R", "L" or "C") and ``extra`` options ("PLT=YES", "TLM=YES").  The
+    offsets into ``opj_cparameters_t`` are OpenJPEG 2.5's (x86-64)."""
+    import ctypes
+
+    lib = _openjp2()
+    n = len(planes)
+    h, w = planes[0].shape
+    cm = (ctypes.c_uint32 * (9 * n))()
+    for k in range(n):
+        cm[9 * k:9 * k + 9] = [1, 1, w, h, 0, 0, prec, prec, 0]
+    img = lib.opj_image_create(n, cm, _SPACE[space])
+    ctypes.memmove(img, struct.pack("<IIII", 0, 0, w, h), 16)
+    comps = struct.unpack("<Q", ctypes.string_at(img + 24, 8))[0]
+    for k, plane in enumerate(planes):
+        dp = struct.unpack("<Q", ctypes.string_at(comps + 64 * k + 48, 8))[0]
+        a = np.ascontiguousarray(plane, np.int32)
+        ctypes.memmove(dp, a.ctypes.data, a.nbytes)
+    par = ctypes.create_string_buffer(65536)
+    lib.opj_set_default_encoder_parameters(par)
+
+    def put(fmt, off, *v):
+        struct.pack_into(fmt, par, off, *v)
+
+    if tile:
+        put("<iiiii", 0, 1, tile_offset[0], tile_offset[1], tile[0], tile[1])
+    layers = layers or [0]
+    put("<i", 20, 1)  # cp_disto_alloc: layers by compression ratio
+    put("<i", 4796, len(layers))
+    put(f"<{len(layers)}f", 4800, *layers)
+    put("<ii", 48, (1 if precincts else 0) | (2 if sop else 0) | (4 if eph else 0), _PROG[prog])
+    put("<iiiii", 5600, numres, cblk[0], cblk[1], mode, int(irreversible))
+    if roi:
+        put("<ii", 5620, *roi)
+    if precincts:
+        put("<i", 5628, len(precincts))
+        for k, (pw, ph) in enumerate(precincts):
+            put("<i", 5632 + 4 * k, pw)
+            put("<i", 5764 + 4 * k, ph)
+    for k, (rs, cs, le, re_, ce, order) in enumerate(pocs):
+        base = 56 + 148 * k  # opj_poc_t
+        put("<IIIII", base, rs, cs, le, re_, ce)
+        put("<ii", base + 32, _PROG[order], _PROG[order])
+        par[base + 40:base + 44] = order.encode()
+        put("<I", base + 48, 1)  # the (1-based) tile it applies to
+    if pocs:
+        put("<I", 4792, len(pocs))
+    par[18698] = (1 if n >= 3 else 0) if mct is None else mct
+    if tp:
+        par[18696] = 1
+        par[18697] = ord(tp)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    if extra:
+        opts = (ctypes.c_char_p * (len(extra) + 1))(*[e.encode() for e in extra], None)
+        lib.opj_encoder_set_extra_options(codec, opts)
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.close(fd)
+    try:
+        if not lib.opj_setup_encoder(codec, par, img):
+            raise RuntimeError("opj_setup_encoder refused the parameters")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        ok = (lib.opj_start_compress(codec, img, stream) and lib.opj_encode(codec, stream)
+              and lib.opj_end_compress(codec, stream))
+        lib.opj_stream_destroy(stream)
+        if not ok:
+            raise RuntimeError("OpenJPEG failed to encode")
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(img)
+        os.unlink(path)
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_wrap(cs: bytes, colr: bytes = None, extra: bytes = b"") -> bytes:
+    """A JP2 file around a codestream: signature, ftyp, jp2h (ihdr from SIZ,
+    ``colr`` (default: enumerated sRGB), ``extra`` boxes), jp2c."""
+    x1, y1, x0, y0 = struct.unpack(">IIII", cs[8:24])
+    nc = struct.unpack(">H", cs[40:42])[0]
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", y1 - y0, x1 - x0, nc, cs[42], 7, 0, 0))
+    colr = b"\1\0\0" + struct.pack(">I", 16) if colr is None else colr
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", ihdr + jp2_box(b"colr", colr) + extra) + jp2_box(b"jp2c", cs))
+
+
+def enumcs(code: int) -> bytes:
+    return b"\1\0\0" + struct.pack(">I", code)
+
+
+def pclr_box(entries: np.ndarray, bits) -> bytes:
+    body = struct.pack(">HB", *entries.shape) + bytes(bits)
+    for row in entries:
+        for v, b in zip(row, bits):
+            body += int(v).to_bytes(((b & 0x7F) + 8) // 8, "big")
+    return jp2_box(b"pclr", body)
+
+
+def cmap_box(maps) -> bytes:
+    return jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m) for m in maps))
+
+
+def cdef_box(defs) -> bytes:
+    return jp2_box(b"cdef", struct.pack(">H", len(defs))
+                   + b"".join(struct.pack(">HHH", *d) for d in defs))
+
+
+def packed_headers(cs: bytes, where: str) -> bytes:
+    """A codestream of one tile-part a tile (no SOP markers) rewritten with
+    its packet headers in PPM (``where`` "ppm") or PPT ("ppt") markers and
+    only the packet bodies after each SOD: the headers split from the bodies
+    where the port's decoder finds them."""
+    from unopticalflow_tpu_torch.utils import jpeg2000
+
+    packets = []
+    jpeg2000._decode_components(cs, packets=packets)
+    _, _, _, pos = jpeg2000._main_header(cs)
+    main, parts, headers = cs[:pos], [], []
+    for bounds in packets:
+        body, tpsot = jpeg2000._segment(cs, pos)[1], cs[pos:pos + 12]
+        psot = struct.unpack(">I", tpsot[6:10])[0]
+        end = pos + psot if psot else len(cs) - 2
+        sod = cs.index(b"\xff\x93", body)
+        data = cs[sod + 2:end]
+        headers.append(b"".join(data[s:b] for s, b, _ in bounds))
+        tail = cs[body:sod]
+        if where == "ppt":
+            tail += b"\xff\x61" + struct.pack(">HB", 3 + len(headers[-1]), 0) + headers[-1]
+        bodies = b"".join(data[b:e] for _, b, e in bounds)
+        part = tail + b"\xff\x93" + bodies
+        parts.append(tpsot[:6] + struct.pack(">I", 12 + len(part)) + tpsot[10:] + part)
+        pos = end
+    if where == "ppm":
+        ppm = b"\0" + b"".join(struct.pack(">I", len(h)) + h for h in headers)
+        main += b"\xff\x60" + struct.pack(">H", 2 + len(ppm)) + ppm
+    return main + b"".join(parts) + b"\xff\xd9"
+
+
+def jpeg2000_files() -> dict:
+    rng = np.random.RandomState(SEED + 5)
+    rgb = smooth(rng, 37, 53, blur=2).astype(np.int32)
+    planes = [rgb[:, :, k] for k in range(3)]
+    grey = [rgb[:, :, 1]]
+    files = {}
+
+    def pil(arr, mode, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(arr, mode).save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    u8 = rgb.astype(np.uint8)
+    rgba = np.dstack([u8, (np.arange(53)[None, :] * 4 + np.arange(37)[:, None]).astype(np.uint8)])
+    files["pil_rgb.jp2"] = pil(u8, "RGB")
+    files["pil_rgb_irreversible.jp2"] = pil(u8, "RGB", irreversible=True)
+    files["pil_rgb.j2k"] = pil(u8, "RGB", no_jp2=True)
+    files["pil_rgb_irreversible.j2k"] = pil(u8, "RGB", irreversible=True, no_jp2=True)
+    files["pil_grey.jp2"] = pil(u8[:, :, 1], "L")
+    files["pil_grey16.jp2"] = pil((rgb[:, :, 1] * 257 + rgb[:, :, 0]).astype(np.uint16), "I;16")
+    files["pil_rgba.jp2"] = pil(rgba, "RGBA")
+    files["pil_la.jp2"] = pil(rgba[:, :, 2:], "LA")
+    files["pil_mct0.jp2"] = pil(u8, "RGB", mct=0)
+    files["pil_layers.jp2"] = pil(u8, "RGB", quality_mode="rates", quality_layers=[40, 20, 10])
+    files["pil_layers_irreversible.j2k"] = pil(u8, "RGB", irreversible=True, no_jp2=True,
+                                               quality_mode="rates", quality_layers=[30, 8])
+    files["pil_tiles.j2k"] = pil(u8, "RGB", no_jp2=True, tile_size=(16, 24))
+    # an image offset (its tiles offset too), which cv2 refuses
+    files["bad_image_offset.j2k"] = pil(u8, "RGB", no_jp2=True, tile_size=(16, 24),
+                                        offset=(5, 3), tile_offset=(2, 1))
+    files["pil_plt.jp2"] = pil(u8, "RGB", plt=True, comment="a comment")
+    big = smooth(rng, 130, 140, blur=3)
+    for nr in (1, 2, 8):
+        files[f"pil_res{nr}.j2k"] = pil(big if nr == 8 else u8, "RGB", num_resolutions=nr,
+                                        irreversible=nr == 8, no_jp2=True,
+                                        quality_mode="rates", quality_layers=[12 if nr == 8 else 0])
+    for order in _PROG:
+        files[f"opj_{order.lower()}.j2k"] = opj_encode(
+            planes, jp2=False, numres=4, cblk=(16, 8), prog=order, layers=[30, 10, 0],
+            precincts=[(32, 32), (16, 16), (16, 8), (8, 8)], tile=(32, 24))
+    for name, mode in (("bypass", 1), ("reset", 2), ("termall", 4), ("vsc", 8), ("pterm", 16),
+                       ("segsym", 32), ("all", 63)):
+        for irr in (False, True):
+            files[f"opj_cblk_{name}{'_97' if irr else ''}.j2k"] = opj_encode(
+                planes, jp2=False, numres=3, cblk=(16, 16), mode=mode, irreversible=irr,
+                layers=[20, 5, 0] if not irr else [20, 5])
+    files["opj_sop_eph.j2k"] = opj_encode(planes, jp2=False, numres=3, sop=True, eph=True,
+                                          layers=[20, 0])
+    files["opj_poc.j2k"] = opj_encode(planes, jp2=False, numres=4, layers=[30, 10, 0],
+                                      pocs=[(0, 0, 2, 2, 3, "LRCP"), (0, 0, 3, 4, 3, "RPCL")])
+    for tp in ("R", "L", "C"):
+        files[f"opj_tileparts_{tp}.j2k"] = opj_encode(planes, jp2=False, numres=3,
+                                                      layers=[20, 0], tile=(32, 32), tp=tp)
+    files["opj_roi.j2k"] = opj_encode(planes, jp2=False, numres=3, roi=(1, 4), layers=[15])
+    files["opj_plt_tlm.j2k"] = opj_encode(planes, jp2=False, numres=3, tile=(24, 24),
+                                          extra=("PLT=YES", "TLM=YES"))
+    files["opj_cblk4x64.j2k"] = opj_encode(planes, jp2=False, numres=2, cblk=(4, 64))
+    files["opj_cblk64x4.j2k"] = opj_encode(planes, jp2=False, numres=2, cblk=(64, 4),
+                                           irreversible=True, layers=[6])
+    files["opj_prec_cprl_97.j2k"] = opj_encode(
+        planes, jp2=False, numres=5, cblk=(8, 8), prog="CPRL", irreversible=True,
+        precincts=[(16, 16), (8, 8), (4, 4), (2, 2), (1, 1)], layers=[25, 6])
+    for prec in (10, 12, 16):
+        scaled = [p.astype(np.int64) * ((1 << prec) - 1) // 255 for p in planes]
+        files[f"opj_rgb{prec}.jp2"] = opj_encode(scaled, prec=prec, numres=3)
+        files[f"opj_grey{prec}_97.jp2"] = opj_encode(scaled[1:2], prec=prec, space="gray",
+                                                     numres=3, irreversible=True, layers=[4])
+    files["opj_sycc.jp2"] = opj_encode(planes, space="sycc", mct=0, numres=3)
+    files["opj_sycc12_97.jp2"] = opj_encode([p * 16 for p in planes], prec=12, space="sycc",
+                                            mct=0, numres=3, irreversible=True)
+    # colour boxes around one codestream each
+    cs3 = opj_encode(planes, jp2=False, numres=3)
+    files["jp2_grey_colr_3comp.jp2"] = jp2_wrap(cs3, enumcs(17))
+    files["jp2_unknown_enumcs.jp2"] = jp2_wrap(cs3, enumcs(99))
+    files["jp2_icc_colr.jp2"] = jp2_wrap(cs3, b"\2\0\0" + bytes(132))
+    files["jp2_cmyk_colr.jp2"] = jp2_wrap(cs3, enumcs(12))  # cv2 converts no CMYK
+    files["jp2_cdef_swap.jp2"] = jp2_wrap(cs3, extra=cdef_box([(0, 0, 3), (1, 0, 2), (2, 0, 1)]))
+    idx = rng.randint(0, 40, (37, 53))
+    cs1 = opj_encode([idx], jp2=False, space="gray", numres=3)
+    pal = rng.randint(0, 256, (40, 3))
+    files["jp2_palette.jp2"] = jp2_wrap(cs1, extra=pclr_box(pal, [7, 7, 7])
+                                        + cmap_box([(0, 1, 0), (0, 1, 1), (0, 1, 2)]))
+    files["jp2_palette_grey_colr.jp2"] = jp2_wrap(cs1, enumcs(17), pclr_box(pal, [7, 7, 7])
+                                                  + cmap_box([(0, 1, 0), (0, 1, 1), (0, 1, 2)]))
+    files["jp2_palette_without_cmap.jp2"] = jp2_wrap(cs1, extra=pclr_box(pal, [7, 7, 7]))
+    # packet headers in PPM and PPT markers
+    lay = opj_encode(planes, jp2=False, numres=3, layers=[20, 0], tile=(32, 24), eph=True)
+    files["opj_ppm.j2k"] = packed_headers(lay, "ppm")
+    files["opj_ppt.j2k"] = packed_headers(lay, "ppt")
+    # bodies cv2 gives None for
+    files["bad_truncated.j2k"] = files["pil_rgb.j2k"][:len(files["pil_rgb.j2k"]) * 2 // 3]
+    files["bad_truncated.jp2"] = files["pil_rgb.jp2"][:-2]
+    sop = bytearray(files["opj_sop_eph.j2k"])
+    sop[sop.index(b"\xff\x92", sop.index(b"\xff\x93"))] = 0  # an EPH marker broken
+    files["bad_eph.j2k"] = bytes(sop)
+    signed = bytearray(cs3)
+    signed[42] |= 0x80  # the first component's Ssiz: signed samples
+    files["bad_signed.j2k"] = bytes(signed)
+    no_qcd = bytearray(cs3)
+    q = no_qcd.index(b"\xff\x5c")
+    no_qcd[q + 1] = 0x6F  # QCD -> an unknown marker
+    files["bad_no_qcd.j2k"] = bytes(no_qcd)
+    files["bad_stub.jp2"] = b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40)
+    files["bad_stub.j2k"] = b"\xff\x4f\xff\x51" + bytes(40)
+    # the served 512x832 stacked pair (chip_smoke.py phase 17): lossless JP2
+    # and irreversible J2K; the demo's frames as JP2
+    pair = cv2.imread(os.path.join(HERE, "jpeg", "pair_512x832.png"))
+    prgb = np.ascontiguousarray(pair[:, :, ::-1])
+    files["pair_512x832_lossless.jp2"] = pil(prgb, "RGB")
+    files["pair_512x832_irreversible.j2k"] = pil(prgb, "RGB", irreversible=True, no_jp2=True,
+                                                 quality_mode="rates", quality_layers=[12])
+    for k in ("a", "b"):
+        frame = cv2.imread(os.path.join(HERE, "jpeg", f"frame_{k}.jpg"))
+        files[f"frame_{k}.jp2"] = pil(np.ascontiguousarray(frame[:, :, ::-1]), "RGB",
+                                      irreversible=True, quality_mode="rates",
+                                      quality_layers=[10])
+    return files
+
+
+def jpeg2000_fixtures(out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    expected = {}
+    for name, data in jpeg2000_files().items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        entry = {}
+        for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED):
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+            entry[str(flags)] = "none" if want is None else digest(want)
+        expected[name] = entry
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def grey_files() -> dict:
+    """Colour PNGs read as grey through libpng's gamma tables (or not), and
+    grey-and-alpha TIFF tiles: {name: (bytes, {flags: the port's expected
+    raise, where it raises by design})}."""
+    rng = np.random.RandomState(SEED + 6)
+    files = {}
+
+    def png_with(img, chunks):
+        data = imageio.encode_png(img)
+        return data[:33] + b"".join(imageio._chunk(k, b) for k, b in chunks) + data[33:]
+
+    rgb = smooth(rng, 29, 43, blur=1)
+    rgba = np.dstack([rgb, smooth(rng, 29, 43, 1, blur=1)])
+    rgb16 = rng.randint(0, 65536, (29, 43, 3)).astype(np.uint16)
+    rgb16[:4] = rgb16[:4, :, :1]
+    gama = lambda g: [(b"gAMA", struct.pack(">I", g))]  # noqa: E731
+    files["gamma_45455_rgb.png"] = png_with(rgb, gama(45455))
+    files["gamma_50000_rgba.png"] = png_with(rgba, gama(50000))
+    files["gamma_100000_rgb.png"] = png_with(rgb, gama(100000))
+    files["gamma_45455_rgb16.png"] = png_with(rgb16, gama(45455))
+    files["srgb_rgb.png"] = png_with(rgb, [(b"sRGB", b"\0")])
+    files["chrm_rgb.png"] = png_with(rgb, [(b"cHRM", struct.pack(
+        ">8I", 31270, 32900, 64000, 33000, 30000, 60000, 15000, 6000))])
+    pal = rng.randint(0, 256, (30, 3)).astype(np.uint8)
+    rows = imageio._filter_rows(rng.randint(0, 30, (29, 43)).astype(np.uint8), 1)
+    files["gamma_30000_palette.png"] = (
+        imageio._PNG_MAGIC + imageio._chunk(b"IHDR", struct.pack(">IIBBBBB", 43, 29, 8, 3, 0, 0, 0))
+        + imageio._chunk(b"gAMA", struct.pack(">I", 30000)) + imageio._chunk(b"PLTE", pal.tobytes())
+        + imageio._chunk(b"IDAT", zlib.compress(rows.tobytes())) + imageio._chunk(b"IEND", b""))
+    files = {k: (v, {}) for k, v in files.items()}
+    for name, hw, tile, comp, extra in (("tiles_ga_clipped", (40, 24), (32, 32), 1, 2),
+                                        ("tiles_ga_lzw", (17, 33), (32, 16), 5, 1),
+                                        ("tiles_ga_deflate", (70, 50), (48, 48), 8, 0)):
+        arr = rng.randint(0, 256, hw + (2,)).astype(np.uint8)
+        files[name + ".tif"] = (write_tiff(arr, 1, tile=tile, compression=comp, extra=[extra]), {})
+    arr = rng.randint(0, 256, (17, 33, 2)).astype(np.uint8)
+    files["tiles_ga_mirrored.tif"] = (write_tiff(arr, 1, tile=(32, 16), extra=[2], orientation=3),
+                                      {k: "mirrors the columns" for k in (1, 0, -1)})
+    arr = rng.randint(0, 256, (9, 14, 3)).astype(np.uint8)
+    files["predictor_uncompressed.tif"] = (write_tiff(arr, 2, predictor=2, rows_per_strip=4), {})
+    return files
+
+
+def grey_fixtures(out: str) -> None:
+    """``grey/``: the files of ``grey_files`` and the SHA-256 of cv2's
+    decode of each under each flag (or the port's raise)."""
+    os.makedirs(out, exist_ok=True)
+    expected = {}
+    for name, (data, raises) in grey_files().items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        expected[name] = {str(k): ("raises: " + raises[k] if k in raises else
+                                   digest(cv2.imdecode(np.frombuffer(data, np.uint8), k)))
+                          for k in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED)}
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def png_fixtures(out: str) -> None:
     os.makedirs(out, exist_ok=True)
     rng = np.random.RandomState(SEED + 2)
@@ -898,6 +1298,10 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["webp"]:  # the WebP fixtures only
         webp_fixtures(os.path.join(HERE, "webp"))
         sys.exit(0)
+    if sys.argv[1:] == ["jpeg2000"]:  # the JPEG 2000 and grey-read fixtures only
+        jpeg2000_fixtures(os.path.join(HERE, "jpeg2000"))
+        grey_fixtures(os.path.join(HERE, "grey"))
+        sys.exit(0)
     jpeg_fixtures(os.path.join(HERE, "jpeg"))
     png_fixtures(os.path.join(HERE, "png"))
     magma_fixtures(os.path.join(HERE, "jpeg"))
@@ -906,3 +1310,5 @@ if __name__ == "__main__":
     cmyk_fixtures(os.path.join(HERE, "jpeg"))
     format_fixtures(os.path.join(HERE, "formats"))
     webp_fixtures(os.path.join(HERE, "webp"))
+    jpeg2000_fixtures(os.path.join(HERE, "jpeg2000"))
+    grey_fixtures(os.path.join(HERE, "grey"))

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("correlation", "photometric", "regularizer", "gather")
-HOST_SOURCES = ("imageio", "jpeg", "jpeg_enc", "rle", "tiff", "webp")
+HOST_SOURCES = ("imageio", "jpeg", "jpeg2000", "jpeg_enc", "rle", "tiff", "webp")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's report (registers, shared memory, spills per kernel) of each source

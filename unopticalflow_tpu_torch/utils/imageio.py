@@ -6,17 +6,18 @@ writes), so the entry points read and write the same data on every
 machine, with or without opencv: PNG (``zlib``, numpy, and the row
 unfiltering of ``csrc/imageio.c``), JPEG (the decoder of ``csrc/jpeg.c``
 and the encoder of ``csrc/jpeg_enc.c``), and BMP, PNM/PAM/PFM, Sun raster
-and Radiance HDR (``utils/rasters.py``), TIFF (``utils/tiff.py``) and WebP
-(``utils/webp.py``, its codecs in ``csrc/webp.c``).  It
+and Radiance HDR (``utils/rasters.py``), TIFF (``utils/tiff.py``), WebP
+(``utils/webp.py``, its codecs in ``csrc/webp.c``) and JPEG 2000
+(``utils/jpeg2000.py``, its codestream decoder in ``csrc/jpeg2000.c``).  It
 resizes with its own copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in
 numpy, the sums in ``csrc/imageio.c``; float32: numpy).  Nothing here
 imports cv2 or PIL.
 
 * ``imdecode(data, flags)`` and ``imread(path, flags)`` as cv2's: the
-  format from the first bytes, as cv2 tells them apart.  A JPEG 2000 or
-  AVIF body raises ``ValueError`` naming the format as one the port does
-  not read yet; bytes of no format the port knows give None (and
-  ``imread`` raises, naming the formats it reads).
+  format from the first bytes, as cv2 tells them apart.  An AVIF body
+  raises ``ValueError`` naming the format as one the port does not read
+  yet; bytes of no format the port knows give None (and ``imread`` raises,
+  naming the formats it reads).
 * ``decode_png(data, flags)`` as ``cv2.imdecode``: ``IMREAD_COLOR`` gives BGR
   uint8 (H, W, 3) (16-bit samples keep their high byte, alpha is dropped,
   grey is repeated); ``IMREAD_UNCHANGED`` (-1) the file's own channels in
@@ -26,9 +27,12 @@ imports cv2 or PIL.
   dropped, (9797 R + 19234 G + 3737 B) >> 15, on 16-bit samples rounded
   before the high byte is kept).  Colour types 0, 2, 3, 4 and 6 at 8 bits
   and 0 and 2 at 16 bits; all five row filters; plain and interlaced
-  (Adam7) files.  A grey read of a colour file with a ``gAMA``, ``cHRM``,
-  ``sRGB`` or ``iCCP`` chunk, where libpng's conversion goes through gamma
-  tables, raises.
+  (Adam7) files.  A grey read of a colour file whose gamma (``gAMA``, or
+  sRGB's for an ``sRGB`` chunk) is not within 5% of 1.0 goes through
+  libpng's gamma tables in linear light, as libpng converts it for cv2
+  (``_grey_gamma``); ``cHRM`` and ``iCCP`` leave it plain, except an
+  ``iCCP`` profile as long as one libpng knows as sRGB by its checksum,
+  which raises.
 * ``decode_jpeg(data, flags)`` as ``cv2.imdecode`` with libjpeg-turbo, bit
   for bit: sequential and progressive (Huffman, 8-bit) grey, YCbCr or CMYK
   (Adobe's inverted CMYK, as PIL writes it) files of any size and
@@ -56,6 +60,8 @@ imports cv2 or PIL.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 import struct
 import zlib
@@ -72,8 +78,9 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pix
 # Adam7's passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
-# chunks that make libpng convert colour to grey through gamma tables
-_COLOUR_MANAGED = (b"gAMA", b"cHRM", b"sRGB", b"iCCP")
+# the lengths of the ICC sRGB profiles libpng recognises by their checksums
+# (it then reads the file as sRGB, with sRGB's gamma)
+_LIBPNG_SRGB_PROFILE_LENGTHS = (3024, 3048, 3052, 3144, 60960, 60988)
 _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
 
 
@@ -104,11 +111,9 @@ def imread(path: str, flags: int = IMREAD_COLOR):
     return img
 
 
-READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF, WebP"
+READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF, WebP, JPEG 2000"
 # formats cv2 reads that the port does not read yet: (name, test of the first bytes)
 _NOT_YET = (
-    ("JPEG 2000", lambda d: d.startswith((b"\x00\x00\x00\x0cjP  \r\n\x87\n",  # JP2 box
-                                          b"\xff\x4f\xff\x51"))),  # a J2K codestream
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
 )
 
@@ -116,7 +121,7 @@ _NOT_YET = (
 def _decoder(data: bytes):
     """The decoder of the format ``data`` opens with (as cv2 tells formats
     apart), or None."""
-    from unopticalflow_tpu_torch.utils import rasters, tiff, webp
+    from unopticalflow_tpu_torch.utils import jpeg2000, rasters, tiff, webp
 
     if data.startswith(_PNG_MAGIC):
         return decode_png
@@ -140,6 +145,8 @@ def _decoder(data: bytes):
         return tiff.decode_tiff
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP" or webp.is_bitstream(data):
         return webp.decode_webp
+    if jpeg2000.is_jpeg2000(data):
+        return jpeg2000.decode_jpeg2000
     return None
 
 
@@ -149,8 +156,9 @@ def imdecode(data: bytes, flags: int = IMREAD_COLOR):
     it reads (uncompressed TIFF tiles that libtiff refuses, ``utils/tiff.py``).
 
     A body of a format the port reads but cannot decode (truncated,
-    corrupt, a mode it does not support), and a JPEG 2000 or AVIF body,
-    raise ``ValueError`` saying why.
+    corrupt, a mode it does not support), and an AVIF body, raise
+    ``ValueError`` saying why; a JPEG 2000 body gives None or raises where
+    cv2 gives None (``utils/jpeg2000.py``).
     """
     decode = _decoder(data)
     if decode is not None:
@@ -273,8 +281,10 @@ def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
 def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     """PNG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
     _check_flags(flags)
-    head, palette, trns, idat, managed = None, None, None, [], []
+    head, palette, trns, idat = None, None, None, []
+    gamma, srgb, icc = None, False, None  # read before PLTE and IDAT, as libpng reads them
     for kind, body in _chunks(data):
+        early = palette is None and not idat
         if kind == b"IHDR":
             head = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
@@ -283,8 +293,14 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)
-        elif kind in _COLOUR_MANAGED:
-            managed.append(kind.decode())
+        elif kind == b"gAMA" and early and gamma is None and len(body) == 4:
+            gamma = struct.unpack(">I", body)[0]
+            if not 16 <= gamma <= 625000000:  # libpng ignores a gamma out of range
+                gamma = None
+        elif kind == b"sRGB" and early and len(body) == 1:
+            srgb = True
+        elif kind == b"iCCP" and early and icc is None:
+            icc = body
     if head is None:
         raise ValueError("PNG file without IHDR")
     w, h, depth, ctype, _, _, interlace = head
@@ -292,9 +308,14 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
         raise ValueError(f"PNG interlace method {interlace} does not exist")
     if ctype not in _CHANNELS or depth not in (8, 16) or (depth == 16 and ctype not in (0, 2)):
         raise ValueError(f"PNG colour type {ctype} at {depth} bits is not supported")
-    if flags == IMREAD_GRAYSCALE and ctype in (2, 3, 6) and managed:
-        raise ValueError(f"IMREAD_GRAYSCALE of a colour PNG with a {managed[0]} chunk is not "
-                         "supported: libpng converts it through gamma tables")
+    if srgb:
+        gamma = _SRGB_GAMMA  # libpng's sRGB gamma, whatever gAMA says
+    elif flags == IMREAD_GRAYSCALE and ctype in (2, 3, 6) and icc is not None:
+        profile = _icc_length(icc)
+        if profile in _LIBPNG_SRGB_PROFILE_LENGTHS:
+            raise ValueError(f"IMREAD_GRAYSCALE of a colour PNG with an iCCP profile of {profile} "
+                             "bytes, the length of an sRGB profile libpng recognises by its "
+                             "checksum (and then converts with sRGB's gamma): not supported")
     ch = _CHANNELS[ctype]
     bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -310,14 +331,14 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
         idx = img[:, :, 0]
         rgb = palette[idx]
         if flags == IMREAD_GRAYSCALE:
-            return _grey(rgb, 8)
+            return _grey(rgb, 8, gamma)
         if trns is not None and flags == IMREAD_UNCHANGED:
             alpha = np.full(len(palette), 255, np.uint8)
             alpha[: len(trns)] = np.frombuffer(trns, np.uint8)[: len(palette)]
             return _channels(np.dstack([rgb, alpha[idx]]), [2, 1, 0, 3])
         return _channels(rgb, [2, 1, 0])
     if flags == IMREAD_GRAYSCALE and ch >= 3:
-        return _grey(img, depth)
+        return _grey(img, depth, gamma)
     if flags != IMREAD_UNCHANGED and depth == 16:
         img = (img >> 8).astype(np.uint8)
     if flags == IMREAD_GRAYSCALE:
@@ -360,17 +381,116 @@ def _deinterlace(raw: np.ndarray, w: int, h: int, bpp: int) -> np.ndarray:
     return out.reshape(h, w * bpp)
 
 
-def _grey(rgb: np.ndarray, depth: int) -> np.ndarray:
+def _grey(rgb: np.ndarray, depth: int, gamma=None) -> np.ndarray:
     """(H, W, >=3) RGB(A) samples -> (H, W) uint8 as libpng's
     ``png_set_rgb_to_gray(0.299, 0.587)`` and ``png_set_strip_16`` give
     them to cv2: weights of 15 bits (9797, 19234, 32768 less both), alpha
     ignored, an 8-bit sum truncated, a 16-bit one rounded and then cut to
-    its high byte."""
+    its high byte.  With a file gamma (``gAMA``, or sRGB's) other than 1.0,
+    libpng converts in linear light instead (``_grey_gamma``)."""
+    if gamma is not None and (_gamma_significant(gamma) or
+                              _gamma_significant(_reciprocal(gamma))):
+        return _grey_gamma(rgb, depth, gamma)
     r, g, b = (rgb[:, :, k].astype(np.uint32) for k in range(3))
     y = 9797 * r + 19234 * g + 3737 * b
     if depth == 16:
         return ((y + 16384) >> 23).astype(np.uint8)
     return (y >> 15).astype(np.uint8)
+
+
+# libpng's gamma arithmetic (png.c, with floating point): gammas in units of
+# 1e-5, tables built with pow() and rounded
+_SRGB_GAMMA = 45455
+_GAMMA_SHIFT_16 = 5  # 16 - PNG_MAX_GAMMA_8: a 16-bit sample indexes its tables by 11 bits
+
+
+def _reciprocal(a: int) -> int:
+    return int(math.floor(1e10 / a + .5))
+
+
+def _product(a: int, b: int) -> int:
+    return int(math.floor(a * 1e-5 * b + .5))
+
+
+def _gamma_significant(g: int) -> bool:
+    return g < 95000 or g > 105000  # PNG_GAMMA_THRESHOLD_FIXED
+
+
+@functools.lru_cache(maxsize=16)
+def _gamma_tables(gamma: int):
+    """libpng's tables for the grey conversion of a file of this gamma, the
+    screen gamma left unset (so taken as the file's reciprocal): 8-bit
+    to-linear and from-linear; 16-bit to-linear and from-linear
+    (``png_build_16bit_table``) and the table of grey pixels
+    (``png_build_16to8_table``), each [low bits][high byte] of 11 bits."""
+    screen = _reciprocal(gamma)
+
+    def table8(g):
+        if not _gamma_significant(g):
+            return np.arange(256, dtype=np.int64)
+        return np.array([v if v in (0, 255) else
+                         int(math.floor(255 * math.pow(v / 255., g * .00001) + .5))
+                         for v in range(256)], np.int64)
+
+    shift = _GAMMA_SHIFT_16
+    num, top = 1 << (8 - shift), (1 << (16 - shift)) - 1
+
+    def table16(g):
+        t = np.empty((num, 256), np.int64)
+        for i in range(num):
+            for j in range(256):
+                ig = (j << (8 - shift)) + i
+                t[i, j] = (int(math.floor(65535. * math.pow(ig / top, g * .00001) + .5))
+                           if _gamma_significant(g) else (ig * 65535 + (top + 1) // 2) // top)
+        return t
+
+    def correct16(v, g):
+        if 0 < v < 65535:
+            return int(math.floor(65535 * math.pow(v / 65535., g * .00001) + .5))
+        return v
+
+    g16to8 = np.empty((num, 256), np.int64)
+    last, prod = 0, _product(gamma, screen)
+    for i in range(255):
+        bound = (correct16(i * 257 + 128, prod) * top + 32768) // 65535 + 1
+        while last < bound:
+            g16to8[last & (0xFF >> shift), last >> (8 - shift)] = i * 257
+            last += 1
+    while last < num << 8:
+        g16to8[last & (0xFF >> shift), last >> (8 - shift)] = 65535
+        last += 1
+    return (table8(_reciprocal(gamma)), table8(_reciprocal(screen)),
+            table16(_reciprocal(gamma)), table16(_reciprocal(screen)), g16to8)
+
+
+def _grey_gamma(rgb: np.ndarray, depth: int, gamma: int) -> np.ndarray:
+    """libpng's ``png_do_rgb_to_gray`` through its gamma tables: a pixel of
+    three equal samples keeps its value (16-bit: through the grey table),
+    another is taken to linear light, weighted (rounded) and taken back."""
+    to1, from1, to1_16, from1_16, grey16 = _gamma_tables(gamma)
+    r, g, b = (rgb[:, :, k].astype(np.int64) for k in range(3))
+    same = (r == g) & (r == b)
+    if depth == 8:
+        y = from1[(9797 * to1[r] + 19234 * to1[g] + 3737 * to1[b] + 16384) >> 15]
+        return np.where(same, r, y).astype(np.uint8)
+    shift = _GAMMA_SHIFT_16
+
+    def look(t, v):
+        return t[(v & 0xFF) >> shift, v >> 8]
+
+    y = (9797 * look(to1_16, r) + 19234 * look(to1_16, g) + 3737 * look(to1_16, b)
+         + 16384) >> 15
+    return (np.where(same, look(grey16, r), look(from1_16, y)) >> 8).astype(np.uint8)
+
+
+def _icc_length(body: bytes):
+    """The length of the profile in an ``iCCP`` chunk, or None where it
+    does not inflate."""
+    name_end = body.find(b"\0")
+    try:
+        return len(zlib.decompress(body[name_end + 2:])) if name_end >= 0 else None
+    except zlib.error:
+        return None
 
 
 def _channels(img: np.ndarray, order) -> np.ndarray:

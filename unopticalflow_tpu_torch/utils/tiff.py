@@ -9,7 +9,7 @@ zero), 1 (black is zero), 2 (RGB) and 3 (palette, a 16-bit colormap), and
 (none), 32773 (PackBits) and 5 (LZW) are undone by ``csrc/tiff.c``, 8 and
 32946 (Deflate) by ``zlib``, 7 (JPEG, its ``JPEGTables`` put before each
 strip or tile) by ``csrc/jpeg.c``; Predictor 2 (horizontal differencing)
-at 8 and 16 bits.
+at 8 and 16 bits, undone after LZW and Deflate only, as libtiff undoes it.
 
 OpenCV hands an 8-bit read (``IMREAD_COLOR``, ``IMREAD_GRAYSCALE``, and
 ``IMREAD_UNCHANGED`` of a 1- or 8-bit file) to libtiff's RGBA interface,
@@ -27,8 +27,12 @@ An uncompressed tile read through the RGBA interface gives None, as cv2
 gives it: libtiff keeps a raw tile in a buffer of its byte count rounded up
 to 1024 bytes, and refuses the tile ("Invalid tile byte count") unless that
 is the tile's size, so a tile of 16x16 RGB samples (768 bytes) never
-decodes there, one of 32x32 (3072 bytes) does.  A file the port cannot
-decode raises ``ValueError`` naming the fault.
+decodes there, one of 32x32 (3072 bytes) does.  In an 8-bit grey and
+alpha file the tiles clipped on the right read as that reader reads them:
+after each row it steps over the hidden columns as if each were one
+sample, not two, so the rows after a clipped tile's first come from other
+places in the tile (``_skewed_rows``).  A file the port cannot decode
+raises ``ValueError`` naming the fault.
 """
 
 from __future__ import annotations
@@ -214,6 +218,13 @@ def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray | None:
     tables = tags.get(347)
     jpeg_mode = 2 if photometric in (2, 3) else (1 if photometric in (0, 1) else 0)
     img = np.empty((h, w, spp), np.uint16 if bps == 16 else np.uint8)
+    # libtiff's RGBA reader of 8-bit grey and alpha tiles skips a clipped
+    # tile's hidden columns as pixels, not samples (see _skewed_rows)
+    skew = tiled and rgba_read and photometric in (0, 1) and bps == 8 and spp == 2 and planar == 1
+    if skew and w % cw and _one(tags, 274, 1) in (2, 3, 6, 7):
+        raise ValueError("TIFF of 8-bit grey and alpha tiles clipped on the right, with an "
+                         "Orientation that mirrors the columns, is not supported: libtiff's "
+                         "RGBA reader reads them otherwise than the port repeats")
     k = 0
     for p in range(planes):
         for ty in range(down):
@@ -242,9 +253,13 @@ def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray | None:
                         px = np.unpackbits(buf, axis=1)[:, :cw, None]
                     else:
                         px = buf.view(dtype).reshape(rows, cw, per)
-                        if predictor == 2:  # horizontal differencing, per sample, mod 2**bps
+                        # horizontal differencing, per sample, mod 2**bps: libtiff's LZW
+                        # and Deflate codecs undo it, and no other codec reads the tag
+                        if predictor == 2 and compression in (5, 8, 32946):
                             px = np.cumsum(px, axis=1, dtype=px.dtype)
                 yh, xw = min(rows, h - y0), min(cw, w - x0)
+                if skew and xw < cw:
+                    px = _skewed_rows(px, xw)
                 img[y0:y0 + yh, x0:x0 + xw, p:p + per] = px[:yh, :xw]
     if photometric == 6:
         photometric = 2
@@ -263,6 +278,18 @@ def decode_tiff(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray | None:
             out = _channels(rgba, [2, 1, 0])
     return _orient(out, _one(tags, 274, 1))
 
+
+
+def _skewed_rows(px: np.ndarray, npix: int) -> np.ndarray:
+    """The visible (rows, npix) pixels of a tile clipped on its right, as
+    libtiff's ``putgreytile`` and ``putagreytile`` read a grey-and-alpha
+    tile for cv2: after each row's ``npix`` pixels they step over the tile's
+    ``tw - npix`` hidden columns counted in samples, not pixels, so row r
+    starts at sample ``r * (npix * spp + tw - npix)`` of the tile."""
+    rows, tw, spp = px.shape
+    flat = px.reshape(-1)
+    start = np.arange(rows)[:, None] * (npix * spp + tw - npix) + np.arange(npix)[None, :] * spp
+    return flat[start[:, :, None] + np.arange(spp)]
 
 
 def _own_channels(photometric: int, bps: int, spp: int) -> int:
