@@ -320,10 +320,10 @@ Phases (each raises on failure, so the run exits non-zero):
    larger (the backward's atomic sums differ run to run, and the bf16
    steps, which rise from the first, carry it on: phases 20 and 21 hold to
    it too), and in float32 the first sub-step's loss bit-equal.  (d)
-   ms/step of the graph (median of 3 dispatches over 8) against the
+   ms/step of the graph (median of 2 dispatches over 8) against the
    trainer's K = 1 eager step (median of 8, ``make_optimizer``'s Adam) in
-   the same process, each with the idle share of a profiled window (2
-   dispatches, or 4 eager steps: 1 - the profiler's busy device time over
+   the same process, each with the idle share of a profiled window (1
+   dispatch, or 2 eager steps: 1 - the profiler's busy device time over
    the window's CUDA-event time, which holds the profiler's own overhead,
    and beside it 1 - the busy time over the unprofiled ms/step), its device
    operations a step and its peak memory, in both dtypes.  (e) ``python -m
@@ -346,10 +346,10 @@ Phases (each raises on failure, so the run exits non-zero):
    after its own eager dispatch and capture, holds one graph dispatch to 4
    eager capturable-Adam steps as (a) does (first sub-step's loss
    bit-equal, parameters the optimizer does not hold unchanged).  (g)
-   ``synthetic_epe.run`` with ``--lr-schedule cosine``, 32 iterations,
+   ``synthetic_epe.run`` with ``--lr-schedule cosine``, 16 iterations,
    batch 4, 128x256, bfloat16, at K = 8 (a graph) and K = 1: every step's
    learning rate, read back from the graph, within one float32 ulp of
-   ``cosine_decay_lr``, evaluation points labelled 7 and 23, finite EPEs
+   ``cosine_decay_lr``, evaluation points labelled 7 and 15, finite EPEs
    printed side by side.
 19. The measuring and learning tools (``tools``; rehearsable on the CPU), at
    256x832, batch 8, K = 8 where a step runs.  (a) The device generator
@@ -361,32 +361,34 @@ Phases (each raises on failure, so the run exits non-zero):
    ``synthetic_epe.run --device-gen``, bfloat16, 32 iterations at K = 8:
    launches by dispatch 8 x (5, 5, 5, 3, 3) eager, the same in the capture,
    none in the replays; the EPE beside zero flow's, ms/step beside the
-   generator's.  (c) ``make_prepared_synth`` writes 16 snippets, ``train()``
+   generator's.  (c) ``make_prepared_synth`` writes 8 snippets, ``train()``
    runs 16 bfloat16 steps from the tree at K = 8 (2 x 8 x (5, 5, 5, 3, 3)
    launches), the loader's snippets/s from it; ``loader_bench`` at 4
    snippets and 4 batches, its device rate measured in the call (2 x 8 x
-   (5, 5, 5, 3, 3) launches).  (d) ``profile_step``: 2 interleaved trials of
+   (5, 5, 5, 3, 3) launches).  (d) ``profile_step``: 2 interleaved trials (a
+   timed dispatch each) of
    ``use_pallas_reg`` off and on in float32 and bfloat16 at K = 8, each
    setup's launches a step (5, 5, 5, 3, 3, and 3, 3 with the regularizer).
-   (e) ``ablate``'s seven variants, bfloat16, K = 8, 3 replays: ``full`` and
+   (e) ``ablate``'s seven variants, bfloat16, K = 8, 1 timed replay: ``full`` and
    ``no-ssim`` launch (5, 5, 5, 3, 3) a step, ``no-corr`` none of rows 1-3,
    ``convs-only`` no photometric kernel.  (f) ``probe.trace_run``: the K = 8
-   graph step by kind in float32 and bfloat16, idle share against the
-   unprofiled step, launches of the eager dispatch and the capture.  (g)
+   graph step by kind in float32 and bfloat16 (1 profiled replay, 1
+   timed), idle share against the unprofiled step, launches of the eager
+   dispatch and the capture.  (g)
    ``loss_landscape_probe.run`` through the kernels against the plain
    photometric pack on the card, float32 (rtol 1e-4) and bfloat16 (2e-2),
-   3 photometric launches a point.  (h) PERF.md's q14: 48 bfloat16 steps on
-   phase 18's 8 repeated batches, twice as K = 8 graph dispatches and
-   twice as eager capturable-Adam steps, from one seed: each run's
-   8-step block means, whether it rose (a block above 1.2 x the lowest
-   before it), the runs' distances, and one float32 eager run of the same
-   steps beside them; it fails on a loss that is not finite.
+   3 photometric launches a point.  (h) PERF.md's q14: 32 bfloat16 steps on
+   phase 18's 8 repeated batches, once as K = 8 graph dispatches and
+   once as eager capturable-Adam steps, from one seed: each run's 8-step
+   block means, whether it rose (a block above 1.2 x the lowest before
+   it), the graph's distance from eager, and one float32 eager run of the
+   same steps beside them; it fails on a loss that is not finite.
 20. Data parallelism on one card (``data_parallel``; rehearsable on the
    CPU).  (a) The card's compute mode (``nvidia-smi --query-gpu=name,
    power.limit,compute_mode``); ``Exclusive_Process`` fails (c).  (b) The
    trainer's CLI (``train.main`` with a shell's argv, in this process so
    that its launches are counted) at 256x832, batch 8, ``--steps_per_dispatch
-   auto`` (K = 4), 20 iterations from a prepared tree with ``--cache_decoded``,
+   auto`` (K = 4), 12 iterations from a prepared tree with ``--cache_decoded``,
    in float32 and bfloat16: ``--multi_host --coordinator_address
    127.0.0.1:<free> --num_processes 1 --process_id 0`` (NCCL, world size 1,
    the all-reduce inside the K-step graph) against the same recipe without
@@ -451,7 +453,7 @@ Phases (each raises on failure, so the run exits non-zero):
    every parameter tensor's change at least half as long as the unsharded
    one's after every step (phase 20's check against a run that never
    updates, per tensor).  (e) ms
-   per forward + backward (median of 3 after 2, CUDA events) and peak GiB,
+   per forward + backward (one timed run after 1, CUDA events) and peak GiB,
    unsharded and at n = 1, 2, 4, float32 and bfloat16, beside the card's name
    and power limit.  (f) One mesh over two devices: shard 0 on the CPU (the
    plain versions), shard 1 on the card, float32 with ``use_pallas_reg`` at
@@ -483,9 +485,26 @@ Phases (each raises on failure, so the run exits non-zero):
    10 correlation and 3 + 6 photometric launches a dtype: one forward, two
    gradients) and with the plain versions on the card; it fails if the
    kernels' gap exceeds 2 x the plain versions' + 1e-3.  Then PERF.md q14's
-   48 eager steps on 8 repeated batches once more with a float32 loss stack
+   32 eager steps on 8 repeated batches once more with a float32 loss stack
    (``loss_dtype`` float32 under bfloat16 convolutions): the block means
    and whether they rose.
+23. The bench module (``bench_module``; rehearsable on the CPU), the root
+   ``bench.py`` inside the port, at the recipe (256x832, batch 8).  (a)-(e)
+   ``python -m unopticalflow_tpu_torch.bench --iters 8`` as a user runs it,
+   one process each, started together: (a) bfloat16 at K = 8, (b)
+   ``--scan-steps 0``, (c) ``--fp32``, (d) ``--infer``, (e) ``--validate``
+   writing its report into ``build/chip_smoke/bench23/``.  Each prints
+   exactly one stdout line: (a)-(d) the JAX bench's keys, ``metric`` and
+   ``unit`` and a finite positive ``value`` (printed with the windows and
+   warm-up from stderr, as read on the shared card); (e) ``ok`` true, every
+   check's errors printed beside its tolerance, and the report's launches 2
+   of each correlation and photometric kernel and 1 of each regularizer
+   kernel.  (f) In this process, with the launch counters: ``bench_train``
+   bfloat16 and ``bench_infer`` while the five import torch, then
+   ``bench_train`` float32 after them; each K = 8 run launches 2 x 8 x (5,
+   5, 5, 3, 3), the eager dispatch and the capture, as phase 18 (c), its
+   rate printed beside 8 / phase 18 (d)'s graph ms/step (no time is
+   asserted); ``bench_infer`` 5 ``corr_fwd`` a batch, its last flow finite.
 
 The second-to-last line is the kernels' JSON record (``launches`` from the
 training run of phase 6, of phase 9 for the regularizer, of phase 11 (d) for
@@ -510,7 +529,8 @@ of phases 6-16 take K = 1 (their intervals make ``--steps_per_dispatch
 auto`` pick 1, or they set it, so that their per-step launch counts and
 step times keep their meaning); phase 18 drives K = 8 in flow mode and
 K = 4, the default intervals' ``auto``, in the other modes; phase 19 K = 8;
-phase 20 K = 4 through the CLI and K = 1 for the gloo ranks.
+phase 20 K = 4 through the CLI and K = 1 for the gloo ranks; phase 23 K = 8
+and K = 0 (eager).
 """
 
 from __future__ import annotations
@@ -549,7 +569,7 @@ SPATIAL_N = (2, 4)  # phase 11: row-shards of the 256-row frame
 # probe.py spatial_gap read 0.90-1.00 of it at n = 2, 4 and 8)
 BF16_SPATIAL_FACTOR = 1.2
 SPATIAL_REQUESTS = 8
-SPATIAL_TIMED = 3  # phase 21 (e): timed forward + backward runs after 2 warm-ups
+SPATIAL_TIMED = 1  # phase 21 (e)-(i): timed forward + backward runs after 1 warm-up
 SPATIAL_CLIENTS = 4
 MD = 4  # the decoder's correlation window, +-4 px; the hpad operands carry 2 * MD more rows
 EVAL_PAIRS = 37  # phase 10: 4 full batches and one padded
@@ -602,14 +622,15 @@ SAVE_REPS = 3  # phase 15 (e): saves timed, each way
 # intervals of 8), dispatches timed and profiled, eager steps profiled, and the
 # prepared snippets of its trainer run
 DISPATCH_K = 8
-DISPATCH_TIMED = 3
-DISPATCH_PROFILED = 2
-EAGER_PROFILED = 4
+DISPATCH_TIMED = 2
+DISPATCH_PROFILED = 1
+EAGER_PROFILED = 2
 DISPATCH_SNIPPETS = 8
+DISPATCH_LOADER_SNIPPETS = 32  # (e): the loader's cold and warm rates
 # phase 18 (f): what --steps_per_dispatch auto picks at the flags' default
 # intervals (log 100, save 2000, test 2000); (g): synthetic_epe's iterations
 DISPATCH_AUTO_K = 4
-EPE_ITERS = 32
+EPE_ITERS = 16
 EPE_HW = (128, 256)
 # phase 19: the tools at the recipe's shape; the generator's motions as
 # make_pool's and make_prepared_synth's defaults (the 256x832 campaign's);
@@ -620,25 +641,32 @@ EPE_HW = (128, 256)
 # steps' mean loss exceeds Q14_RISE times the lowest block mean before it
 TOOLS_MAX_BG, TOOLS_MAX_FG = 16, 32
 TOOLS_EPE_ITERS = 32
-PREP_SNIPPETS = 16
+PREP_SNIPPETS = 8
 PREP_STEPS = 16
 LB_SNIPPETS, LB_BATCHES = 4, 4
-PS_ITERS, PS_TRIALS = 2, 2
-TOOLS_REPLAYS = 3
-Q14_RUNS, Q14_STEPS = 2, 48  # two runs a kind show whether eager rises as the graph does
+PS_ITERS, PS_TRIALS = 1, 2
+TOOLS_REPLAYS = 1
+Q14_RUNS, Q14_STEPS = 1, 32  # a run a kind shows whether eager rises as the graph does
 Q14_RISE = 1.2
 FP_STEPS = 10
 FP_BF16_STEPS = 8
 FREEZE_STEPS = 3
-# phase 20: the trainer's CLI at K = 4 (auto at log interval 4) for 5 dispatches
-# (eager, capture, 3 replays), and two gloo ranks of K = 1 for 3 steps
+# phase 20: the trainer's CLI at K = 4 (auto at log interval 4) for 3 dispatches
+# (eager, capture, 1 replay), and two gloo ranks of K = 1 for 3 steps
 DP_K = 4
-DP_ITERS = 20
+DP_ITERS = 12
 DP_STEPS = 3
 NYU_FRAME_HW = (480, 640)
 NYU_HW = (192, 256)
 NYU_SNIPPETS = 8
 ODO_FRAMES = 16
+# phase 23: --iters of each run of the bench module (3 windows of 4 dispatches,
+# its least), and what its --validate launches (f32 and bf16 correlation and
+# photometric packs with their gradients, one float32 regularizer pack)
+BENCH_ITERS = 8
+BENCH_VALIDATE_LAUNCHES = {"corr_fwd": 2, "corr_bwd_df1": 2, "corr_bwd_df2": 2,
+                           "photometric_fwd": 2, "photometric_bwd": 2, "regularizer_fwd": 1,
+                           "regularizer_bwd": 1}
 # the H100 SXM's published peaks: HBM and float32 outside
 # the tensor cores; every kernel here computes in float32
 HBM_BYTES_PER_S = 3.35e12
@@ -2518,10 +2546,11 @@ def graph_vs_eager(c, multi, model, opt, batch, cfg, weights, label, dtype, mode
             "first_equal": first_equal, "replay_launches": replay_launches}
 
 
-def dispatch_graph(c) -> None:
+def dispatch_graph(c) -> dict:
     """Phase 18 (see the module): K training steps a dispatch, one CUDA graph.
     ``c`` holds the device, the shapes, K, the launch counters, the card's
-    nvidia-smi line and the trainer's device flags ``cli``."""
+    nvidia-smi line and the trainer's device flags ``cli``.  Returns (d)'s
+    graph ms/step by dtype."""
     import copy
     import warnings
 
@@ -2831,6 +2860,7 @@ def dispatch_graph(c) -> None:
           + f" ({c.smi})")
     dispatch_modes(c)
     print(f"steps per dispatch: phase 18 in {time.perf_counter() - t18:.1f} s")
+    return {r["dtype"]: r["ms_step_graph"] for r in records}
 
 
 def dispatch_modes(c) -> None:
@@ -3219,7 +3249,7 @@ def tools(c) -> None:
         os.makedirs(os.path.join(c.root, "trace"), exist_ok=True)
         for precision in ("float32", "bfloat16"):
             rec = probe.trace_run(device, precision, os.path.join(c.root, "trace"), SEED,
-                                  k=k, timed=c.replays)
+                                  k=k, timed=c.replays, profiled=1)
             if rec["launches_per_step"] != {n: float(v) for n, v in c.want(PER_STEP).items()
                                             if n in rec["launches_per_step"]}:
                 raise AssertionError(f"trace {precision}: launches {rec['launches_per_step']}")
@@ -4002,13 +4032,12 @@ def spatial_training(c) -> dict:
 
     def timed_fb(model, fn, *args, wts=weights):
         """(ms per forward + backward of the weighted total, median of
-        SPATIAL_TIMED after 2, CUDA events; the peak GiB above what was
+        SPATIAL_TIMED after 1, CUDA events; the peak GiB above what was
         allocated before)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
-        for _ in range(2):
-            step(model, fn, *args, wts=wts)
+        step(model, fn, *args, wts=wts)
         events = [torch.cuda.Event(enable_timing=True) for _ in range(SPATIAL_TIMED + 1)]
         events[0].record()
         for j in range(SPATIAL_TIMED):
@@ -4166,7 +4195,7 @@ def spatial_training(c) -> dict:
                 ms_n, peak = timed_fb(model, fn, x)
                 line["unsharded" if n == 0 else f"n={n}"] = f"{ms_n:.3f} ms, {peak:.3f} GiB"
             print(f"spatial training (e) {dtype}, use_pallas_reg off, batch {batch_n} at "
-                  f"{h}x{w}: ms per forward + backward (median of {SPATIAL_TIMED} after 2, CUDA "
+                  f"{h}x{w}: ms per forward + backward (median of {SPATIAL_TIMED} after 1, CUDA "
                   f"events) and peak GiB: {json.dumps(line)} ({c.smi})")
             del model
             torch.cuda.empty_cache()
@@ -4268,7 +4297,7 @@ def spatial_training(c) -> dict:
         if on_card:
             print(f"spatial training {label} {dtype}, batch {batch_n} at "
                   f"{tuple(args[0].shape[1:3])} stacked: ms per forward + backward (median of "
-                  f"{SPATIAL_TIMED} after 2, CUDA events) and peak GiB: {json.dumps(line)} "
+                  f"{SPATIAL_TIMED} after 1, CUDA events) and peak GiB: {json.dumps(line)} "
                   f"({c.smi})")
             torch.cuda.empty_cache()
 
@@ -4366,6 +4395,175 @@ def bf16_gap(c) -> None:
           f"{time.perf_counter() - t22:.1f} s")
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError("q14 float32 loss stack: a loss is not finite")
+
+
+def bench_module(c) -> None:
+    """Phase 23 (see the module): ``c`` holds the device, the recipe's size
+    and batch, K, the bench's ``--iters``, the directory of the processes'
+    output and the validate report, the launch counters (``want`` maps an
+    expected count to what this device launches), ``sync``, ``empty_cache``,
+    the module's device flags ``cli``, phase 18's graph ms/step by dtype
+    (``graph_ms``, None when not measured) and the card's nvidia-smi line.
+
+    On an H100 machine a process spends ~11 s importing torch and ~11 s in
+    its first training setup (PERF.md q20), before its first step: one after
+    the other the five would take ~110 s longer than together.  So they start together; (f)'s bfloat16 and infer
+    runs go while the five import torch, before any of them touches the
+    card, and (f)'s float32 run after the five are done (two float32 K = 8
+    graphs at once, with cuDNN's workspaces, do not fit beside this
+    process's own memory).  The five processes' rates are printed as read
+    on a shared card."""
+    import gc
+
+    import torch
+
+    from unopticalflow_tpu_torch import bench
+
+    t23 = time.perf_counter()
+    (h, w), batch_n, k = c.img_hw, c.batch, c.k
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    os.makedirs(c.root, exist_ok=True)
+    report_path = os.path.join(c.root, "validate.json")
+    shape = ["--batch", str(batch_n), "--hw", str(h), str(w), "--iters", str(c.iters)]
+    runs = {"(a) bfloat16": [*shape, "--scan-steps", str(k)],
+            "(b) --scan-steps 0": [*shape, "--scan-steps", "0"],
+            "(c) --fp32": [*shape, "--scan-steps", str(k), "--fp32"],
+            "(d) --infer": [*shape, "--infer"],
+            "(e) --validate": ["--validate", "--validate-out", report_path]}
+
+    def in_process(label, fn, want):
+        """One of (f)'s runs with the launch counters: its result and launches."""
+        c.reset_counts()
+        res = fn()
+        c.sync()
+        launched = c.counts()
+        if launched != c.want(want(res)):
+            raise AssertionError(f"bench (f) {label}: launches {launched}, want "
+                                 f"{c.want(want(res))}")
+        gc.collect()
+        c.empty_cache()
+        return res, launched
+
+    per_k = {n: 2 * k * v for n, v in PER_STEP.items()}
+    inproc = {}
+
+    def train(precision):
+        """(f) ``bench_train`` at K = 8 with the launch counters."""
+        res, launched = in_process(precision, lambda: bench.bench_train(
+            batch_n, c.img_hw, c.iters, precision, k, c.device), lambda _: per_k)
+        inproc[precision] = res["value"]
+        print(f"bench (f) {precision}: bench_train at K = {k}, {res['value']:.2f} snippets/s "
+              f"(median {res['median_step_ms']:.3f} ms/step), {res['dispatches']} dispatches, "
+              f"launches {_launched(launched)}: the eager dispatch and the capture, {k} x "
+              f"{_launched(PER_STEP)} each, as phase 18 (c); loss {res['loss']:.6f}")
+        if not math.isfinite(res["loss"]):
+            raise AssertionError(f"bench (f) {precision}: loss {res['loss']}")
+
+    # (a)-(e) as a user runs them, one process each, started together
+    procs = {}
+    try:
+        for label, args in runs.items():
+            name = os.path.join(c.root, label[1])
+            with open(name + ".out", "w") as out, open(name + ".err", "w") as err:
+                procs[label] = subprocess.Popen(
+                    [sys.executable, "-m", "unopticalflow_tpu_torch.bench", *args, *c.cli],
+                    stdout=out, stderr=err, cwd=repo, env=env)
+        # (f) bfloat16 and infer while the five import torch
+        t_f = time.perf_counter()
+        train("bfloat16")
+        res, launched = in_process("--infer", lambda: bench.bench_infer(
+            batch_n, c.img_hw, c.iters, "bfloat16", c.device),
+            lambda r: {**dict.fromkeys(KERNELS, 0), "corr_fwd": 5 * r["dispatches"]})
+        print(f"bench (f) --infer: bench_infer {res['value']:.2f} pairs/s, {res['dispatches']} "
+              f"batches, launches {_launched(launched)} (5 corr_fwd a batch), the last flow "
+              f"{'finite' if res['flow_ok'] else 'NOT finite'}; (f)'s bfloat16 and infer runs "
+              f"took {time.perf_counter() - t_f:.1f} s from the five processes' start")
+        if not res["flow_ok"]:
+            raise AssertionError("bench (f) --infer: the last flow is not a finite "
+                                 "(B, H, W, 2) float32 array")
+        del res
+        gc.collect()
+        c.empty_cache()
+        if c.device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(c.device)
+            print(f"bench: beside the five processes this one holds "
+                  f"{torch.cuda.memory_allocated(c.device) / 2**30:.2f} GiB allocated, "
+                  f"{torch.cuda.memory_reserved(c.device) / 2**30:.2f} GiB reserved; the card "
+                  f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+        deadline = time.perf_counter() + 600
+        for proc in procs.values():
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_wave = time.perf_counter() - t_f
+    # (f) float32 with the card to itself
+    train("float32")
+    took = time.perf_counter() - t23
+
+    rates = {}
+    for label, proc in procs.items():
+        name = os.path.join(c.root, label[1])
+        with open(name + ".out") as f:
+            stdout = f.read()
+        with open(name + ".err") as f:
+            stderr = f.read()
+        lines = stdout.splitlines()
+        if label.startswith("(e)") and c.device.type != "cuda":
+            # without the card both sides would be the plain version: it refuses
+            if proc.returncode == 0 or lines or "CUDA" not in stderr:
+                raise AssertionError(f"bench {label} off the card: rc {proc.returncode}, "
+                                     f"stdout {stdout!r}\n{stderr[-2000:]}")
+            print(f"bench {label}: refused off the card, rc {proc.returncode}: "
+                  f"{stderr.strip().splitlines()[-1]}")
+            continue
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"bench {label}: rc {proc.returncode}, {len(lines)} stdout "
+                                 f"lines:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        line = json.loads(lines[0])
+        if label.startswith("(e)"):
+            with open(report_path) as f:
+                report = json.load(f)
+            errs = "; ".join(
+                f"{name} " + ", ".join(f"{e:.3e}" for e in bench.check_errors(v))
+                + f" (tol {v['tol']}, {'ok' if v['ok'] else 'FAILED'})"
+                for name, v in report["checks"].items())
+            print(f"bench {label}: {lines[0]}; {errs}; launches {report['launches']} on "
+                  f"{report['device']} ({c.smi})")
+            if list(line) != ["validate", "ok", "platform", "worst"] or line["ok"] is not True \
+                    or report["launches"] != BENCH_VALIDATE_LAUNCHES \
+                    or report["device"] != torch.cuda.get_device_name(c.device):
+                raise AssertionError(f"bench {label}: {line}, launches {report['launches']} "
+                                     f"(want {BENCH_VALIDATE_LAUNCHES}), {report['device']}")
+            continue
+        infer = label.startswith("(d)")
+        value = line.get("value")
+        # the JAX bench's line for this rate (vs_baseline from the unrounded rate)
+        jax_line = bench.result_line(batch_n, c.img_hw, value or 0.0, infer,
+                                     0 if label.startswith("(b)") else k)
+        if list(line) != list(jax_line) \
+                or not (isinstance(value, float) and math.isfinite(value) and value > 0) \
+                or [line["metric"], line["unit"]] != [jax_line["metric"], jax_line["unit"]] \
+                or abs(line["vs_baseline"] - jax_line["vs_baseline"]) > 0.011:
+            raise AssertionError(f"bench {label}: {line}, want {jax_line}")
+        rates[label] = value
+        diag = json.loads(stderr.strip().splitlines()[-1])
+        print(f"bench {label}: {lines[0]}; median {diag['median_step_ms']:.3f} ms a "
+              f"{'batch' if infer else 'step'}, IQR {diag['window_iqr_ms']:.3f}, windows "
+              f"{json.dumps([round(x, 3) for x in diag['windows']])} of "
+              f"{diag['steps_per_window']} dispatches after {diag['warmup_dispatches']} warm-up "
+              f"dispatches, setup {diag['setup_s']:.1f} s, on {diag['device']} shared by the "
+              f"five ({c.smi})")
+    graph = {dt: (f"{batch_n / c.graph_ms[dt] * 1e3:.2f}" if c.graph_ms else "not measured")
+             for dt in ("bfloat16", "float32")}
+    print(f"bench: K = {k} snippets/s in this process beside {batch_n} / phase 18 (d)'s graph "
+          f"ms/step: bfloat16 {inproc['bfloat16']:.2f} and {graph['bfloat16']}, float32 "
+          f"{inproc['float32']:.2f} and {graph['float32']} ({c.smi}); the processes on the "
+          f"shared card (a) {rates['(a) bfloat16']:.2f}, (c) {rates['(c) --fp32']:.2f}; the "
+          f"five processes {t_wave:.1f} s, phase 23 in {took:.1f} s")
 
 
 def main() -> int:
@@ -5741,10 +5939,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 18. K steps a dispatch: one CUDA graph of the whole step -----------
-    dispatch_graph(types.SimpleNamespace(
+    graph_ms = dispatch_graph(types.SimpleNamespace(
         device=device, img_hw=IMG_HW, kitti_hw=KITTI_HW, batch=BATCH, k=DISPATCH_K,
         nyu_hw=NYU_HW, nyu_frame_hw=NYU_FRAME_HW, snippets=DISPATCH_SNIPPETS,
-        loader_snippets=LOADER_SNIPPETS, epe_iters=EPE_ITERS, epe_hw=EPE_HW,
+        loader_snippets=DISPATCH_LOADER_SNIPPETS, epe_iters=EPE_ITERS, epe_hw=EPE_HW,
         want=lambda d: d, sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache,
         root=os.path.join(model_dir, "dispatch18"), counts=counts, reset_counts=reset_counts,
         cli=[], smi=smi))
@@ -5790,6 +5988,14 @@ def main() -> int:
         sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache, smi=smi))
     torch.cuda.empty_cache()
 
+    # ---- 23. the bench module as a user runs it, and its launches ----------------
+    bench_module(types.SimpleNamespace(
+        device=device, img_hw=IMG_HW, batch=BATCH, k=DISPATCH_K, iters=BENCH_ITERS,
+        root=os.path.join(model_dir, "bench23"), counts=counts, reset_counts=reset_counts,
+        want=lambda d: d, sync=torch.cuda.synchronize, empty_cache=torch.cuda.empty_cache,
+        cli=[], graph_ms=graph_ms, smi=smi))
+    torch.cuda.empty_cache()
+
     launches = {**train_counts, "regularizer_fwd": reg_counts["regularizer_fwd"],
                 "regularizer_bwd": reg_counts["regularizer_bwd"],
                 "corr_fwd_hpad": sp_serve_counts["corr_fwd_hpad"],
@@ -5817,7 +6023,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": library_ms[name],
         })
-    print(f"chip_smoke: 22 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: 23 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

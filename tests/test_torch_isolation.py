@@ -123,7 +123,8 @@ print(json.dumps({{"names": names, "named": named, "by_path": by_path,
                          timeout=300)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert {"unopticalflow_tpu_torch.test", "unopticalflow_tpu_torch.evaluation.evaluate_flow",
+    assert {"unopticalflow_tpu_torch.test", "unopticalflow_tpu_torch.bench",
+            "unopticalflow_tpu_torch.evaluation.evaluate_flow",
             "unopticalflow_tpu_torch.ops.regularizer_cuda",
             "unopticalflow_tpu_torch.ops.gather_cuda",
             "unopticalflow_tpu_torch.benchmarks.gather_probe",
