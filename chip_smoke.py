@@ -270,20 +270,27 @@ Phases (each raises on failure, so the run exits non-zero):
    each flag, and gives no image where cv2 gives none; every fixture of
    ``tests/torch_fixtures/grey/`` (colour PNGs read as grey through
    libpng's gamma tables, grey-and-alpha TIFF tiles) has cv2's digest or
-   the port's raise; the 512x832 stacked pair as BMP, P6, Sun raster,
+   the port's raise; every fixture of ``tests/torch_fixtures/png/``'s and
+   ``gif/``'s ``expected.json`` (PNG at every depth, ``tRNS``, ``eXIf``,
+   APNGs; PIL's, cv2's and hand-built GIFs) has cv2's digest, gives no
+   image where cv2 gives none, or raises where cv2's output is undefined;
+   the 512x832 stacked pair as BMP, P6, Sun raster,
    uncompressed, LZW and Deflate TIFF and HDR (built here by this module's
    writers from the committed pair's pixels), as PIL's JPEG-compressed TIFF,
    as lossy, lossless and lossy-with-alpha WebP and as lossless JP2 and
-   irreversible J2K (committed) decodes to the pair's pixels (the lossless
-   ones) or its cv2 digest, and the host ms of
+   irreversible J2K (committed), and as GIF (256 colours of 3-3-2 bits,
+   ``write_gif``), APNG (the first frame after a default image,
+   ``write_apng``) and 16-bit RGBA PNG (built here) decodes to the pair's
+   pixels (the lossless ones), its 256 colours (GIF) or its cv2 digest,
+   and the host ms of
    decoding it in each format, as the baseline and progressive JPEG and as
-   the PNG (median of 20 each, this machine's CPU; a JSON line).  (b)
+   the PNG (median of 12 each, this machine's CPU; a JSON line).  (b)
    ``FlowServer`` and its HTTP handler on the card at 256x832, bfloat16,
    ``max_batch`` 8: each of those bodies (the PNG among them) and
    the cut progression gets a 200 whose ``.flo`` reply is byte-equal to the
    reply to a PNG of the body's decoded pixels, with exactly 5 ``corr_fwd``
    launches a body; the baseline and progressive JPEG replies are equal; an
-   AVIF body gets a 400 naming AVIF; the median ms of 8 requests with each
+   AVIF body gets a 400 naming AVIF; the median ms of 5 requests with each
    body (a JSON line).  (c) ``test.main --task demo`` on two JPEG, two BMP,
    two LZW TIFF, two WebP and two JP2 frames equals the demo on PNGs of
    their decoded pixels (5 launches each).  (d) NYUv2
@@ -1106,6 +1113,89 @@ def write_hdr(bgr_float) -> bytes:
     return bytes(out)
 
 
+def write_gif(idx, palette, screen=None, at=(0, 0), local=None, transparent=None, bg=0,
+              interlace=False, min_code=8, version=b"GIF89a") -> bytes:
+    """A GIF of one image of colour indices ``idx`` ((h, w) uint8) at ``at``
+    on a screen of ``screen`` (w, h) (the image's size by default): a global
+    table ``palette`` ((n, 3) RGB, n a power of 2 from 2 to 256, or None),
+    a ``local`` one, a Graphic Control Extension naming ``transparent``,
+    rows ``interlace``d.  The LZW data holds each index as a literal code
+    of min_code + 1 bits, a clear code before each run short enough to keep
+    that width: valid GIF of no compression, which any reader decodes."""
+    import struct
+
+    import numpy as np
+
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+
+    def table(rgb):
+        rgb = np.asarray(rgb, np.uint8).reshape(-1, 3)
+        return rgb.tobytes(), int(rgb.shape[0]).bit_length() - 2
+
+    sw, sh = screen or (w, h)
+    head = version + struct.pack("<HH", sw, sh)
+    if palette is not None:
+        gct, size = table(palette)
+        head += bytes([0xF0 | size, bg, 0]) + gct
+    else:
+        head += bytes([0, bg, 0])
+    if transparent is not None:
+        head += b"\x21\xf9\x04\x01\x00\x00" + bytes([transparent]) + b"\x00"
+    flags = 0x40 if interlace else 0
+    lct = b""
+    if local is not None:
+        lct, size = table(local)
+        flags |= 0x80 | size
+    if interlace:
+        idx = idx[np.concatenate([np.arange(s, h, d) for s, d in ((0, 8), (4, 8), (2, 4), (1, 2))])]
+    clear = 1 << min_code
+    flat = idx.ravel().astype(np.uint16)
+    codes = np.append(np.insert(flat, np.arange(0, flat.size, clear - 2), clear), clear + 1)
+    width = min_code + 1
+    bits = ((codes[:, None] >> np.arange(width, dtype=np.uint16)) & 1).astype(np.uint8)
+    data = np.packbits(bits.ravel(), bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return (head + b"\x2c" + struct.pack("<HHHHB", at[0], at[1], w, h, flags) + lct
+            + bytes([min_code]) + blocks + b"\x00\x3b")
+
+
+def write_apng(frames, default=None) -> bytes:
+    """An APNG of 8-bit RGB frames ``[(bgr, x, y), ...]`` (each frame
+    replaces the canvas, blend op 0), the canvas the first frame's size, or
+    that of ``default``, a BGR image written as an IDAT outside the
+    animation (the frames then all in fdAT chunks)."""
+    import struct
+
+    import numpy as np
+
+    from unopticalflow_tpu_torch.utils import imageio
+
+    def data(bgr):
+        h, w = bgr.shape[:2]
+        rows = np.ascontiguousarray(bgr[:, :, ::-1]).reshape(h, w * 3)
+        return zlib.compress(imageio._filter_rows(rows, 3).tobytes(), 6)
+
+    canvas = frames[0][0] if default is None else default
+    out = (imageio._PNG_MAGIC + imageio._chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", canvas.shape[1], canvas.shape[0], 8, 2, 0, 0, 0))
+        + imageio._chunk(b"acTL", struct.pack(">II", len(frames), 0)))
+    if default is not None:
+        out += imageio._chunk(b"IDAT", data(default))
+    seq = 0
+    for k, (bgr, x, y) in enumerate(frames):
+        out += imageio._chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, bgr.shape[1], bgr.shape[0],
+                                                   x, y, 1, 10, 0, 0))
+        seq += 1
+        if k == 0 and default is None:
+            out += imageio._chunk(b"IDAT", data(bgr))
+        else:
+            out += imageio._chunk(b"fdAT", struct.pack(">I", seq) + data(bgr))
+            seq += 1
+    return out + imageio._chunk(b"IEND", b"")
+
+
 def write_tiff(arr, photometric, bps=8, order="<", big=False, tile=None, rows_per_strip=None,
                planar=1, compression=1, predictor=1, extra=None, colormap=None,
                orientation=None, jpeg=None, tables=None) -> bytes:
@@ -1325,6 +1415,24 @@ def host_modules(c) -> None:
                     got = None  # no image, as where cv2 gives None
                 if (digest(got) if got is not None else "none") != want:
                     raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
+        new_want = {}  # PNG at every depth, APNG and GIF: "none" where cv2 gives none
+        for kind in ("png", "gif"):
+            with open(os.path.join(fixtures, kind, "expected.json")) as f:
+                new_want[kind] = json.load(f)
+            for name, entry in sorted(new_want[kind].items()):
+                data = read(os.path.join(fixtures, kind, name))
+                for flags, want in entry.items():
+                    if want.startswith("raises: "):  # cv2's output is undefined
+                        try:
+                            imageio.imdecode(data, int(flags))
+                        except ValueError as e:
+                            if want[len("raises: "):] not in str(e):
+                                raise
+                            continue
+                        raise AssertionError(f"{name} (flags {flags}) decodes; expected a raise")
+                    got = imageio.imdecode(data, int(flags))
+                    if (digest(got) if got is not None else "none") != want:
+                        raise AssertionError(f"{name} (flags {flags}): differs from cv2's decode")
         with open(os.path.join(grey_dir, "expected.json")) as f:
             grey_want = json.load(f)
         for name, entry in sorted(grey_want.items()):
@@ -1344,6 +1452,11 @@ def host_modules(c) -> None:
         # the committed pair's pixels (TIFF JPEG: PIL's file, committed)
         pair_px = imageio.decode_png(read(os.path.join(jpeg_dir, "pair_512x832.png")))
         rgb = np.ascontiguousarray(pair_px[:, :, ::-1])
+        gif_idx = ((pair_px[:, :, 2] >> 5 << 5) | (pair_px[:, :, 1] >> 5 << 2)
+                   | (pair_px[:, :, 0] >> 6)).astype(np.uint8)
+        k = np.arange(256)
+        gif_palette = np.stack([(k >> 5) * 255 // 7, (k >> 2 & 7) * 255 // 7,
+                                (k & 3) * 255 // 3], 1).astype(np.uint8)
         pair_bodies = {
             "BMP": write_bmp(pair_px.shape[1], pair_px.shape[0], 24,
                              bmp_rows([r.tobytes() for r in pair_px])),
@@ -1359,6 +1472,13 @@ def host_modules(c) -> None:
                                  (" alpha", "alpha"))},
             "JP2 lossless": read(os.path.join(j2k_dir, "pair_512x832_lossless.jp2")),
             "J2K irreversible": read(os.path.join(j2k_dir, "pair_512x832_irreversible.j2k")),
+            # 256 colours (3-3-2 bits of R, G, B), as literal LZW codes
+            "GIF": write_gif(gif_idx, gif_palette),
+            # the pair as the first frame after a default image (the pair upside down)
+            "APNG": write_apng([(pair_px, 0, 0), (pair_px[:64, :64], 16, 8)],
+                               default=pair_px[::-1]),
+            "PNG RGBA 16-bit": imageio.encode_png(  # high bytes the pair's, low bytes not
+                np.dstack([pair_px, pair_px[:, :, 1]]).astype(np.uint16) * 255 + 255),
         }
         pair_bodies = {"PNG": read(os.path.join(jpeg_dir, "pair_512x832.png")),
                        "JPEG": read(os.path.join(jpeg_dir, "pair_512x832.jpg")),
@@ -1366,14 +1486,16 @@ def host_modules(c) -> None:
                            jpeg_dir, "pair_512x832_progressive.jpg")), **pair_bodies}
         t_dec = {k: [] for k in pair_bodies}
         decoded = {}
-        for _ in range(20):
+        for _ in range(12):
             for kind, body in pair_bodies.items():
                 t0 = time.perf_counter()
                 decoded[kind] = imageio.imdecode(body)
                 t_dec[kind].append((time.perf_counter() - t0) * 1e3)
     lossless = ("PNG", "JPEG", "progressive JPEG", "BMP", "P6", "Sun raster", "TIFF", "TIFF LZW",
-                "TIFF Deflate", "WebP lossless", "JP2 lossless")
+                "TIFF Deflate", "WebP lossless", "JP2 lossless", "APNG", "PNG RGBA 16-bit")
     differ = [k for k in lossless if not np.array_equal(decoded[k], pair_px)]
+    if not np.array_equal(decoded["GIF"], gif_palette[gif_idx][:, :, ::-1]):
+        differ.append("GIF")
     differ += [k for k, name in (("WebP", "lossy"), ("WebP alpha", "alpha"))
                if digest(decoded[k]) != webp_want[f"pair_512x832_{name}.webp"]["1"]]
     if digest(decoded["J2K irreversible"]) != j2k_want["pair_512x832_irreversible.j2k"]["1"]:
@@ -1388,12 +1510,16 @@ def host_modules(c) -> None:
           f"after scan 3, through libjpeg's block smoothing); the interlaced PNGs "
           f"{', '.join(adam7)}; {len(formats_want)} BMP, PNM, PAM, PFM, Sun raster, HDR and TIFF "
           f"fixtures, {len(webp_want)} WebP fixtures, {len(j2k_want)} JPEG 2000 fixtures and "
-          f"{len(grey_want)} gamma-PNG and grey-and-alpha TIFF fixtures equal cv2's decodes "
+          f"{len(grey_want)} gamma-PNG and grey-and-alpha TIFF fixtures, "
+          f"{len(new_want['png'])} PNG (every depth, tRNS, eXIf) and APNG fixtures and "
+          f"{len(new_want['gif'])} GIF fixtures equal cv2's decodes "
           f"under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_UNCHANGED (SHA-256; the "
           f"{sum('none' in e.values() for e in webp_want.values())} WebP bodies cv2 refuses "
           f"raise, the {sum('none' in e.values() for e in j2k_want.values())} JPEG 2000 bodies "
-          f"it refuses give no image); host ms to decode the {pair_px.shape[0]}x"
-          f"{pair_px.shape[1]} stacked pair (median of 20, one thread; {c.smi}): "
+          f"it refuses give no image, as do the "
+          f"{sum('none' in e.values() for d in new_want.values() for e in d.values())} APNG "
+          f"and GIF bodies it refuses); host ms to decode the {pair_px.shape[0]}x"
+          f"{pair_px.shape[1]} stacked pair (median of 12, one thread; {c.smi}): "
           + ", ".join(f"{k} {v:.3f} ({len(pair_bodies[k])} bytes)" for k, v in host_ms.items()))
     print(json.dumps({"host_decode_ms": host_ms, "body_bytes": {
         k: len(v) for k, v in pair_bodies.items()}, "smi": c.smi}))
@@ -1438,7 +1564,7 @@ def host_modules(c) -> None:
         lat = {}
         for kind, body in pair_bodies.items():
             lat[kind] = []
-            for _ in range(8):
+            for _ in range(5):
                 t0 = time.perf_counter()
                 post(body)
                 lat[kind].append((time.perf_counter() - t0) * 1e3)
@@ -1460,7 +1586,7 @@ def host_modules(c) -> None:
           f"max_batch {c.batch}: {len(served_bodies)} bodies ({', '.join(served_bodies)}) each "
           f"get a 200 with the .flo reply ({len(replies['JPEG'])} bytes) of the PNG of their "
           f"decoded pixels, each with exactly {launches['JPEG']['corr_fwd']} corr_fwd launches; "
-          f"an AVIF body: {refusal[0]} {refusal[1]!r}; median ms a request (8 in turn, decode + "
+          f"an AVIF body: {refusal[0]} {refusal[1]!r}; median ms a request (5 in turn, decode + "
           f"resize + inference + reply; {c.smi}): "
           + ", ".join(f"{k} {v:.2f}" for k, v in serve_ms.items()))
     print(json.dumps({"served_ms": serve_ms, "smi": c.smi}))
@@ -5816,7 +5942,8 @@ def main() -> int:
     t_write = time.perf_counter() - t0
     filters = np.zeros(5, np.int64)  # the row filters the frames hold
     for data in frames:
-        idat = b"".join(body for kind, body in imageio._chunks(data) if kind == b"IDAT")
+        idat = b"".join(body for kind, body, _ in imageio._png_chunks(data)[0]
+                        if kind == b"IDAT")
         rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(KITTI_HW[0], -1)
         filters += np.bincount(rows[:, 0], minlength=5)
     t0 = time.perf_counter()

@@ -106,7 +106,7 @@ def test_cv2_files_hold_every_row_filter():
     for level in (0, 1, 3, 6, 9):
         img = rng.randint(0, 256, (23, 31, 3)).astype(np.uint8)
         ok, buf = cv2.imencode(".png", img, [cv2.IMWRITE_PNG_COMPRESSION, level])
-        idat = b"".join(b for k, b in imageio._chunks(buf.tobytes()) if k == b"IDAT")
+        idat = b"".join(b for k, b, _ in imageio._png_chunks(buf.tobytes())[0] if k == b"IDAT")
         seen |= set(np.frombuffer(zlib.decompress(idat), np.uint8).reshape(23, -1)[:, 0])
     assert seen == {0, 1, 2, 3, 4}
 
@@ -180,9 +180,12 @@ def test_cv2_reads_back_what_the_port_writes(shape, dtype, tmp_path, monkeypatch
         (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
         with pytest.raises(ValueError, match="corrupt JPEG"):  # a JPEG, broken
             imageio.imread(str(tmp_path / "x.jpg"))
-        (tmp_path / "x.gif").write_bytes(b"GIF89a" + bytes(16))
-        with pytest.raises(ValueError, match="not an image format the port reads"):
+        (tmp_path / "x.gif").write_bytes(b"GIF89a" + bytes(16))  # a GIF of no pixels
+        with pytest.raises(ValueError, match="cv2 reads no image from it"):
             imageio.imread(str(tmp_path / "x.gif"))
+        (tmp_path / "x.bin").write_bytes(b"\x00\x01\x02\x03" * 8)
+        with pytest.raises(ValueError, match="not an image format the port reads"):
+            imageio.imread(str(tmp_path / "x.bin"))
     assert np.array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED), img)
     assert np.array_equal(cv2.imread(path, cv2.IMREAD_COLOR),
                           imageio.decode_png(imageio.encode_png(img)))
@@ -208,9 +211,11 @@ def test_png_reader_refuses_what_it_does_not_read(monkeypatch):
         imageio.decode_png(interlaced(10, 2))
     with pytest.raises(ValueError, match="not a PNG"):
         imageio.decode_png(b"GIF89a")
+    # RGB at 4 bits: libpng refuses the combination (cv2 gives None)
+    rgb4 = _png(3, 2, 4, 2, _filter_rows(np.zeros((2, 5), np.uint8), 1, [0, 0]))
+    assert cv2.imdecode(np.frombuffer(rgb4, np.uint8), cv2.IMREAD_COLOR) is None
     with pytest.raises(ValueError, match="colour type"):
-        imageio.decode_png(_png(3, 2, 16, 6, _filter_rows(np.zeros((2, 24), np.uint8), 8,
-                                                           [0, 0])))
+        imageio.decode_png(rgb4)
     # a colour file in grey as cv2 converts it; with a gAMA or sRGB chunk,
     # which sends libpng's conversion through gamma tables, as libpng does it
     colour = np.random.RandomState(1).randint(0, 256, (2, 3, 3)).astype(np.uint8)
@@ -255,7 +260,7 @@ def test_writer_filters_rows_as_libpng(shape, dtype):
     img = img.astype(dtype).reshape(shape)
 
     def kinds(data):
-        idat = b"".join(b for k, b in imageio._chunks(data) if k == b"IDAT")
+        idat = b"".join(b for k, b, _ in imageio._png_chunks(data)[0] if k == b"IDAT")
         return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(shape[0], -1)[:, 0]
 
     seen = set()

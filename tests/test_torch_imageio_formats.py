@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (bmp_rows, lzw_encode, write_bmp, write_hdr, write_p6, write_sun,
-                        write_tiff)
+from chip_smoke import (bmp_rows, lzw_encode, write_apng, write_bmp, write_hdr, write_p6,
+                        write_sun, write_tiff)
 from unopticalflow_tpu_torch.utils import imageio
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures", "formats")
@@ -258,9 +258,14 @@ def test_palette_index_past_the_palette_reads_black_as_cv2():
 
 
 def test_unknown_bytes_and_formats_not_read_yet():
-    for data in (b"", b"GIF89a", cv2.imencode(".gif", _image(8, 8, 2))[1].tobytes(),
-                 b"\x00\x01\x02\x03" * 8, b"P8\n1 1\n255\n\x00"):
+    assert imageio.imdecode(b"") is None
+    for data in (b"GIF89a", b"\x00\x01\x02\x03" * 8, b"P8\n1 1\n255\n\x00"):
+        assert _cv2(data, cv2.IMREAD_COLOR) is None
         assert imageio.imdecode(data) is None
+    # cv2's GIF, once taken for bytes of no format, decodes as cv2 decodes it
+    gif = cv2.imencode(".gif", _image(8, 8, 2))[1].tobytes()
+    for flags in FLAGS:
+        assert _same(gif, flags)
     avif = cv2.imencode(".avif", _image(8, 8, 4))[1].tobytes()
     with pytest.raises(ValueError, match="AVIF is not a format the port reads yet"):
         imageio.imdecode(avif)
@@ -300,6 +305,12 @@ def test_imread_reads_each_format(tmp_path):
             assert got.dtype == want.dtype and np.array_equal(got, want), (ext, flags)
     path = str(tmp_path / "frame.gif")
     cv2.imwrite(path, img)
+    for flags in FLAGS:
+        want, got = cv2.imread(path, flags), imageio.imread(path, flags)
+        assert got.dtype == want.dtype and np.array_equal(got, want), flags
+    path = str(tmp_path / "frame.bin")  # bytes of no image format
+    with open(path, "wb") as f:
+        f.write(b"\x00\x01\x02\x03" * 8)
     with pytest.raises(ValueError, match="not an image format the port reads"):
         imageio.imread(path)
 
@@ -328,7 +339,24 @@ def _pair_bodies():
         "pam": cv2.imencode(".pam", pair)[1].tobytes(),
         "webp": cv2.imencode(".webp", pair, [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes(),
         "webp_lossless": cv2.imencode(".webp", pair, [cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes(),
+        "gif": cv2.imencode(".gif", pair)[1].tobytes(),
+        "apng": write_apng([(pair, 0, 0), (pair[:16, :24], 8, 4)]),
+        "apng_default": write_apng([(pair[::-1], 0, 0), (pair[:16, :24], 8, 4)], default=pair),
+        "png_rgba16": imageio.encode_png(np.dstack([pair, pair[:, :, :1]]).astype(np.uint16)
+                                         * 255 + 255),
+        "png_palette4": _palette4_png(pair),
     }
+
+
+def _palette4_png(bgr) -> bytes:
+    """A 4-bit palette PNG of 16 colours, each pixel's the one its grey
+    level falls in."""
+    from tests.test_torch_png_depths import chunk, png
+
+    rng = np.random.RandomState(23)
+    idx = (bgr.astype(np.int32).sum(2) * 16 // 766).astype(np.uint8)
+    plte = chunk(b"PLTE", rng.randint(0, 256, 48).astype(np.uint8).tobytes())
+    return png(bgr.shape[1], bgr.shape[0], 4, 3, idx[:, :, None], rng, 0, plte)
 
 
 @pytest.mark.parametrize("fmt", sorted(_pair_bodies()[1]))
@@ -368,7 +396,8 @@ def test_server_answers_each_format_as_the_png_of_its_pixels():
             return r.read()
 
     try:
-        for fmt in ("bmp", "tiff_lzw", "hdr", "webp", "webp_lossless"):
+        for fmt in ("bmp", "tiff_lzw", "hdr", "webp", "webp_lossless", "gif", "apng",
+                    "apng_default", "png_rgba16", "png_palette4"):
             png = imageio.encode_png(imageio.imdecode(bodies[fmt]))
             assert post(bodies[fmt]) == post(png), fmt
         avif = cv2.imencode(".avif", _image(16, 16, 6))[1].tobytes()

@@ -156,8 +156,9 @@ def test_imread_reads_jpg(tmp_path):
     path.write_bytes(data)
     for flags in FLAGS:
         assert np.array_equal(imageio.imread(str(path), flags), cv2.imread(str(path), flags))
-    other = tmp_path / "frame.gif"  # a format the port does not read
-    cv2.imwrite(str(other), img)
+    other = tmp_path / "frame.bin"  # bytes of no image format
+    other.write_bytes(b"\x00\x01\x02\x03" * 8)
+    assert cv2.imread(str(other)) is None
     with pytest.raises(ValueError, match="not an image format the port reads"):
         imageio.imread(str(other))
     assert imageio.imread(str(tmp_path / "missing.jpg")) is None

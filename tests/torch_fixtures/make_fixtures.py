@@ -72,6 +72,12 @@ is made from a seed.
   gAMA, sRGB and cHRM chunks (libpng's gamma grey reads), grey-and-alpha
   TIFF tiles and a Predictor 2 TIFF without compression, with cv2's
   digests (or the port's raise).
+* ``png/<name>.png`` (``python tests/torch_fixtures/make_fixtures.py
+  png_gif``): PNGs at every depth libpng reads, ``tRNS``, ``eXIf`` and
+  APNGs (``png_depth_files``); ``gif/<name>.gif``: PIL's, cv2's and
+  ``chip_smoke.write_gif``'s GIFs and bodies cv2 refuses (``gif_files``);
+  each directory's ``expected.json``: the SHA-256 of cv2's decode of each
+  under each flag ("none" where it gives none, or the port's refusal).
 """
 
 import hashlib
@@ -1187,6 +1193,153 @@ def png_fixtures(out: str) -> None:
         imageio.imwrite(os.path.join(out, f"adam7_ct{ctype}_cv2.png"), want)
 
 
+def png_depth_files() -> dict:
+    """``png/``: every colour type and depth libpng reads besides Adam7's
+    8-bit files (grey at 1, 2, 4 and 16 bits, palettes at 1, 2 and 4,
+    grey-and-alpha and RGBA at 16, interlaced at 1 and 16 bits), ``tRNS``
+    on RGB at 8 and 16 bits and on a 4-bit palette, ``eXIf`` orientations
+    (before and after IDAT, of type LONG), a tRNS failing its CRC, and APNGs
+    (chip_smoke's, PIL's with a default image, a 16-bit RGBA IDAT frame
+    smaller than its canvas, an interlaced palette with tRNS, one whose
+    next frame control is past the canvas and one cut after IDAT, which cv2
+    gives None for, and a grey one, which the port refuses): {name: (bytes,
+    the port's refusal or None)}."""
+    from chip_smoke import write_apng
+    from tests.test_torch_png_depths import _exif, apng, chunk, png, samples
+
+    rng = np.random.RandomState(SEED + 25)
+    h, w = 24, 32
+    files = {}
+
+    def plain(name, ctype, depth, interlace=0, pre=b"", post=b"", top=None):
+        files[name] = (png(w, h, depth, ctype, samples(rng, h, w, ctype, depth, top), rng,
+                           interlace, pre, post), None)
+
+    for depth in (1, 2, 4, 16):
+        plain(f"grey{depth}.png", 0, depth)
+    plain("grey1_adam7.png", 0, 1, interlace=1)
+    for depth in (1, 2, 4):
+        n = 1 << depth
+        plain(f"palette{depth}.png", 3, depth,
+              pre=chunk(b"PLTE", rng.randint(0, 256, 3 * n).astype(np.uint8).tobytes()))
+    plain("palette4_trns.png", 3, 4, pre=chunk(b"PLTE", rng.randint(0, 256, 42).astype(
+        np.uint8).tobytes()) + chunk(b"tRNS", bytes([0, 64, 128, 200, 255])), top=14)
+    plain("grey_alpha16.png", 4, 16)
+    plain("rgba16.png", 6, 16)
+    plain("rgba16_adam7.png", 6, 16, interlace=1)
+    for depth in (8, 16):
+        s = samples(rng, h, w, 2, depth)
+        s[rng.rand(h, w) < 0.3] = s[0, 0]
+        files[f"rgb{depth}_trns.png"] = (png(w, h, depth, 2, s, rng, 0, chunk(
+            b"tRNS", struct.pack(">HHH", *(int(v) for v in s[0, 0]))), b""), None)
+    trns = chunk(b"tRNS", struct.pack(">HHH", 1, 2, 3))
+    plain("rgb8_trns_bad_crc.png", 2, 8, pre=trns[:-1] + bytes([trns[-1] ^ 1]))
+    plain("exif_orient6.png", 2, 8, pre=chunk(b"eXIf", _exif(6)))
+    plain("exif_orient3_after_idat.png", 2, 8, post=chunk(b"eXIf", _exif(3, ">")))
+    plain("exif_orient8_long.png", 6, 16, pre=chunk(b"eXIf", _exif(8, "<", 4)))
+    a, b = (smooth(rng, h, w, 3, blur=2) for _ in range(2))
+    files["apng_idat_frame.png"] = (write_apng([(a, 0, 0), (b[:9, :7], 5, 3)]), None)
+    files["apng_default_image.png"] = (write_apng([(b[:15, :20], 7, 4), (a, 0, 0)], default=a),
+                                       None)
+    pil = io.BytesIO()
+    frames = [Image.fromarray(x[:, :, ::-1]) for x in (a, b, a[::-1])]
+    frames[0].save(pil, "PNG", save_all=True, append_images=frames[1:], default_image=True)
+    files["apng_pil_default_image.png"] = (pil.getvalue(), None)
+    s16 = [samples(rng, 17, 21, 6, 16), samples(rng, 5, 6, 6, 16)]
+    idat16 = apng((w, h, 16, 6), [(samples(rng, h, w, 6, 16), 0, 0, 0, 1), (s16[1], 1, 1, 0, 0)],
+                  rng)
+    files["apng_rgba16_small_idat_frame.png"] = (idat16.replace(
+        chunk(b"fcTL", struct.pack(">IIIIIHHBB", 0, w, h, 0, 0, 1, 10, 0, 1)),
+        chunk(b"fcTL", struct.pack(">IIIIIHHBB", 0, 21, 17, 9, 5, 1, 10, 0, 1))), None)
+    pal = chunk(b"PLTE", rng.randint(0, 256, 48).astype(np.uint8).tobytes()) \
+        + chunk(b"tRNS", bytes([0, 100, 255, 7]))
+    files["apng_palette4_trns_adam7.png"] = (apng(
+        (w, h, 4, 3), [(samples(rng, h, w, 3, 4), 0, 0, 1, 0), (samples(rng, 4, 4, 3, 4), 0, 0,
+                                                               0, 0)],
+        rng, extra=pal, interlace=1), None)
+    good = files["apng_idat_frame.png"][0]
+    next_fctl = good.index(b"fcTL", good.index(b"IDAT")) - 4
+    past = chunk(b"fcTL", struct.pack(">IIIIIHHBB", 1, 7, 9, 30, 3, 1, 10, 0, 0))
+    files["apng_bad_next_fctl.png"] = (good[:next_fctl] + past + good[next_fctl + 38:], None)
+    files["apng_cut_after_idat.png"] = (good[:next_fctl], None)
+    files["apng_grey.png"] = (apng((w, h, 8, 0), [(samples(rng, h, w, 0, 8), 0, 0, 0, 0)] * 2,
+                                   rng), "APNG of grey samples")
+    return files
+
+
+def gif_files() -> dict:
+    """``gif/``: PIL's GIFs (plain, interlaced, transparent, animated with
+    a transparent index, 1-bit, grey), cv2's, ``chip_smoke.write_gif``'s
+    (a small image at an offset on a larger screen with a background and a
+    local table over the global one; GIF87a), a transparent index used only
+    in a later frame's Graphic Control Extension (BGRA from cv2), and bodies
+    cv2 reads no image from (a disposal method of 4, a truncated file, no
+    trailer): {name: (bytes, None)}."""
+    from chip_smoke import write_gif
+
+    rng = np.random.RandomState(SEED + 26)
+    h, w = 24, 40
+    img = smooth(rng, h, w, 3, blur=3)
+    files = {}
+
+    def pil(name, im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "GIF", **kw)
+        files[name] = (buf.getvalue(), None)
+
+    rgb = Image.fromarray(img[:, :, ::-1])
+    pil("pil_plain.gif", rgb)
+    pil("pil_interlaced.gif", rgb, interlace=True)
+    p = rgb.convert("P")
+    pil("pil_transparent.gif", p, transparency=int(np.array(p)[3, 5]))
+    frames = [Image.fromarray(smooth(rng, h, w, 3, blur=3)).convert("P") for _ in range(3)]
+    pil("pil_animated.gif", frames[0], save_all=True, append_images=frames[1:], duration=40,
+        loop=0, transparency=int(np.array(frames[0])[0, 0]), disposal=2)
+    pil("pil_1bit.gif", Image.fromarray(((img[:, :, 1] > 128) * 255).astype(np.uint8)).convert("1"))
+    pil("pil_grey.gif", Image.fromarray(img[:, :, 1]))
+    files["cv2.gif"] = (cv2.imencode(".gif", img)[1].tobytes(), None)
+    palette = rng.randint(0, 256, (16, 3)).astype(np.uint8)
+    idx = rng.randint(0, 16, (11, 13)).astype(np.uint8)
+    files["screen_offset_local_table.gif"] = (write_gif(
+        idx, palette, screen=(w, h), at=(9, 6), local=rng.randint(0, 256, (4, 3)).astype(
+            np.uint8), bg=5, min_code=4), None)
+    files["screen_transparent_interlaced.gif"] = (write_gif(
+        idx, palette, screen=(20, 16), at=(3, 2), transparent=int(idx[0, 0]), bg=2,
+        interlace=True, min_code=4), None)
+    files["gif87a.gif"] = (write_gif(idx, palette, min_code=4, version=b"GIF87a"), None)
+    two = write_gif(idx, palette, min_code=4)
+    later = write_gif(idx, palette, transparent=int(idx[1, 1]), min_code=4)
+    files["transparent_in_later_frame.gif"] = (two[:-1] + later[13 + 48:], None)
+    bad = write_gif(idx, palette, transparent=3, min_code=4)
+    gce = bad.index(b"\x21\xf9\x04") + 3
+    files["bad_disposal4.gif"] = (bad[:gce] + bytes([bad[gce] | 0x10]) + bad[gce + 1:], None)
+    files["truncated.gif"] = (two[:len(two) // 2], None)
+    files["no_trailer.gif"] = (two[:-1], None)
+    return files
+
+
+def _sha_fixtures(out: str, files: dict) -> None:
+    """Each file of ``files`` and the SHA-256 of cv2's decode under each
+    flag ("none" where it gives none, the port's refusal where cv2's output
+    is undefined, without asking cv2) in ``expected.json``."""
+    os.makedirs(out, exist_ok=True)
+    expected = {}
+    for name, (data, raises) in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        entry = {}
+        for flags in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE, cv2.IMREAD_UNCHANGED):
+            if raises:
+                entry[str(flags)] = "raises: " + raises
+                continue
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+            entry[str(flags)] = "none" if want is None else digest(want)
+        expected[name] = entry
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def magma_fixtures(out: str) -> None:
     from unopticalflow_tpu.utils.visualizer import VisualizerDebug
 
@@ -1298,6 +1451,10 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["webp"]:  # the WebP fixtures only
         webp_fixtures(os.path.join(HERE, "webp"))
         sys.exit(0)
+    if sys.argv[1:] == ["png_gif"]:  # the PNG depth, APNG and GIF fixtures only
+        _sha_fixtures(os.path.join(HERE, "png"), png_depth_files())
+        _sha_fixtures(os.path.join(HERE, "gif"), gif_files())
+        sys.exit(0)
     if sys.argv[1:] == ["jpeg2000"]:  # the JPEG 2000 and grey-read fixtures only
         jpeg2000_fixtures(os.path.join(HERE, "jpeg2000"))
         grey_fixtures(os.path.join(HERE, "grey"))
@@ -1312,3 +1469,5 @@ if __name__ == "__main__":
     webp_fixtures(os.path.join(HERE, "webp"))
     jpeg2000_fixtures(os.path.join(HERE, "jpeg2000"))
     grey_fixtures(os.path.join(HERE, "grey"))
+    _sha_fixtures(os.path.join(HERE, "png"), png_depth_files())
+    _sha_fixtures(os.path.join(HERE, "gif"), gif_files())

@@ -8,8 +8,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
 and the host code of ``csrc/<name>.c`` (``utils/imageio.py``'s PNG row
 unfiltering and resize, its JPEG decoder and encoder, the BMP and HDR
 run-length loops of ``utils/rasters.py``, the TIFF PackBits and LZW of
-``utils/tiff.py`` and the WebP codecs of ``utils/webp.py``) with the host's
-C compiler, ``cc -O2 -shared -fPIC``, on every machine, at first use, into
+``utils/tiff.py``, the GIF LZW of ``utils/gif.py`` and the WebP codecs of
+``utils/webp.py``) with the host's C compiler, ``cc -O2 -shared -fPIC``, on
+every machine, at first use, into
 ``build/kernels/`` at the repository root, under a name keyed on a hash of
 the source, so an edited source is rebuilt and an unchanged one is not.  ``build_all`` starts one ``nvcc`` per source, all at
 once.  Nothing is built or loaded at import time, so the port imports on a
@@ -29,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("correlation", "photometric", "regularizer", "gather")
-HOST_SOURCES = ("imageio", "jpeg", "jpeg2000", "jpeg_enc", "rle", "tiff", "webp")
+HOST_SOURCES = ("gif", "imageio", "jpeg", "jpeg2000", "jpeg_enc", "rle", "tiff", "webp")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's report (registers, shared memory, spills per kernel) of each source

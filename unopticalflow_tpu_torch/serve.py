@@ -22,11 +22,13 @@ Same behaviour and HTTP API as the JAX package's root ``serve.py``:
 The HTTP layer (``make_handler``: ``GET /healthz``, ``GET /stats``, ``POST
 /flow`` with an image of the vertically stacked pair, answered with
 Middlebury ``.flo`` bytes) is the port's copy of the root ``serve.py``'s; it
-decodes PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF, WebP
-and JPEG 2000 (JP2 and J2K) bodies with the port's own readers
-(``utils/imageio.py``), as ``cv2.imdecode`` decodes them, without opencv; a
-body they refuse (AVIF, a lossless, arithmetic-coded or truncated JPEG, a
-corrupt TIFF, WebP or JPEG 2000) gets a 400 that names why.  ``main`` reads the yaml, so ``FlowServer`` itself needs only torch
+decodes PNG (every bit depth and colour type, ``tRNS``, an Exif
+orientation, an APNG's first frame), JPEG, BMP, PNM/PAM/PFM, Sun raster,
+Radiance HDR, TIFF, WebP, JPEG 2000 (JP2 and J2K) and GIF bodies with the
+port's own readers (``utils/imageio.py``), as ``cv2.imdecode`` decodes them,
+without opencv; a body they refuse (AVIF, a lossless, arithmetic-coded or
+truncated JPEG, a corrupt PNG, TIFF, WebP or JPEG 2000), and one cv2 reads
+no image from (a corrupt APNG or GIF), gets a 400 that names why.  ``main`` reads the yaml, so ``FlowServer`` itself needs only torch
 and numpy.
 
 Usage:

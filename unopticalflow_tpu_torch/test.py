@@ -23,7 +23,11 @@ correlation kernels per batch); the metrics are
 ``--sintel_dir``).  ``demo`` writes ``<result_dir>/demo_flow.png``, the
 colour wheel of one pair's flow; ``export_pth`` writes the weights as the
 reference's ``{"iteration", "model_state_dict"}``.  Frames are read and
-resized by ``utils/imageio.py`` (PNG or JPEG, as cv2 reads and resizes them).
+resized by ``utils/imageio.py``, as cv2 reads and resizes them: PNG at every
+bit depth (with ``tRNS``, an Exif orientation, and an APNG's first frame),
+JPEG, BMP, PNM, Sun raster, HDR, TIFF, WebP, JPEG 2000 and GIF; ``kitti_odo``
+lists a sequence's ``.png`` and ``.jpg`` frames only, as the JAX package's
+``test.py`` lists them.
 ``test_kitti_2012``/``test_kitti_2015`` are also the trainer's interleaved
 evaluation.
 """

@@ -3,36 +3,46 @@
 The port reads frames, request bodies and KITTI ground truth with its own
 codecs, each written to give what cv2 gives (and PIL, for the JPEG it
 writes), so the entry points read and write the same data on every
-machine, with or without opencv: PNG (``zlib``, numpy, and the row
+machine, with or without opencv: PNG and APNG (``zlib``, numpy, and the row
 unfiltering of ``csrc/imageio.c``), JPEG (the decoder of ``csrc/jpeg.c``
 and the encoder of ``csrc/jpeg_enc.c``), and BMP, PNM/PAM/PFM, Sun raster
 and Radiance HDR (``utils/rasters.py``), TIFF (``utils/tiff.py``), WebP
-(``utils/webp.py``, its codecs in ``csrc/webp.c``) and JPEG 2000
-(``utils/jpeg2000.py``, its codestream decoder in ``csrc/jpeg2000.c``).  It
-resizes with its own copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in
-numpy, the sums in ``csrc/imageio.c``; float32: numpy).  Nothing here
-imports cv2 or PIL.
+(``utils/webp.py``, its codecs in ``csrc/webp.c``), JPEG 2000
+(``utils/jpeg2000.py``, its codestream decoder in ``csrc/jpeg2000.c``) and
+GIF (``utils/gif.py``, its LZW in ``csrc/gif.c``).  It resizes with its own
+copy of OpenCV's ``INTER_LINEAR`` (uint8: the taps in numpy, the sums in
+``csrc/imageio.c``; float32: numpy).  Nothing here imports cv2 or PIL.
 
 * ``imdecode(data, flags)`` and ``imread(path, flags)`` as cv2's: the
   format from the first bytes, as cv2 tells them apart.  An AVIF body
   raises ``ValueError`` naming the format as one the port does not read
   yet; bytes of no format the port knows give None (and ``imread`` raises,
   naming the formats it reads).
-* ``decode_png(data, flags)`` as ``cv2.imdecode``: ``IMREAD_COLOR`` gives BGR
-  uint8 (H, W, 3) (16-bit samples keep their high byte, alpha is dropped,
-  grey is repeated); ``IMREAD_UNCHANGED`` (-1) the file's own channels in
-  BGR(A) order, uint8 or uint16, grey as (H, W), a palette expanded to BGR
-  (BGRA with a ``tRNS`` chunk); ``IMREAD_GRAYSCALE`` (0) (H, W) uint8, a
-  colour or palette file converted as libpng converts it for cv2 (alpha
-  dropped, (9797 R + 19234 G + 3737 B) >> 15, on 16-bit samples rounded
-  before the high byte is kept).  Colour types 0, 2, 3, 4 and 6 at 8 bits
-  and 0 and 2 at 16 bits; all five row filters; plain and interlaced
-  (Adam7) files.  A grey read of a colour file whose gamma (``gAMA``, or
-  sRGB's for an ``sRGB`` chunk) is not within 5% of 1.0 goes through
-  libpng's gamma tables in linear light, as libpng converts it for cv2
-  (``_grey_gamma``); ``cHRM`` and ``iCCP`` leave it plain, except an
-  ``iCCP`` profile as long as one libpng knows as sRGB by its checksum,
-  which raises.
+* ``decode_png(data, flags)`` as ``cv2.imdecode`` (libpng 1.6):
+  ``IMREAD_COLOR`` gives BGR uint8 (H, W, 3) (16-bit samples keep their high
+  byte, alpha is dropped, grey is repeated); ``IMREAD_UNCHANGED`` (-1) the
+  file's own channels in BGR(A) order, uint8 or uint16, grey as (H, W),
+  grey and alpha as BGRA, a palette expanded to BGR, and BGRA for a palette
+  or RGB file with a ``tRNS`` chunk (alpha 0 where an RGB sample equals its
+  key); ``IMREAD_GRAYSCALE`` (0) (H, W) uint8, a colour or palette file
+  converted as libpng converts it for cv2 (alpha dropped, (9797 R + 19234 G
+  + 3737 B) >> 15, on 16-bit samples rounded before the high byte is kept).
+  Every colour type at every depth libpng reads: grey at 1, 2, 4, 8 and 16
+  bits (1, 2 and 4 scaled to 8 bits: 255, 85 and 17 a step), RGB, grey and
+  alpha and RGBA at 8 and 16, palettes at 1, 2, 4 and 8 (an index past the
+  palette is black); all five row filters; plain and interlaced (Adam7)
+  files.  A grey read of a colour file whose gamma (``gAMA``, or sRGB's for
+  an ``sRGB`` chunk) is not within 5% of 1.0 goes through libpng's gamma
+  tables in linear light, as libpng converts it for cv2 (``_grey_gamma``);
+  ``cHRM`` and ``iCCP`` leave it plain, except an ``iCCP`` profile as long
+  as one libpng knows as sRGB by its checksum, which raises.  The first
+  ``eXIf`` chunk's Orientation (before or after IDAT) turns the
+  ``IMREAD_COLOR`` and ``IMREAD_GRAYSCALE`` reads, as for JPEG.  An
+  ancillary chunk that fails its CRC is dropped, as libpng drops it; a
+  critical one, an unknown critical chunk, and a colour type and depth
+  libpng refuses (RGB at 4 bits, say) raise, where cv2 gives None.  An APNG
+  (an ``acTL`` of more than one frame) gives the animation's first frame as
+  cv2 5.0's own frame code gives it (``_apng``), None where cv2 gives None.
 * ``decode_jpeg(data, flags)`` as ``cv2.imdecode`` with libjpeg-turbo, bit
   for bit: sequential and progressive (Huffman, 8-bit) grey, YCbCr or CMYK
   (Adobe's inverted CMYK, as PIL writes it) files of any size and
@@ -75,6 +85,7 @@ IMREAD_COLOR = 1
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # libpng's
 # Adam7's passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
@@ -111,7 +122,7 @@ def imread(path: str, flags: int = IMREAD_COLOR):
     return img
 
 
-READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF, WebP, JPEG 2000"
+READS = "PNG, JPEG, BMP, PNM/PAM/PFM, Sun raster, Radiance HDR, TIFF, WebP, JPEG 2000, GIF"
 # formats cv2 reads that the port does not read yet: (name, test of the first bytes)
 _NOT_YET = (
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis")),
@@ -121,7 +132,7 @@ _NOT_YET = (
 def _decoder(data: bytes):
     """The decoder of the format ``data`` opens with (as cv2 tells formats
     apart), or None."""
-    from unopticalflow_tpu_torch.utils import jpeg2000, rasters, tiff, webp
+    from unopticalflow_tpu_torch.utils import gif, jpeg2000, rasters, tiff, webp
 
     if data.startswith(_PNG_MAGIC):
         return decode_png
@@ -147,6 +158,8 @@ def _decoder(data: bytes):
         return webp.decode_webp
     if jpeg2000.is_jpeg2000(data):
         return jpeg2000.decode_jpeg2000
+    if data[:6] in gif.SIGNATURES:
+        return gif.decode_gif
     return None
 
 
@@ -228,17 +241,23 @@ def read_ppm(path: str) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _chunks(data: bytes):
+def _png_chunks(data: bytes):
+    """A PNG's whole chunks as [(kind, body, crc_ok)] up to IEND, and
+    whether IEND came."""
     if not data.startswith(_PNG_MAGIC):
         raise ValueError("not a PNG file")
-    pos = len(_PNG_MAGIC)
+    chunks, pos = [], len(_PNG_MAGIC)
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos : pos + 8])
-        yield kind, data[pos + 8 : pos + 8 + n]
+        if pos + 12 + n > len(data):
+            break  # a chunk cut short: the file ends here
+        body = data[pos + 8 : pos + 8 + n]
+        crc = int.from_bytes(data[pos + 8 + n : pos + 12 + n], "big")
+        chunks.append((kind, body, zlib.crc32(body, zlib.crc32(kind)) == crc))
         pos += 12 + n
         if kind == b"IEND":
-            return
-    raise ValueError("truncated PNG file (no IEND chunk)")
+            return chunks, True
+    return chunks, False
 
 
 def _paeth(a, b, c):
@@ -278,67 +297,151 @@ def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """PNG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the module)."""
+class _Refused(ValueError):
+    """A PNG fault for which cv2 gives None: raised by the plain read, None
+    from an APNG's."""
+
+
+class _PngInfo:
+    """What a PNG's chunks say besides its pixels, as libpng keeps it:
+    ``palette`` (256 entries, zeros past the file's), ``alpha`` (the
+    palette's ``tRNS`` alphas, 255 past them) or ``key`` (a grey or RGB
+    ``tRNS`` sample), each None where the file has none libpng takes;
+    ``gamma``, ``srgb``, ``icc`` (read before PLTE and IDAT); ``orientation``
+    (the first ``eXIf`` chunk's, before or after IDAT)."""
+
+    def __init__(self, chunks, ctype: int, depth: int, apng: bool):
+        self.palette = self.alpha = self.key = self.gamma = self.icc = None
+        self.srgb, self.orientation, self.entries = False, None, 0
+        idat = False
+        for kind, body, ok in chunks[1:]:
+            if not kind.isalpha() or kind[2] & 0x20:
+                raise _Refused(f"PNG chunk type {kind!r} is not four letters, the third "
+                               "uppercase, which libpng refuses (cv2 gives None)")
+            if not kind[0] & 0x20 and kind not in (b"IHDR", b"PLTE", b"IDAT", b"IEND"):
+                raise _Refused(f"PNG critical chunk {kind!r} is unknown to libpng (cv2 gives "
+                               "None)")
+            # cv2 hands an APNG's frame chunks to libpng without their CRCs
+            if not ok and not (apng and kind in (b"IDAT", b"fdAT", b"fcTL", b"acTL")):
+                if kind[0] & 0x20 or kind == b"IEND":
+                    continue  # an ancillary chunk of a bad CRC: libpng drops it
+                raise _Refused(f"PNG {kind.decode('latin-1')} chunk fails its CRC, which "
+                               "libpng refuses (cv2 gives None)")
+            early = self.palette is None and not idat
+            if kind == b"IDAT":
+                idat = True
+            elif kind == b"PLTE" and self.palette is None and not idat:
+                if ctype == 3 and (not body or len(body) % 3 or len(body) > 768):
+                    raise ValueError(f"PNG palette of {len(body)} bytes, which libpng refuses")
+                self.palette = np.zeros((256, 3), np.uint8)
+                self.palette[:len(body) // 3] = np.frombuffer(body, np.uint8).reshape(-1, 3)
+                self.entries = len(body) // 3
+            elif kind == b"tRNS" and not idat and self.alpha is None and self.key is None:
+                if ctype == 3 and self.palette is not None and 0 < len(body) <= self.entries:
+                    self.alpha = np.full(256, 255, np.uint8)
+                    self.alpha[:len(body)] = np.frombuffer(body, np.uint8)
+                elif ctype in (0, 2) and len(body) == (2 if ctype == 0 else 6):
+                    key = np.frombuffer(body, ">u2").astype(np.uint16)
+                    # libpng compares the low byte with an 8-bit sample, the
+                    # low bits with a 1-, 2- or 4-bit one
+                    self.key = key & ((1 << depth) - 1)
+            elif kind == b"eXIf" and self.orientation is None:
+                self.orientation = _tiff_orientation(body)
+            elif kind == b"gAMA" and early and self.gamma is None and len(body) == 4:
+                self.gamma = struct.unpack(">I", body)[0]
+                if not 16 <= self.gamma <= 625000000:  # libpng ignores a gamma out of range
+                    self.gamma = None
+            elif kind == b"sRGB" and early and len(body) == 1:
+                self.srgb = True
+            elif kind == b"iCCP" and early and self.icc is None:
+                self.icc = body
+        if self.srgb:
+            self.gamma = _SRGB_GAMMA  # libpng's sRGB gamma, whatever gAMA says
+
+
+def _inflate(parts) -> np.ndarray:
+    """The first zlib stream of an image's data chunks (libpng ignores what
+    follows it)."""
+    try:
+        return np.frombuffer(zlib.decompressobj().decompress(b"".join(parts)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from None
+
+
+def decode_png(data: bytes, flags: int = IMREAD_COLOR):
+    """PNG bytes -> the array ``cv2.imdecode(data, flags)`` gives (see the
+    module); an APNG body cv2 gives None for gives None."""
     _check_flags(flags)
-    head, palette, trns, idat = None, None, None, []
-    gamma, srgb, icc = None, False, None  # read before PLTE and IDAT, as libpng reads them
-    for kind, body in _chunks(data):
-        early = palette is None and not idat
-        if kind == b"IHDR":
-            head = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
-            trns = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"gAMA" and early and gamma is None and len(body) == 4:
-            gamma = struct.unpack(">I", body)[0]
-            if not 16 <= gamma <= 625000000:  # libpng ignores a gamma out of range
-                gamma = None
-        elif kind == b"sRGB" and early and len(body) == 1:
-            srgb = True
-        elif kind == b"iCCP" and early and icc is None:
-            icc = body
-    if head is None:
+    chunks, ended = _png_chunks(data)
+    if not chunks or chunks[0][0] != b"IHDR" or len(chunks[0][1]) != 13:
         raise ValueError("PNG file without IHDR")
-    w, h, depth, ctype, _, _, interlace = head
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", chunks[0][1])
     if interlace > 1:
         raise ValueError(f"PNG interlace method {interlace} does not exist")
-    if ctype not in _CHANNELS or depth not in (8, 16) or (depth == 16 and ctype not in (0, 2)):
-        raise ValueError(f"PNG colour type {ctype} at {depth} bits is not supported")
-    if srgb:
-        gamma = _SRGB_GAMMA  # libpng's sRGB gamma, whatever gAMA says
-    elif flags == IMREAD_GRAYSCALE and ctype in (2, 3, 6) and icc is not None:
-        profile = _icc_length(icc)
+    if depth not in _DEPTHS.get(ctype, ()):
+        raise ValueError(f"PNG colour type {ctype} at {depth} bits, which libpng refuses "
+                         "(cv2 gives None)")
+    if not chunks[0][2]:
+        raise ValueError("PNG IHDR chunk fails its CRC, which libpng refuses (cv2 gives None)")
+    head = (w, h, depth, ctype, interlace)
+    frames = _actl_frames(chunks)
+    if frames == 0:
+        return None  # cv2 refuses an acTL of another length, or of no frames
+    if frames is not None and frames > 1:
+        try:
+            return _apng(chunks, head, flags)
+        except _Refused:
+            return None
+    info = _PngInfo(chunks, ctype, depth, apng=False)
+    if not ended:
+        raise ValueError("truncated PNG file (no IEND chunk)")
+    img = _png_plain(chunks, head, info, flags)
+    if flags == IMREAD_UNCHANGED or info.orientation is None:
+        return img
+    return _orient(img, info.orientation)
+
+
+def _actl_frames(chunks):
+    """The number of frames of the first ``acTL`` before IDAT (0 for one
+    of another length than 8 bytes), or None; cv2 checks no CRC here."""
+    for kind, body, _ in chunks:
+        if kind == b"IDAT":
+            break
+        if kind == b"acTL":
+            return struct.unpack(">I", body[:4])[0] if len(body) == 8 else 0
+    return None
+
+
+def _png_plain(chunks, head, info: _PngInfo, flags: int) -> np.ndarray:
+    """A PNG without an animation (or with a one-frame ``acTL``), as cv2
+    reads it through libpng's transformations."""
+    w, h, depth, ctype, interlace = head
+    if flags == IMREAD_GRAYSCALE and ctype in (2, 3, 6) and not info.srgb \
+            and info.icc is not None:
+        profile = _icc_length(info.icc)
         if profile in _LIBPNG_SRGB_PROFILE_LENGTHS:
             raise ValueError(f"IMREAD_GRAYSCALE of a colour PNG with an iCCP profile of {profile} "
                              "bytes, the length of an sRGB profile libpng recognises by its "
                              "checksum (and then converts with sRGB's gamma): not supported")
-    ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    px = _deinterlace(raw, w, h, bpp) if interlace else _passes(raw, w, h, bpp)
-    if depth == 16:
-        img = px.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    else:
-        img = px.reshape(h, w, ch)
-
+    if ctype == 3 and info.palette is None:
+        raise ValueError("palette PNG without PLTE")
+    img = _png_pixels([b for k, b, _ in chunks if k == b"IDAT"], w, h, ctype, depth, interlace)
+    if ctype == 0 and depth < 8:  # libpng's expansion to 8 bits: 1 -> 255, 3 -> 255 at 2 bits
+        img, depth = img * np.uint8(255 // ((1 << depth) - 1)), 8
     if ctype == 3:  # palette: expand, with alpha where tRNS gives it
-        if palette is None:
-            raise ValueError("palette PNG without PLTE")
         idx = img[:, :, 0]
-        rgb = palette[idx]
+        rgb = info.palette[idx]
         if flags == IMREAD_GRAYSCALE:
-            return _grey(rgb, 8, gamma)
-        if trns is not None and flags == IMREAD_UNCHANGED:
-            alpha = np.full(len(palette), 255, np.uint8)
-            alpha[: len(trns)] = np.frombuffer(trns, np.uint8)[: len(palette)]
-            return _channels(np.dstack([rgb, alpha[idx]]), [2, 1, 0, 3])
+            return _grey(rgb, 8, info.gamma)
+        if info.alpha is not None and flags == IMREAD_UNCHANGED:
+            return _channels(np.dstack([rgb, info.alpha[idx]]), [2, 1, 0, 3])
         return _channels(rgb, [2, 1, 0])
+    ch = img.shape[2]
     if flags == IMREAD_GRAYSCALE and ch >= 3:
-        return _grey(img, depth, gamma)
+        return _grey(img, depth, info.gamma)
+    if flags == IMREAD_UNCHANGED and ctype == 2 and info.key is not None:
+        alpha = np.where((img == info.key).all(axis=2), 0, (1 << depth) - 1)
+        return _channels(np.dstack([img, alpha.astype(img.dtype)]), [2, 1, 0, 3])
     if flags != IMREAD_UNCHANGED and depth == 16:
         img = (img >> 8).astype(np.uint8)
     if flags == IMREAD_GRAYSCALE:
@@ -350,35 +453,194 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     return _channels(img, {2: [0, 0, 0, 1], 3: [2, 1, 0], 4: [2, 1, 0, 3]}[ch])
 
 
-def _passes(raw: np.ndarray, w: int, h: int, bpp: int) -> np.ndarray:
-    """A plain PNG's inflated data -> its (h, w * bpp) unfiltered bytes."""
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"PNG data holds {raw.size} bytes, expected {h * (1 + w * bpp)}")
-    return _unfilter(raw.reshape(h, 1 + w * bpp), h, w * bpp, bpp)
-
-
-def _deinterlace(raw: np.ndarray, w: int, h: int, bpp: int) -> np.ndarray:
-    """An Adam7 PNG's inflated data -> its (h, w * bpp) unfiltered bytes.
-
-    Each of the seven passes is a small image of its own, filtered over its
-    own rows (the first row's "previous row" is zeros); a pass with no
-    column or no row has no bytes, not even filter bytes."""
-    out = np.empty((h, w, bpp), np.uint8)
+def _png_pixels(parts, w: int, h: int, ctype: int, depth: int, interlace: int) -> np.ndarray:
+    """An image's zlib data -> its (h, w, samples) samples: uint8 (1-, 2-
+    and 4-bit samples unpacked, not scaled) or uint16."""
+    raw = _inflate(parts)
+    ch = _CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)  # the filters' byte distance
+    if not interlace:
+        row = (w * ch * depth + 7) // 8
+        if raw.size != h * (1 + row):
+            raise ValueError(f"PNG data holds {raw.size} bytes, expected {h * (1 + row)}")
+        return _samples(_unfilter(raw.reshape(h, 1 + row), h, row, bpp), w, ch, depth)
+    # Adam7: each of the seven passes is a small image of its own, filtered
+    # over its own rows (the first row's "previous row" is zeros); a pass
+    # with no column or no row has no bytes, not even filter bytes
+    out = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
     pos = 0
     for x0, y0, dx, dy in _ADAM7:
         pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
         if pw == 0 or ph == 0:
             continue
-        n = ph * (1 + pw * bpp)
+        row = (pw * ch * depth + 7) // 8
+        n = ph * (1 + row)
         if pos + n > raw.size:
             raise ValueError(f"interlaced PNG data holds {raw.size} bytes, fewer than its "
                              "passes need")
-        rows = _unfilter(raw[pos:pos + n].reshape(ph, 1 + pw * bpp), ph, pw * bpp, bpp)
-        out[y0::dy, x0::dx] = rows.reshape(ph, pw, bpp)
+        rows = _unfilter(raw[pos:pos + n].reshape(ph, 1 + row), ph, row, bpp)
+        out[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
         pos += n
     if pos != raw.size:
         raise ValueError(f"interlaced PNG data holds {raw.size} bytes, expected {pos}")
-    return out.reshape(h, w * bpp)
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """(h, row_bytes) unfiltered bytes -> (h, w, ch) samples."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # the first sample is the high bits
+    s = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return np.ascontiguousarray(s.reshape(h, -1)[:, :w]).reshape(h, w, 1)
+
+
+def _apng(chunks, head, flags: int):
+    """An animated PNG (an ``acTL`` of more than one frame before IDAT) as
+    cv2 5.0 reads it through its own frame code: the animation's first
+    frame, copied onto a canvas of zeros (RGBA at the file's depth) at its
+    ``fcTL`` offset, whatever its blend op; an IDAT before any ``fcTL`` is
+    a default image outside the animation, skipped.  The frame's data is
+    the first zlib stream of the IDAT and fdAT chunks after its ``fcTL``; it
+    ends at the next ``fcTL`` or at IEND.  A file that ends before either,
+    an ``fcTL`` past the canvas or of an unknown dispose or blend op up to
+    there, an IDAT row of no filter type, and a fault libpng refuses
+    (``_Refused``) in the chunks cv2 hands it up to there (between a
+    default image and the first ``fcTL``, only a critical chunk) give None,
+    as from cv2; the frame chunks' CRCs and sequence numbers are not
+    checked.
+    ``IMREAD_COLOR`` gives the canvas as BGR (16-bit samples v as
+    round(v / 255), saturated), ``IMREAD_GRAYSCALE`` that through
+    ``cvtColor``'s BGR -> GRAY, ``IMREAD_UNCHANGED`` the channels libpng's
+    plain read gives (BGR, or BGRA for an alpha channel or ``tRNS``) at the
+    file's depth.  No Exif orientation is applied.  A grey (colour type 0)
+    APNG raises: cv2 overruns a buffer on it."""
+    w, h, depth, ctype, interlace = head
+    if ctype == 0:
+        raise ValueError("APNG of grey samples (colour type 0): cv2 5.0 writes such a frame's "
+                         "expanded rows past the end of its buffer, so its output is undefined")
+    frame, parts, in_idat, seen_idat, handed = None, [], False, False, []
+    for kind, body, ok in chunks:
+        if frame is not None or not seen_idat or kind == b"IDAT":
+            handed.append((kind, body, ok))
+        elif not kind[0] & 0x20 and kind != b"IEND":
+            return None  # after a default image cv2 passes over all but critical chunks
+        if kind == b"fcTL":
+            fc = _fctl(body, w, h)
+            if fc is None:
+                return None
+            if parts:
+                break  # the next frame's control ends the first frame
+            if frame is not None:
+                raise ValueError("APNG: two fcTL chunks before the first frame's data, where "
+                                 "cv2's frame is undefined")
+            frame, in_idat = fc, not seen_idat
+        elif kind == b"IDAT":
+            seen_idat = True
+            if frame is not None:  # else the default image, outside the animation
+                parts.append(body)
+        elif kind == b"fdAT" and frame is not None:
+            parts.append(body[4:])  # after the sequence number
+        elif kind == b"IEND":
+            break
+    else:
+        return None  # the file ends before the first frame does
+    idat = [body for kind, body, _ in chunks if kind == b"IDAT"]
+    if not idat or not _filters_known(idat, w, h, ctype, depth, interlace):
+        return None  # libpng refuses a file without IDAT, or an IDAT row of no filter
+    info = _PngInfo(handed, ctype, depth, apng=True)  # what libpng reads of the file
+    if ctype == 3 and info.palette is None:
+        raise ValueError("palette PNG without PLTE")
+    canvas = np.zeros((h, w, 4), np.uint16 if depth == 16 else np.uint8)
+    if frame is not None:
+        fw, fh, x0, y0 = frame
+        if not parts:
+            raise ValueError("APNG: a first frame without data, where cv2's frame is undefined")
+        try:  # an IDAT frame is decoded at the IHDR's size, its top left placed
+            px = _png_pixels(parts, *((w, h) if in_idat else (fw, fh)), ctype, depth, interlace)
+        except ValueError as e:
+            raise ValueError(f"APNG: the first frame's data is corrupt ({e}); cv2 returns the "
+                             "rows libpng decoded before the fault, uninitialised rows or "
+                             "crashes: undefined") from None
+        canvas[y0:y0 + fh, x0:x0 + fw] = _png_rgba(px, ctype, depth, info)[:fh, :fw]
+    if flags == IMREAD_UNCHANGED:
+        alpha = ctype in (4, 6) or info.alpha is not None or info.key is not None
+        return _channels(canvas, [2, 1, 0, 3] if alpha else [2, 1, 0])
+    bgr = _channels(canvas, [2, 1, 0])
+    if depth == 16:
+        bgr = np.minimum(np.rint(bgr.astype(np.float32) * np.float32(1 / 255)), 255).astype(
+            np.uint8)
+    return _cvt_grey(bgr) if flags == IMREAD_GRAYSCALE else bgr
+
+
+def _filters_known(parts, w: int, h: int, ctype: int, depth: int, interlace: int) -> bool:
+    """Whether every row libpng unfilters of an IDAT image (a default
+    image or an IDAT frame) has a filter type below 5.  From data that
+    fails to inflate, libpng unfilters the whole rows before the one its
+    failing inflate call was filling (the last whole row when the fault
+    comes at a row's end, as a bad checksum does)."""
+    try:
+        raw, faulty = _inflate(parts), False
+    except ValueError:  # the output up to the fault, a byte at a time
+        data, d, out, faulty = b"".join(parts), zlib.decompressobj(), [], True
+        try:
+            for k in range(len(data)):
+                out.append(d.decompress(data[k:k + 1]))
+        except zlib.error:
+            pass
+        raw = np.frombuffer(b"".join(out), np.uint8)
+    ch = _CHANNELS[ctype]
+    starts = []  # each row's first byte, in the order libpng reads them
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw and ph:
+            row = 1 + (pw * ch * depth + 7) // 8
+            starts.append(pos + row * np.arange(ph))
+            pos += row * ph
+    starts = np.concatenate(starts)
+    ends = np.append(starts[1:], pos)
+    whole = int(np.searchsorted(ends, raw.size, side="right"))  # rows whole in raw
+    if faulty:
+        whole = max(0, int(np.searchsorted(ends, raw.size, side="left")))  # not the one filling
+    return whole == 0 or raw[starts[:whole]].max() <= 4
+
+
+def _fctl(body: bytes, w: int, h: int):
+    """An ``fcTL``'s (width, height, x, y), or None where cv2
+    refuses it (another length, a frame past the canvas, an unknown dispose
+    or blend op); a frame of no pixels raises."""
+    if len(body) != 26:
+        return None
+    fw, fh, x0, y0 = struct.unpack(">IIII", body[4:20])
+    dispose, blend = body[24], body[25]
+    if x0 + fw > w or y0 + fh > h or dispose > 2 or blend > 1:
+        return None
+    if fw == 0 or fh == 0:
+        raise ValueError("APNG: a frame of no pixels, where cv2's frame is undefined")
+    return fw, fh, x0, y0
+
+
+def _png_rgba(img: np.ndarray, ctype: int, depth: int, info: _PngInfo) -> np.ndarray:
+    """(h, w, samples) of colour type 2, 3, 4 or 6 -> (h, w, 4) RGBA at the
+    file's depth (8 bits for a palette), as libpng expands a frame for
+    cv2: a palette looked up, grey repeated, alpha from the file's channel
+    or ``tRNS`` (0 where an RGB sample equals the key), else opaque."""
+    if ctype == 3:
+        idx = img[:, :, 0]
+        alpha = info.alpha[idx] if info.alpha is not None else np.full(idx.shape, 255, np.uint8)
+        return np.dstack([info.palette[idx], alpha])
+    colour = img[:, :, :3] if ctype != 4 else img[:, :, [0, 0, 0]]
+    if ctype in (4, 6):
+        alpha = img[:, :, -1]
+    elif info.key is not None:
+        alpha = np.where((img == info.key).all(axis=2), 0, (1 << depth) - 1).astype(img.dtype)
+    else:
+        alpha = np.full(img.shape[:2], (1 << depth) - 1, img.dtype)
+    return np.dstack([colour, alpha])
 
 
 def _grey(rgb: np.ndarray, depth: int, gamma=None) -> np.ndarray:
@@ -396,6 +658,13 @@ def _grey(rgb: np.ndarray, depth: int, gamma=None) -> np.ndarray:
     if depth == 16:
         return ((y + 16384) >> 23).astype(np.uint8)
     return (y >> 15).astype(np.uint8)
+
+
+def _cvt_grey(bgr: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(bgr, COLOR_BGR2GRAY)`` of uint8 BGR(A), alpha ignored:
+    its 15-bit weights, rounded (not libpng's conversion, ``_grey``)."""
+    b, g, r = (bgr[..., k].astype(np.int32) for k in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15).astype(np.uint8)
 
 
 # libpng's gamma arithmetic (png.c, with floating point): gammas in units of
@@ -568,7 +837,7 @@ def _jpeg_lib():
 
 
 def _exif_orientation(data: bytes) -> int:
-    """The ``Orientation`` tag (1-8) of the first Exif APP1 segment, else 1."""
+    """The ``Orientation`` tag of a JPEG's first Exif APP1 segment, else 1."""
     pos = 2
     while pos + 4 <= len(data) and data[pos] == 0xFF:
         kind, n = data[pos + 1], int.from_bytes(data[pos + 2:pos + 4], "big")
@@ -576,24 +845,27 @@ def _exif_orientation(data: bytes) -> int:
             break
         body = data[pos + 4:pos + 2 + n]
         pos += 2 + n
-        if kind != 0xE1 or not body.startswith(b"Exif\0\0"):
-            continue
-        tiff = body[6:]
-        order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
-        if order is None or len(tiff) < 8:
-            return 1
-        ifd = struct.unpack(order + "I", tiff[4:8])[0]
-        if ifd + 2 > len(tiff):
-            return 1
-        count = struct.unpack(order + "H", tiff[ifd:ifd + 2])[0]
-        for k in range(count):
-            e = ifd + 2 + 12 * k
-            if e + 12 > len(tiff):
-                break
-            tag, kind_, _ = struct.unpack(order + "HHI", tiff[e:e + 8])
-            if tag == 0x0112 and kind_ == 3:  # Orientation, SHORT
-                return struct.unpack(order + "H", tiff[e + 8:e + 10])[0]
+        if kind == 0xE1 and body.startswith(b"Exif\0\0"):
+            return _tiff_orientation(body[6:])
+    return 1
+
+
+def _tiff_orientation(tiff: bytes) -> int:
+    """cv2's ``Orientation`` of an Exif TIFF structure (a JPEG's APP1 after
+    its "Exif" prefix, a PNG's ``eXIf`` chunk, a WebP's ``EXIF`` chunk): tag
+    0x0112's first 16 bits in the first IFD, whatever its type; 1 when
+    there is none or the header is not TIFF's."""
+    order = {b"II": "little", b"MM": "big"}.get(tiff[:2])
+    if order is None or len(tiff) < 8 or int.from_bytes(tiff[2:4], order) != 42:
         return 1
+    ifd = int.from_bytes(tiff[4:8], order)
+    count = int.from_bytes(tiff[ifd:ifd + 2], order)
+    for k in range(count):
+        e = ifd + 2 + 12 * k
+        if e + 10 > len(tiff):
+            break
+        if int.from_bytes(tiff[e:e + 2], order) == 0x0112:
+            return int.from_bytes(tiff[e + 8:e + 10], order)
     return 1
 
 

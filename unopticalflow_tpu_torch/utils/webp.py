@@ -32,7 +32,7 @@ import numpy as np
 
 from unopticalflow_tpu_torch.utils.imageio import (IMREAD_COLOR, IMREAD_GRAYSCALE,
                                                    IMREAD_UNCHANGED, _channels, _check_flags,
-                                                   _orient)
+                                                   _cvt_grey, _orient, _tiff_orientation)
 
 # csrc/webp.c's fault codes, in its order (0 is success)
 _FAULTS = (
@@ -62,12 +62,6 @@ def _lib():
         "vp8l_decode": [p, i64, i, i, p],
         "alpha_decode": [p, i64, i, i, p],
     })
-
-
-def _grey(bgr: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(bgr, COLOR_BGR2GRAY)`` of uint8 (its 15-bit weights)."""
-    b, g, r = (bgr[..., k].astype(np.int32) for k in range(3))
-    return ((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15).astype(np.uint8)
 
 
 def _check(err: int) -> None:
@@ -193,19 +187,7 @@ def _exif_orientation(data: bytes, pos: int, end: int) -> int:
     while end - pos >= 8:
         size = _le(data, pos + 4, 4)
         if data[pos:pos + 4] == b"EXIF":
-            tiff = data[pos + 8:pos + 8 + size]
-            order = {b"II": "little", b"MM": "big"}.get(tiff[:2])
-            if order is None or len(tiff) < 8 or int.from_bytes(tiff[2:4], order) != 42:
-                return 1
-            ifd = int.from_bytes(tiff[4:8], order)
-            count = int.from_bytes(tiff[ifd:ifd + 2], order)
-            for k in range(count):
-                e = ifd + 2 + 12 * k
-                if e + 10 > len(tiff):
-                    break
-                if int.from_bytes(tiff[e:e + 2], order) == 0x0112:
-                    return int.from_bytes(tiff[e + 8:e + 10], order)
-            return 1
+            return _tiff_orientation(data[pos + 8:pos + 8 + size])
         pos += (8 + size + 1) & ~1
     return 1
 
@@ -296,4 +278,4 @@ def decode_webp(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     if flags == IMREAD_UNCHANGED:
         return img if has_alpha or img.shape[2] == 3 else _channels(img, (0, 1, 2))
     bgr = img if img.shape[2] == 3 else _channels(img, (0, 1, 2))
-    return _orient(_grey(bgr) if flags == IMREAD_GRAYSCALE else bgr, orientation)
+    return _orient(_cvt_grey(bgr) if flags == IMREAD_GRAYSCALE else bgr, orientation)
